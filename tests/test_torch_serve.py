@@ -1,0 +1,308 @@
+"""The PyTorch port's scoring service against the JAX package's.
+
+Both services restore the same artifact (a small forest trained by the JAX
+`GBDTClassifier` on the 20 serving features and saved by the JAX
+`GBDTArtifact`); the port runs on the CPU (``device="cpu"``, the plain
+versions of its kernel) behind its live asyncio HTTP server, the JAX service
+in-process. Same payloads in, and:
+
+- ``prob_default`` within 1e-6, ``shap_values`` and ``base_value`` within
+  1e-5, identical feature lists and request echoes;
+- bulk CSV records with the same keys and cell types, ``prob_default``
+  within 1e-6 and echoed floats within 1e-12 relative (pandas' default CSV
+  float parser is not correctly rounded; the port's ``float()`` is);
+- identical ``top_features``;
+- typed errors: 422 invalid input, 400 empty importance data, 413 oversized
+  bulk payloads.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import urllib.error
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+import torch
+
+from cobalt_smart_lender_ai_tpu.config import ServeConfig as JaxServeConfig
+from cobalt_smart_lender_ai_tpu.data import schema as jax_schema
+from cobalt_smart_lender_ai_tpu.io import GBDTArtifact as JaxArtifact
+from cobalt_smart_lender_ai_tpu.io import ObjectStore as JaxStore
+from cobalt_smart_lender_ai_tpu.models.gbdt import GBDTClassifier
+from cobalt_smart_lender_ai_tpu.serve.service import ScorerService as JaxScorerService
+from cobalt_smart_lender_ai_tpu_torch.config import ServeConfig
+from cobalt_smart_lender_ai_tpu_torch.data import schema
+from cobalt_smart_lender_ai_tpu_torch.io import ObjectStore
+from cobalt_smart_lender_ai_tpu_torch.models.gbdt import predict_margin
+from cobalt_smart_lender_ai_tpu_torch.reliability import Deadline, DeadlineExceeded
+from cobalt_smart_lender_ai_tpu_torch.serve.http_asyncio import make_async_server
+from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService
+
+TOL_PROB = 1e-6
+TOL_SHAP = 1e-5
+KEY = "models/gbdt/model_tree"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's CPU tests: the suite shares its
+    cores with other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def store_root(tmp_path_factory):
+    rng = np.random.default_rng(17)
+    F = len(jax_schema.SERVING_FEATURES)
+    X = rng.normal(size=(2048, F)).astype(np.float32)
+    X[:, 12:] = rng.integers(0, 2, size=(2048, F - 12))
+    y = (X[:, 0] - 0.7 * X[:, 3] + 0.5 * X[:, 12] + 0.3 * rng.normal(size=2048) > 0)
+    model = GBDTClassifier(n_estimators=12, max_depth=4, n_bins=32)
+    model.fit(X, y.astype(np.int32))
+    root = tmp_path_factory.mktemp("torch_serve") / "lake"
+    JaxArtifact(
+        forest=model.forest,
+        bin_spec=model.bin_spec,
+        feature_names=tuple(jax_schema.SERVING_FEATURES),
+    ).save(JaxStore(str(root)), KEY)
+    return str(root)
+
+
+@pytest.fixture(scope="module")
+def jax_service(store_root):
+    svc = JaxScorerService.from_store(
+        JaxStore(store_root),
+        JaxServeConfig(prewarm_all_buckets=False, score_cache_size=0),
+    )
+    yield svc
+    svc.close()
+
+
+@pytest.fixture(scope="module")
+def service(store_root):
+    svc = ScorerService.from_store(ObjectStore(store_root), ServeConfig(), device="cpu")
+    yield svc
+    svc.close()
+
+
+@pytest.fixture(scope="module")
+def base_url(service):
+    server = make_async_server(service, "127.0.0.1", 0)
+    yield f"http://127.0.0.1:{server.port}"
+    server.close()
+
+
+def _payloads(n: int, seed: int) -> list[dict]:
+    """Valid /predict bodies: floats, 0/1 ints for the indicators, and the
+    aliases for the two names with spaces."""
+    rng = np.random.default_rng(seed)
+    alias = {v: k for k, v in schema.SERVING_FIELD_ALIASES.items()}
+    out = []
+    for _ in range(n):
+        body = {}
+        for name in schema.SERVING_FEATURES:
+            key = alias.get(name, name)
+            if name in schema.SERVING_INT_FEATURES:
+                body[key] = int(rng.integers(0, 2))
+            else:
+                body[key] = float(np.round(rng.normal() * 2, 4))
+        out.append(body)
+    return out
+
+
+def _post(url: str, body: bytes, content_type: str = "application/json"):
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": content_type})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _get(url: str):
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def test_predict_matches_jax_service(base_url, jax_service, service):
+    payloads = _payloads(12, seed=1)
+    with ThreadPoolExecutor(max_workers=len(payloads)) as pool:
+        results = list(
+            pool.map(lambda p: _post(base_url + "/predict", json.dumps(p).encode()), payloads)
+        )
+    for payload, (status, got) in zip(payloads, results):
+        assert status == 200, got
+        want = jax_service.predict_single(payload)
+        assert set(got) == set(want)
+        assert got["features"] == want["features"]
+        assert got["input_row"] == want["input_row"]
+        assert abs(got["prob_default"] - want["prob_default"]) <= TOL_PROB
+        np.testing.assert_allclose(got["shap_values"], want["shap_values"], rtol=0, atol=TOL_SHAP)
+        assert abs(got["base_value"] - want["base_value"]) <= TOL_SHAP
+    stats = service.ready()[1]["microbatch"]
+    assert stats["coalesced_rows"] >= len(payloads)
+
+
+def test_microbatcher_coalesces_into_one_bucket(service, jax_service):
+    """Held behind `pause`, concurrent requests leave as ONE padded batch."""
+    payloads = _payloads(5, seed=2)
+    batcher = service.batcher
+    before = batcher.batches
+    with ThreadPoolExecutor(max_workers=5) as pool:
+        with batcher.pause():
+            futs = [pool.submit(service.predict_single, p) for p in payloads]
+            while batcher.queue_depth() < len(payloads):
+                threading.Event().wait(0.005)
+        got = [f.result(timeout=60) for f in futs]
+    assert batcher.batches == before + 1
+    for p, g in zip(payloads, got):
+        assert abs(g["prob_default"] - jax_service.predict_single(p)["prob_default"]) <= TOL_PROB
+
+
+def _bulk_csv(n: int) -> bytes:
+    rng = np.random.default_rng(3)
+    names = list(schema.SERVING_FEATURES)
+    lines = [",".join(["loan_id", "note"] + [f'"{n}"' if " " in n else n for n in names])]
+    for i in range(n):
+        cells = [str(1000 + i), "" if i % 4 == 0 else f"n{i}"]
+        for j, name in enumerate(names):
+            if name in schema.SERVING_INT_FEATURES:
+                cells.append(str(int(rng.integers(0, 2))))
+            elif (i + j) % 7 == 0:
+                cells.append("")  # missing: scored as NaN, echoed as "null"
+            else:
+                cells.append(repr(float(np.float32(rng.normal() * 3))))
+        lines.append(",".join(cells))
+    return ("\n".join(lines) + "\n").encode()
+
+
+def test_bulk_csv_matches_jax_service(base_url, jax_service):
+    body = _bulk_csv(300)  # two buckets' worth of padding: 300 -> 512
+    status, got = _post(base_url + "/predict_bulk_csv", body, "text/csv")
+    assert status == 200, got
+    want = jax_service.predict_bulk_csv(body)
+    assert len(got["predictions"]) == len(want["predictions"]) == 300
+    for g, w in zip(got["predictions"], want["predictions"]):
+        assert abs(g.pop("prob_default") - w.pop("prob_default")) <= TOL_PROB
+        assert list(g) == list(w)
+        for k, v in w.items():
+            assert type(g[k]) is type(v), k
+            if isinstance(v, float):
+                assert g[k] == pytest.approx(v, rel=1e-12, abs=0)
+            else:
+                assert g[k] == v
+
+
+def test_bulk_csv_multipart_upload(base_url, service):
+    body = _bulk_csv(5)
+    boundary = "torchportboundary"
+    multipart = (
+        f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+        f"filename=\"rows.csv\"\r\nContent-Type: text/csv\r\n\r\n"
+    ).encode() + body + f"\r\n--{boundary}--\r\n".encode()
+    status, got = _post(
+        base_url + "/predict_bulk_csv", multipart, f"multipart/form-data; boundary={boundary}"
+    )
+    assert status == 200, got
+    assert [r["loan_id"] for r in got["predictions"]] == list(range(1000, 1005))
+
+
+def test_feature_importance_matches_jax_service(base_url, jax_service):
+    status, got = _post(base_url + "/feature_importance_bulk", json.dumps({"data": [{"a": 1}]}).encode())
+    assert status == 200
+    want = jax_service.feature_importance_bulk({"data": [{"a": 1}]})
+    assert [t["feature"] for t in got["top_features"]] == [t["feature"] for t in want["top_features"]]
+    np.testing.assert_allclose(
+        [t["importance"] for t in got["top_features"]],
+        [t["importance"] for t in want["top_features"]],
+        rtol=1e-6,
+    )
+
+
+@pytest.mark.parametrize(
+    "route, body, status, code",
+    [
+        ("/predict", b'{"loan_amnt": 1.0}', 422, "invalid_input"),
+        ("/predict", b"not json", 422, "invalid_input"),
+        ("/feature_importance_bulk", b'{"data": []}', 400, "invalid_input"),
+        ("/predict_bulk_csv", b"loan_amnt,term\n1,2\n", 422, "invalid_input"),
+    ],
+)
+def test_typed_errors(base_url, route, body, status, code):
+    got_status, got = _post(base_url + route, body)
+    assert got_status == status
+    assert got["error"] == code
+
+
+def test_predict_rejects_non_integer_indicator(base_url):
+    payload = _payloads(1, seed=4)[0]
+    payload["grade_E"] = 0.5
+    status, got = _post(base_url + "/predict", json.dumps(payload).encode())
+    assert status == 422 and "integer" in got["detail"]
+
+
+def test_oversized_bulk_is_413(store_root):
+    svc = ScorerService.from_store(
+        ObjectStore(store_root),
+        ServeConfig(max_bulk_rows=3, microbatch_enabled=False),
+        device="cpu",
+    )
+    server = make_async_server(svc, "127.0.0.1", 0)
+    try:
+        status, got = _post(f"http://127.0.0.1:{server.port}/predict_bulk_csv", _bulk_csv(4), "text/csv")
+    finally:
+        server.close()
+        svc.close()
+    assert status == 413 and got["error"] == "payload_too_large"
+    small = ScorerService.from_store(
+        ObjectStore(store_root),
+        ServeConfig(max_bulk_bytes=10, microbatch_enabled=False),
+        device="cpu",
+    )
+    with pytest.raises(Exception) as info:
+        small.predict_bulk_csv(_bulk_csv(1))
+    assert getattr(info.value, "status", None) == 413
+
+
+def test_health_ready_and_404(base_url):
+    assert _get(base_url + "/healthz") == (200, {"status": "ok"})
+    status, ready = _get(base_url + "/readyz")
+    assert status == 200
+    assert ready["device"] == "cpu" and ready["kernel"] == "plain"
+    assert ready["shap"] == "ok" and ready["n_features"] == 20
+    assert ready["warm_buckets"]["shap"] == [1, 2, 4, 8, 16, 32, 64]
+    assert ready["warm_buckets"]["margin"] == [256]
+    assert _post(base_url + "/nope", b"{}")[0] == 404
+
+
+def test_direct_path_matches_batched(store_root, service):
+    """With the batcher off, each request scores on its own (1, F) launch."""
+    direct = ScorerService.from_store(
+        ObjectStore(store_root), ServeConfig(microbatch_enabled=False), device="cpu"
+    )
+    for p in _payloads(3, seed=5):
+        a, b = direct.predict_single(p), service.predict_single(p)
+        assert a["prob_default"] == b["prob_default"]
+        np.testing.assert_allclose(a["shap_values"], b["shap_values"], rtol=0, atol=TOL_SHAP)
+
+
+def test_expired_deadline_is_504(service):
+    now = [0.0]
+    dl = Deadline(1.0, clock=lambda: now[0])
+    now[0] = 2.0
+    with pytest.raises(DeadlineExceeded):
+        service.predict_single(_payloads(1, seed=6)[0], deadline=dl)
+
+
+def test_bulk_probabilities_match_plain_scoring(service):
+    X = np.random.default_rng(7).normal(size=(5000, 20)).astype(np.float32)
+    prob = service.predict_proba(X)  # chunks of 4096, padded to buckets
+    want = torch.sigmoid(predict_margin(service._model.artifact.forest, torch.from_numpy(X)))
+    np.testing.assert_array_equal(prob, want.numpy())
