@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one GPU and hold its kernel to its plain version.
+"""Drive the PyTorch/CUDA port on one GPU and hold its kernels to their plain versions.
 
     python3 chip_smoke.py
 
 Phases, each of which must pass:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel of the serving path from ``csrc/`` (``nvcc``);
+2. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
+   source, all started together; the ``-Xptxas=-v`` report goes to stderr);
 3. kernel vs plain: `fused_score` (the ``score_forest`` kernel) against
    `fused_score_reference` on the same seeded rows of the committed 300-tree
    depth-7 model, at the /predict buckets 1, 8, 64 with SHAP and the bulk
@@ -19,7 +20,27 @@ Phases, each of which must pass:
    micro-batcher), one ``/predict_bulk_csv`` and one
    ``/feature_importance_bulk``; responses are checked against the plain
    version on the CPU, and the kernel's launch count over the phase must be
-   one per micro-batch, per bulk chunk and per startup warm-up bucket.
+   one per micro-batch, per bulk chunk and per startup warm-up bucket;
+5. training, at the full width of the model the repo serves (300 trees of
+   depth 7, 255 bins, the 20 serving features, subsample and colsample 0.8,
+   ``scale_pos_weight`` 3.767) on 1.84M seeded training rows and 460k held
+   out (the 80/20 split of the ~2.3M-row LendingClub table):
+   a. binning on the card equals binning on the CPU, bit for bit;
+   b. the ``gradient_histogram`` kernel against its plain version at every
+      histogram shape of the first tree (level 0 direct, levels 1-6
+      sibling-subtracted, and the direct level-6 call): cover bit-equal, g
+      and h of each node within 1e-5 of that node's largest |value| in the
+      channel, two launches bit-equal; kernel, plain, library (three
+      ``torch.bincount``) and bound times per shape;
+   c. ``GBDTClassifier.fit`` through the kernel (the main path): wall time,
+      one launch per tree level, held-out AUC; a second fit of the level
+      loop on the same bins, with CUDA events around each histogram launch,
+      gives the same forest bit for bit and the time inside the launches; a
+      fit with the plain histogram on the card grows tree 0 with the same
+      splits and lands within 0.002 of its held-out AUC;
+   d. the trained forest is saved as the ``.npz`` artifact, and the port's
+      `ScorerService` on ``cuda`` serves it: 16 concurrent ``/predict`` (with
+      SHAP) and one bulk CSV, checked against the plain scorer on the CPU.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing neither, when
@@ -31,6 +52,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -39,10 +61,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cobalt_smart_lender_ai_tpu_torch.config import ServeConfig
+from cobalt_smart_lender_ai_tpu_torch.config import GBDTConfig, ServeConfig
 from cobalt_smart_lender_ai_tpu_torch.data import schema
 from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
+from cobalt_smart_lender_ai_tpu_torch.models import gbdt
 from cobalt_smart_lender_ai_tpu_torch.ops import _build
+from cobalt_smart_lender_ai_tpu_torch.ops.binning import compute_bin_edges, transform
+from cobalt_smart_lender_ai_tpu_torch.ops.histogram import (
+    gradient_histogram_channels,
+    gradient_histogram_reference,
+)
+from cobalt_smart_lender_ai_tpu_torch.ops.metrics import roc_auc
 from cobalt_smart_lender_ai_tpu_torch.ops.score import (
     fused_score,
     fused_score_reference,
@@ -228,12 +257,18 @@ def request_rows(n: int, seed: int = SEED) -> list[dict]:
     return rows
 
 
-def serving_phase(device: str = "cuda", n_requests: int = 32, bulk_rows: int = 5000) -> dict:
+def serving_phase(
+    device: str = "cuda",
+    n_requests: int = 32,
+    bulk_rows: int = 5000,
+    store_root: Path = STORE,
+    model_key: str = MODEL_KEY,
+) -> dict:
     """The port's serving path over HTTP: concurrent /predict, one bulk CSV,
     one importance request. Counts kernel launches over the whole phase."""
-    store = ObjectStore(str(STORE))
+    store = ObjectStore(str(store_root))
     fused_score.launches = 0
-    service = ScorerService.from_store(store, ServeConfig(), device=device)
+    service = ScorerService.from_store(store, ServeConfig(model_key=model_key), device=device)
     warm = fused_score.launches
     server = make_async_server(service, "127.0.0.1", 0)
     base = f"http://127.0.0.1:{server.port}"
@@ -275,7 +310,7 @@ def serving_phase(device: str = "cuda", n_requests: int = 32, bulk_rows: int = 5
         )
 
     # Check the answers against the plain version on the CPU.
-    art = GBDTArtifact.load(store, MODEL_KEY, "cpu")
+    art = GBDTArtifact.load(store, model_key, "cpu")
     F = len(art.feature_names)
     cpu_pack = pack_forest(art.forest, F)
     Xr = torch.tensor(
@@ -317,6 +352,332 @@ def _request_keys() -> list[str]:
     return [alias.get(n, n) for n in schema.SERVING_FEATURES]
 
 
+# -- training ------------------------------------------------------------------
+
+#: The committed model's configuration (its artifact header's ``config``).
+TRAIN_CONFIG = dict(
+    n_estimators=300,
+    max_depth=7,
+    learning_rate=0.05,
+    n_bins=255,
+    subsample=0.8,
+    colsample_bytree=0.8,
+    scale_pos_weight=3.767127752304077,
+    seed=42,
+)
+#: 80/20 split of the ~2.3M-row LendingClub table.
+N_TRAIN, N_TEST = 1_840_000, 460_000
+#: Columns with ~10% missing cells, as in the LendingClub table.
+NAN_COLUMNS = (
+    "emp_length_num", "open_il_12m", "open_il_24m", "max_bal_bc",
+    "num_rev_accts", "pub_rec_bankruptcies",
+)
+POSITIVE_RATE = 1.0 / (1.0 + 3.767127752304077)
+TOL_HIST = 1e-5
+TOL_AUC = 0.002
+
+
+def training_rows(n: int, seed: int = SEED) -> tuple[np.ndarray, np.ndarray]:
+    """``n`` seeded rows of the 20 serving features and a 0/1 label.
+
+    Continuous columns are drawn among the committed model's own bin edges
+    (so on the scale its thresholds live on), with 2% jitter; the one-hot
+    indicators are 0/1; about 10% of the cells in `NAN_COLUMNS` are NaN. The
+    label is drawn from a fixed logistic function of a few columns, with its
+    intercept set for a positive rate of 1 / (1 + scale_pos_weight)."""
+    rng = np.random.default_rng(seed)
+    art = GBDTArtifact.load(ObjectStore(str(STORE)), MODEL_KEY, "cpu")
+    names = list(art.feature_names)
+    edges = np.asarray(art.bin_edges, dtype=np.float32)
+    X = np.empty((n, len(names)), np.float32)
+    for f, name in enumerate(names):
+        if name in schema.SERVING_INT_FEATURES:
+            X[:, f] = rng.random(n, dtype=np.float32) < 0.3
+            continue
+        finite = edges[f][np.isfinite(edges[f])]
+        X[:, f] = rng.choice(finite, n) * (1.0 + 0.02 * rng.standard_normal(n, dtype=np.float32))
+        if name in NAN_COLUMNS:
+            X[rng.random(n, dtype=np.float32) < 0.1, f] = np.nan
+
+    def z(name: str) -> np.ndarray:
+        col = X[:, names.index(name)]
+        return np.nan_to_num((col - np.nanmean(col)) / (np.nanstd(col) + 1e-12))
+
+    logit = (
+        -1.4 * z("last_fico_range_high")
+        + 0.6 * z("term")
+        + 0.4 * z("installment")
+        + 0.9 * X[:, names.index("grade_E")]
+        + 0.3 * z("open_il_12m")
+        - 0.3 * z("fico_range_low")
+    )
+    lo, hi = -20.0, 20.0
+    for _ in range(60):  # intercept for the target positive rate
+        mid = 0.5 * (lo + hi)
+        rate = float(np.mean(1.0 / (1.0 + np.exp(-(logit + mid)))))
+        lo, hi = (mid, hi) if rate < POSITIVE_RATE else (lo, mid)
+    p = 1.0 / (1.0 + np.exp(-(logit + 0.5 * (lo + hi))))
+    y = (rng.random(n) < p).astype(np.float32)
+    return X, y
+
+
+def binning_phase(X_train: torch.Tensor, n_bins: int) -> tuple[object, torch.Tensor]:
+    """Edges and bins on the card; raises unless they equal the CPU's."""
+    spec = compute_bin_edges(X_train, n_bins)
+    bins = transform(spec, X_train)
+    Xc = X_train.cpu()
+    cpu_spec = compute_bin_edges(Xc, n_bins)
+    if not torch.equal(spec.edges.cpu().view(torch.int32), cpu_spec.edges.view(torch.int32)):
+        raise AssertionError("bin edges on the card differ from the CPU's")
+    if not torch.equal(bins.cpu(), transform(cpu_spec, Xc)):
+        raise AssertionError("bins on the card differ from the CPU's")
+    return spec, bins
+
+
+def histogram_bound_ms(bins: torch.Tensor, g, h, w, n_nodes: int, n_bins: int) -> tuple[float, str]:
+    """Least time of one histogram pass, counted for this call's data.
+
+    Bytes: node, g, h and w of every row (16 B), the F bins of each active
+    row (one whose g, h or w is nonzero; the others add nothing, and the
+    kernel reads no bins for them) and the (3, K, F, B) f32 output written
+    once, over HBM bandwidth. Operations: three adds per (active row,
+    feature), over the FP32 peak."""
+    N, F = bins.shape
+    active = int(((g != 0) | (h != 0) | (w != 0)).sum())
+    nbytes = 16 * N + active * F * bins.element_size() + 3 * n_nodes * F * n_bins * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * active * F / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_histogram(bins, node, g, h, w, n_nodes: int, n_bins: int):
+    """One PyTorch call per channel computing the same sums (the yardstick:
+    ``torch.bincount`` over the joint (node, feature, bin) index, which is
+    built here too). Timed only; the port never calls it."""
+    N, F = bins.shape
+    feat = torch.arange(F, device=bins.device)
+    seg = ((node.long()[:, None] * F + feat) * n_bins + bins.long()).reshape(-1)
+    return [
+        torch.bincount(seg, weights=v[:, None].expand(N, F).reshape(-1), minlength=n_nodes * F * n_bins)
+        for v in (g, h, w)
+    ]
+
+
+def first_tree_calls(bins, y, hp, seed: int, n_bins: int, depth: int) -> list[dict]:
+    """The histogram calls of the first tree: level 0 direct and levels
+    1..depth-1 sibling-subtracted (the fit's path), plus the direct call of
+    the last level (what ``hist_subtract=False`` makes there), each with its
+    inputs as the fit makes them."""
+
+    def recorder(into: list[dict]):
+        def record(b, node, g, h, w, *, n_nodes, n_bins):
+            into.append(dict(node=node.clone(), g=g.clone(), h=h.clone(), w=w.clone(), K=n_nodes))
+            return gradient_histogram_channels(b, node, g, h, w, n_nodes=n_nodes, n_bins=n_bins)
+
+        return record
+
+    N, F = bins.shape
+    args = (bins, y, torch.ones(N, device=bins.device),
+            torch.ones(F, dtype=torch.bool, device=bins.device), hp, seed)
+    kw = dict(n_trees_cap=1, depth_cap=depth, n_bins=n_bins)
+    subtracted: list[dict] = []
+    direct: list[dict] = []
+    gbdt.fit_binned_resumable(*args, hist_subtract=True, histogram=recorder(subtracted), **kw)
+    gbdt.fit_binned_resumable(*args, hist_subtract=False, histogram=recorder(direct), **kw)
+    for i, c in enumerate(subtracted):
+        c["label"] = "level 0 direct" if i == 0 else f"level {i} subtracted"
+    direct[-1]["label"] = f"level {depth - 1} direct"
+    return subtracted + direct[-1:]
+
+
+def histogram_phase(bins: torch.Tensor, calls: list[dict], n_bins: int) -> list[dict]:
+    """Kernel vs plain at each recorded call; returns one record per call."""
+    records = []
+    for c in calls:
+        args = (bins, c["node"], c["g"], c["h"], c["w"])
+        kw = dict(n_nodes=c["K"], n_bins=n_bins)
+        got = torch.stack(gradient_histogram_channels(*args, **kw))
+        again = torch.stack(gradient_histogram_channels(*args, **kw))
+        ref = gradient_histogram_reference(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{c['label']}: two launches differ")
+        if not torch.equal(got[2], ref[2]):
+            raise AssertionError(f"{c['label']}: cover differs from the plain version")
+        rec = {"shape": c["label"], "K": c["K"], "max_abs_err": 0.0, "max_rel_err": 0.0}
+        for ch in (0, 1):
+            # Per node: each node's channel against its own largest |value|.
+            err = (got[ch] - ref[ch]).abs().amax(dim=(1, 2))
+            scale = ref[ch].abs().amax(dim=(1, 2))
+            bad = err > TOL_HIST * scale
+            if bool(bad.any()):
+                k = int(bad.nonzero()[0, 0])
+                raise AssertionError(
+                    f"{c['label']}: channel {ch} of node {k} off by {float(err[k])} "
+                    f"(scale {float(scale[k])})"
+                )
+            rel = torch.where(scale > 0, err / scale, torch.zeros_like(err))
+            rec["max_abs_err"] = max(rec["max_abs_err"], float(err.max()))
+            rec["max_rel_err"] = max(rec["max_rel_err"], float(rel.max()))
+        rec["bit_equal"] = torch.equal(got, ref)
+        rec["ms"] = time_ms(lambda: gradient_histogram_channels(*args, **kw), 20)
+        rec["plain_ms"] = time_ms(lambda: gradient_histogram_reference(*args, **kw), 3, warmup=1)
+        rec["library_ms"] = time_ms(lambda: library_histogram(*args, **kw), 3, warmup=1)
+        rec["bound_ms"], rec["bound_by"] = histogram_bound_ms(bins, c["g"], c["h"], c["w"], c["K"], n_bins)
+        records.append(rec)
+    return records
+
+
+class TimedHistogram:
+    """The kernel's wrapper with CUDA events around each call, to sum the
+    device time inside the histogram launches of a fit."""
+
+    def __init__(self):
+        self.events: list[tuple[torch.cuda.Event, torch.cuda.Event]] = []
+
+    def __call__(self, *args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = gradient_histogram_channels(*args, **kw)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def total_ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def plain_histogram(*args, **kw):
+    return tuple(gradient_histogram_reference(*args, **kw))
+
+
+def fit_with(bins, y, spec, cfg: GBDTConfig, histogram) -> tuple[gbdt.Forest, float]:
+    """The level loop of `GBDTClassifier.fit` on bins already made, with
+    ``histogram`` as the level's histogram op; returns the forest with its
+    float thresholds and the wall seconds of the loop."""
+    N, F = bins.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forest, _ = gbdt.fit_binned_resumable(
+        bins, y, torch.ones(N, device=bins.device),
+        torch.ones(F, dtype=torch.bool, device=bins.device),
+        gbdt.GBDTHyperparams.from_config(cfg), cfg.seed,
+        n_trees_cap=cfg.n_estimators, depth_cap=cfg.max_depth, n_bins=cfg.n_bins,
+        hist_subtract=cfg.hist_subtract, histogram=histogram,
+    )
+    torch.cuda.synchronize()
+    return gbdt.attach_float_thresholds(forest, spec), time.perf_counter() - t0
+
+
+def held_out_auc(forest: gbdt.Forest, X_test: torch.Tensor, y_test: torch.Tensor) -> float:
+    return float(roc_auc(y_test, gbdt.predict_margin(forest, X_test)))
+
+
+def same_tree(a: gbdt.Forest, b: gbdt.Forest, t: int, bins: torch.Tensor) -> dict:
+    """Tree ``t`` of two forests: split features and covers equal at every
+    node and every training row in the same leaf. Thresholds and missing
+    directions may differ only where the node's rows split alike (bins that
+    hold none of its rows tie up to subtraction residues)."""
+    out = {
+        "thr_bin_differs_at": int((a.thr_bin[t] != b.thr_bin[t]).sum()),
+        "missing_left_differs_at": int((a.missing_left[t] != b.missing_left[t]).sum()),
+    }
+    for f in ("feature", "cover"):
+        if not torch.equal(getattr(a, f)[t], getattr(b, f)[t]):
+            raise AssertionError(f"tree {t}: {f} differs between the kernel and plain fits")
+    leaves = [
+        gbdt.landed_leaves(
+            f.feature[t : t + 1], f.thr_bin[t : t + 1], f.missing_left[t : t + 1],
+            f.depth, bins, binned=True,
+        )
+        for f in (a, b)
+    ]
+    if not torch.equal(*leaves):
+        raise AssertionError(f"tree {t}: training rows land in other leaves")
+    return out
+
+
+def training_phase(card: str) -> tuple[list[dict], dict]:
+    """Phase 5; returns (histogram records per shape, fit/serve summary)."""
+    dev = torch.device("cuda")
+    cfg = GBDTConfig(**TRAIN_CONFIG)
+    t0 = time.perf_counter()
+    Xn, yn = training_rows(N_TRAIN + N_TEST)
+    X = torch.from_numpy(Xn).to(dev)
+    y = torch.from_numpy(yn).to(dev)
+    X_train, X_test, y_train, y_test = X[:N_TRAIN], X[N_TRAIN:], y[:N_TRAIN], y[N_TRAIN:]
+    summary = {
+        "rows_train": N_TRAIN,
+        "rows_test": N_TEST,
+        "positive_rate": float(y.mean()),
+        "data_s": time.perf_counter() - t0,
+    }
+
+    spec, bins = binning_phase(X_train, cfg.n_bins)
+    hp = gbdt.GBDTHyperparams.from_config(cfg)
+    calls = first_tree_calls(bins, y_train, hp, cfg.seed, cfg.n_bins, cfg.max_depth)
+    records = histogram_phase(bins, calls, cfg.n_bins)
+    del calls
+    for r in records:
+        print(f"kernel gradient_histogram {r['shape']} (K={r['K']}) ms={r['ms']:.6f} "
+              f"plain_ms={r['plain_ms']:.6f} library_ms={r['library_ms']:.6f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+              f"max_abs_err={r['max_abs_err']:.3g} max_rel_err={r['max_rel_err']:.3g} "
+              f"bit_equal={r['bit_equal']} [{card}]")
+
+    # The main path: the user's entry point, GBDTClassifier.fit (binning
+    # included) through the kernel; counts from 0 just before.
+    gradient_histogram_channels.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = gbdt.GBDTClassifier(cfg, device="cuda").fit(X_train, y_train)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = gradient_histogram_channels.launches
+    expect = cfg.n_estimators * cfg.max_depth
+    if launches != expect:
+        raise AssertionError(f"{launches} histogram launches in the fit, expected {expect}")
+    auc = held_out_auc(model.forest, X_test, y_test)
+    summary.update(fit_s=fit_s, hist_launches=launches, held_out_auc=auc,
+                   binned_rows=int(bins.shape[0]))
+    if not 0.5 < auc <= 1.0:
+        raise AssertionError(f"held-out AUC {auc} of the kernel fit")
+
+    # A second fit through the kernel, with CUDA events around each launch:
+    # the same forest bit for bit, and the device time inside the histogram.
+    timer = TimedHistogram()
+    again, summary["fit2_loop_s"] = fit_with(bins, y_train, spec, cfg, timer)
+    summary["hist_ms_in_fit2"] = timer.total_ms()
+    for f in ("feature", "thr_bin", "thr_float", "missing_left", "gain", "cover", "leaf_value"):
+        if not torch.equal(getattr(model.forest, f), getattr(again, f)):
+            raise AssertionError(f"two fits on the card differ in {f}")
+    del again, timer
+
+    plain, summary["plain_fit_loop_s"] = fit_with(bins, y_train, spec, cfg, plain_histogram)
+    summary["plain_held_out_auc"] = held_out_auc(plain, X_test, y_test)
+    summary["tree0_vs_plain"] = same_tree(model.forest, plain, 0, bins)
+    if abs(summary["plain_held_out_auc"] - auc) > TOL_AUC:
+        raise AssertionError(f"plain-histogram fit AUC {summary['plain_held_out_auc']} vs {auc}")
+    del plain
+
+    # Publish the kernel-trained forest, then serve it.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as root:
+        key = "models/gbdt/model_tree"
+        GBDTArtifact(
+            forest=model.forest.to("cpu"),
+            feature_names=tuple(schema.SERVING_FEATURES),
+            bin_edges=spec.edges.cpu().numpy(),
+            config=dict(TRAIN_CONFIG),
+            metrics={"test_auc": auc, "train_rows": N_TRAIN, "trained_wall_s": fit_s},
+        ).save(ObjectStore(root), key)
+        summary["serve"] = serving_phase(
+            "cuda", n_requests=16, bulk_rows=5000, store_root=Path(root), model_key=key
+        )
+    return records, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -326,9 +687,15 @@ def main() -> int:
     card = card_line()
     print(card)
     t0 = time.perf_counter()
-    _build.load("score_forest")
-    print(f"build: score_forest.cu in {time.perf_counter() - t0:.1f}s")
-    print(_build.build_log.get("score_forest", "(library was already built)"), file=sys.stderr)
+    kernels_built = ["score_forest", "gradient_histogram"]
+    with ThreadPoolExecutor(max_workers=len(kernels_built)) as pool:
+        list(pool.map(_build.build, kernels_built))  # one nvcc each, together
+    for name in kernels_built:
+        _build.load(name)
+    print(f"build: {', '.join(k + '.cu' for k in kernels_built)} in "
+          f"{time.perf_counter() - t0:.1f}s (in parallel)")
+    for name in kernels_built:
+        print(_build.build_log.get(name, f"{name}: library was already built"), file=sys.stderr)
 
     records = kernel_phase("cuda")
     for r in records:
@@ -339,8 +706,13 @@ def main() -> int:
               f"[{card}]")
     serving = serving_phase("cuda")
     print(f"serving: {json.dumps(serving)} [{card}]")
+    t0 = time.perf_counter()
+    hist_records, training = training_phase(card)
+    training["phase_s"] = time.perf_counter() - t0
+    print(f"training: {json.dumps(training)} [{card}]")
 
     main_rec = next(r for r in records if r["bucket"] == 64)
+    hist_main = next(r for r in hist_records if r["shape"] == "level 6 subtracted")
     kernels = [
         {
             "name": "score_forest",
@@ -356,7 +728,20 @@ def main() -> int:
             "bound_ms": main_rec["bound_ms"],
             "bound_by": main_rec["bound_by"],
             "library_ms": None,
-        }
+        },
+        {
+            "name": "gradient_histogram",
+            "route": "cuda",
+            "source": "cobalt_smart_lender_ai_tpu_torch/csrc/gradient_histogram.cu",
+            "replaces": "cobalt_smart_lender_ai_tpu/ops/hist_pallas.py:51",
+            "launches": training["hist_launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in hist_records),
+            "ms": hist_main["ms"],
+            "plain_ms": hist_main["plain_ms"],
+            "bound_ms": hist_main["bound_ms"],
+            "bound_by": hist_main["bound_by"],
+            "library_ms": hist_main["library_ms"],
+        },
     ]
     print(json.dumps({"kernels": kernels}))
     print(

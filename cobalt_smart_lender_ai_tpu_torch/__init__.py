@@ -1,15 +1,23 @@
-"""PyTorch/CUDA port of the credit-risk scoring service.
+"""PyTorch/CUDA port of the credit-risk scoring service and its GBDT trainer.
 
 The JAX package (``cobalt_smart_lender_ai_tpu``) is the reference this port
 is held against; nothing here imports it or JAX. Module names mirror the
 reference so each file's counterpart is easy to find:
 
-- `models.gbdt` — the tensorized `Forest`, `predict_margin`, gain importances;
+- `models.gbdt` — the tensorized `Forest`, its fit (`GBDTClassifier`,
+  `fit_binned*`), `predict_margin`, gain importances;
+- `ops.binning` — quantile bin edges and bins, bit-identical to the
+  reference's;
+- `ops.histogram` — the gradient-histogram kernel's wrapper
+  (`gradient_histogram_channels`) and its plain version; the kernel is
+  ``csrc/gradient_histogram.cu``;
+- `ops.metrics` — ``roc_auc``;
 - `explain.treeshap` — path-dependent TreeSHAP as plain PyTorch;
 - `ops.score` — the fused scoring kernel's wrapper (`fused_score`), its plain
   version and the packed forest; the kernel itself is
-  ``csrc/score_forest.cu``, built by `ops._build`;
-- `io` — the object store and the ``.npz`` model artifact;
+  ``csrc/score_forest.cu``; both kernels are built by `ops._build`;
+- `io` — the object store and the ``.npz`` model artifact (read and write);
+- `device` — the device rule every entry point follows;
 - `serve` — the micro-batching `ScorerService`, the asyncio HTTP server and
   the ``python -m cobalt_smart_lender_ai_tpu_torch.serve`` CLI.
 

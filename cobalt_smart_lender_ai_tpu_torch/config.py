@@ -1,9 +1,51 @@
-"""Serving configuration: the subset of the reference `ServeConfig` that the
+"""Configuration: the GBDT hyperparameters (`GBDTConfig`, the reference's
+fields and defaults) and the subset of the reference `ServeConfig` that the
 port's scoring service reads."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
+
+
+@dataclasses.dataclass(frozen=True)
+class GBDTConfig:
+    """Histogram-GBDT hyperparameters, with the reference's fields and
+    defaults (XGBClassifier's, as the reference training script uses them)."""
+
+    n_estimators: int = 100
+    max_depth: int = 6
+    learning_rate: float = 0.3
+    subsample: float = 1.0
+    colsample_bytree: float = 1.0
+    gamma: float = 0.0  # min split gain
+    reg_lambda: float = 1.0
+    min_child_weight: float = 1.0
+    n_bins: int = 255  # quantile bins per feature; bin 0 reserved for missing
+    scale_pos_weight: float = 1.0
+    seed: int = 42
+    #: Boosting rounds per chunk of the fit (margins carried between chunks,
+    #: bit-identical to one chunk: `models.gbdt.fit_binned_chunked`). None
+    #: fits in one chunk. The reference's ``"auto"`` (derived from a
+    #: dispatch-time budget) is not ported and raises ``NotImplementedError``.
+    chunk_trees: int | str | None = None
+    #: Sibling-subtraction histograms: left children built, right = parent -
+    #: left.
+    hist_subtract: bool = True
+
+    def __post_init__(self):
+        ct = self.chunk_trees
+        if ct == "auto":
+            raise NotImplementedError(
+                "chunk_trees='auto' needs the dispatch budget of the reference's "
+                "parallel/budget.py, which is not ported yet (ROADMAP.md, port "
+                "queue); pass None or a positive int"
+            )
+        if ct is not None and (isinstance(ct, bool) or not isinstance(ct, int) or ct <= 0):
+            raise ValueError(f"chunk_trees must be None or a positive int, got {ct!r}")
+
+    def replace(self, **kw: Any) -> "GBDTConfig":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,10 @@
 """GBDT model artifact: a self-describing ``.npz`` (arrays + a JSON header).
 
-Reads the files the reference package writes (``GBDTArtifact.save``). The
-feature plan and the bin edges are kept raw: scoring needs neither.
+Reads and writes the reference package's format (its ``GBDTArtifact``):
+a JSON header (``kind``, ``format_version``, ``library_version``, ``depth``,
+``feature_names``, ``plan``, ``config``, ``metrics``) and eight arrays (the
+forest's seven fields and ``bin_edges``), plus a ``<key>.features.json``
+sidecar with the feature order. The feature plan is kept as its raw JSON.
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ import json
 import numpy as np
 import torch
 
-from cobalt_smart_lender_ai_tpu_torch.convert import forest_from_numpy
+from cobalt_smart_lender_ai_tpu_torch import __version__
+from cobalt_smart_lender_ai_tpu_torch.convert import forest_from_numpy, forest_to_numpy
 from cobalt_smart_lender_ai_tpu_torch.io.store import ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models.gbdt import Forest
 
@@ -30,6 +34,37 @@ class GBDTArtifact:
     plan: dict | None = None
     config: dict = dataclasses.field(default_factory=dict)
     metrics: dict = dataclasses.field(default_factory=dict)
+
+    def to_bytes(self) -> bytes:
+        """The ``.npz`` bytes, in the reference's layout."""
+        if self.bin_edges is None:
+            raise ValueError("a GBDT artifact needs its bin edges to be written")
+        header = {
+            "kind": "gbdt",
+            "format_version": FORMAT_VERSION,
+            "library_version": __version__,
+            "depth": int(self.forest.depth),
+            "feature_names": list(self.feature_names),
+            "plan": self.plan,
+            "config": self.config,
+            "metrics": self.metrics,
+        }
+        arrays = forest_to_numpy(self.forest)
+        arrays["bin_edges"] = np.ascontiguousarray(self.bin_edges, dtype=np.float32)
+        buf = _io.BytesIO()
+        np.savez_compressed(
+            buf,
+            __header__=np.frombuffer(
+                json.dumps(header, sort_keys=True).encode(), dtype=np.uint8
+            ),
+            **arrays,
+        )
+        return buf.getvalue()
+
+    def save(self, store: ObjectStore, key: str) -> None:
+        """Write ``<key>.npz`` and the ``<key>.features.json`` sidecar."""
+        store.put_bytes(key + ".npz", self.to_bytes())
+        store.put_json(key + ".features.json", list(self.feature_names))
 
     @classmethod
     def from_bytes(

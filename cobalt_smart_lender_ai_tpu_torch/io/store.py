@@ -1,7 +1,7 @@
 """Local-filesystem object store: keys are paths under a root directory.
 
 The port's copy of the reference store's byte-blob contract
-(`get_bytes`/`put_bytes`/`get_json`) for plain paths and ``file://`` URIs.
+(`get_bytes`/`put_bytes`/`get_json`/`put_json`) for plain paths and ``file://`` URIs.
 """
 
 from __future__ import annotations
@@ -55,3 +55,6 @@ class ObjectStore:
 
     def get_json(self, key: str):
         return json.loads(self.get_bytes(key).decode())
+
+    def put_json(self, key: str, obj) -> None:
+        self.put_bytes(key, json.dumps(obj, indent=2, sort_keys=True).encode())

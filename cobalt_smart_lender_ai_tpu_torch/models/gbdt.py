@@ -1,16 +1,46 @@
-"""The tensorized gradient-boosted forest and its plain scoring functions.
+"""Histogram gradient-boosted decision trees: the tensorized `Forest`, its
+fit and its plain scoring functions.
 
 A `Forest` holds ``T`` complete trees of depth ``d``: internal nodes are
 heap-indexed ``0 .. 2^d - 2`` and the ``2^d`` leaves are stored separately
-(heap slots ``2^d - 1 ..``). Training is not ported yet; forests arrive from
-artifacts written by the reference package (`convert.forest_from_numpy`).
+(heap slots ``2^d - 1 ..``). Nodes that do not split carry a trivial split
+(threshold ``n_bins - 1``, missing left: every row goes left), so every tree
+has the same shape.
+
+The fit (`fit_binned_resumable`) follows the reference's
+``models/gbdt.py`` step for step: per tree, a logistic gradient and hessian
+under one per-row weight (sample weight x ``scale_pos_weight`` x a Bernoulli
+row subsample), a per-tree column sample, then one histogram pass per level
+(`ops.histogram.gradient_histogram_channels`, a CUDA kernel on the card),
+the split search with a learned missing direction, routing, and the leaf
+sums. Trees at index ``>= n_estimators`` are inert and levels ``>=
+max_depth`` trivial, as in the reference.
+
+Randomness: the row and column samples of tree ``t`` come from a
+`torch.Generator` on the fit's device seeded from ``(seed, t)``, so a
+chunked fit draws what an unchunked one does. These are not the reference's
+threefry streams: with sampling on, the port's forests differ from the
+reference's tree by tree and agree in held-out AUC; with ``subsample =
+colsample_bytree = 1`` they agree split for split.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
+import numpy as np
 import torch
+
+from cobalt_smart_lender_ai_tpu_torch.config import GBDTConfig
+from cobalt_smart_lender_ai_tpu_torch.device import resolve_device
+from cobalt_smart_lender_ai_tpu_torch.ops.binning import (
+    BinSpec,
+    compute_bin_edges,
+    float_threshold,
+    transform,
+)
+from cobalt_smart_lender_ai_tpu_torch.ops.histogram import gradient_histogram_channels
 
 
 @dataclasses.dataclass(frozen=True)
@@ -19,6 +49,7 @@ class Forest:
     heap slot (internal nodes, then leaves) — TreeSHAP's path weights."""
 
     feature: torch.Tensor  # (T, I) int32
+    thr_bin: torch.Tensor  # (T, I) int32; trivial splits are n_bins - 1
     thr_float: torch.Tensor  # (T, I) float32; trivial splits are +inf
     missing_left: torch.Tensor  # (T, I) bool
     gain: torch.Tensor  # (T, I) float32; 0 for trivial (non-)splits
@@ -45,24 +76,351 @@ class Forest:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class GBDTHyperparams:
+    """The fit's hyperparameters as plain Python scalars."""
+
+    learning_rate: float
+    gamma: float
+    reg_lambda: float
+    min_child_weight: float
+    scale_pos_weight: float
+    subsample: float
+    colsample_bytree: float
+    n_estimators: int
+    max_depth: int
+
+    @staticmethod
+    def from_config(cfg: GBDTConfig) -> "GBDTHyperparams":
+        return GBDTHyperparams(
+            learning_rate=float(cfg.learning_rate),
+            gamma=float(cfg.gamma),
+            reg_lambda=float(cfg.reg_lambda),
+            min_child_weight=float(cfg.min_child_weight),
+            scale_pos_weight=float(cfg.scale_pos_weight),
+            subsample=float(cfg.subsample),
+            colsample_bytree=float(cfg.colsample_bytree),
+            n_estimators=int(cfg.n_estimators),
+            max_depth=int(cfg.max_depth),
+        )
+
+
+def _split_gain(GL, HL, GR, HR, Gt, Ht, reg_lambda, gamma):
+    """XGBoost structure-score gain."""
+    return 0.5 * (
+        GL * GL / (HL + reg_lambda)
+        + GR * GR / (HR + reg_lambda)
+        - Gt * Gt / (Ht + reg_lambda)
+    ) - gamma
+
+
+#: Block length of the reference's cumulative sum on the CPU (its compiler
+#: rewrites a cumulative reduce-window into blocks of 16).
+_SCAN_BLOCK = 16
+
+
+def _sequential_prefix(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along the last axis, one float32 add at a time."""
+    out = torch.empty_like(x)
+    acc = x[..., 0]
+    out[..., 0] = acc
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+        out[..., i] = acc
+    return out
+
+
+def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along the last axis, in the reference's order of
+    float32 adds on the CPU: sequential within blocks of 16, the block totals
+    summed the same way, and each block's carry added to its prefix. The
+    split search compares gains of adjacent thresholds, so another order
+    (``torch.cumsum`` accumulates in float64 on the CPU and in parallel on
+    the card) would break near-ties differently from the reference."""
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        return _sequential_prefix(x)
+    nb = -(-n // _SCAN_BLOCK)
+    xp = torch.nn.functional.pad(x, (0, nb * _SCAN_BLOCK - n))
+    within = _sequential_prefix(xp.reshape(*x.shape[:-1], nb, _SCAN_BLOCK))
+    carry = prefix_sum(within[..., -1])[..., :-1]
+    out = torch.cat([within[..., :1, :], within[..., 1:, :] + carry[..., None]], dim=-2)
+    return out.reshape(*x.shape[:-1], nb * _SCAN_BLOCK)[..., :n]
+
+
+def _tree_generator(seed: int, tree_idx: int, device: torch.device) -> torch.Generator:
+    """The random stream of global tree ``tree_idx``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(((int(seed) & 0xFFFFFFFF) << 32) | (int(tree_idx) & 0xFFFFFFFF))
+    return gen
+
+
+HistogramFn = Callable[..., tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+def _f32(x: float, device: torch.device) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def fit_binned_resumable(
+    bins: torch.Tensor,  # (N, F) uint8/int32
+    y: torch.Tensor,  # (N,) {0,1}
+    sample_weight: torch.Tensor,  # (N,) float32
+    feature_mask: torch.Tensor,  # (F,) bool
+    hp: GBDTHyperparams,
+    seed: int,
+    *,
+    n_trees_cap: int,
+    depth_cap: int,
+    n_bins: int,
+    init_margin: torch.Tensor | None = None,
+    tree_offset: int = 0,
+    hist_subtract: bool = True,
+    histogram: HistogramFn = gradient_histogram_channels,
+) -> tuple[Forest, torch.Tensor]:
+    """Train ``n_trees_cap`` boosting rounds from ``init_margin``; returns
+    (forest chunk with zero float thresholds, final margin). Tree indices are
+    offset by ``tree_offset`` for the random streams and the
+    ``n_estimators`` mask. ``hist_subtract`` builds left children only and
+    takes right = parent - left. ``histogram`` is the level's histogram op:
+    the kernel's wrapper, which runs its plain version on CPU tensors (a
+    caller comparing the two on the card passes the plain version)."""
+    dev = bins.device
+    N, F = bins.shape
+    n_internal = 2**depth_cap - 1
+    n_leaves = 2**depth_cap
+    T = n_trees_cap
+    bins = bins.contiguous()
+    y = y.to(device=dev, dtype=torch.float32)
+    lam, gamma = _f32(hp.reg_lambda, dev), _f32(hp.gamma, dev)
+    mcw, lr = _f32(hp.min_child_weight, dev), _f32(hp.learning_rate, dev)
+    base_w = sample_weight.to(device=dev, dtype=torch.float32) * torch.where(
+        y > 0.5, _f32(hp.scale_pos_weight, dev), _f32(1.0, dev)
+    )
+    feature_mask = feature_mask.to(device=dev, dtype=torch.bool)
+    n_avail = feature_mask.sum().to(torch.float32)
+    n_keep = torch.clamp(
+        torch.round(_f32(hp.colsample_bytree, dev) * n_avail), min=1
+    ).to(torch.int64)
+    rows = torch.arange(N, device=dev)
+
+    feats_all = torch.zeros((T, n_internal), dtype=torch.int32, device=dev)
+    thrs_all = torch.full((T, n_internal), n_bins - 1, dtype=torch.int32, device=dev)
+    mls_all = torch.ones((T, n_internal), dtype=torch.bool, device=dev)
+    gains_all = torch.zeros((T, n_internal), dtype=torch.float32, device=dev)
+    covers_all = torch.zeros((T, n_internal + n_leaves), dtype=torch.float32, device=dev)
+    leaves_all = torch.zeros((T, n_leaves), dtype=torch.float32, device=dev)
+    margin = (
+        torch.zeros(N, dtype=torch.float32, device=dev)
+        if init_margin is None
+        else init_margin.to(device=dev, dtype=torch.float32).clone()
+    )
+
+    for t in range(T):
+        tree_idx = t + int(tree_offset)
+        gen = _tree_generator(seed, tree_idx, dev)
+        sub = (torch.rand(N, generator=gen, device=dev) < hp.subsample).to(torch.float32)
+        u = torch.rand(F, generator=gen, device=dev)
+        w = base_w * sub
+        w_pos = (w > 0).to(torch.float32)
+        p = torch.sigmoid(margin)
+        g = (w * (p - y)).contiguous()
+        h = (w * torch.clamp(p * (1.0 - p), min=1e-16)).contiguous()
+
+        u = torch.where(feature_mask, u, float("inf"))
+        ranks = torch.argsort(torch.argsort(u, stable=True), stable=True)
+        cmask = (ranks < n_keep) & feature_mask
+
+        node = torch.zeros(N, dtype=torch.int32, device=dev)
+        feats, thrs, mls = feats_all[t], thrs_all[t], mls_all[t]
+        gains, covers = gains_all[t], covers_all[t]
+        prev = None
+        for level in range(depth_cap):
+            K = 2**level
+            off = K - 1
+            local = node - off
+            if level == 0 or not hist_subtract:
+                hg, hh, hw = histogram(bins, local, g, h, w_pos, n_nodes=K, n_bins=n_bins)
+            else:
+                left_m = (local % 2 == 0).to(torch.float32)
+                left = histogram(
+                    bins,
+                    local // 2,
+                    g * left_m,
+                    h * left_m,
+                    w_pos * left_m,
+                    n_nodes=K // 2,
+                    n_bins=n_bins,
+                )
+                hg, hh, hw = (
+                    torch.stack([lc, pc - lc], dim=1).reshape(K, F, n_bins)
+                    for lc, pc in zip(left, prev)
+                )
+            prev = (hg, hh, hw)
+            covers[off : off + K] = hw[:, 0, :].sum(-1)
+            miss_g, miss_h = hg[:, :, 0], hh[:, :, 0]
+            cum_g, cum_h = prefix_sum(torch.stack([hg[:, :, 1:], hh[:, :, 1:]]))
+            Gt = (cum_g[:, :, -1] + miss_g)[:, :, None]
+            Ht = (cum_h[:, :, -1] + miss_h)[:, :, None]
+            GL, HL = cum_g[..., :-1], cum_h[..., :-1]
+            Gm, Hm = miss_g[:, :, None], miss_h[:, :, None]
+
+            def masked_gain(GLv, HLv):
+                GRv, HRv = Gt - GLv, Ht - HLv
+                ok = (HLv >= mcw) & (HRv >= mcw) & cmask[None, :, None]
+                gv = _split_gain(GLv, HLv, GRv, HRv, Gt, Ht, lam, gamma)
+                return torch.where(ok, gv, float("-inf"))
+
+            gain_ml = masked_gain(GL + Gm, HL + Hm)  # missing goes left
+            gain_mr = masked_gain(GL, HL)  # missing goes right
+            go_ml = (gain_ml >= gain_mr).reshape(K, -1)
+            flat = torch.maximum(gain_ml, gain_mr).reshape(K, -1)
+            best = torch.argmax(flat, dim=1)  # first index on ties
+            best_gain = flat.gather(1, best[:, None])[:, 0]
+            bf = (best // (n_bins - 2)).to(torch.int32)
+            bt = (best % (n_bins - 2)).to(torch.int32) + 1
+            bml = go_ml.gather(1, best[:, None])[:, 0]
+
+            do_split = (best_gain > 0.0) & (level < hp.max_depth)
+            feat_lvl = torch.where(do_split, bf, 0)
+            thr_lvl = torch.where(do_split, bt, n_bins - 1)
+            ml_lvl = torch.where(do_split, bml, True)
+            feats[off : off + K] = feat_lvl
+            thrs[off : off + K] = thr_lvl
+            mls[off : off + K] = ml_lvl
+            gains[off : off + K] = torch.where(do_split, best_gain, 0.0)
+
+            lidx = local.long()
+            b_row = bins[rows, feat_lvl.long()[lidx]].long()
+            go_left = torch.where(b_row == 0, ml_lvl[lidx], b_row <= thr_lvl[lidx])
+            node = 2 * node + 1 + (~go_left).to(torch.int32)
+
+        leaf_local = (node - (2**depth_cap - 1)).long()
+        # Leaf (g, h, cover) sums as a one-hot product, as the reference
+        # takes them: a matrix product adds in a fixed order on the card,
+        # where index_add_'s float atomics would make two fits differ.
+        oh_leaf = torch.zeros((N, n_leaves), dtype=torch.float32, device=dev)
+        oh_leaf.scatter_(1, leaf_local[:, None], 1.0)
+        sums = (oh_leaf.T @ torch.stack([g, h, w_pos], dim=1)).T
+        del oh_leaf
+        covers[n_internal:] = sums[2]
+        tree_on = 1.0 if tree_idx < hp.n_estimators else 0.0
+        leaf_val = -sums[0] / (sums[1] + lam) * lr
+        leaf_val = torch.where(sums[1] > 0, leaf_val, 0.0) * tree_on
+        gains.mul_(tree_on)  # inert trees must not pollute gain importances
+        leaves_all[t] = leaf_val
+        margin = margin + leaf_val[leaf_local]
+
+    forest = Forest(
+        feature=feats_all,
+        thr_bin=thrs_all,
+        thr_float=torch.zeros((T, n_internal), dtype=torch.float32, device=dev),
+        missing_left=mls_all,
+        gain=gains_all,
+        cover=covers_all,
+        leaf_value=leaves_all,
+        depth=depth_cap,
+    )
+    return forest, margin
+
+
+def fit_binned(
+    bins: torch.Tensor,
+    y: torch.Tensor,
+    sample_weight: torch.Tensor,
+    feature_mask: torch.Tensor,
+    hp: GBDTHyperparams,
+    seed: int,
+    *,
+    n_trees_cap: int,
+    depth_cap: int,
+    n_bins: int,
+    hist_subtract: bool = True,
+) -> Forest:
+    """One-chunk fit (see `fit_binned_resumable` for the semantics)."""
+    forest, _ = fit_binned_resumable(
+        bins, y, sample_weight, feature_mask, hp, seed,
+        n_trees_cap=n_trees_cap, depth_cap=depth_cap, n_bins=n_bins,
+        hist_subtract=hist_subtract,
+    )
+    return forest
+
+
+def fit_binned_chunked(
+    bins: torch.Tensor,
+    y: torch.Tensor,
+    sample_weight: torch.Tensor,
+    feature_mask: torch.Tensor,
+    hp: GBDTHyperparams,
+    seed: int,
+    *,
+    n_trees_cap: int,
+    depth_cap: int,
+    n_bins: int,
+    chunk_trees: int,
+    hist_subtract: bool = True,
+) -> Forest:
+    """Fit in chunks of ``chunk_trees`` rounds, carrying the margin between
+    chunks; bit-identical to `fit_binned` (same per-tree random streams via
+    the global tree index). The last chunk is ragged: PyTorch runs eagerly,
+    so a shorter chunk costs no recompilation."""
+    if chunk_trees <= 0:
+        raise ValueError(f"chunk_trees must be positive, got {chunk_trees}")
+    margin = torch.zeros(bins.shape[0], dtype=torch.float32, device=bins.device)
+    chunks = []
+    for off in range(0, n_trees_cap, chunk_trees):
+        forest_c, margin = fit_binned_resumable(
+            bins, y, sample_weight, feature_mask, hp, seed,
+            n_trees_cap=min(chunk_trees, n_trees_cap - off), depth_cap=depth_cap,
+            n_bins=n_bins, init_margin=margin, tree_offset=off,
+            hist_subtract=hist_subtract,
+        )
+        chunks.append(forest_c)
+    return concat_forest_chunks(chunks, n_trees_cap, depth_cap)
+
+
+def concat_forest_chunks(chunks: list[Forest], n_trees_cap: int, depth_cap: int) -> Forest:
+    """Concatenate per-chunk forests along the tree axis, trimmed to
+    ``n_trees_cap`` trees."""
+    return Forest(
+        **{
+            f.name: torch.cat([getattr(c, f.name) for c in chunks])[:n_trees_cap]
+            for f in dataclasses.fields(Forest)
+            if f.name != "depth"
+        },
+        depth=depth_cap,
+    )
+
+
+def attach_float_thresholds(forest: Forest, spec: BinSpec) -> Forest:
+    """Resolve bin thresholds into raw-feature thresholds so serving scores
+    unbinned rows. Trivial splits resolve to +inf (all-left)."""
+    return dataclasses.replace(
+        forest, thr_float=float_threshold(spec, forest.feature, forest.thr_bin)
+    )
+
+
 def landed_leaves(
     feature: torch.Tensor,
     thr: torch.Tensor,
     missing_left: torch.Tensor,
     depth: int,
     X: torch.Tensor,
+    *,
+    binned: bool = False,
 ) -> torch.Tensor:
     """(N, T) index of the leaf each row lands in, per tree: ``depth`` levels
-    of ``x <= thr`` (NaN follows the learned missing direction)."""
+    of ``x <= thr``. Raw float rows: NaN follows the learned missing
+    direction. Binned rows (``binned=True``, thresholds in bins): bin 0 does."""
     N, T = X.shape[0], feature.shape[0]
     trees = torch.arange(T, device=X.device)
     feat = feature.long()
+    Xg = X.long() if binned else X
     node = torch.zeros((N, T), dtype=torch.long, device=X.device)
     for _ in range(depth):
-        x = torch.gather(X, 1, feat[trees, node])
-        go_left = torch.where(
-            torch.isnan(x), missing_left[trees, node], x <= thr[trees, node]
-        )
+        x = torch.gather(Xg, 1, feat[trees, node])
+        missing = x == 0 if binned else torch.isnan(x)
+        go_left = torch.where(missing, missing_left[trees, node], x <= thr[trees, node])
         node = 2 * node + 2 - go_left.long()
     return node - (2**depth - 1)
 
@@ -77,10 +435,12 @@ def sum_trees_in_order(values: torch.Tensor) -> torch.Tensor:
     return margin
 
 
-def predict_margin(forest: Forest, X: torch.Tensor) -> torch.Tensor:
-    """Sum-of-trees margin (log-odds) of raw float rows ``X`` (N, F)."""
+def predict_margin(forest: Forest, X: torch.Tensor, use_binned: bool = False) -> torch.Tensor:
+    """Sum-of-trees margin (log-odds) of ``X`` (N, F): raw float rows by
+    default (float thresholds), or bin indices with ``use_binned=True``."""
+    thr = forest.thr_bin if use_binned else forest.thr_float
     leaves = landed_leaves(
-        forest.feature, forest.thr_float, forest.missing_left, forest.depth, X
+        forest.feature, thr, forest.missing_left, forest.depth, X, binned=use_binned
     )
     trees = torch.arange(forest.n_trees, device=X.device)
     return sum_trees_in_order(forest.leaf_value[trees, leaves])
@@ -99,3 +459,87 @@ def gain_importances(
     )
     n_splits = zeros.index_add(0, idx, real.reshape(-1).float())
     return total_gain, n_splits
+
+
+class GBDTClassifier:
+    """sklearn/xgboost-shaped facade: the drop-in for ``XGBClassifier`` in
+    the reference's training script. Runs on ``device`` (``cuda`` unless the
+    caller asks for ``cpu``; ``cuda`` without a card raises here)."""
+
+    def __init__(
+        self,
+        config: GBDTConfig | None = None,
+        *,
+        device: torch.device | str = "cuda",
+        **overrides,
+    ):
+        cfg = config or GBDTConfig()
+        if overrides:
+            cfg = cfg.replace(**overrides)
+        self.config = cfg
+        self.device = resolve_device(device)
+        self.forest: Forest | None = None
+        self.bin_spec: BinSpec | None = None
+        self.n_features_: int | None = None
+
+    def _tensor(self, a, dtype: torch.dtype) -> torch.Tensor:
+        return torch.as_tensor(a).to(device=self.device, dtype=dtype)
+
+    def fit(self, X, y, sample_weight=None, feature_mask=None) -> "GBDTClassifier":
+        X = self._tensor(X, torch.float32)
+        y = self._tensor(y, torch.float32)
+        N, F = X.shape
+        self.n_features_ = F
+        cfg = self.config
+        self.bin_spec = compute_bin_edges(X, n_bins=cfg.n_bins)
+        bins = transform(self.bin_spec, X)
+        sw = (
+            torch.ones(N, dtype=torch.float32, device=self.device)
+            if sample_weight is None
+            else self._tensor(sample_weight, torch.float32)
+        )
+        fm = (
+            torch.ones(F, dtype=torch.bool, device=self.device)
+            if feature_mask is None
+            else self._tensor(feature_mask, torch.bool)
+        )
+        hp = GBDTHyperparams.from_config(cfg)
+        kw = dict(
+            n_trees_cap=cfg.n_estimators,
+            depth_cap=cfg.max_depth,
+            n_bins=cfg.n_bins,
+            hist_subtract=cfg.hist_subtract,
+        )
+        if cfg.chunk_trees is not None:
+            forest = fit_binned_chunked(
+                bins, y, sw, fm, hp, cfg.seed, chunk_trees=cfg.chunk_trees, **kw
+            )
+        else:
+            forest = fit_binned(bins, y, sw, fm, hp, cfg.seed, **kw)
+        self.forest = attach_float_thresholds(forest, self.bin_spec)
+        return self
+
+    def _fitted(self) -> Forest:
+        if self.forest is None:
+            raise RuntimeError("GBDTClassifier is not fitted yet; call fit first")
+        return self.forest
+
+    def predict_margin(self, X) -> torch.Tensor:
+        return predict_margin(self._fitted(), self._tensor(X, torch.float32))
+
+    def predict_proba(self, X) -> torch.Tensor:
+        """(N, 2) probabilities, matching ``XGBClassifier.predict_proba``."""
+        p1 = torch.sigmoid(self.predict_margin(X))
+        return torch.stack([1.0 - p1, p1], dim=1)
+
+    def predict(self, X, threshold: float = 0.5) -> torch.Tensor:
+        return (self.predict_proba(X)[:, 1] >= threshold).to(torch.int32)
+
+    @property
+    def feature_importances_(self) -> np.ndarray:
+        """Normalized total-gain importances."""
+        forest = self._fitted()
+        total_gain, _ = gain_importances(forest, self.n_features_)
+        tg = total_gain.cpu().numpy()
+        s = tg.sum()
+        return tg / s if s > 0 else tg

@@ -31,6 +31,7 @@ import torch
 
 from cobalt_smart_lender_ai_tpu_torch.config import ServeConfig
 from cobalt_smart_lender_ai_tpu_torch.data import schema
+from cobalt_smart_lender_ai_tpu_torch.device import resolve_device
 from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models.gbdt import gain_importances
 from cobalt_smart_lender_ai_tpu_torch.ops.score import (
@@ -81,24 +82,6 @@ _NA_CELLS = frozenset(
      "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
      "nan", "null"}
 )
-
-
-def resolve_device(device: torch.device | str) -> torch.device:
-    """The serving device. ``cuda`` without a usable CUDA device raises: the
-    service never moves to the CPU on its own."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "device 'cuda' requested but torch.cuda.is_available() is "
-                "False; pass device='cpu' (--device cpu) to run the plain "
-                "PyTorch versions on the CPU"
-            )
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"serving device must be cuda or cpu, got {dev}")
-    return dev
 
 
 def validate_single_input(payload: Mapping[str, Any]) -> dict[str, float]:

@@ -1,4 +1,4 @@
-"""The ``score_forest`` CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
 elsewhere. They import nothing of JAX, so they also run on a machine without
@@ -6,10 +6,13 @@ it, skipping the JAX-only conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerances: margins bit-identical (both sum the landed leaf values one f32 add
+Tolerances of ``score_forest``: margins bit-identical (both sum the landed leaf values one f32 add
 per tree, in tree order); prob within 1e-6 (two sigmoid implementations);
 phis within 1e-5 (the kernel adds a tree's contributions with atomics in no
-fixed order).
+fixed order). Of ``gradient_histogram``: cover bit-identical, g and h of
+each node within 1e-5 of that node's largest |value| in the channel, two
+launches bit-identical (integer fixed-point sums), and a small fit on the
+card bit-identical twice over.
 """
 
 from __future__ import annotations
@@ -21,6 +24,11 @@ import pytest
 import torch
 
 from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
+from cobalt_smart_lender_ai_tpu_torch.models.gbdt import GBDTClassifier
+from cobalt_smart_lender_ai_tpu_torch.ops.histogram import (
+    gradient_histogram_channels,
+    gradient_histogram_reference,
+)
 from cobalt_smart_lender_ai_tpu_torch.ops.score import (
     fused_score,
     fused_score_reference,
@@ -73,3 +81,51 @@ def test_kernel_matches_plain_on_card(card_pack, rows, with_shap):
         assert float((out[2] - ref[2]).abs().max()) <= TOL_SHAP
         additivity = (out[3] + out[2].sum(1) - out[0]).abs().max()
         assert float(additivity) <= 1e-4
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the gradient_histogram kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "N,F,B,K,bin_dtype",
+    [(100_000, 20, 255, 1, np.uint8), (100_000, 20, 255, 32, np.uint8),
+     (50_000, 7, 300, 4, np.int32), (30_000, 33, 64, 64, np.uint8)],
+)
+def test_histogram_kernel_matches_plain_on_card(card, N, F, B, K, bin_dtype):
+    rng = np.random.default_rng(N + K)
+    bins = torch.from_numpy(rng.integers(0, B, (N, F)).astype(bin_dtype)).to(card)
+    node = torch.from_numpy(rng.integers(0, K, N).astype(np.int32)).to(card)
+    g = torch.from_numpy((rng.normal(size=N) * 3).astype(np.float32)).to(card)
+    h = g.abs() * 0.25 + 0.01
+    w = torch.from_numpy((rng.random(N) < 0.8).astype(np.float32)).to(card)
+    before = gradient_histogram_channels.launches
+    got = torch.stack(gradient_histogram_channels(bins, node, g, h, w, n_nodes=K, n_bins=B))
+    again = torch.stack(gradient_histogram_channels(bins, node, g, h, w, n_nodes=K, n_bins=B))
+    torch.cuda.synchronize()
+    assert gradient_histogram_channels.launches == before + 2
+    assert torch.equal(got, again)
+    ref = gradient_histogram_reference(bins, node, g, h, w, n_nodes=K, n_bins=B)
+    assert torch.equal(got[2], ref[2])
+    for c in (0, 1):  # per node, against that node's largest |value|
+        scale = ref[c].abs().amax(dim=(1, 2))
+        assert bool(((got[c] - ref[c]).abs().amax(dim=(1, 2)) <= 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+def test_fit_on_card_is_deterministic(card):
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(20_000, 6)).astype(np.float32)
+    X[rng.random(X.shape) < 0.1] = np.nan
+    y = (rng.random(20_000) < 1 / (1 + np.exp(-np.nan_to_num(X[:, 0])))).astype(np.float32)
+    kw = dict(n_estimators=8, max_depth=4, subsample=0.8, colsample_bytree=0.8)
+    before = gradient_histogram_channels.launches
+    a = GBDTClassifier(device="cuda", **kw).fit(X, y).forest
+    assert gradient_histogram_channels.launches == before + 8 * 4
+    b = GBDTClassifier(device="cuda", **kw).fit(X, y).forest
+    for f in ("feature", "thr_bin", "missing_left", "gain", "cover", "leaf_value"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f

@@ -4,8 +4,8 @@
   the JAX package (``cobalt_smart_lender_ai_tpu``); importing the port's
   serving stack in a fresh interpreter leaves ``jax`` unloaded.
 - Its entry points run on the CUDA device unless the caller asks for the
-  CPU: with CUDA unavailable, the default-device service constructors raise
-  instead of scoring on the CPU, and ``chip_smoke.py`` exits non-zero
+  CPU: with CUDA unavailable, the default-device service constructors and
+  `GBDTClassifier` raise instead of running on the CPU, and ``chip_smoke.py`` exits non-zero
   without printing a result.
 """
 
@@ -18,10 +18,12 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from cobalt_smart_lender_ai_tpu_torch.io import ObjectStore
+from cobalt_smart_lender_ai_tpu_torch.models.gbdt import GBDTClassifier
 from cobalt_smart_lender_ai_tpu_torch.serve import __main__ as cli
 from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService, resolve_device
 
@@ -60,6 +62,8 @@ def test_importing_the_serving_stack_leaves_jax_unloaded():
         "import cobalt_smart_lender_ai_tpu_torch.serve.__main__\n"
         "import cobalt_smart_lender_ai_tpu_torch.serve.http_asyncio\n"
         "import cobalt_smart_lender_ai_tpu_torch.convert\n"
+        "import cobalt_smart_lender_ai_tpu_torch.models.gbdt\n"
+        "import cobalt_smart_lender_ai_tpu_torch.ops.metrics\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cobalt_smart_lender_ai_tpu'))\n"
         "print(bad)\n"
@@ -84,6 +88,27 @@ def test_default_device_raises_without_cuda(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_new_port_modules_are_checked():
+    names = {p.relative_to(PORT).as_posix() for p in PORT_FILES if p.is_relative_to(PORT)}
+    assert {"ops/histogram.py", "ops/binning.py", "ops/metrics.py", "device.py"} <= names
+
+
+def test_classifier_defaults_to_cuda_and_raises_without_it(no_cuda):
+    with pytest.raises(RuntimeError, match="cuda"):
+        GBDTClassifier()
+    with pytest.raises(RuntimeError, match="cuda"):
+        GBDTClassifier(n_estimators=2, device="cuda")
+
+
+def test_classifier_fits_on_the_cpu_when_asked(no_cuda):
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(300, 4)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float32)
+    model = GBDTClassifier(n_estimators=3, max_depth=2, n_bins=16, device="cpu").fit(X, y)
+    assert model.forest.device == torch.device("cpu") and model.forest.n_trees == 3
+    assert (model.predict(X).numpy() == y).mean() > 0.9
 
 
 def test_cli_defaults_to_cuda_and_raises_without_it(no_cuda):
