@@ -30,7 +30,8 @@ Phases, each of which must pass:
       histogram shape of the first tree (level 0 direct, levels 1-6
       sibling-subtracted, and the direct level-6 call): cover bit-equal, g
       and h of each node within 1e-5 of that node's largest |value| in the
-      channel, two launches bit-equal; kernel, plain, library (three
+      channel, two launches bit-equal, and at level 6 subtracted the rows in
+      a random order bit-equal; active rows, kernel, plain, library (three
       ``torch.bincount``) and bound times per shape;
    c. ``GBDTClassifier.fit`` through the kernel (the main path): wall time,
       one launch per tree level, held-out AUC; a second fit of the level
@@ -40,7 +41,10 @@ Phases, each of which must pass:
       splits and lands within 0.002 of its held-out AUC;
    d. the trained forest is saved as the ``.npz`` artifact, and the port's
       `ScorerService` on ``cuda`` serves it: 16 concurrent ``/predict`` (with
-      SHAP) and one bulk CSV, checked against the plain scorer on the CPU.
+      SHAP) and one bulk CSV, checked against the plain scorer on the CPU;
+   e. the first 10 trees of the level loop under ``torch.profiler``: the
+      card's busy time, the histogram's part of it, its idle share and the
+      kernel launches per tree (last, as the profiler slows later launches).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing neither, when
@@ -60,6 +64,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from cobalt_smart_lender_ai_tpu_torch.config import GBDTConfig, ServeConfig
 from cobalt_smart_lender_ai_tpu_torch.data import schema
@@ -491,7 +497,11 @@ def first_tree_calls(bins, y, hp, seed: int, n_bins: int, depth: int) -> list[di
 
 
 def histogram_phase(bins: torch.Tensor, calls: list[dict], n_bins: int) -> list[dict]:
-    """Kernel vs plain at each recorded call; returns one record per call."""
+    """Kernel vs plain at each recorded call; returns one record per call.
+
+    At ``level 6 subtracted`` the same rows in a seeded random order must
+    give the same bits too (the kernel groups rows by node in no fixed
+    order; its integer sums do not depend on it)."""
     records = []
     for c in calls:
         args = (bins, c["node"], c["g"], c["h"], c["w"])
@@ -504,7 +514,10 @@ def histogram_phase(bins: torch.Tensor, calls: list[dict], n_bins: int) -> list[
             raise AssertionError(f"{c['label']}: two launches differ")
         if not torch.equal(got[2], ref[2]):
             raise AssertionError(f"{c['label']}: cover differs from the plain version")
-        rec = {"shape": c["label"], "K": c["K"], "max_abs_err": 0.0, "max_rel_err": 0.0}
+        in_range = (c["node"] >= 0) & (c["node"] < c["K"])
+        active = in_range & ((c["g"] != 0) | (c["h"] != 0) | (c["w"] != 0))
+        rec = {"shape": c["label"], "K": c["K"], "active_rows": int(active.sum()),
+               "max_abs_err": 0.0, "max_rel_err": 0.0}
         for ch in (0, 1):
             # Per node: each node's channel against its own largest |value|.
             err = (got[ch] - ref[ch]).abs().amax(dim=(1, 2))
@@ -520,12 +533,30 @@ def histogram_phase(bins: torch.Tensor, calls: list[dict], n_bins: int) -> list[
             rec["max_abs_err"] = max(rec["max_abs_err"], float(err.max()))
             rec["max_rel_err"] = max(rec["max_rel_err"], float(rel.max()))
         rec["bit_equal"] = torch.equal(got, ref)
+        if c["label"] == "level 6 subtracted":
+            gen = torch.Generator(device=bins.device).manual_seed(SEED)
+            perm = torch.randperm(bins.shape[0], generator=gen, device=bins.device)
+            shuffled = [a[perm].contiguous() for a in args]
+            if not torch.equal(got, torch.stack(gradient_histogram_channels(*shuffled, **kw))):
+                raise AssertionError(f"{c['label']}: the rows in another order give other bits")
+            rec["row_order_equal"] = True
+            del shuffled
         rec["ms"] = time_ms(lambda: gradient_histogram_channels(*args, **kw), 20)
         rec["plain_ms"] = time_ms(lambda: gradient_histogram_reference(*args, **kw), 3, warmup=1)
         rec["library_ms"] = time_ms(lambda: library_histogram(*args, **kw), 3, warmup=1)
         rec["bound_ms"], rec["bound_by"] = histogram_bound_ms(bins, c["g"], c["h"], c["w"], c["K"], n_bins)
         records.append(rec)
     return records
+
+
+def histogram_line(r: dict, card: str) -> str:
+    """One printed line of a `histogram_phase` record."""
+    order = f" row_order_equal={r['row_order_equal']}" if "row_order_equal" in r else ""
+    return (f"kernel gradient_histogram {r['shape']} (K={r['K']}) active_rows={r['active_rows']} "
+            f"ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} library_ms={r['library_ms']:.6f} "
+            f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+            f"max_abs_err={r['max_abs_err']:.3g} max_rel_err={r['max_rel_err']:.3g} "
+            f"bit_equal={r['bit_equal']}{order} [{card}]")
 
 
 class TimedHistogram:
@@ -569,6 +600,49 @@ def fit_with(bins, y, spec, cfg: GBDTConfig, histogram) -> tuple[gbdt.Forest, fl
     )
     torch.cuda.synchronize()
     return gbdt.attach_float_thresholds(forest, spec), time.perf_counter() - t0
+
+
+#: Kernels of one `gradient_histogram_channels` launch.
+HIST_KERNELS = ("count_kernel", "plan_kernel", "scatter_kernel", "hist_kernel", "finalize_kernel")
+PROFILED_TREES = 10
+
+
+def kernel_name(event_name: str) -> str:
+    """``void hist_kernel<unsigned char>(...)`` -> ``hist_kernel``."""
+    return event_name.split("(")[0].split("<")[0].removeprefix("void ").strip()
+
+
+def profile_level_loop(bins, y, spec, cfg: GBDTConfig, trees: int = PROFILED_TREES) -> dict:
+    """The first ``trees`` trees of the level loop through the kernel, once
+    unprofiled (wall seconds) and once under ``torch.profiler``: the card's
+    busy time (every kernel, memset and copy it ran, summed: one stream, so
+    none overlap), the histogram launches' part of it, and the kernel
+    launches the host made per tree. The card's idle share is
+    1 - busy / unprofiled wall, with the median wall of three runs (the
+    loop waits on the host, whose speed varies). A profiler session slows
+    the host's later launches, so this runs after every other timing."""
+    short = GBDTConfig(**{**TRAIN_CONFIG, "n_estimators": trees})
+    fit_with(bins, y, spec, short, gradient_histogram_channels)  # warm-up
+    wall_s = float(np.median([
+        fit_with(bins, y, spec, short, gradient_histogram_channels)[1] for _ in range(3)
+    ]))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fit_with(bins, y, spec, short, gradient_histogram_channels)
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    hist_ms = sum(e.time_range.elapsed_us() for e in device if kernel_name(e.name) in HIST_KERNELS) / 1e3
+    launches = sum(1 for e in events if e.name == "cudaLaunchKernel")
+    if not busy_ms or not hist_ms or not launches:
+        raise AssertionError(f"the profiler saw no work on the card: {busy_ms} ms, {launches} launches")
+    return {
+        "trees": trees,
+        "wall_s": wall_s,
+        "device_busy_ms": busy_ms,
+        "hist_device_ms": hist_ms,
+        "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3),
+        "launches_per_tree": launches / trees,
+    }
 
 
 def held_out_auc(forest: gbdt.Forest, X_test: torch.Tensor, y_test: torch.Tensor) -> float:
@@ -621,11 +695,7 @@ def training_phase(card: str) -> tuple[list[dict], dict]:
     records = histogram_phase(bins, calls, cfg.n_bins)
     del calls
     for r in records:
-        print(f"kernel gradient_histogram {r['shape']} (K={r['K']}) ms={r['ms']:.6f} "
-              f"plain_ms={r['plain_ms']:.6f} library_ms={r['library_ms']:.6f} "
-              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
-              f"max_abs_err={r['max_abs_err']:.3g} max_rel_err={r['max_rel_err']:.3g} "
-              f"bit_equal={r['bit_equal']} [{card}]")
+        print(histogram_line(r, card))
 
     # The main path: the user's entry point, GBDTClassifier.fit (binning
     # included) through the kernel; counts from 0 just before.
@@ -675,6 +745,7 @@ def training_phase(card: str) -> tuple[list[dict], dict]:
         summary["serve"] = serving_phase(
             "cuda", n_requests=16, bulk_rows=5000, store_root=Path(root), model_key=key
         )
+    summary["loop_profile"] = profile_level_loop(bins, y_train, spec, cfg)
     return records, summary
 
 

@@ -9,17 +9,28 @@
 //   out[c, k, f, b] = sum over rows r with node[r] == k and bins[r, f] == b
 //                     of (g, h, w)[c][r]
 //
-// bins (N, F) uint8 or int32, node (N,) int32 in [0, K), g / h / w (N,)
-// float32; out (3, K, F, B) float32, channel-split, as the fit consumes it.
-// Rows whose node lies outside [0, K) or whose bin lies outside [0, B) add
-// nothing; rows whose g, h and w are all zero add nothing either (the
-// sibling-subtracted call zeroes the right children's rows).
+// bins (N, F) uint8 or int32, node (N,) int32, g / h / w (N,) float32; out
+// (3, K, F, B) float32, channel-split, as the fit consumes it. A row is
+// *active* when its node lies in [0, K) and its g, h or w is nonzero; the
+// others add nothing (the sibling-subtracted call zeroes the right
+// children's rows, subsampling a fifth of all rows). Bins outside [0, B) add
+// nothing either.
 //
 // What bounds it on an H100 (full-width fit: N = 1.84M rows, F = 20, B = 255,
-// K <= 64 nodes): one pass reads N*F bytes of bins and 16 B per row of node /
-// g / h / w (66 MB) and writes at most 3*K*F*B*4 B (3.9 MB at K = 64), about
-// 20 us at 3.35 TB/s; its N*F*3 adds are 110 MFLOP, under 2 us at 67 TFLOP/s.
-// So the bound is bytes.
+// K <= 64 nodes): one pass must read node / g / h / w of every row (16 B,
+// 29 MB), the F bin bytes of each active row (at most 37 MB) and write
+// 3*K*F*B*4 B (3.9 MB at K = 64): about 20 us at 3.35 TB/s. Its 3*F adds per
+// active row are under 2 us at 67 TFLOP/s. So the bound is bytes.
+//
+// Grouping by node. A block keeps in shared memory the histograms of one
+// node x a tile of features (a node's 20 features x 255 bins x 3 channels
+// of int64 are 120 KB), so a level of K nodes needs K blocks per row slice.
+// If every block walked every row and kept those of its node, each row would
+// be read K times (at K = 64, 1.9 GB of L2 traffic for 50 MB of work). So
+// each launch first groups the active rows by node, as a counting sort of
+// row indices, and hands each block a slice of one node's rows: no block
+// reads a row of another node, and inactive rows are dropped before the
+// histogram pass.
 //
 // Determinism. The histograms feed an argmax over F*(B-2) split candidates
 // per node; float atomics in launch order would change the last bits from
@@ -32,18 +43,38 @@
 // same bits by construction. The rounding error is at most 2^-(e+1) per row,
 // N / 2^63 of the largest |value| per sum (2e-13 at the full-width shape),
 // far below float32 rounding. A 0/1 cover channel is exact: its sums are
-// integers times 2^e.
+// integers times 2^e. The same property makes the grouping free to be
+// unstable: the order of the rows inside a node's segment is whatever the
+// atomics of the scatter make it, and changes from launch to launch, but the
+// sums do not. No stable sort is needed.
 //
-// Three kernels on the caller's stream:
-// 1. max_abs_kernel: the largest |g|, |h|, |w| (atomicMax on the bit patterns
-//    of non-negative floats, which order as the floats do);
-// 2. hist_kernel: grid (row chunk, feature tile, node tile). A block keeps
-//    the int64 histograms of its Kt nodes x Ft features x B bins x 3
-//    channels in shared memory (at most 96 KB, so two blocks share an SM),
-//    walks its chunk of rows with one thread per row, adds with shared
-//    int64 atomics, then adds its non-zero bins into a global int64
-//    accumulator (integer atomics again);
-// 3. finalize_kernel: accumulator / 2^e, rounded once to float32.
+// Five kernels on the caller's stream, and no copy to the host:
+// 1. count_kernel: the largest |g|, |h|, |w| (atomicMax on the bit patterns
+//    of non-negative floats, which order as the floats do) and the number of
+//    active rows of each node (counters in shared memory, one atomic per
+//    distinct node of a warp, then one global atomic per node per block);
+// 2. plan_kernel, one block: an exclusive scan of the counts gives each
+//    node's segment of the row-index array; the segments are cut into
+//    slices of at most `chunk` rows, with chunk = active rows / ROW_SLICES
+//    (so the histogram pass gets about ROW_SLICES slices per feature tile,
+//    whatever share of the rows is active); the work table lists, for each
+//    slice, its (node, first slot, row count);
+// 3. scatter_kernel: each active row's index into its node's segment (slots
+//    within a block from shared counters, then one global atomic per
+//    (block, node) to reserve them);
+// 4. hist_kernel: grid (work-table entry, feature tile), sized for the most
+//    entries the plan can make, ROW_SLICES + K; blocks past the table's end
+//    exit at once. A block keeps the int64 histograms of its node x Ft
+//    features x B bins x 3 channels in shared memory (at most 96 KB: Ft = 10
+//    of the 20 features at B = 255, 61 KB; two blocks of 512 threads share
+//    an SM), walks its slots with one thread per slot, gathers g / h / w and
+//    the bins of each row, adds with shared int64 atomics, then adds its
+//    non-zero bins into a global int64 accumulator (integer atomics again).
+//    On the card, tiles of 10 features at two blocks per SM were faster at
+//    every shape of the fit than all 20 features in one block (120 KB, one
+//    block per SM, of 512 or 1024 threads), than three blocks per SM (40
+//    registers) and than 132, 528 or 1056 slices per tile;
+// 5. finalize_kernel: accumulator / 2^e, rounded once to float32.
 // Inputs must be finite (a NaN or inf has no fixed-point value).
 
 #include <cuda_runtime.h>
@@ -51,8 +82,21 @@
 
 #define SMEM_BUDGET (96 * 1024)
 #define SMEM_MAX 232448
-#define TARGET_BLOCKS (132 * 4)
 #define HIST_THREADS 512
+// The histogram pass cuts each node's segment into slices of at most
+// `chunk` rows, one block per slice and feature tile; the chunk is sized on
+// the card for about ROW_SLICES slices, and is at least MIN_CHUNK rows.
+#define ROW_SLICES 264
+#define MIN_CHUNK 512
+#define HIST_MIN_BLOCKS 2
+// Up to this many nodes the per-block counters live in shared memory;
+// above it the count and the scatter add to the global counters directly.
+#define SHARED_NODES 4096
+#define COUNT_THREADS 256
+#define COUNT_BLOCKS (132 * 4)
+#define SCATTER_THREADS 256
+#define SCATTER_ITEMS 8
+#define PLAN_THREADS 1024
 
 static __device__ __forceinline__ int scale_exp(unsigned int max_bits,
                                                 int n_rows) {
@@ -68,16 +112,61 @@ static __device__ __forceinline__ long long to_fixed(float v, int e) {
   return llrint(ldexp((double)v, e));
 }
 
-__global__ void max_abs_kernel(const float* __restrict__ g,
-                               const float* __restrict__ h,
-                               const float* __restrict__ w, int n_rows,
-                               unsigned int* __restrict__ max_bits) {
+static __device__ __forceinline__ bool active_row(int k, float g, float h,
+                                                  float w, int n_nodes) {
+  return (unsigned)k < (unsigned)n_nodes &&
+         (g != 0.0f || h != 0.0f || w != 0.0f);
+}
+
+// Adds one to counter[k] for each active lane of the warp, with one atomic
+// per distinct k; returns each active lane's slot: the counter's value
+// before the warp's add plus the lane's rank among the lanes with its k.
+// Every lane of the warp must call it.
+static __device__ __forceinline__ int warp_add(int* counter, int k, bool act) {
+  const unsigned mask = __ballot_sync(0xffffffffu, act);
+  int slot = 0;
+  if (act) {
+    const unsigned peers = __match_any_sync(mask, k);
+    const int lane = threadIdx.x & 31;
+    const int leader = __ffs(peers) - 1;
+    int base = 0;
+    if (lane == leader) base = atomicAdd(&counter[k], __popc(peers));
+    base = __shfl_sync(peers, base, leader);
+    slot = base + __popc(peers & ((1u << lane) - 1u));
+  }
+  return slot;
+}
+
+__global__ void __launch_bounds__(COUNT_THREADS)
+    count_kernel(const int* __restrict__ node, const float* __restrict__ g,
+                 const float* __restrict__ h, const float* __restrict__ w,
+                 int n_rows, int n_nodes, unsigned int* __restrict__ max_bits,
+                 int* __restrict__ counts) {
+  extern __shared__ int sh_count[];
+  const bool local = n_nodes <= SHARED_NODES;
+  int* cnt = local ? sh_count : counts;
+  if (local) {
+    for (int i = threadIdx.x; i < n_nodes; i += blockDim.x) sh_count[i] = 0;
+    __syncthreads();
+  }
   float mg = 0.0f, mh = 0.0f, mw = 0.0f;
-  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < n_rows;
-       r += gridDim.x * blockDim.x) {
-    mg = fmaxf(mg, fabsf(g[r]));
-    mh = fmaxf(mh, fabsf(h[r]));
-    mw = fmaxf(mw, fabsf(w[r]));
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  // The bound is the same for every thread of the block, so every lane of
+  // a warp reaches warp_add together.
+  for (long long base = (long long)blockIdx.x * blockDim.x; base < n_rows;
+       base += stride) {
+    const long long r = base + threadIdx.x;
+    int k = 0;
+    bool act = false;
+    if (r < n_rows) {
+      const float gv = g[r], hv = h[r], wv = w[r];
+      mg = fmaxf(mg, fabsf(gv));
+      mh = fmaxf(mh, fabsf(hv));
+      mw = fmaxf(mw, fabsf(wv));
+      k = node[r];
+      act = active_row(k, gv, hv, wv, n_nodes);
+    }
+    warp_add(cnt, k, act);
   }
   for (int off = 16; off > 0; off >>= 1) {
     mg = fmaxf(mg, __shfl_xor_sync(0xffffffffu, mg, off));
@@ -89,22 +178,139 @@ __global__ void max_abs_kernel(const float* __restrict__ g,
     atomicMax(&max_bits[1], __float_as_uint(mh));
     atomicMax(&max_bits[2], __float_as_uint(mw));
   }
+  if (local) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_nodes; i += blockDim.x) {
+      const int c = sh_count[i];
+      if (c) atomicAdd(&counts[i], c);
+    }
+  }
+}
+
+// Inclusive scan of s[0, PLAN_THREADS) in place. Every thread of the block
+// calls it after writing its own entry.
+static __device__ __forceinline__ void block_scan(int* s, int t) {
+  __syncthreads();
+  for (int off = 1; off < PLAN_THREADS; off <<= 1) {
+    const int a = t >= off ? s[t - off] : 0;
+    __syncthreads();
+    s[t] += a;
+    __syncthreads();
+  }
+}
+
+// One block. The slice length: the level's active rows over ROW_SLICES, at
+// least MIN_CHUNK, so that the histogram pass has about ROW_SLICES blocks
+// per feature tile whatever the share of active rows. cursor[k] = first
+// slot of node k's segment (the scatter's starting cursor), bstart[k] =
+// first work-table entry of node k, bstart[K] = entries used (at most
+// ROW_SLICES + K); table[j] = (node, first slot, rows, 0).
+// The table is filled from cursor / bstart / counts entries that other
+// threads of the block wrote: those are read back through L2 (__ldcg). A
+// plain or read-only load may hit a line that an earlier load of the same
+// sector left in L1, and see the scratch's old contents.
+__global__ void __launch_bounds__(PLAN_THREADS)
+    plan_kernel(const int* counts, int n_nodes, int* cursor, int* bstart,
+                int4* table) {
+  __shared__ int s_rows[PLAN_THREADS];
+  __shared__ int s_slices[PLAN_THREADS];
+  const int t = threadIdx.x;
+  const int per = (n_nodes + PLAN_THREADS - 1) / PLAN_THREADS;
+  const int k0 = min(n_nodes, t * per);
+  const int k1 = min(n_nodes, k0 + per);
+  int rows = 0;
+  for (int k = k0; k < k1; ++k) rows += counts[k];
+  s_rows[t] = rows;
+  block_scan(s_rows, t);
+  const int active = s_rows[PLAN_THREADS - 1];
+  const int chunk = max(MIN_CHUNK, (active + ROW_SLICES - 1) / ROW_SLICES);
+  int slices = 0;
+  for (int k = k0; k < k1; ++k) slices += (counts[k] + chunk - 1) / chunk;
+  s_slices[t] = slices;
+  block_scan(s_slices, t);
+  int row0 = s_rows[t] - rows, slice0 = s_slices[t] - slices;
+  for (int k = k0; k < k1; ++k) {
+    const int c = counts[k];
+    cursor[k] = row0;
+    bstart[k] = slice0;
+    row0 += c;
+    slice0 += (c + chunk - 1) / chunk;
+  }
+  const int used = s_slices[PLAN_THREADS - 1];
+  if (t == 0) bstart[n_nodes] = used;
+  __syncthreads();
+  for (int j = t; j < used; j += PLAN_THREADS) {
+    // The last node whose first entry is <= j; nodes without rows own no
+    // entry, and share their bstart with the next node.
+    int lo = 0, hi = n_nodes - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (__ldcg(&bstart[mid]) <= j) lo = mid; else hi = mid - 1;
+    }
+    const int i = j - __ldcg(&bstart[lo]);
+    table[j] = make_int4(lo, __ldcg(&cursor[lo]) + i * chunk,
+                         min(chunk, __ldcg(&counts[lo]) - i * chunk), 0);
+  }
+}
+
+__global__ void __launch_bounds__(SCATTER_THREADS)
+    scatter_kernel(const int* __restrict__ node, const float* __restrict__ g,
+                   const float* __restrict__ h, const float* __restrict__ w,
+                   int n_rows, int n_nodes, int* __restrict__ cursor,
+                   int* __restrict__ rows_out) {
+  extern __shared__ int sh_scatter[];  // [K] block counts, [K] slot bases
+  const bool local = n_nodes <= SHARED_NODES;
+  int* cnt = local ? sh_scatter : cursor;
+  if (local) {
+    for (int i = threadIdx.x; i < n_nodes; i += blockDim.x) sh_scatter[i] = 0;
+    __syncthreads();
+  }
+  const long long r0 = (long long)blockIdx.x * (SCATTER_THREADS * SCATTER_ITEMS);
+  int kk[SCATTER_ITEMS], slot[SCATTER_ITEMS];
+#pragma unroll
+  for (int i = 0; i < SCATTER_ITEMS; ++i) {
+    const long long r = r0 + i * SCATTER_THREADS + threadIdx.x;
+    int k = -1;
+    bool act = false;
+    if (r < n_rows) {
+      k = node[r];
+      act = active_row(k, g[r], h[r], w[r], n_nodes);
+    }
+    slot[i] = warp_add(cnt, k, act);
+    kk[i] = act ? k : -1;
+  }
+  if (local) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_nodes; i += blockDim.x) {
+      const int c = sh_scatter[i];
+      if (c) sh_scatter[n_nodes + i] = atomicAdd(&cursor[i], c);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < SCATTER_ITEMS; ++i) {
+    if (kk[i] < 0) continue;
+    const int s = local ? sh_scatter[n_nodes + kk[i]] + slot[i] : slot[i];
+    rows_out[s] = (int)(r0 + i * SCATTER_THREADS + threadIdx.x);
+  }
 }
 
 template <typename BinT>
-__global__ void __launch_bounds__(HIST_THREADS)
-    hist_kernel(const BinT* __restrict__ bins, const int* __restrict__ node,
-                const float* __restrict__ g, const float* __restrict__ h,
-                const float* __restrict__ w, int n_rows, int n_features,
-                int n_nodes, int n_bins, int ft_tile, int kt_tile,
-                int chunk_rows, const unsigned int* __restrict__ max_bits,
+__global__ void __launch_bounds__(HIST_THREADS, HIST_MIN_BLOCKS)
+    hist_kernel(const BinT* __restrict__ bins, const float* __restrict__ g,
+                const float* __restrict__ h, const float* __restrict__ w,
+                const int* __restrict__ rows, const int4* __restrict__ table,
+                const int* __restrict__ n_used, int n_rows, int n_features,
+                int n_nodes, int n_bins, int ft_tile,
+                const unsigned int* __restrict__ max_bits,
                 unsigned long long* __restrict__ acc) {
+  if ((int)blockIdx.x >= *n_used) return;
   extern __shared__ unsigned long long sh[];
+  const int4 job = table[blockIdx.x];
+  const int k = job.x, first = job.y, last = job.y + job.z;
   const int f0 = blockIdx.y * ft_tile;
-  const int k0 = blockIdx.z * kt_tile;
   const int ft = min(ft_tile, n_features - f0);
-  const int kt = min(kt_tile, n_nodes - k0);
-  const int per_channel = kt_tile * ft_tile * n_bins;
+  const int per_channel = ft * n_bins;
   const int total = 3 * per_channel;
   for (int i = threadIdx.x; i < total; i += blockDim.x) sh[i] = 0ull;
   const int eg = scale_exp(max_bits[0], n_rows);
@@ -112,20 +318,17 @@ __global__ void __launch_bounds__(HIST_THREADS)
   const int ew = scale_exp(max_bits[2], n_rows);
   __syncthreads();
 
-  const long long r0 = (long long)blockIdx.x * chunk_rows;
-  const long long r1 = min((long long)n_rows, r0 + chunk_rows);
-  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    const int k = node[r] - k0;
-    if ((unsigned)k >= (unsigned)kt) continue;
+  for (int s = first + threadIdx.x; s < last; s += blockDim.x) {
+    const int r = rows[s];
     const long long qg = to_fixed(g[r], eg);
     const long long qh = to_fixed(h[r], eh);
     const long long qw = to_fixed(w[r], ew);
     if ((qg | qh | qw) == 0) continue;
-    const BinT* br = bins + r * n_features + f0;
+    const BinT* br = bins + (long long)r * n_features + f0;
     for (int fl = 0; fl < ft; ++fl) {
       const int b = (int)br[fl];
       if ((unsigned)b >= (unsigned)n_bins) continue;
-      const int i = (k * ft_tile + fl) * n_bins + b;
+      const int i = fl * n_bins + b;
       if (qg) atomicAdd(&sh[i], (unsigned long long)qg);
       if (qh) atomicAdd(&sh[per_channel + i], (unsigned long long)qh);
       if (qw) atomicAdd(&sh[2 * per_channel + i], (unsigned long long)qw);
@@ -136,13 +339,11 @@ __global__ void __launch_bounds__(HIST_THREADS)
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     const unsigned long long v = sh[i];
     if (v == 0ull) continue;
-    const int b = i % n_bins;
-    const int fl = (i / n_bins) % ft_tile;
-    const int kl = (i / (n_bins * ft_tile)) % kt_tile;
     const int c = i / per_channel;
-    if (fl >= ft || kl >= kt) continue;
+    const int fl = (i - c * per_channel) / n_bins;
+    const int b = i - c * per_channel - fl * n_bins;
     const size_t o =
-        (((size_t)c * n_nodes + (k0 + kl)) * n_features + (f0 + fl)) * n_bins + b;
+        (((size_t)c * n_nodes + k) * n_features + (f0 + fl)) * n_bins + b;
     atomicAdd(&acc[o], v);
   }
 }
@@ -158,39 +359,57 @@ __global__ void finalize_kernel(const unsigned long long* __restrict__ acc,
   out[i] = (float)ldexp((double)(long long)acc[i], -e);
 }
 
+// Work-table entries the plan can fill at most: with chunk >= active /
+// ROW_SLICES, sum over nodes of ceil(count / chunk) <= ROW_SLICES + K.
+static long long table_entries(int n_nodes) {
+  return (long long)ROW_SLICES + n_nodes;
+}
+
+// The int32 scratch, in words: [0, 4) max_bits (3 used), [4, 4+K) counts,
+// then cursor (K), bstart (K+1), the work table (4 words an entry, 16-byte
+// aligned) and the row-index array (N). The first 4+K words are cleared by
+// each launch.
+struct Scratch {
+  long long counts, cursor, bstart, table, rows, words;
+};
+
+static Scratch scratch_layout(int n_rows, int n_nodes) {
+  Scratch l;
+  l.counts = 4;
+  l.cursor = l.counts + n_nodes;
+  l.bstart = l.cursor + n_nodes;
+  l.table = (l.bstart + n_nodes + 1 + 3) / 4 * 4;
+  l.rows = l.table + 4 * table_entries(n_nodes);
+  l.words = l.rows + n_rows;
+  return l;
+}
+
 template <typename BinT>
-static cudaError_t launch_hist(const void* bins, const int* node,
-                               const float* g, const float* h, const float* w,
+static cudaError_t launch_hist(const void* bins, const float* g,
+                               const float* h, const float* w,
+                               const int* rows, const int4* table,
+                               const int* n_used, long long n_table,
                                int n_rows, int n_features, int n_nodes,
                                int n_bins, const unsigned int* max_bits,
                                unsigned long long* acc, cudaStream_t s) {
   const int pair_bytes = 3 * n_bins * (int)sizeof(unsigned long long);
-  int pairs = SMEM_BUDGET / pair_bytes;
-  if (pairs < 1) pairs = 1;
-  const int n_ft = (n_features + pairs - 1) / pairs;
-  const int ft = (n_features + n_ft - 1) / n_ft;
-  int kt = pairs / ft;
-  if (kt < 1) kt = 1;
-  if (kt > n_nodes) kt = n_nodes;
-  const int n_kt = (n_nodes + kt - 1) / kt;
-  const size_t smem = (size_t)kt * ft * pair_bytes;
-  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-  const int tiles = n_ft * n_kt;
-  int n_chunks = (TARGET_BLOCKS + tiles - 1) / tiles;
-  const int most = (n_rows + 1023) / 1024;
-  if (n_chunks > most) n_chunks = most;
-  if (n_chunks < 1) n_chunks = 1;
-  const int chunk_rows = (n_rows + n_chunks - 1) / n_chunks;
+  int ft = SMEM_BUDGET / pair_bytes;
+  if (ft < 1) ft = 1;
+  const int n_ft = (n_features + ft - 1) / ft;
+  ft = (n_features + n_ft - 1) / n_ft;  // balanced tiles
+  const size_t smem = (size_t)ft * pair_bytes;
+  if (smem > SMEM_MAX || n_table > 0x7fffffffLL || n_ft > 65535)
+    return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         hist_kernel<BinT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(n_chunks, n_ft, n_kt);
+  const dim3 grid((unsigned)n_table, n_ft);
   hist_kernel<BinT><<<grid, HIST_THREADS, smem, s>>>(
-      (const BinT*)bins, node, g, h, w, n_rows, n_features, n_nodes, n_bins,
-      ft, kt, chunk_rows, max_bits, acc);
+      (const BinT*)bins, g, h, w, rows, table, n_used, n_rows, n_features,
+      n_nodes, n_bins, ft, max_bits, acc);
   return cudaGetLastError();
 }
 
@@ -200,37 +419,69 @@ const char* gradient_histogram_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// int32 words of scratch that `gradient_histogram` needs for these sizes.
+long long gradient_histogram_scratch_words(int n_rows, int n_nodes) {
+  return scratch_layout(n_rows, n_nodes).words;
+}
+
 // One histogram pass on `stream`. `bins_u8` selects uint8 bins (else int32).
-// Scratch: `acc` holds 3*K*F*B uint64, `max_bits` 3 uint32; both are
-// cleared here. `out` is (3, K, F, B) float32. Returns the first CUDA error
-// of the memsets and launches, or 0.
+// Scratch: `acc` holds 3*K*F*B uint64 and `scratch`
+// gradient_histogram_scratch_words(N, K) int32, 16-byte aligned; both are
+// cleared here as needed. `out` is (3, K, F, B) float32. Returns the first
+// CUDA error of the memsets and launches, or 0.
 int gradient_histogram(int device, const void* bins, int bins_u8,
                        const int* node, const float* g, const float* h,
                        const float* w, int n_rows, int n_features, int n_nodes,
-                       int n_bins, unsigned long long* acc,
-                       unsigned int* max_bits, float* out, void* stream) {
+                       int n_bins, unsigned long long* acc, int* scratch,
+                       float* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_rows < 1 || n_features < 1 || n_nodes < 1 || n_bins < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const Scratch l = scratch_layout(n_rows, n_nodes);
+  unsigned int* max_bits = (unsigned int*)scratch;
+  int* counts = scratch + l.counts;
+  int* cursor = scratch + l.cursor;
+  int* bstart = scratch + l.bstart;
+  int4* table = (int4*)(scratch + l.table);
+  int* rows = scratch + l.rows;
+  const bool local = n_nodes <= SHARED_NODES;
+
   const long long per_channel = (long long)n_nodes * n_features * n_bins;
   err = cudaMemsetAsync(acc, 0, 3 * per_channel * sizeof(unsigned long long), s);
   if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(max_bits, 0, 3 * sizeof(unsigned int), s);
+  err = cudaMemsetAsync(scratch, 0, l.cursor * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
 
-  int blocks = (n_rows + 255) / 256;
-  if (blocks > 1024) blocks = 1024;
-  max_abs_kernel<<<blocks, 256, 0, s>>>(g, h, w, n_rows, max_bits);
+  int blocks = (n_rows + COUNT_THREADS - 1) / COUNT_THREADS;
+  if (blocks > COUNT_BLOCKS) blocks = COUNT_BLOCKS;
+  count_kernel<<<blocks, COUNT_THREADS, local ? n_nodes * sizeof(int) : 0, s>>>(
+      node, g, h, w, n_rows, n_nodes, max_bits, counts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  err = bins_u8 ? launch_hist<unsigned char>(bins, node, g, h, w, n_rows,
+  plan_kernel<<<1, PLAN_THREADS, 0, s>>>(counts, n_nodes, cursor, bstart,
+                                         table);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int per_block = SCATTER_THREADS * SCATTER_ITEMS;
+  scatter_kernel<<<(n_rows + per_block - 1) / per_block, SCATTER_THREADS,
+                   local ? 2 * n_nodes * sizeof(int) : 0, s>>>(
+      node, g, h, w, n_rows, n_nodes, cursor, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const long long n_table = table_entries(n_nodes);
+  err = bins_u8 ? launch_hist<unsigned char>(bins, g, h, w, rows, table,
+                                             bstart + n_nodes, n_table, n_rows,
                                              n_features, n_nodes, n_bins,
                                              max_bits, acc, s)
-                : launch_hist<int>(bins, node, g, h, w, n_rows, n_features,
-                                   n_nodes, n_bins, max_bits, acc, s);
+                : launch_hist<int>(bins, g, h, w, rows, table,
+                                   bstart + n_nodes, n_table, n_rows,
+                                   n_features, n_nodes, n_bins, max_bits, acc,
+                                   s);
   if (err != cudaSuccess) return (int)err;
 
   const long long n_out = 3 * per_channel;

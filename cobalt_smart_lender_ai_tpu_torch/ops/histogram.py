@@ -16,6 +16,7 @@ node's cover falls out as ``hw[k, f, :].sum()`` for any feature ``f``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -67,11 +68,15 @@ def gradient_histogram_reference(
     return out.to(torch.float32).reshape(3, n_nodes, F, n_bins)
 
 
+@functools.cache
 def _library() -> ctypes.CDLL:
+    """The built kernel, its C signatures declared once."""
     lib = _build.load("gradient_histogram")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gradient_histogram.argtypes = [i, p, i, p, p, p, p, i, i, i, i, p, p, p, p]
     lib.gradient_histogram.restype = i
+    lib.gradient_histogram_scratch_words.argtypes = [i, i]
+    lib.gradient_histogram_scratch_words.restype = ctypes.c_longlong
     lib.gradient_histogram_error_string.argtypes = [i]
     lib.gradient_histogram_error_string.restype = ctypes.c_char_p
     return lib
@@ -94,12 +99,16 @@ def gradient_histogram_channels(
     one ``(3, n_nodes, F, n_bins)`` tensor.
 
     ``bins`` is ``(N, F)`` uint8 or int32, ``node_local`` ``(N,)`` int32 in
-    ``[0, n_nodes)``, ``g``, ``h``, ``w`` ``(N,)`` float32 and finite. A CPU
-    ``bins`` runs `gradient_histogram_reference`; a CUDA ``bins`` launches
-    the kernel once on the current stream (counted in
-    ``gradient_histogram_channels.launches``) or raises. The kernel's g and h
-    agree with the plain version within float32 reordering error, its cover
-    bit for bit, and two launches on the same inputs give the same bits."""
+    ``[0, n_nodes)`` (rows outside it add nothing), ``g``, ``h``, ``w``
+    ``(N,)`` float32 and finite. A CPU ``bins`` runs
+    `gradient_histogram_reference`; a CUDA ``bins`` launches the kernel once
+    on the current stream (counted in ``gradient_histogram_channels.launches``)
+    or raises. The launch groups the active rows (node in range, g, h or w
+    nonzero) by node on the card, with no copy to the host, so that each
+    block sums one node's rows only. Its sums are int64 fixed point: g and h
+    agree with the plain version within float32 rounding, the cover bit for
+    bit, and two launches on the same inputs, or on the same rows in
+    another order, give the same bits."""
     if bins.device.type == "cpu":
         out = gradient_histogram_reference(
             bins, node_local, g, h, w, n_nodes=n_nodes, n_bins=n_bins
@@ -125,11 +134,15 @@ def gradient_histogram_channels(
         )
     if bins.dtype == torch.uint8 and n_bins > 256:
         raise ValueError(f"uint8 bins cannot index n_bins={n_bins}")
+    lib = _library()
     out = torch.empty((3, n_nodes, F, n_bins), dtype=torch.float32, device=bins.device)
     acc = torch.empty(3 * n_nodes * F * n_bins, dtype=torch.int64, device=bins.device)
-    max_bits = torch.empty(3, dtype=torch.int32, device=bins.device)
+    # Largest |g|, |h|, |w|, per-node counts and segment offsets, the work
+    # table and the row indices grouped by node.
+    scratch = torch.empty(
+        lib.gradient_histogram_scratch_words(N, n_nodes), dtype=torch.int32, device=bins.device
+    )
     dev = bins.device.index if bins.device.index is not None else torch.cuda.current_device()
-    lib = _library()
     err = lib.gradient_histogram(
         dev,
         bins.data_ptr(),
@@ -143,7 +156,7 @@ def gradient_histogram_channels(
         n_nodes,
         n_bins,
         acc.data_ptr(),
-        max_bits.data_ptr(),
+        scratch.data_ptr(),
         out.data_ptr(),
         torch.cuda.current_stream(bins.device).cuda_stream,
     )

@@ -11,8 +11,9 @@ per tree, in tree order); prob within 1e-6 (two sigmoid implementations);
 phis within 1e-5 (the kernel adds a tree's contributions with atomics in no
 fixed order). Of ``gradient_histogram``: cover bit-identical, g and h of
 each node within 1e-5 of that node's largest |value| in the channel, two
-launches bit-identical (integer fixed-point sums), and a small fit on the
-card bit-identical twice over.
+launches bit-identical (integer fixed-point sums), the same rows in another
+order bit-identical (the kernel groups rows by node in no fixed order), and
+a small fit on the card bit-identical twice over.
 """
 
 from __future__ import annotations
@@ -90,6 +91,38 @@ def card():
     return torch.device("cuda")
 
 
+def _assert_matches_plain(card, bins, node, g, h, w, K, B, plain_args=None):
+    """The histogram contract on the card: two launches bit-equal, cover
+    bit-equal to the plain version, g and h of each node within 1e-5 of that
+    node's largest |value|. ``plain_args`` are the plain version's inputs
+    where they differ from the kernel's. Returns the kernel's output."""
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(card) for a in (bins, node, g, h, w)]
+    before = gradient_histogram_channels.launches
+    got = torch.stack(gradient_histogram_channels(*t, n_nodes=K, n_bins=B))
+    again = torch.stack(gradient_histogram_channels(*t, n_nodes=K, n_bins=B))
+    torch.cuda.synchronize()
+    assert gradient_histogram_channels.launches == before + 2
+    assert torch.equal(got, again)
+    if plain_args is not None:
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(card) for a in plain_args]
+    ref = gradient_histogram_reference(*t, n_nodes=K, n_bins=B)
+    assert torch.equal(got[2], ref[2])
+    for c in (0, 1):  # per node, against that node's largest |value|
+        scale = ref[c].abs().amax(dim=(1, 2))
+        assert bool(((got[c] - ref[c]).abs().amax(dim=(1, 2)) <= 1e-5 * scale).all())
+    return got
+
+
+def _histogram_inputs(seed, N, F, B, K, bin_dtype):
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, B, (N, F)).astype(bin_dtype)
+    node = rng.integers(0, K, N).astype(np.int32)
+    g = (rng.normal(size=N) * 3).astype(np.float32)
+    h = (np.abs(g) * 0.25 + 0.01).astype(np.float32)
+    w = (rng.random(N) < 0.8).astype(np.float32)
+    return bins, node, g, h, w
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "N,F,B,K,bin_dtype",
@@ -97,23 +130,69 @@ def card():
      (50_000, 7, 300, 4, np.int32), (30_000, 33, 64, 64, np.uint8)],
 )
 def test_histogram_kernel_matches_plain_on_card(card, N, F, B, K, bin_dtype):
-    rng = np.random.default_rng(N + K)
-    bins = torch.from_numpy(rng.integers(0, B, (N, F)).astype(bin_dtype)).to(card)
-    node = torch.from_numpy(rng.integers(0, K, N).astype(np.int32)).to(card)
-    g = torch.from_numpy((rng.normal(size=N) * 3).astype(np.float32)).to(card)
-    h = g.abs() * 0.25 + 0.01
-    w = torch.from_numpy((rng.random(N) < 0.8).astype(np.float32)).to(card)
-    before = gradient_histogram_channels.launches
-    got = torch.stack(gradient_histogram_channels(bins, node, g, h, w, n_nodes=K, n_bins=B))
-    again = torch.stack(gradient_histogram_channels(bins, node, g, h, w, n_nodes=K, n_bins=B))
-    torch.cuda.synchronize()
-    assert gradient_histogram_channels.launches == before + 2
+    _assert_matches_plain(card, *_histogram_inputs(N + K, N, F, B, K, bin_dtype), K, B)
+
+
+def _empty_middle_node():
+    bins, node, g, h, w = _histogram_inputs(1, 60_000, 20, 255, 3, np.uint8)
+    idle = node == 1  # node 1 keeps rows, but none of them is active
+    g[idle], h[idle], w[idle] = 0.0, 0.0, 0.0
+    return bins, node, g, h, w, 3, 255
+
+
+def _one_node_of_64():
+    bins, node, g, h, w = _histogram_inputs(2, 80_000, 20, 255, 64, np.uint8)
+    return bins, np.full_like(node, 37), g, h, w, 64, 255
+
+
+def _all_zero():
+    bins, node, g, h, w = _histogram_inputs(4, 20_000, 20, 255, 8, np.uint8)
+    z = np.zeros_like(g)
+    return bins, node, z, z, z, 8, 255
+
+
+GROUPING_CASES = {
+    "empty-middle-node": _empty_middle_node,
+    "one-node-of-64": _one_node_of_64,
+    "all-zero": _all_zero,
+    "one-row": lambda: (*_histogram_inputs(5, 1, 20, 255, 2, np.uint8), 2, 255),
+    "ragged-rows": lambda: (*_histogram_inputs(6, 100_003, 20, 255, 16, np.uint8), 16, 255),
+    "int32-bins-300": lambda: (*_histogram_inputs(7, 60_000, 20, 300, 8, np.int32), 8, 300),
+    "depth-10-direct": lambda: (*_histogram_inputs(8, 200_000, 20, 255, 512, np.uint8), 512, 255),
+    # Above 4096 nodes the kernel counts and scatters with global counters.
+    "depth-14-direct": lambda: (*_histogram_inputs(11, 50_000, 4, 64, 8192, np.uint8), 8192, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GROUPING_CASES))
+def test_histogram_kernel_grouping_cases_on_card(card, case):
+    bins, node, g, h, w, K, B = GROUPING_CASES[case]()
+    _assert_matches_plain(card, bins, node, g, h, w, K, B)
+
+
+@pytest.mark.cuda
+def test_histogram_kernel_drops_rows_outside_the_nodes_on_card(card):
+    """Rows whose node lies outside [0, K) add nothing: the kernel on all
+    rows equals the plain version on the rows inside, the others zeroed."""
+    K, B = 8, 255
+    bins, node, g, h, w = _histogram_inputs(9, 50_000, 20, B, K, np.uint8)
+    rng = np.random.default_rng(9)
+    node = rng.integers(-3, K + 3, node.shape[0]).astype(np.int32)
+    inside = (node >= 0) & (node < K)
+    plain = (bins, np.where(inside, node, 0).astype(np.int32), g * inside, h * inside, w * inside)
+    _assert_matches_plain(card, bins, node, g, h, w, K, B, plain_args=plain)
+
+
+@pytest.mark.cuda
+def test_histogram_kernel_ignores_row_order_on_card(card):
+    K, B = 32, 255
+    bins, node, g, h, w = _histogram_inputs(10, 120_000, 20, B, K, np.uint8)
+    got = _assert_matches_plain(card, bins, node, g, h, w, K, B)
+    perm = np.random.default_rng(10).permutation(node.shape[0])
+    shuffled = [torch.from_numpy(np.ascontiguousarray(a[perm])).to(card) for a in (bins, node, g, h, w)]
+    again = torch.stack(gradient_histogram_channels(*shuffled, n_nodes=K, n_bins=B))
     assert torch.equal(got, again)
-    ref = gradient_histogram_reference(bins, node, g, h, w, n_nodes=K, n_bins=B)
-    assert torch.equal(got[2], ref[2])
-    for c in (0, 1):  # per node, against that node's largest |value|
-        scale = ref[c].abs().amax(dim=(1, 2))
-        assert bool(((got[c] - ref[c]).abs().amax(dim=(1, 2)) <= 1e-5 * scale).all())
 
 
 @pytest.mark.cuda
