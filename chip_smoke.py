@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU and hold its kernels to their plain versions.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --only-scoring   # phases 1-4, then the scoring split
 
 Phases, each of which must pass:
 
@@ -11,10 +12,11 @@ Phases, each of which must pass:
 3. kernel vs plain: `fused_score` (the ``score_forest`` kernel) against
    `fused_score_reference` on the same seeded rows of the committed 300-tree
    depth-7 model, at the /predict buckets 1, 8, 64 with SHAP and the bulk
-   buckets 256, 4096 without: margins bitwise equal, prob within 1e-6, phis
-   within 1e-5, ``base + sum(phis)`` within 1e-4 of the margin; then each
-   bucket's kernel time (CUDA events, after warm-up), the plain version's
-   time and the least time the card could take (``bound_ms``);
+   buckets 256, 4096 without: margins bitwise equal (to the plain version
+   on the card and on the CPU, and across two calls), prob within 1e-6,
+   phis within 1e-5, ``base + sum(phis)`` within 1e-4 of the margin; then
+   each bucket's time per call (CUDA events, after warm-up), the plain
+   version's time and the least time the card could take (``bound_ms``);
 4. serving: the port's `ScorerService` on ``cuda`` behind its HTTP server
    answers 32 concurrent ``/predict`` requests (coalesced by the
    micro-batcher), one ``/predict_bulk_csv`` and one
@@ -44,15 +46,22 @@ Phases, each of which must pass:
       SHAP) and one bulk CSV, checked against the plain scorer on the CPU;
    e. the first 10 trees of the level loop under ``torch.profiler``: the
       card's busy time, the histogram's part of it, its idle share and the
-      kernel launches per tree (last, as the profiler slows later launches).
+      kernel launches per tree;
+6. the scoring split: at each bucket of phase 3, the device time per call
+   of the walk kernel (``shap_kernel`` or ``walk_kernel``) and of
+   ``score_finalize_kernel``, from ``torch.profiler`` (last, as the
+   profiler slows later launches).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing neither, when
-CUDA is unavailable or any phase fails.
+CUDA is unavailable or any phase fails. ``--only-scoring`` runs phases 1-4
+and 6 (the short loop for work on ``csrc/score_forest.cu``) and prints
+neither line.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -99,6 +108,9 @@ FP32_FLOP_PER_S = 67e12
 TOL_PROB = 1e-6
 TOL_PHIS = 1e-5
 TOL_ADDITIVITY = 1e-4
+#: (rows, with SHAP) of the scoring checks: the /predict micro-batch buckets
+#: and two bulk chunk sizes.
+BUCKETS = ((1, True), (8, True), (64, True), (256, False), (4096, False))
 
 
 def card_line() -> str:
@@ -202,12 +214,15 @@ def kernel_phase(device: str = "cuda") -> list[dict]:
     pack = pack_forest(art.forest, F)
     cpu_pack = pack_forest(art.forest.to("cpu"), F)
     records = []
-    for bucket, with_shap in ((1, True), (8, True), (64, True), (256, False), (4096, False)):
+    for bucket, with_shap in BUCKETS:
         Xn = seeded_rows(pack, bucket, SEED + bucket)
         X = torch.from_numpy(Xn).to(device)
         out = fused_score(pack, X, n_features=F, with_shap=with_shap)
         plain = fused_score_reference(pack, X, n_features=F, with_shap=with_shap)
         err = compare(out, plain, with_shap)
+        again = fused_score(pack, X, n_features=F, with_shap=with_shap)
+        if not torch.equal(out[0], again[0]):
+            raise AssertionError(f"bucket {bucket}: two calls give other margins")
         # The margins are also the CPU plain version's, bit for bit.
         cpu_margin = fused_score_reference(
             cpu_pack, torch.from_numpy(Xn), n_features=F, with_shap=False
@@ -356,6 +371,64 @@ def serving_phase(
 def _request_keys() -> list[str]:
     alias = {v: k for k, v in schema.SERVING_FIELD_ALIASES.items()}
     return [alias.get(n, n) for n in schema.SERVING_FEATURES]
+
+
+#: Kernels of one `fused_score` call on the card.
+SCORE_KERNELS = ("walk_kernel", "shap_kernel", "score_finalize_kernel")
+PROFILED_CALLS = 20
+#: Profiler sessions tried before `device_ms_by_kernel` gives up.
+PROFILE_SESSIONS = 3
+
+
+def device_ms_by_kernel(fn, calls: int, expect: tuple[str, ...]) -> dict[str, float]:
+    """Device ms per call of each kernel and memset that ``fn`` runs, by
+    name, from ``torch.profiler`` over ``calls`` calls after one of warm-up.
+
+    Now and then a short profiler session hands back none of the card's
+    records. So a session counts only if it saw each kernel of
+    ``expect`` exactly ``calls`` times; otherwise it is logged to stderr and
+    run again, up to `PROFILE_SESSIONS` sessions, after which this raises.
+    What a session measures does not depend on the sessions before it."""
+    fn()
+    torch.cuda.synchronize()
+    for session in range(1, PROFILE_SESSIONS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ms: dict[str, float] = {}
+        seen: dict[str, int] = {}
+        for e in prof.key_averages():
+            if e.device_time_total > 0:
+                name = kernel_name(e.key)
+                ms[name] = ms.get(name, 0.0) + e.device_time_total / 1e3 / calls
+                seen[name] = seen.get(name, 0) + e.count
+        if all(seen.get(k) == calls for k in expect):
+            return ms
+        print(f"profiler session {session} of {PROFILE_SESSIONS} saw {seen}, "
+              f"expected {calls} of each of {expect}", file=sys.stderr)
+    raise AssertionError(f"{PROFILE_SESSIONS} profiler sessions missed kernels of {expect}")
+
+
+def scoring_split(device: str = "cuda") -> list[dict]:
+    """Device ms per call of each kernel of `fused_score` at each bucket of
+    `kernel_phase`, by name, from ``torch.profiler`` over `PROFILED_CALLS`
+    calls (`device_ms_by_kernel`)."""
+    art = GBDTArtifact.load(ObjectStore(str(STORE)), MODEL_KEY, device)
+    F = len(art.feature_names)
+    pack = pack_forest(art.forest, F)
+    records = []
+    for bucket, with_shap in BUCKETS:
+        X = torch.from_numpy(seeded_rows(pack, bucket, SEED + bucket)).to(device)
+        walk = "shap_kernel" if with_shap else "walk_kernel"
+        ms = device_ms_by_kernel(
+            lambda: fused_score(pack, X, n_features=F, with_shap=with_shap),
+            PROFILED_CALLS,
+            (walk, "score_finalize_kernel"),
+        )
+        split = {k: v for k, v in ms.items() if k in SCORE_KERNELS}
+        records.append({"bucket": bucket, "with_shap": with_shap, **split})
+    return records
 
 
 # -- training ------------------------------------------------------------------
@@ -749,7 +822,21 @@ def training_phase(card: str) -> tuple[list[dict], dict]:
     return records, summary
 
 
+def print_scoring_split(card: str) -> None:
+    for r in scoring_split("cuda"):
+        kernels = " ".join(f"{k}={r[k]:.6f}" for k in SCORE_KERNELS if k in r)
+        print(f"split score_forest bucket={r['bucket']} shap={r['with_shap']} "
+              f"(device ms per call) {kernels} [{card}]")
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--only-scoring",
+        action="store_true",
+        help="run phases 1-4 and the scoring split only; print no ok line",
+    )
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -777,10 +864,14 @@ def main() -> int:
               f"[{card}]")
     serving = serving_phase("cuda")
     print(f"serving: {json.dumps(serving)} [{card}]")
+    if args.only_scoring:
+        print_scoring_split(card)
+        return 0
     t0 = time.perf_counter()
     hist_records, training = training_phase(card)
     training["phase_s"] = time.perf_counter() - t0
     print(f"training: {json.dumps(training)} [{card}]")
+    print_scoring_split(card)
 
     main_rec = next(r for r in records if r["bucket"] == 64)
     hist_main = next(r for r in hist_records if r["shape"] == "level 6 subtracted")

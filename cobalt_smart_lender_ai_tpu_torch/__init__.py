@@ -13,9 +13,10 @@ reference so each file's counterpart is easy to find:
   ``csrc/gradient_histogram.cu``;
 - `ops.metrics` — ``roc_auc``;
 - `explain.treeshap` — path-dependent TreeSHAP as plain PyTorch;
-- `ops.score` — the fused scoring kernel's wrapper (`fused_score`), its plain
-  version and the packed forest; the kernel itself is
-  ``csrc/score_forest.cu``; both kernels are built by `ops._build`;
+- `ops.score` — the fused scoring kernels' wrapper (`fused_score`), its plain
+  version, its launch plan and the packed forest; the kernels (a walk with
+  TreeSHAP, then a finalize that sums in tree order) are
+  ``csrc/score_forest.cu``; both sources are built by `ops._build`;
 - `io` — the object store and the ``.npz`` model artifact (read and write);
 - `device` — the device rule every entry point follows;
 - `serve` — the micro-batching `ScorerService`, the asyncio HTTP server and

@@ -2,55 +2,93 @@
 //
 // Replaces the Pallas kernel `_score_kernel` of the reference package
 // (cobalt_smart_lender_ai_tpu/ops/score_pallas.py, called by `fused_score`).
-// One launch per call, on the caller's stream; the wrapper is
-// cobalt_smart_lender_ai_tpu_torch/ops/score.py::fused_score.
+// One call launches two kernels on the caller's stream: a walk kernel
+// (`walk_kernel` without SHAP, `shap_kernel<D>` with it) over a grid of
+// (row tile x tree group), then `score_finalize_kernel`, which sums per row.
+// The wrapper is cobalt_smart_lender_ai_tpu_torch/ops/score.py::fused_score;
+// its `launch_plan` picks the tile and group sizes, and this file trusts the
+// plan and checks only its bounds.
 //
 // What bounds it on an H100 (serving forest: T=300 trees of depth d=7, so
 // I=127 internal nodes and L=128 leaves per tree, F=20 features):
 //
-// - Margin only (bulk scoring, up to 4096 rows): the work is tiny. The
-//   kernel reads about 0.5 MB of forest (feature, threshold, missing
-//   direction, leaf value) and 4096 x 20 x 4 B of rows, and does d compares
-//   and one add per row and tree. Both bounds are well under a microsecond,
-//   so launch latency dominates. Design: one thread per row walks the d
-//   levels of each tree in index order; the forest stays in L2 (50 MB) and
-//   is read through the read-only cache; no shared memory, no atomics.
+// - Margin only (bulk scoring, up to 4096 rows): d compares and one add per
+//   row and tree, and about 0.5 MB of forest and 4096 x 20 x 4 B of rows to
+//   read. Both bounds are well under a microsecond, so what counts is that
+//   enough independent walks are in flight: one thread per (row, tree of its
+//   block's group) walks the d levels, 128 rows a block. The forest stays in
+//   L2 (50 MB) and is read through the read-only cache.
 // - With SHAP (/predict micro-batches of 1..64 rows): FP32 CUDA-core
 //   arithmetic. Per (row, tree, leaf) the code below does d multiplies for
 //   the player indicators, 2 (d-1)(3d+1) for the prefix and suffix
 //   polynomials, d(d(d+1) + 2d) for the bilinear Shapley contraction and 3d
 //   for the contributions: 782 FLOP at d=7, so 30 MFLOP per row per 300-tree
-//   forest (67 TFLOP/s FP32 peak: 0.45 us per row). The forest and its leaf
-//   tables are about 2.9 MB, under a microsecond at 3.35 TB/s, so the bound
-//   is the arithmetic. Design: a block owns a tile of rows and loops over the trees.
-//   Each tree's row-independent tables (node features, thresholds and
-//   missing directions; per-leaf path features, duplicate-feature slots,
-//   cover-ratio products; leaf values) are staged in shared memory once per
-//   tree and shared by every row of the tile. The node decisions of each row
-//   are computed once per tree (rows x I) and shared by the L leaf threads.
-//   One thread per (row, leaf) keeps its prefix / suffix coefficients in
+//   forest (67 TFLOP/s FP32 peak: 0.45 us per row). A block owns a tile of
+//   up to 8 rows and a group of consecutive trees. Each tree's
+//   row-independent tables (one record of `TreeLayout`, ~9.5 KB at d=7) are
+//   copied into shared memory with cp.async, double-buffered, so tree t+1's
+//   record arrives while tree t computes. The node decisions of each row are
+//   computed once per tree (rows x I) and shared by the L leaf threads. One
+//   thread per (row, leaf) keeps its prefix / suffix coefficients in
 //   registers (the depth is a template parameter, so every loop unrolls),
 //   contracts them with the bilinear form Wt held in constant memory, and
 //   adds its contributions into a shared (rows, F) f32 accumulator of this
-//   tree with shared atomics. The tree's sums are then folded into the
-//   tile's running (rows, F) totals, kept in f64: phis reach |8| on the
+//   tree. The 32 lanes of a warp are consecutive leaves of one row, so at
+//   the top levels they all share a path node, and shared atomics on its
+//   feature would serialise: lanes that share the node first sum their
+//   contributions with warp shuffles, and one of them adds the sum with a
+//   shared atomic (d >= 5). The tree's sums are then folded into the
+//   block's (rows, F) f64 totals in tree order: phis reach |8| on the
 //   serving model, where 300 f32 adds into one running total lose up to
-//   ~3e-5. The tile writes phis (f32) once at the end.
+//   ~3e-5. The block writes its totals to phi_part[group] (f64).
 //
-// Margins are bit-identical to the reference: one thread per row sums the
-// landed leaf values over trees in index order starting at 0.0f, with plain
-// f32 adds and no atomics — the same sequence of adds as the reference's
-// `lax.scan`. The sigmoid is 1 / (1 + expf(-m)). SHAP phis are summed with
-// atomics in no fixed order and agree to float tolerance.
+// The grid spreads the trees over blocks, so no block may sum a margin: a
+// sum of per-group partial margins would add in another order than the
+// reference. Each walk writes the value of the leaf its row lands in to
+// leaf_val[tree][row] (row-minor, so the finalize reads coalesce), and the
+// finalize kernel sums them per row in tree order starting at 0.0f, with
+// plain f32 adds: the same sequence of adds as the reference's `lax.scan`,
+// so margins are bit-identical to it. The sigmoid is 1 / (1 + expf(-m)). The
+// finalize sums each row's phi_part in group order and casts to f32 once;
+// only the shared atomics inside one tree add in no fixed order.
 
 #include <cuda_runtime.h>
 
 #define MAX_DEPTH 10
 #define WT_STRIDE (MAX_DEPTH + 1)
+// Most rows one SHAP block takes (ops/score.py's plan uses at most 8) and
+// most threads it runs.
+#define MAX_SHAP_ROWS 32
+#define MAX_SHAP_THREADS 256
 
 // Wt[depth][a][b] = W[a + b, depth] (0 where a + b >= depth), uploaded once
 // per device by score_forest_set_wt.
 __constant__ float c_wt[(MAX_DEPTH + 1) * WT_STRIDE * WT_STRIDE];
+
+// ---- one tree's tables: a record of 32-bit words ----------------------------
+// ops/score.py::tree_table_layout builds the same layout. Every section
+// starts on a 16-byte boundary, so a record is copied 16 bytes at a time:
+//   thr f32[I] | feature i32[I] | leaf f32[L] | r_play f32[L*d]
+//   | path_feature i32[L*d] | missing_left u8[I] | slot u8[L*d]
+struct TreeLayout {
+  int thr, feat, leaf, rplay, pf, ml, slot, words;
+};
+
+__host__ __device__ constexpr int pad4(int words) { return (words + 3) & ~3; }
+
+__host__ __device__ constexpr TreeLayout tree_layout(int d) {
+  const int L = 1 << d, I = L - 1, LD = L * d;
+  TreeLayout t{};
+  t.thr = 0;
+  t.feat = t.thr + pad4(I);
+  t.leaf = t.feat + pad4(I);
+  t.rplay = t.leaf + pad4(L);
+  t.pf = t.rplay + pad4(LD);
+  t.ml = t.pf + pad4(LD);
+  t.slot = t.ml + pad4((I + 3) / 4);
+  t.words = t.slot + pad4((LD + 3) / 4);
+  return t;
+}
 
 static __device__ __forceinline__ bool goes_left(float x, float thr,
                                                  unsigned char missing_left) {
@@ -61,123 +99,141 @@ static __device__ __forceinline__ float sigmoid(float m) {
   return 1.0f / (1.0f + expf(-m));
 }
 
-// ---- margin only: one thread per row ----------------------------------------
+// ---- margin only: one thread per (row, tree of the block's group) -----------
 
-__global__ void margin_kernel(const int* __restrict__ feature,
-                              const float* __restrict__ thr,
-                              const unsigned char* __restrict__ missing_left,
-                              const float* __restrict__ leaf,
-                              const float* __restrict__ x, int n_rows,
-                              int n_features, int n_trees, int depth,
-                              float* __restrict__ margin,
-                              float* __restrict__ prob) {
+__global__ void walk_kernel(const int* __restrict__ tables,
+                            const float* __restrict__ x, int n_rows,
+                            int n_features, int n_trees, int depth,
+                            int trees_per_group, float* __restrict__ leaf_val) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= n_rows) return;
-  const int n_leaves = 1 << depth;
-  const int n_internal = n_leaves - 1;
+  const TreeLayout lay = tree_layout(depth);
+  const int n_internal = (1 << depth) - 1;
   const float* xr = x + (size_t)row * n_features;
-  float m = 0.0f;
-  for (int t = 0; t < n_trees; ++t) {
-    const size_t base = (size_t)t * n_internal;
+  const int t0 = blockIdx.y * trees_per_group;
+  const int t1 = min(n_trees, t0 + trees_per_group);
+  for (int t = t0; t < t1; ++t) {
+    const int* rec = tables + (size_t)t * lay.words;
+    const float* thr = reinterpret_cast<const float*>(rec + lay.thr);
+    const int* feat = rec + lay.feat;
+    const unsigned char* ml = reinterpret_cast<const unsigned char*>(rec + lay.ml);
     int node = 0;
     for (int p = 0; p < depth; ++p) {
-      const float v = xr[__ldg(feature + base + node)];
-      const bool left =
-          goes_left(v, __ldg(thr + base + node), __ldg(missing_left + base + node));
-      node = 2 * node + (left ? 1 : 2);
+      const float v = __ldg(xr + __ldg(feat + node));
+      node = 2 * node + (goes_left(v, __ldg(thr + node), __ldg(ml + node)) ? 1 : 2);
     }
-    m += __ldg(leaf + (size_t)t * n_leaves + (node - n_internal));
+    const float* leaf = reinterpret_cast<const float*>(rec + lay.leaf);
+    leaf_val[(size_t)t * n_rows + row] = __ldg(leaf + (node - n_internal));
   }
-  margin[row] = m;
-  prob[row] = sigmoid(m);
 }
 
-// ---- margin + SHAP: a block per row tile, a thread per (row, leaf) -------------
+// ---- with SHAP: a block per (row tile, tree group), a thread per (row, leaf) -
+
+static __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+static __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start copying one tree's record into shared memory, 16 bytes a thread.
+static __device__ __forceinline__ void stage_tree(int* dst, const int* src,
+                                                  int words) {
+  for (int i = 4 * threadIdx.x; i < words; i += 4 * blockDim.x)
+    cp_async16(dst + i, src + i);
+  cp_async_commit();
+}
 
 // Shared-memory layout of shap_kernel, in bytes (ops/score.py mirrors it in
-// `shap_smem_bytes` for its shape guard).
+// `shap_smem_bytes` for its shape guard): two tree records, the (rows, F)
+// f64 totals, the row tile, this tree's (rows, F) f32 sums and the tile's
+// node decisions.
 static size_t shap_smem_bytes(int depth, int n_features, int rows) {
-  const size_t L = (size_t)1 << depth, I = L - 1, LD = L * depth;
-  return 8 * (size_t)rows * n_features +
-         4 * (2 * I + L + 2 * LD + 2 * (size_t)rows * n_features) + I + LD +
-         (size_t)rows * I;
+  const size_t RF = (size_t)rows * n_features;
+  return 8 * (size_t)tree_layout(depth).words + 16 * RF +
+         (size_t)rows * ((1 << depth) - 1);
 }
 
+// Up to depth 7 the compiler is held to four blocks an SM (64 registers a
+// thread, a few spilled): the leaf threads' coefficients then stay in flight
+// on 32 warps instead of 16, which the walk's grid needs more than the
+// registers. Deeper trees keep every register they need.
 template <int D>
-__global__ void shap_kernel(const int* __restrict__ feature,
-                            const float* __restrict__ thr,
-                            const unsigned char* __restrict__ missing_left,
-                            const float* __restrict__ leaf,
-                            const int* __restrict__ path_feature,
-                            const unsigned char* __restrict__ slot,
-                            const float* __restrict__ r_play,
-                            const float* __restrict__ x, int n_rows,
-                            int n_features, int n_trees, int rows_per_block,
-                            float* __restrict__ margin,
-                            float* __restrict__ prob,
-                            float* __restrict__ phis) {
+__global__ void __launch_bounds__(MAX_SHAP_THREADS, D <= 7 ? 4 : 1)
+    shap_kernel(const int* __restrict__ tables, const float* __restrict__ x,
+                int n_rows, int n_features, int n_trees, int rows_per_block,
+                int trees_per_group, float* __restrict__ leaf_val,
+                double* __restrict__ phi_part) {
   constexpr int L = 1 << D;
   constexpr int I = L - 1;
-  constexpr int LD = L * D;
+  constexpr TreeLayout lay = tree_layout(D);
   const float* wt = c_wt + D * WT_STRIDE * WT_STRIDE;
   const int R = rows_per_block;
   const int nf = n_features;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  double* s_phi = reinterpret_cast<double*>(smem);        // R*F, all trees
-  float* s_thr = reinterpret_cast<float*>(s_phi + R * nf);  // I
-  int* s_feat = reinterpret_cast<int*>(s_thr + I);        // I
-  float* s_leaf = reinterpret_cast<float*>(s_feat + I);   // L
-  float* s_rplay = s_leaf + L;                            // L*D
-  int* s_pf = reinterpret_cast<int*>(s_rplay + LD);       // L*D
-  float* s_x = reinterpret_cast<float*>(s_pf + LD);       // R*F
-  float* s_tphi = s_x + R * nf;                           // R*F, this tree
-  unsigned char* s_ml = reinterpret_cast<unsigned char*>(s_tphi + R * nf);  // I
-  unsigned char* s_slot = s_ml + I;                       // L*D
-  unsigned char* s_gl = s_slot + LD;                      // R*I
+  int* s_tab = reinterpret_cast<int*>(smem);                         // 2 records
+  double* s_phi = reinterpret_cast<double*>(s_tab + 2 * lay.words);  // R*F, group
+  float* s_x = reinterpret_cast<float*>(s_phi + R * nf);             // R*F
+  float* s_tphi = s_x + R * nf;                                      // R*F, tree
+  unsigned char* s_gl = reinterpret_cast<unsigned char*>(s_tphi + R * nf);  // R*I
 
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int row0 = blockIdx.x * R;
   const int rows = min(R, n_rows - row0);
+  const int t0 = blockIdx.y * trees_per_group;
+  const int n_local = min(trees_per_group, n_trees - t0);
 
+  stage_tree(s_tab, tables + (size_t)t0 * lay.words, lay.words);
   for (int k = tid; k < R * nf; k += nt) {
     s_x[k] = (k / nf) < rows ? x[(size_t)row0 * nf + k] : 0.0f;
     s_phi[k] = 0.0;
     s_tphi[k] = 0.0f;
   }
-  float m = 0.0f;  // margin of row `tid` of the tile (tid < rows)
 
-  for (int t = 0; t < n_trees; ++t) {
-    // Everyone is done with the previous tree's tables (and, at t == 0, the
-    // row tile is in shared memory).
-    __syncthreads();
-    const size_t ni = (size_t)t * I, nl = (size_t)t * L, nld = (size_t)t * LD;
-    for (int i = tid; i < I; i += nt) {
-      s_thr[i] = thr[ni + i];
-      s_feat[i] = feature[ni + i];
-      s_ml[i] = missing_left[ni + i];
+  for (int i = 0; i < n_local; ++i) {
+    const int* tab = s_tab + (i & 1) * lay.words;
+    // The other buffer held tree i-1, which every thread is done with (the
+    // barrier before the last fold): fetch tree i+1 into it, then wait for
+    // tree i only.
+    if (i + 1 < n_local) {
+      stage_tree(s_tab + ((i + 1) & 1) * lay.words,
+                 tables + (size_t)(t0 + i + 1) * lay.words, lay.words);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    for (int i = tid; i < L; i += nt) s_leaf[i] = leaf[nl + i];
-    for (int i = tid; i < LD; i += nt) {
-      s_rplay[i] = r_play[nld + i];
-      s_pf[i] = path_feature[nld + i];
-      s_slot[i] = slot[nld + i];
-    }
-    __syncthreads();
+    __syncthreads();  // tree i's record (and, at i == 0, the row tile) is in
+    const float* s_thr = reinterpret_cast<const float*>(tab + lay.thr);
+    const int* s_feat = tab + lay.feat;
+    const float* s_leaf = reinterpret_cast<const float*>(tab + lay.leaf);
+    const float* s_rplay = reinterpret_cast<const float*>(tab + lay.rplay);
+    const int* s_pf = tab + lay.pf;
+    const unsigned char* s_ml = reinterpret_cast<const unsigned char*>(tab + lay.ml);
+    const unsigned char* s_slot = reinterpret_cast<const unsigned char*>(tab + lay.slot);
+
     // Node decisions, once per (row, internal node).
     for (int k = tid; k < rows * I; k += nt) {
       const int r = k / I;
-      const int i = k - r * I;
-      s_gl[k] = goes_left(s_x[r * nf + s_feat[i]], s_thr[i], s_ml[i]) ? 1 : 0;
+      const int n = k - r * I;
+      s_gl[k] = goes_left(s_x[r * nf + s_feat[n]], s_thr[n], s_ml[n]) ? 1 : 0;
     }
     __syncthreads();
-    // Margin: this row's walk, one f32 add per tree in tree order.
+    // This row's walk: the landed leaf's value, summed later in tree order.
     if (tid < rows) {
       int node = 0;
 #pragma unroll
       for (int p = 0; p < D; ++p) node = 2 * node + (s_gl[tid * I + node] ? 1 : 2);
-      m += s_leaf[node - I];
+      leaf_val[(size_t)(t0 + i) * n_rows + row0 + tid] = s_leaf[node - I];
     }
     // SHAP: one (row, leaf) pair per iteration.
     for (int k = tid; k < rows * L; k += nt) {
@@ -237,48 +293,152 @@ __global__ void shap_kernel(const int* __restrict__ feature,
           psi += P[a] * acc;
         }
         const float contrib = (z[j] - rp[j]) * psi * lv;
-        if (contrib != 0.0f) atomicAdd(phi_r + s_pf[l * D + j], contrib);
+        if constexpr (L >= 32) {
+          // The warp's lanes are 32 consecutive leaves of one row, and the
+          // aligned runs of 2^(D-j) of them share their level-j node, so its
+          // feature: sum each run with shuffles, then one atomic a run.
+          const int run = (D - j >= 5) ? 32 : (1 << (D - j));
+          float v = contrib;
+#pragma unroll
+          for (int o = 1; o < 32; o <<= 1)
+            if (o < run) v += __shfl_xor_sync(0xffffffffu, v, o);
+          if ((l & (run - 1)) == 0 && v != 0.0f) atomicAdd(phi_r + s_pf[l * D + j], v);
+        } else {
+          if (contrib != 0.0f) atomicAdd(phi_r + s_pf[l * D + j], contrib);
+        }
 #pragma unroll
         for (int c = D; c > 0; --c) P[c] = rp[j] * P[c] + z[j] * P[c - 1];
         P[0] = rp[j] * P[0];
       }
     }
-    // Fold this tree's attributions into the running totals.
+    // Fold this tree's attributions into the group's totals, in tree order.
     __syncthreads();
     for (int k = tid; k < rows * nf; k += nt) {
       s_phi[k] += (double)s_tphi[k];
       s_tphi[k] = 0.0f;
     }
   }
-  __syncthreads();
-  for (int k = tid; k < rows * nf; k += nt) phis[(size_t)row0 * nf + k] = (float)s_phi[k];
-  if (tid < rows) {
-    margin[row0 + tid] = m;
-    prob[row0 + tid] = sigmoid(m);
+  // Each thread writes the totals it folded itself: no barrier needed.
+  double* out = phi_part + ((size_t)blockIdx.y * n_rows + row0) * nf;
+  for (int k = tid; k < rows * nf; k += nt) out[k] = s_phi[k];
+}
+
+// ---- finalize: per row, trees (and groups) in order --------------------------
+
+// Items (rows, or (row, feature) pairs) of one finalize block, its threads,
+// and its staging buffer.
+#define FIN_ITEMS 32
+#define FIN_THREADS 256
+#define FIN_BYTES 32768
+
+// Sum, for the FIN_ITEMS items from item0, the n_terms values
+// src[term * stride + item] in term order from zero. All the block's threads
+// stage a chunk of terms in shared memory (independent loads, coalesced
+// along the items); then thread i < FIN_ITEMS adds its item's terms one at a
+// time. The result is valid in threads i < FIN_ITEMS.
+template <typename T>
+static __device__ __forceinline__ T sum_in_order(const T* __restrict__ src,
+                                                 size_t stride, int n_terms,
+                                                 int item0, int n_items,
+                                                 T* s_buf) {
+  constexpr int CHUNK = FIN_BYTES / (int)sizeof(T) / FIN_ITEMS;
+  const int tid = threadIdx.x;
+  T acc = T(0);
+  for (int c0 = 0; c0 < n_terms; c0 += CHUNK) {
+    const int n = min(CHUNK, n_terms - c0);
+#pragma unroll 8
+    for (int k = tid; k < n * FIN_ITEMS; k += FIN_THREADS) {
+      const int t = k / FIN_ITEMS;
+      const int item = item0 + (k - t * FIN_ITEMS);
+      s_buf[k] = item < n_items ? __ldg(src + (size_t)(c0 + t) * stride + item) : T(0);
+    }
+    __syncthreads();
+    if (tid < FIN_ITEMS)
+      for (int t = 0; t < n; ++t) acc += s_buf[t * FIN_ITEMS + tid];
+    __syncthreads();
+  }
+  return acc;
+}
+
+// The first ceil(N / FIN_ITEMS) blocks sum margins: one f32 add per tree,
+// in tree order, from 0.0f. The rest (with SHAP) sum each (row, feature)'s
+// f64 group totals in group order and cast once.
+__global__ void __launch_bounds__(FIN_THREADS)
+    score_finalize_kernel(const float* __restrict__ leaf_val,
+                          const double* __restrict__ phi_part, int n_rows,
+                          int n_features, int n_trees, int n_groups,
+                          float* __restrict__ margin, float* __restrict__ prob,
+                          float* __restrict__ phis) {
+  __shared__ __align__(16) unsigned char s_buf[FIN_BYTES];
+  const int margin_blocks = (n_rows + FIN_ITEMS - 1) / FIN_ITEMS;
+  const int i = threadIdx.x;
+  if ((int)blockIdx.x < margin_blocks) {
+    const int row0 = blockIdx.x * FIN_ITEMS;
+    const float m = sum_in_order(leaf_val, (size_t)n_rows, n_trees, row0, n_rows,
+                                 reinterpret_cast<float*>(s_buf));
+    if (i < FIN_ITEMS && row0 + i < n_rows) {
+      margin[row0 + i] = m;
+      prob[row0 + i] = sigmoid(m);
+    }
+  } else {
+    const int items = n_rows * n_features;
+    const int k0 = (blockIdx.x - margin_blocks) * FIN_ITEMS;
+    const double s = sum_in_order(phi_part, (size_t)items, n_groups, k0, items,
+                                  reinterpret_cast<double*>(s_buf));
+    if (i < FIN_ITEMS && k0 + i < items) phis[k0 + i] = (float)s;
   }
 }
 
 template <int D>
-static cudaError_t launch_shap(const int* feature, const float* thr,
-                               const unsigned char* missing_left,
-                               const float* leaf, const int* path_feature,
-                               const unsigned char* slot, const float* r_play,
-                               const float* x, int n_rows, int n_features,
-                               int n_trees, int rows_per_block, float* margin,
-                               float* prob, float* phis, cudaStream_t stream) {
+static cudaError_t launch_shap(const int* tables, const float* x, int n_rows,
+                               int n_features, int n_trees, int rows_per_block,
+                               int trees_per_group, int n_groups, int threads,
+                               float* leaf_val, double* phi_part,
+                               cudaStream_t stream) {
   const size_t smem = shap_smem_bytes(D, n_features, rows_per_block);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         shap_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const int pairs = rows_per_block << D;
-  const int threads = pairs >= 256 ? 256 : ((pairs + 31) / 32) * 32;
-  const int blocks = (n_rows + rows_per_block - 1) / rows_per_block;
-  shap_kernel<D><<<blocks, threads, smem, stream>>>(
-      feature, thr, missing_left, leaf, path_feature, slot, r_play, x, n_rows,
-      n_features, n_trees, rows_per_block, margin, prob, phis);
+  const dim3 grid((n_rows + rows_per_block - 1) / rows_per_block, n_groups);
+  shap_kernel<D><<<grid, threads, smem, stream>>>(
+      tables, x, n_rows, n_features, n_trees, rows_per_block, trees_per_group,
+      leaf_val, phi_part);
   return cudaGetLastError();
+}
+
+static cudaError_t launch_walk(const int* tables, const float* x, int n_rows,
+                               int n_features, int n_trees, int depth,
+                               int rows_per_block, int trees_per_group,
+                               int n_groups, int threads, float* leaf_val,
+                               double* phi_part, cudaStream_t stream) {
+  if (phi_part == nullptr) {
+    const dim3 grid((n_rows + rows_per_block - 1) / rows_per_block, n_groups);
+    walk_kernel<<<grid, threads, 0, stream>>>(tables, x, n_rows, n_features,
+                                              n_trees, depth, trees_per_group,
+                                              leaf_val);
+    return cudaGetLastError();
+  }
+#define SHAP_CASE(D)                                                        \
+  case D:                                                                   \
+    return launch_shap<D>(tables, x, n_rows, n_features, n_trees,           \
+                          rows_per_block, trees_per_group, n_groups, threads, \
+                          leaf_val, phi_part, stream);
+  switch (depth) {
+    SHAP_CASE(1)
+    SHAP_CASE(2)
+    SHAP_CASE(3)
+    SHAP_CASE(4)
+    SHAP_CASE(5)
+    SHAP_CASE(6)
+    SHAP_CASE(7)
+    SHAP_CASE(8)
+    SHAP_CASE(9)
+    SHAP_CASE(10)
+  }
+#undef SHAP_CASE
+  return cudaErrorInvalidValue;
 }
 
 extern "C" {
@@ -295,47 +455,49 @@ const char* score_forest_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// One launch on `stream`. `phis == NULL` selects the margin-only kernel;
-// otherwise path_feature / slot / r_play are (T, L, depth) leaf tables and
-// phis is (n_rows, n_features). Returns cudaGetLastError() of the launch.
-int score_forest(int device, const int* feature, const float* thr,
-                 const unsigned char* missing_left, const float* leaf,
-                 const int* path_feature, const unsigned char* slot,
-                 const float* r_play, const float* x, int n_rows,
+// Words of one tree's record at `depth` (ops/score.py checks its own layout
+// against it).
+int score_forest_table_words(int depth) {
+  return depth < 1 || depth > MAX_DEPTH ? -1 : tree_layout(depth).words;
+}
+
+// One call on `stream`: the walk kernel over (row tiles x n_groups) blocks of
+// `threads`, then the finalize kernel. `tables` is (n_trees, words) records,
+// 16-byte aligned; leaf_val is (n_trees, n_rows) f32 scratch. `phis == NULL`
+// selects the margin-only walk (rows_per_block == threads, one row a
+// thread); otherwise phi_part is (n_groups, n_rows, n_features) f64 scratch
+// and phis is (n_rows, n_features). Returns the first launch error.
+int score_forest(int device, const int* tables, const float* x, int n_rows,
                  int n_features, int n_trees, int depth, int rows_per_block,
-                 float* margin, float* prob, float* phis, void* stream) {
+                 int trees_per_group, int n_groups, int threads,
+                 float* leaf_val, double* phi_part, float* margin, float* prob,
+                 float* phis, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (depth < 1 || depth > MAX_DEPTH || rows_per_block < 1 || rows_per_block > 32)
-    return (int)cudaErrorInvalidValue;
+  const bool shap = phis != nullptr;
+  const bool bad =
+      depth < 1 || depth > MAX_DEPTH || n_rows < 1 || n_features < 1 ||
+      n_trees < 0 || trees_per_group < 1 ||
+      n_groups != (n_trees + trees_per_group - 1) / trees_per_group ||
+      n_groups > 65535 || threads < 32 || threads % 32 != 0 ||
+      ((size_t)tables & 15) != 0 ||
+      (shap ? (rows_per_block < 1 || rows_per_block > MAX_SHAP_ROWS ||
+               threads > MAX_SHAP_THREADS ||
+               (n_groups > 0 && phi_part == nullptr))
+            : (rows_per_block != threads || threads > 1024));
+  if (bad) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (phis == nullptr) {
-    const int threads = 128;
-    const int blocks = (n_rows + threads - 1) / threads;
-    margin_kernel<<<blocks, threads, 0, s>>>(feature, thr, missing_left, leaf, x,
-                                             n_rows, n_features, n_trees, depth,
-                                             margin, prob);
-    return (int)cudaGetLastError();
+  if (n_groups > 0) {
+    err = launch_walk(tables, x, n_rows, n_features, n_trees, depth,
+                      rows_per_block, trees_per_group, n_groups, threads,
+                      leaf_val, shap ? phi_part : nullptr, s);
+    if (err != cudaSuccess) return (int)err;
   }
-#define SHAP_CASE(D)                                                           \
-  case D:                                                                      \
-    return (int)launch_shap<D>(feature, thr, missing_left, leaf, path_feature, \
-                               slot, r_play, x, n_rows, n_features, n_trees,   \
-                               rows_per_block, margin, prob, phis, s);
-  switch (depth) {
-    SHAP_CASE(1)
-    SHAP_CASE(2)
-    SHAP_CASE(3)
-    SHAP_CASE(4)
-    SHAP_CASE(5)
-    SHAP_CASE(6)
-    SHAP_CASE(7)
-    SHAP_CASE(8)
-    SHAP_CASE(9)
-    SHAP_CASE(10)
-  }
-#undef SHAP_CASE
-  return (int)cudaErrorInvalidValue;
+  int fin_blocks = (n_rows + FIN_ITEMS - 1) / FIN_ITEMS;
+  if (shap) fin_blocks += (n_rows * n_features + FIN_ITEMS - 1) / FIN_ITEMS;
+  score_finalize_kernel<<<fin_blocks, FIN_THREADS, 0, s>>>(
+      leaf_val, phi_part, n_rows, n_features, n_trees, n_groups, margin, prob, phis);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -23,7 +23,6 @@ import sys
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
 from cobalt_smart_lender_ai_tpu_torch.config import GBDTConfig
@@ -38,20 +37,9 @@ def stage_ms(bins: torch.Tensor, call: dict, n_bins: int) -> dict[str, float]:
     launch runs, by name, from the profiler's trace of the card."""
     args = (bins, call["node"], call["g"], call["h"], call["w"])
     kw = dict(n_nodes=call["K"], n_bins=n_bins)
-    gradient_histogram_channels(*args, **kw)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILED_LAUNCHES):
-            gradient_histogram_channels(*args, **kw)
-        torch.cuda.synchronize()
-    stages = {}
-    for e in prof.key_averages():
-        if e.device_time_total > 0:
-            name = cs.kernel_name(e.key)
-            stages[name] = stages.get(name, 0.0) + e.device_time_total / 1e3 / PROFILED_LAUNCHES
-    if not stages.get("hist_kernel"):
-        raise AssertionError(f"the profiler saw no histogram kernel: {stages}")
-    return stages
+    return cs.device_ms_by_kernel(
+        lambda: gradient_histogram_channels(*args, **kw), PROFILED_LAUNCHES, ("hist_kernel",)
+    )
 
 
 def main() -> int:

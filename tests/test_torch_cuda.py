@@ -6,10 +6,15 @@ it, skipping the JAX-only conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerances of ``score_forest``: margins bit-identical (both sum the landed leaf values one f32 add
-per tree, in tree order); prob within 1e-6 (two sigmoid implementations);
-phis within 1e-5 (the kernel adds a tree's contributions with atomics in no
-fixed order). Of ``gradient_histogram``: cover bit-identical, g and h of
+Tolerances of ``score_forest``: margins bit-identical (both sum the landed
+leaf values one f32 add per tree, in tree order; the kernel's finalize pass
+does so after its walk spread the trees over blocks), also across two calls;
+prob within 1e-6 (two sigmoid implementations); phis within 1e-5 (the
+kernel adds a tree's contributions with atomics in no fixed order), and
+``base + sum(phis)`` within 1e-4 of the margin. The cases cover what the
+grid of (row tile x tree group) can get wrong: forests whose last tree
+group is not full, depths 1 to 10, ragged row tiles, an all-NaN row and a
+zero-padded bucket. Of ``gradient_histogram``: cover bit-identical, g and h of
 each node within 1e-5 of that node's largest |value| in the channel, two
 launches bit-identical (integer fixed-point sums), the same rows in another
 order bit-identical (the kernel groups rows by node in no fixed order), and
@@ -18,12 +23,14 @@ a small fit on the card bit-identical twice over.
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from cobalt_smart_lender_ai_tpu_torch.convert import forest_from_numpy
 from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models.gbdt import GBDTClassifier
 from cobalt_smart_lender_ai_tpu_torch.ops.histogram import (
@@ -63,25 +70,104 @@ def _rows(pack, n: int, seed: int) -> np.ndarray:
     return X
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows, with_shap", [(1, True), (64, True), (4096, False)])
-def test_kernel_matches_plain_on_card(card_pack, rows, with_shap):
-    pack, cpu_pack, F = card_pack
-    Xn = _rows(pack, rows, seed=rows)
-    X = torch.from_numpy(Xn).cuda()
+def _assert_kernel_matches_plain(pack, cpu_pack, Xn: np.ndarray, with_shap: bool) -> None:
+    """One call of the kernel against the plain version on the card and on
+    the CPU, and a second call's margins against the first's."""
+    F = pack.n_features
+    X = torch.from_numpy(np.ascontiguousarray(Xn)).cuda()
     before = fused_score.launches
     out = fused_score(pack, X, n_features=F, with_shap=with_shap)
+    again = fused_score(pack, X, n_features=F, with_shap=with_shap)
     torch.cuda.synchronize()
-    assert fused_score.launches == before + 1
+    assert fused_score.launches == before + 2
+    assert torch.equal(out[0], again[0])
     ref = fused_score_reference(pack, X, n_features=F, with_shap=with_shap)
     assert torch.equal(out[0], ref[0])
     cpu_margin = fused_score_reference(cpu_pack, torch.from_numpy(Xn), n_features=F, with_shap=False)[0]
     assert torch.equal(out[0].cpu(), cpu_margin)
     assert float((out[1] - ref[1]).abs().max()) <= TOL_PROB
     if with_shap:
+        assert bool(torch.isfinite(out[2]).all())
         assert float((out[2] - ref[2]).abs().max()) <= TOL_SHAP
         additivity = (out[3] + out[2].sum(1) - out[0]).abs().max()
         assert float(additivity) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "rows, with_shap",
+    [(1, True), (3, True), (64, True), (65, True), (257, True),
+     (1, False), (4096, False), (4097, False)],
+)
+def test_kernel_matches_plain_on_card(card_pack, rows, with_shap):
+    pack, cpu_pack, _ = card_pack
+    _assert_kernel_matches_plain(pack, cpu_pack, _rows(pack, rows, seed=rows), with_shap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_trees", [1, 7, 299])
+def test_kernel_takes_any_tree_count_on_card(card_pack, n_trees):
+    """The committed forest's first T trees: at 7 and 299 trees the last
+    tree group of some bucket is not full."""
+    _, cpu_pack, F = card_pack
+    art = GBDTArtifact.load(ObjectStore(str(ROOT / "artifacts")), "models/gbdt/model_tree", "cpu")
+    forest = art.forest
+    sliced = dataclasses.replace(
+        forest,
+        **{f.name: getattr(forest, f.name)[:n_trees] for f in dataclasses.fields(forest) if f.name != "depth"},
+    )
+    pack, cpu_sliced = pack_forest(sliced.to("cuda"), F), pack_forest(sliced, F)
+    for rows, with_shap in ((1, True), (64, True), (300, False)):
+        _assert_kernel_matches_plain(pack, cpu_sliced, _rows(cpu_pack, rows, seed=n_trees + rows), with_shap)
+
+
+def _synthetic_forest(depth: int, n_trees: int, F: int, seed: int):
+    """Random splits and leaf values; covers positive and consistent (each
+    internal node's cover is its children's sum), some thresholds +inf."""
+    rng = np.random.default_rng(seed)
+    L = 2**depth
+    I = L - 1
+    cover = np.zeros((n_trees, I + L), np.float32)
+    cover[:, I:] = rng.integers(1, 100, (n_trees, L))
+    for n in range(I - 1, -1, -1):
+        cover[:, n] = cover[:, 2 * n + 1] + cover[:, 2 * n + 2]
+    thr = rng.normal(size=(n_trees, I)).astype(np.float32)
+    thr[rng.random(thr.shape) < 0.05] = np.inf
+    arrays = dict(
+        feature=rng.integers(0, F, (n_trees, I)),
+        thr_bin=np.zeros((n_trees, I)),
+        thr_float=thr,
+        missing_left=rng.random((n_trees, I)) < 0.5,
+        gain=np.zeros((n_trees, I)),
+        cover=cover,
+        leaf_value=(0.1 * rng.normal(size=(n_trees, L))).astype(np.float32),
+    )
+    return forest_from_numpy(arrays, depth)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 3, 10])
+def test_kernel_synthetic_depths_on_card(card_pack, depth):
+    F = 12
+    forest = _synthetic_forest(depth, 37, F, seed=depth)
+    pack, cpu_pack = pack_forest(forest.to("cuda"), F), pack_forest(forest, F)
+    rng = np.random.default_rng(depth)
+    for rows, with_shap in ((1, True), (9, True), (130, False)):
+        X = rng.normal(size=(rows, F)).astype(np.float32)
+        X[rng.random(X.shape) < 0.1] = np.nan
+        _assert_kernel_matches_plain(pack, cpu_pack, X, with_shap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_shap", [True, False], ids=["shap", "margin"])
+def test_kernel_all_nan_and_padded_rows_on_card(card_pack, with_shap):
+    """An all-NaN row (every node takes its missing direction) and a bucket
+    of 8 whose last 3 rows are the zero padding the micro-batcher adds."""
+    pack, cpu_pack, _ = card_pack
+    X = _rows(pack, 8, seed=17)
+    X[0] = np.nan
+    X[5:] = 0.0
+    _assert_kernel_matches_plain(pack, cpu_pack, X, with_shap)
 
 
 @pytest.fixture(scope="module")

@@ -44,12 +44,19 @@ from cobalt_smart_lender_ai_tpu_torch.models.gbdt import gain_importances, predi
 from cobalt_smart_lender_ai_tpu_torch.ops import _build
 from cobalt_smart_lender_ai_tpu_torch.ops.score import (
     MAX_DEPTH,
+    MAX_ROWS_PER_BLOCK,
+    MAX_SHAP_THREADS,
+    SHAP_TARGET_BLOCKS,
+    SMEM_LIMIT,
+    WALK_TARGET_BLOCKS,
     fused_score,
     fused_score_reference,
     fused_supported,
+    launch_plan,
     pack_forest,
     shap_smem_bytes,
     shap_supported,
+    tree_table_layout,
     wt_table,
 )
 
@@ -284,6 +291,86 @@ def test_shape_guards():
     assert not shap_supported(MAX_DEPTH + 1, 20)
     # The serving tile fits easily: well under the 48 KB static limit.
     assert shap_smem_bytes(7, 20, 1) < 48 * 1024
+
+
+@pytest.mark.parametrize("with_shap", [True, False], ids=["shap", "margin"])
+@pytest.mark.parametrize("n_trees", [1, 7, 300])
+@pytest.mark.parametrize("n_rows", [1, 8, 64, 256, 4096])
+def test_launch_plan_covers_each_row_and_tree_once(n_rows, n_trees, with_shap):
+    """Block (i, g) of the walk's grid takes rows [i R, (i+1) R) and trees
+    [g G, (g+1) G), cut at the ends: together they cover every (row, tree)
+    once, no block is empty, and the scratches have the kernel's shapes."""
+    F = 20
+    plan = launch_plan(n_rows, n_trees, 7, with_shap)
+    R, G = plan.rows_per_block, plan.trees_per_group
+    hits = np.zeros((n_rows, n_trees), np.int32)
+    for i in range(plan.row_tiles):
+        for g in range(plan.groups):
+            hits[i * R : (i + 1) * R, g * G : (g + 1) * G] += 1
+    assert (hits == 1).all()
+    assert (plan.row_tiles - 1) * R < n_rows and (plan.groups - 1) * G < n_trees
+    assert plan.blocks == plan.row_tiles * plan.groups
+    # Trees are split only while the row tiles fall short of the target.
+    target = SHAP_TARGET_BLOCKS if with_shap else WALK_TARGET_BLOCKS
+    assert plan.blocks >= min(plan.row_tiles * n_trees, target // 2)
+    if plan.row_tiles >= target:
+        assert plan.groups == 1
+    assert plan.threads % 32 == 0
+    if with_shap:
+        assert R <= min(MAX_ROWS_PER_BLOCK, n_rows) and R <= plan.threads <= MAX_SHAP_THREADS
+        assert shap_smem_bytes(7, F, R) <= SMEM_LIMIT
+    else:
+        assert plan.threads == R
+    shapes = plan.scratch_shapes(F)
+    assert shapes["leaf_val"] == (n_trees, n_rows)
+    assert shapes.get("phi_part") == ((plan.groups, n_rows, F) if with_shap else None)
+    nbytes, phi_offset = plan.scratch_bytes(F)
+    assert phi_offset % 8 == 0 and phi_offset >= 4 * n_trees * n_rows
+    assert nbytes == phi_offset + (8 * plan.groups * n_rows * F if with_shap else 0)
+
+
+def test_launch_plan_spreads_the_serving_buckets():
+    """One tree a block at 1 row; 8-row tiles at 64 rows; at 4096 rows
+    without SHAP mostly row tiles."""
+    one = launch_plan(1, 300, 7, True)
+    assert (one.rows_per_block, one.trees_per_group, one.blocks) == (1, 1, 300)
+    sixty_four = launch_plan(64, 300, 7, True)
+    assert sixty_four.rows_per_block == 8 and sixty_four.row_tiles == 8
+    assert sixty_four.blocks >= SHAP_TARGET_BLOCKS // 2
+    bulk = launch_plan(4096, 300, 7, False)
+    assert bulk.row_tiles == 32 and bulk.trees_per_group > 1
+    with pytest.raises(ValueError, match="no launch plan"):
+        launch_plan(0, 300, 7, True)
+    with pytest.raises(ValueError, match="no launch plan"):
+        launch_plan(8, 300, MAX_DEPTH + 1, False)
+
+
+@pytest.mark.parametrize("depth", range(1, MAX_DEPTH + 1))
+def test_shap_smem_fits_at_every_depth(depth):
+    """Two tree records and the largest tile's accumulators fit in a
+    block's shared memory at every depth the kernel is built for (F=20)."""
+    assert shap_smem_bytes(depth, 20, MAX_ROWS_PER_BLOCK) <= SMEM_LIMIT
+    assert shap_supported(depth, 20)
+    layout, words = tree_table_layout(depth)
+    assert words % 4 == 0 and all(offset % 4 == 0 for offset, _ in layout.values())
+
+
+def test_tree_tables_hold_each_section(mini):
+    """Each tree's record holds the pack's tables at `tree_table_layout`'s
+    offsets: 4-byte tables bit for bit, byte tables four to a word."""
+    _, forest, F = mini
+    pack = pack_forest(forest, F)
+    layout, words = tree_table_layout(pack.depth)
+    assert pack.tables.shape == (pack.n_trees, words) and pack.tables.dtype == torch.int32
+    T = pack.n_trees
+    for name, (offset, n) in layout.items():
+        section = pack.tables[:, offset : offset + n].contiguous()
+        want = getattr(pack, name).reshape(T, -1)
+        if want.element_size() == 4:
+            got = section.view(want.dtype)
+        else:
+            got = section.view(torch.uint8)[:, : want.shape[1]].to(want.dtype)
+        assert torch.equal(got, want), name
 
 
 def test_cpu_tensors_run_the_plain_version(mini):
