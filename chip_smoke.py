@@ -47,21 +47,50 @@ Phases, each of which must pass:
    e. the first 10 trees of the level loop under ``torch.profiler``: the
       card's busy time, the histogram's part of it, its idle share and the
       kernel launches per tree;
-6. the scoring split: at each bucket of phase 3, the device time per call
+6. the raw path, at the full width of the raw LendingClub table (146
+   columns) and its scale (2.3M loans), ``today`` pinned:
+   a. a 200,000-loan frame (seed 0) tokenized on the host and ingested on
+      the card and on the CPU: the same `CleanReport` and `FeaturePlan`
+      (medians within ``LOG_RTOL``), integer, categorical, one-hot,
+      indicator and label columns bitwise equal, log1p-derived columns
+      within ``LOG_RTOL``, bins of the columns log1p does not touch equal,
+      the hashed split's masks equal;
+   b. the main path: ``synthetic_lendingclub_frame(2_300_000, seed=0)``,
+      `tokenize_raw_frame` on the host, `run_device_ingest` on the card,
+      `drop_training_leakage`, the 20 serving features and the hashed
+      split, then `GBDTClassifier.fit` with the committed configuration and
+      the split's ``scale_pos_weight`` through the histogram kernel (300 x 7
+      launches); rows, host and card seconds, peak card memory, held-out
+      AUC and the classification report;
+   c. the forest published with its `FeaturePlan` and served on the card:
+      `ScorerService.predict_raw` on 64 raw rows of the table, each that
+      survived cleaning bitwise equal to its ingested row, plus a payload
+      with a missing numeric, an unknown grade and a missing hardship
+      status; `fused_score` launches counted over the calls; then the
+      kernel against its plain version on the trained forest at
+      ``predict_raw``'s shape (one row, margin only): each matched row's
+      kernel margin equals `fused_score_reference`'s on the card, bit for
+      bit, and its prob, which is the response's, is within 1e-6;
+   d. a SHAP launch made to fail on that service: ``/predict`` over HTTP
+      answers 200, degraded, with the margin-only launch's probability,
+      within 1e-6 of the plain version's;
+7. the scoring split: at each bucket of phase 3, the device time per call
    of the walk kernel (``shap_kernel`` or ``walk_kernel``) and of
    ``score_finalize_kernel``, from ``torch.profiler`` (last, as the
-   profiler slows later launches).
+   profiler slows later launches), with the calls whose records the
+   profiler kept.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing neither, when
 CUDA is unavailable or any phase fails. ``--only-scoring`` runs phases 1-4
-and 6 (the short loop for work on ``csrc/score_forest.cu``) and prints
+and 7 (the short loop for work on ``csrc/score_forest.cu``) and prints
 neither line.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -69,6 +98,7 @@ import tempfile
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from datetime import datetime
 from pathlib import Path
 
 import numpy as np
@@ -78,6 +108,15 @@ from torch.profiler import ProfilerActivity, profile
 
 from cobalt_smart_lender_ai_tpu_torch.config import GBDTConfig, ServeConfig
 from cobalt_smart_lender_ai_tpu_torch.data import schema
+from cobalt_smart_lender_ai_tpu_torch.data.device_pipeline import (
+    run_device_ingest,
+    tokenize_raw_frame,
+    transform_raw_rows,
+)
+from cobalt_smart_lender_ai_tpu_torch.data.features import drop_training_leakage
+from cobalt_smart_lender_ai_tpu_torch.data.frame import row_dicts
+from cobalt_smart_lender_ai_tpu_torch.data.split import split_mask, train_test_split_hashed
+from cobalt_smart_lender_ai_tpu_torch.data.synthetic import synthetic_lendingclub_frame
 from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models import gbdt
 from cobalt_smart_lender_ai_tpu_torch.ops import _build
@@ -86,7 +125,7 @@ from cobalt_smart_lender_ai_tpu_torch.ops.histogram import (
     gradient_histogram_channels,
     gradient_histogram_reference,
 )
-from cobalt_smart_lender_ai_tpu_torch.ops.metrics import roc_auc
+from cobalt_smart_lender_ai_tpu_torch.ops.metrics import binary_classification_report, roc_auc
 from cobalt_smart_lender_ai_tpu_torch.ops.score import (
     fused_score,
     fused_score_reference,
@@ -377,37 +416,87 @@ def _request_keys() -> list[str]:
 SCORE_KERNELS = ("walk_kernel", "shap_kernel", "score_finalize_kernel")
 PROFILED_CALLS = 20
 #: Profiler sessions tried before `device_ms_by_kernel` gives up.
-PROFILE_SESSIONS = 3
+PROFILE_SESSIONS = 5
+#: One-thread spin kernels (``at::cuda::...::spin_kernel``) launched at the
+#: start of each profiler session, before the calls it measures, and left
+#: out of its times.
+LEAD_IN = 8
+LEAD_IN_KERNEL = "spin_kernel"
 
 
-def device_ms_by_kernel(fn, calls: int, expect: tuple[str, ...]) -> dict[str, float]:
+def device_ms_by_kernel(
+    fn, calls: int, expect: tuple[str, ...]
+) -> tuple[dict[str, float], int]:
     """Device ms per call of each kernel and memset that ``fn`` runs, by
-    name, from ``torch.profiler`` over ``calls`` calls after one of warm-up.
+    name, from ``torch.profiler`` over ``calls`` calls after one of warm-up,
+    and the fewest calls whose records a kernel of ``expect`` kept.
 
-    Now and then a short profiler session hands back none of the card's
-    records. So a session counts only if it saw each kernel of
-    ``expect`` exactly ``calls`` times; otherwise it is logged to stderr and
-    run again, up to `PROFILE_SESSIONS` sessions, after which this raises.
-    What a session measures does not depend on the sessions before it."""
+    A profiler session late in a long run loses the card's records of the
+    first few kernels launched in it (17 of 20 scoring calls kept, with the
+    first calls' records missing, in every session), so each session starts
+    with `LEAD_IN` spin kernels and a synchronize, whose records are left
+    out. Each kernel of ``expect`` runs once per call, so its time per call
+    is its mean over the records kept, if they cover at least half of
+    ``calls``; any other kernel or memset is averaged over the most calls
+    a kernel of ``expect`` kept. A session that kept fewer is logged to
+    stderr and run again, up to `PROFILE_SESSIONS` sessions, after which
+    this raises; one that kept fewer than ``calls``, or fewer than all of
+    its lead-in records, is logged too, with where the records lie in the
+    session (`_record_spacing`). What a session measures does not depend on
+    the sessions before it."""
     fn()
     torch.cuda.synchronize()
     for session in range(1, PROFILE_SESSIONS + 1):
+        t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_IN):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        ms: dict[str, float] = {}
+        wall_us = (time.perf_counter() - t0) * 1e6
+        total: dict[str, float] = {}
         seen: dict[str, int] = {}
+        lead_in = 0
         for e in prof.key_averages():
-            if e.device_time_total > 0:
+            if e.device_time_total > 0 and LEAD_IN_KERNEL in e.key:
+                lead_in += e.count
+            elif e.device_time_total > 0:
                 name = kernel_name(e.key)
-                ms[name] = ms.get(name, 0.0) + e.device_time_total / 1e3 / calls
+                total[name] = total.get(name, 0.0) + e.device_time_total / 1e3
                 seen[name] = seen.get(name, 0) + e.count
-        if all(seen.get(k) == calls for k in expect):
-            return ms
-        print(f"profiler session {session} of {PROFILE_SESSIONS} saw {seen}, "
-              f"expected {calls} of each of {expect}", file=sys.stderr)
+        if lead_in != LEAD_IN:
+            print(f"profiler session {session} kept {lead_in} of {LEAD_IN} lead-in "
+                  f"records; {_record_spacing(prof, expect[0], wall_us)}", file=sys.stderr)
+        kept = [seen.get(k, 0) for k in expect]
+        if 2 * min(kept) >= calls:
+            if min(kept) != calls:
+                print(f"profiler session {session} kept {seen} of {calls} calls; "
+                      f"{_record_spacing(prof, expect[0], wall_us)}", file=sys.stderr)
+            return {name: t / (seen[name] if name in expect else max(kept))
+                    for name, t in total.items()}, min(kept)
+        print(f"profiler session {session} of {PROFILE_SESSIONS} saw {seen}: "
+              f"fewer than half of {calls} calls of each of {expect}; "
+              f"{_record_spacing(prof, expect[0], wall_us)}", file=sys.stderr)
     raise AssertionError(f"{PROFILE_SESSIONS} profiler sessions missed kernels of {expect}")
+
+
+def _record_spacing(prof, name: str, wall_us: float) -> str:
+    """Where a session's records of kernel ``name`` lie: their span against
+    the session's wall time and the gaps between their starts, so that
+    calls lost at a session's edges (a short span) tell apart from calls
+    lost inside it (a gap of about twice the median)."""
+    starts = sorted(
+        e.time_range.start for e in prof.events()
+        if e.device_type == DeviceType.CUDA and kernel_name(e.name) == name
+    )
+    if len(starts) < 2:
+        return f"{name}: {len(starts)} records in a {wall_us:.0f} us session"
+    gaps = np.diff(starts)
+    return (f"{name}: {len(starts)} records over {starts[-1] - starts[0]:.0f} us of a "
+            f"{wall_us:.0f} us session; gap median {np.median(gaps):.1f} us, "
+            f"max {gaps.max():.1f} us after record {int(gaps.argmax())}")
 
 
 def scoring_split(device: str = "cuda") -> list[dict]:
@@ -421,13 +510,13 @@ def scoring_split(device: str = "cuda") -> list[dict]:
     for bucket, with_shap in BUCKETS:
         X = torch.from_numpy(seeded_rows(pack, bucket, SEED + bucket)).to(device)
         walk = "shap_kernel" if with_shap else "walk_kernel"
-        ms = device_ms_by_kernel(
+        ms, kept = device_ms_by_kernel(
             lambda: fused_score(pack, X, n_features=F, with_shap=with_shap),
             PROFILED_CALLS,
             (walk, "score_finalize_kernel"),
         )
         split = {k: v for k, v in ms.items() if k in SCORE_KERNELS}
-        records.append({"bucket": bucket, "with_shap": with_shap, **split})
+        records.append({"bucket": bucket, "with_shap": with_shap, "kept": kept, **split})
     return records
 
 
@@ -822,11 +911,265 @@ def training_phase(card: str) -> tuple[list[dict], dict]:
     return records, summary
 
 
+# -- the raw path ------------------------------------------------------------------
+
+#: Loans in the raw LendingClub table, and in the card-vs-CPU check.
+RAW_ROWS, RAW_CHECK_ROWS = 2_300_000, 200_000
+#: Snapshot date of the date -> age features, pinned.
+TODAY = datetime(2026, 8, 1)
+#: log1p-derived values: torch's log1p on the card and on the CPU may
+#: differ in the last bits (a few float32 ulps, as against the reference).
+LOG_RTOL = 3e-7
+#: Raw rows scored through predict_raw.
+RAW_SERVE_ROWS = 64
+
+
+def _columns_agree(names, A: torch.Tensor, B: torch.Tensor, log_cols: set, what: str) -> None:
+    """Bitwise equal (NaN == NaN) outside ``log_cols``, within LOG_RTOL in them."""
+    if A.shape != B.shape:
+        raise AssertionError(f"{what}: shapes {tuple(A.shape)} and {tuple(B.shape)}")
+    both_nan = torch.isnan(A) & torch.isnan(B)
+    for j, name in enumerate(names):
+        a, b = A[:, j], B[:, j]
+        if name in log_cols:
+            ok = torch.isclose(a, b, rtol=LOG_RTOL, atol=0.0) | both_nan[:, j]
+        else:
+            ok = (a == b) | both_nan[:, j]
+        if not bool(ok.all()):
+            raise AssertionError(f"{what}: column {name!r} differs in {int((~ok).sum())} rows")
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def ingest_card_vs_cpu(n_rows: int = RAW_CHECK_ROWS, device: str = "cuda") -> dict:
+    """Phase 6a: one tokenized frame ingested on the card and on the CPU."""
+    tok = tokenize_raw_frame(synthetic_lendingclub_frame(n_rows, seed=SEED), today=TODAY)
+    card = run_device_ingest(tok, device=device)
+    cpu = run_device_ingest(tok, device="cpu")
+    if dataclasses.asdict(card.report) != dataclasses.asdict(cpu.report):
+        raise AssertionError(f"clean reports differ: {card.report} vs {cpu.report}")
+    pc, pp = card.plan, cpu.plan
+    for f in ("numeric_names", "categorical_vocab", "label_vocab", "log_cols",
+              "tree_feature_names", "nn_feature_names", "asof"):
+        if getattr(pc, f) != getattr(pp, f):
+            raise AssertionError(f"plans differ in {f}")
+    log_cols = set(pp.log_cols)
+    for name, v in pp.medians.items():
+        w = pc.medians[name]
+        if (name in log_cols and not np.isclose(w, v, rtol=LOG_RTOL, atol=0.0)) or (
+            name not in log_cols and w != v
+        ):
+            raise AssertionError(f"median of {name}: {w} on the card, {v} on the CPU")
+    _columns_agree(pp.tree_feature_names, card.tree.X.cpu(), cpu.tree.X, log_cols, "tree")
+    _columns_agree(pp.nn_feature_names, card.nn.X.cpu(), cpu.nn.X, log_cols, "nn")
+    if not torch.equal(torch.nan_to_num(card.tree.y.cpu(), nan=-1.0), torch.nan_to_num(cpu.tree.y, nan=-1.0)):
+        raise AssertionError("labels differ")
+    exact = [j for j, n in enumerate(pp.tree_feature_names) if n not in log_cols]
+    if not torch.equal(card.bins.cpu()[:, exact], cpu.bins[:, exact]):
+        raise AssertionError("bins of the columns log1p does not touch differ")
+    n = cpu.tree.n_rows
+    if not torch.equal(split_mask(n, 0.2, 22, device).cpu(), split_mask(n, 0.2, 22, "cpu")):
+        raise AssertionError("hashed split masks differ")
+    log_bins = [j for j, nm in enumerate(pp.tree_feature_names) if nm in log_cols]
+    return {
+        "rows_in": tok.n_rows,
+        "rows_out": n,
+        "tree_features": len(pp.tree_feature_names),
+        "exact_columns": len(exact),
+        "log1p_bins_equal": torch.equal(card.bins.cpu()[:, log_bins], cpu.bins[:, log_bins]),
+    }
+
+
+def _boom(*args, **kwargs):
+    raise RuntimeError("SHAP launch made to fail")
+
+
+def raw_path_phase(
+    card: str, n_rows: int = RAW_ROWS, check_rows: int = RAW_CHECK_ROWS, device: str = "cuda"
+) -> tuple[dict, dict]:
+    """Phase 6; returns (summary, launches of each kernel on this path).
+    ``device="cpu"`` and small row counts rehearse it without a card."""
+    dev = torch.device(device)
+    out: dict = {"card_vs_cpu": ingest_card_vs_cpu(check_rows, device)}
+
+    # b. Raw table -> host tokenize -> card ingest -> split -> fit.
+    t0 = time.perf_counter()
+    frame = synthetic_lendingclub_frame(n_rows, seed=SEED)
+    out["generate_s"] = time.perf_counter() - t0
+    out["raw_columns"] = len(frame.columns)
+    picks = np.sort(np.random.default_rng(SEED).choice(frame.n_rows, RAW_SERVE_ROWS, replace=False))
+    payloads = row_dicts(frame, picks)
+    t0 = time.perf_counter()
+    tok = tokenize_raw_frame(frame, today=TODAY)
+    out["tokenize_s"] = time.perf_counter() - t0
+    del frame  # the raw table leaves the host once tokenized
+    out["rows_in"] = tok.n_rows
+
+    gradient_histogram_channels.launches = 0
+    fused_score.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    res = run_device_ingest(tok, device=dev)
+    _sync(dev)
+    out["ingest_s"] = time.perf_counter() - t0
+    del tok
+    out["rows_out"] = res.tree.n_rows
+    out["tree_features"] = res.tree.n_features
+    out["nn_features"] = res.nn.n_features
+    out["report"] = dataclasses.asdict(res.report)
+    ff = drop_training_leakage(res.tree)
+    out["tree_features_after_leakage_drop"] = ff.n_features
+    sel = ff.select(schema.SERVING_FEATURES)
+    X_train, X_test, y_train, y_test = train_test_split_hashed(sel.X, sel.y)
+    n_pos = float(y_train.sum())
+    spw = (float(X_train.shape[0]) - n_pos) / max(n_pos, 1.0)
+    cfg = GBDTConfig(**{**TRAIN_CONFIG, "scale_pos_weight": spw})
+    out.update(rows_train=int(X_train.shape[0]), rows_test=int(X_test.shape[0]),
+               positive_rate=n_pos / float(X_train.shape[0]), scale_pos_weight=spw)
+    _sync(dev)
+    t0 = time.perf_counter()
+    model = gbdt.GBDTClassifier(cfg, device=dev).fit(X_train, y_train)
+    _sync(dev)
+    out["fit_s"] = time.perf_counter() - t0
+    if dev.type == "cuda":
+        out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    hist_launches = gradient_histogram_channels.launches
+    if dev.type == "cuda" and hist_launches != cfg.n_estimators * cfg.max_depth:
+        raise AssertionError(f"{hist_launches} histogram launches in the raw-path fit")
+    margin = gbdt.predict_margin(model.forest, X_test)
+    out["held_out_auc"] = float(roc_auc(y_test, margin))
+    pred = (torch.sigmoid(margin) >= 0.5).to(torch.int32)
+    out["classification_report"] = binary_classification_report(y_test, pred)
+    if out["held_out_auc"] < 0.90 and n_rows == RAW_ROWS:
+        raise AssertionError(f"held-out AUC {out['held_out_auc']} on the raw path")
+    del X_train, X_test, y_train, y_test, sel, ff, margin, pred
+
+    # c. Publish with the plan, serve raw rows on the card.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_raw_") as root:
+        key = "models/gbdt/model_tree"
+        plan = res.plan
+        GBDTArtifact(
+            forest=model.forest.to("cpu"),
+            feature_names=tuple(schema.SERVING_FEATURES),
+            bin_edges=model.bin_spec.edges.cpu().numpy(),
+            plan=plan,
+            config={**TRAIN_CONFIG, "scale_pos_weight": spw},
+            metrics={"test_auc": out["held_out_auc"], "train_rows": out["rows_train"]},
+        ).save(ObjectStore(root), key)
+        service = ScorerService.from_store(ObjectStore(root), ServeConfig(model_key=key), device=dev)
+        try:
+            out["serve"] = serve_raw_rows(service, res, payloads, dev)
+            out["degraded"] = degraded_predict(service)
+        finally:
+            service.close()
+    launches = {"gradient_histogram": hist_launches, "score_forest": out["serve"]["predict_raw_launches"]}
+    print(f"raw_path: {json.dumps(out)} [{card}]")
+    return out, launches
+
+
+def serve_raw_rows(service: ScorerService, res, payloads: list[dict], dev: torch.device) -> dict:
+    """Phase 6c: predict_raw on the raw rows, each held to its ingested row."""
+    plan = res.plan
+    tree = res.tree.X
+    sel = [plan.tree_feature_names.index(n) for n in schema.SERVING_FEATURES]
+    model = service._model
+    odd = {"loan_amnt": 10000.0, "term": " 36 months", "int_rate": "11.5%", "grade": "ZZZ",
+           "annual_inc": None, "hardship_status": None}
+    fused_score.launches = 0
+    t0 = time.perf_counter()
+    resps = [service.predict_raw(p) for p in payloads + [odd]]
+    predict_raw_s = time.perf_counter() - t0
+    launches = fused_score.launches
+    if dev.type == "cuda" and launches != len(resps):
+        raise AssertionError(f"{launches} fused_score launches for {len(resps)} predict_raw calls")
+    raw = transform_raw_rows(plan, payloads + [odd], device=dev)
+    matched = 0
+    matched_rows: list[np.ndarray] = []
+    matched_resps: list[dict] = []
+    for i, resp in enumerate(resps[:-1]):
+        r = raw[i]
+        hit = (((tree == r) | (torch.isnan(tree) & torch.isnan(r))).all(dim=1)).nonzero()
+        if hit.numel() == 0:
+            continue  # dropped by cleaning
+        row = tree[int(hit[0, 0])].cpu().numpy()[sel]
+        got = np.array([resp["engineered_row"][n] for n in schema.SERVING_FEATURES], np.float32)
+        if not np.array_equal(got.view(np.int32), row.view(np.int32)):
+            raise AssertionError(f"raw row {i}: engineered row differs from its ingested row")
+        matched_rows.append(row)
+        matched_resps.append(resp)
+        matched += 1
+    if matched < 0.9 * len(payloads):
+        raise AssertionError(f"only {matched} of {len(payloads)} raw rows found in the ingest")
+    err = _margin_only_vs_plain(model, matched_rows, [r["prob_default"] for r in matched_resps])
+    names = list(plan.tree_feature_names)
+    o = raw[-1].cpu().numpy()
+    grade = [j for j, n in enumerate(names) if n.startswith("grade_")]
+    fill = names.index(f"hardship_status_{schema.HARDSHIP_FILL}")
+    hs = [j for j, n in enumerate(names) if n.startswith("hardship_status_")]
+    if not (np.isnan(o[names.index("annual_inc")]) and (o[grade] == 0.0).all()
+            and all(o[j] == (1.0 if j == fill else 0.0) for j in hs)):
+        raise AssertionError("missing / unknown raw values do not follow training")
+    return {"rows": len(resps), "matched": matched, "predict_raw_launches": launches,
+            "predict_raw_s": predict_raw_s, "prob_max_abs_err": err}
+
+
+def _margin_only_vs_plain(model, rows: list[np.ndarray], probs: list[float]) -> float:
+    """Each row, one at a time as ``predict_raw`` and a one-row ``/predict``
+    score it, through the margin-only launch and through the plain version
+    on the same tensor on the model's device: margins bitwise equal, prob
+    within `TOL_PROB`, and the response's prob that of the launch. Returns
+    the largest prob difference from the plain version."""
+    err = 0.0
+    for i, (row, prob) in enumerate(zip(rows, probs)):
+        x = torch.from_numpy(np.ascontiguousarray(row[None, :], np.float32)).to(model.device)
+        k_margin, k_prob = model.margin_fn(x)
+        p_margin, p_prob = fused_score_reference(
+            model.pack, x, n_features=model.n_features, with_shap=False
+        )
+        if not torch.equal(k_margin, p_margin):
+            raise AssertionError(f"row {i}: kernel margin {k_margin.tolist()} vs plain {p_margin.tolist()}")
+        d = float((k_prob - p_prob).abs().max())
+        if d > TOL_PROB or prob != float(k_prob[0]):
+            raise AssertionError(
+                f"row {i}: prob {prob}, kernel {float(k_prob[0])}, plain {float(p_prob[0])}"
+            )
+        err = max(err, d)
+    return err
+
+
+def degraded_predict(service: ScorerService) -> dict:
+    """Phase 6d: the SHAP launch made to fail; /predict over HTTP degrades."""
+    service._model.shap_fn = _boom
+    server = make_async_server(service, "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        row = request_rows(1, SEED + 6)[0]
+        resp = _post(base + "/predict", json.dumps(row).encode(), "application/json")
+        ready = _get(base + "/readyz")
+    finally:
+        server.close()
+    if resp.get("degraded") is not True or resp.get("shap_values") is not None:
+        raise AssertionError(f"/predict did not degrade: {resp}")
+    model = service._model
+    x = model.rows_array([{n: float(row[k]) for n, k in zip(schema.SERVING_FEATURES, _request_keys())}])
+    if ready["microbatch"]["degraded_batches"] != 1:
+        raise AssertionError(f"readyz after the degraded /predict: {ready['microbatch']}")
+    err = _margin_only_vs_plain(model, [x[0]], [resp["prob_default"]])
+    return {"prob_default": resp["prob_default"], "prob_max_abs_err": err,
+            "degraded_batches": ready["microbatch"]["degraded_batches"]}
+
+
 def print_scoring_split(card: str) -> None:
     for r in scoring_split("cuda"):
         kernels = " ".join(f"{k}={r[k]:.6f}" for k in SCORE_KERNELS if k in r)
         print(f"split score_forest bucket={r['bucket']} shap={r['with_shap']} "
-              f"(device ms per call) {kernels} [{card}]")
+              f"(device ms per call, {r['kept']} of {PROFILED_CALLS} calls kept) "
+              f"{kernels} [{card}]")
 
 
 def main() -> int:
@@ -871,6 +1214,9 @@ def main() -> int:
     hist_records, training = training_phase(card)
     training["phase_s"] = time.perf_counter() - t0
     print(f"training: {json.dumps(training)} [{card}]")
+    t0 = time.perf_counter()
+    raw, raw_launches = raw_path_phase(card)
+    print(f"raw_path phase: {time.perf_counter() - t0:.1f}s [{card}]")
     print_scoring_split(card)
 
     main_rec = next(r for r in records if r["bucket"] == 64)
@@ -882,8 +1228,10 @@ def main() -> int:
             "source": "cobalt_smart_lender_ai_tpu_torch/csrc/score_forest.cu",
             "replaces": "cobalt_smart_lender_ai_tpu/ops/score_pallas.py:408",
             "launches": serving["launches"],
+            "raw_path_launches": raw_launches["score_forest"],
             "max_abs_err": max(
-                max(r.get("prob", 0.0), r.get("phis", 0.0)) for r in records
+                [max(r.get("prob", 0.0), r.get("phis", 0.0)) for r in records]
+                + [raw["serve"]["prob_max_abs_err"], raw["degraded"]["prob_max_abs_err"]]
             ),
             "ms": main_rec["ms"],
             "plain_ms": main_rec["plain_ms"],
@@ -897,6 +1245,7 @@ def main() -> int:
             "source": "cobalt_smart_lender_ai_tpu_torch/csrc/gradient_histogram.cu",
             "replaces": "cobalt_smart_lender_ai_tpu/ops/hist_pallas.py:51",
             "launches": training["hist_launches"],
+            "raw_path_launches": raw_launches["gradient_histogram"],
             "max_abs_err": max(r["max_abs_err"] for r in hist_records),
             "ms": hist_main["ms"],
             "plain_ms": hist_main["plain_ms"],

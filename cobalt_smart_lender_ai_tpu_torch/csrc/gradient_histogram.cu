@@ -75,7 +75,18 @@
 //    block per SM, of 512 or 1024 threads), than three blocks per SM (40
 //    registers) and than 132, 528 or 1056 slices per tile;
 // 5. finalize_kernel: accumulator / 2^e, rounded once to float32.
-// Inputs must be finite (a NaN or inf has no fixed-point value).
+//
+// Non-finite inputs. A NaN or +-inf has no fixed-point value, so it takes
+// another road, and the bins it reaches end as the plain version's float64
+// sums leave them: NaN where a NaN, or both infinities, reached the bin;
+// +inf or -inf where only infinities of that sign did. The scale exponent
+// of a channel is taken over its finite values only, so every bin that no
+// non-finite value reaches keeps its exact fixed-point sum. The count
+// kernel sets one bit per channel in a flag word when it sees a non-finite
+// value; the histogram pass ORs, per (node, feature, bin), three bits per
+// channel (NaN, +inf, -inf) into a word array behind the accumulator; and
+// the finalize reads those bits only for a channel whose flag is set. On
+// finite inputs the only cost is the word array's share of the memset.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -110,6 +121,14 @@ static __device__ __forceinline__ int scale_exp(unsigned int max_bits,
 
 static __device__ __forceinline__ long long to_fixed(float v, int e) {
   return llrint(ldexp((double)v, e));
+}
+
+// Bits of one channel's value in the non-finite word: 1 NaN, 2 +inf, 4 -inf;
+// 0 for a finite value.
+static __device__ __forceinline__ unsigned nonfinite_code(float v) {
+  if (isnan(v)) return 1u;
+  if (isinf(v)) return v > 0.0f ? 2u : 4u;
+  return 0u;
 }
 
 static __device__ __forceinline__ bool active_row(int k, float g, float h,
@@ -150,6 +169,7 @@ __global__ void __launch_bounds__(COUNT_THREADS)
     __syncthreads();
   }
   float mg = 0.0f, mh = 0.0f, mw = 0.0f;
+  unsigned nonfinite = 0u;  // bit c: channel c holds a NaN or inf
   const long long stride = (long long)gridDim.x * blockDim.x;
   // The bound is the same for every thread of the block, so every lane of
   // a warp reaches warp_add together.
@@ -160,9 +180,10 @@ __global__ void __launch_bounds__(COUNT_THREADS)
     bool act = false;
     if (r < n_rows) {
       const float gv = g[r], hv = h[r], wv = w[r];
-      mg = fmaxf(mg, fabsf(gv));
-      mh = fmaxf(mh, fabsf(hv));
-      mw = fmaxf(mw, fabsf(wv));
+      // The scale is taken over finite values only.
+      if (isfinite(gv)) mg = fmaxf(mg, fabsf(gv)); else nonfinite |= 1u;
+      if (isfinite(hv)) mh = fmaxf(mh, fabsf(hv)); else nonfinite |= 2u;
+      if (isfinite(wv)) mw = fmaxf(mw, fabsf(wv)); else nonfinite |= 4u;
       k = node[r];
       act = active_row(k, gv, hv, wv, n_nodes);
     }
@@ -173,10 +194,12 @@ __global__ void __launch_bounds__(COUNT_THREADS)
     mh = fmaxf(mh, __shfl_xor_sync(0xffffffffu, mh, off));
     mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, off));
   }
+  nonfinite = __reduce_or_sync(0xffffffffu, nonfinite);
   if ((threadIdx.x & 31) == 0) {
     atomicMax(&max_bits[0], __float_as_uint(mg));
     atomicMax(&max_bits[1], __float_as_uint(mh));
     atomicMax(&max_bits[2], __float_as_uint(mw));
+    if (nonfinite) atomicOr(&max_bits[3], nonfinite);
   }
   if (local) {
     __syncthreads();
@@ -303,7 +326,8 @@ __global__ void __launch_bounds__(HIST_THREADS, HIST_MIN_BLOCKS)
                 const int* __restrict__ n_used, int n_rows, int n_features,
                 int n_nodes, int n_bins, int ft_tile,
                 const unsigned int* __restrict__ max_bits,
-                unsigned long long* __restrict__ acc) {
+                unsigned long long* __restrict__ acc,
+                unsigned int* __restrict__ nonfinite) {
   if ((int)blockIdx.x >= *n_used) return;
   extern __shared__ unsigned long long sh[];
   const int4 job = table[blockIdx.x];
@@ -320,10 +344,15 @@ __global__ void __launch_bounds__(HIST_THREADS, HIST_MIN_BLOCKS)
 
   for (int s = first + threadIdx.x; s < last; s += blockDim.x) {
     const int r = rows[s];
-    const long long qg = to_fixed(g[r], eg);
-    const long long qh = to_fixed(h[r], eh);
-    const long long qw = to_fixed(w[r], ew);
-    if ((qg | qh | qw) == 0) continue;
+    const float gv = g[r], hv = h[r], wv = w[r];
+    // A non-finite value adds nothing to the sums; its bits go to the
+    // bin's word instead.
+    const unsigned special = nonfinite_code(gv) | nonfinite_code(hv) << 3 |
+                             nonfinite_code(wv) << 6;
+    const long long qg = isfinite(gv) ? to_fixed(gv, eg) : 0;
+    const long long qh = isfinite(hv) ? to_fixed(hv, eh) : 0;
+    const long long qw = isfinite(wv) ? to_fixed(wv, ew) : 0;
+    if ((qg | qh | qw) == 0 && special == 0u) continue;
     const BinT* br = bins + (long long)r * n_features + f0;
     for (int fl = 0; fl < ft; ++fl) {
       const int b = (int)br[fl];
@@ -332,6 +361,9 @@ __global__ void __launch_bounds__(HIST_THREADS, HIST_MIN_BLOCKS)
       if (qg) atomicAdd(&sh[i], (unsigned long long)qg);
       if (qh) atomicAdd(&sh[per_channel + i], (unsigned long long)qh);
       if (qw) atomicAdd(&sh[2 * per_channel + i], (unsigned long long)qw);
+      if (special)
+        atomicOr(&nonfinite[((size_t)k * n_features + (f0 + fl)) * n_bins + b],
+                 special);
     }
   }
   __syncthreads();
@@ -350,13 +382,25 @@ __global__ void __launch_bounds__(HIST_THREADS, HIST_MIN_BLOCKS)
 
 __global__ void finalize_kernel(const unsigned long long* __restrict__ acc,
                                 const unsigned int* __restrict__ max_bits,
+                                const unsigned int* __restrict__ nonfinite,
                                 int n_rows, long long per_channel,
                                 float* __restrict__ out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= 3 * per_channel) return;
   const int c = (int)(i / per_channel);
   const int e = scale_exp(max_bits[c], n_rows);
-  out[i] = (float)ldexp((double)(long long)acc[i], -e);
+  float v = (float)ldexp((double)(long long)acc[i], -e);
+  if (max_bits[3] & (1u << c)) {
+    const unsigned code = (nonfinite[i - c * per_channel] >> (3 * c)) & 7u;
+    // NaN, or +inf and -inf together, make NaN; one sign of inf stays.
+    if (code & 1u || (code & 6u) == 6u)
+      v = __int_as_float(0x7fc00000);
+    else if (code & 2u)
+      v = __int_as_float(0x7f800000);
+    else if (code & 4u)
+      v = __int_as_float(0xff800000);
+  }
+  out[i] = v;
 }
 
 // Work-table entries the plan can fill at most: with chunk >= active /
@@ -365,7 +409,15 @@ static long long table_entries(int n_nodes) {
   return (long long)ROW_SLICES + n_nodes;
 }
 
-// The int32 scratch, in words: [0, 4) max_bits (3 used), [4, 4+K) counts,
+// The accumulator, in 8-byte words: 3*K*F*B int64 sums, then K*F*B uint32
+// words of non-finite bits (three per channel), rounded up to 8 bytes.
+static long long acc_words(int n_nodes, int n_features, int n_bins) {
+  const long long per_channel = (long long)n_nodes * n_features * n_bins;
+  return 3 * per_channel + (per_channel + 1) / 2;
+}
+
+// The int32 scratch, in words: [0, 3) max_bits of g, h and w, [3] the
+// non-finite channel flags, [4, 4+K) counts,
 // then cursor (K), bstart (K+1), the work table (4 words an entry, 16-byte
 // aligned) and the row-index array (N). The first 4+K words are cleared by
 // each launch.
@@ -391,7 +443,8 @@ static cudaError_t launch_hist(const void* bins, const float* g,
                                const int* n_used, long long n_table,
                                int n_rows, int n_features, int n_nodes,
                                int n_bins, const unsigned int* max_bits,
-                               unsigned long long* acc, cudaStream_t s) {
+                               unsigned long long* acc, unsigned int* nonfinite,
+                               cudaStream_t s) {
   const int pair_bytes = 3 * n_bins * (int)sizeof(unsigned long long);
   int ft = SMEM_BUDGET / pair_bytes;
   if (ft < 1) ft = 1;
@@ -409,7 +462,7 @@ static cudaError_t launch_hist(const void* bins, const float* g,
   const dim3 grid((unsigned)n_table, n_ft);
   hist_kernel<BinT><<<grid, HIST_THREADS, smem, s>>>(
       (const BinT*)bins, g, h, w, rows, table, n_used, n_rows, n_features,
-      n_nodes, n_bins, ft, max_bits, acc);
+      n_nodes, n_bins, ft, max_bits, acc, nonfinite);
   return cudaGetLastError();
 }
 
@@ -424,10 +477,16 @@ long long gradient_histogram_scratch_words(int n_rows, int n_nodes) {
   return scratch_layout(n_rows, n_nodes).words;
 }
 
+// 8-byte words of the accumulator `acc` for these sizes.
+long long gradient_histogram_acc_words(int n_nodes, int n_features,
+                                       int n_bins) {
+  return acc_words(n_nodes, n_features, n_bins);
+}
+
 // One histogram pass on `stream`. `bins_u8` selects uint8 bins (else int32).
-// Scratch: `acc` holds 3*K*F*B uint64 and `scratch`
-// gradient_histogram_scratch_words(N, K) int32, 16-byte aligned; both are
-// cleared here as needed. `out` is (3, K, F, B) float32. Returns the first
+// Scratch: `acc` holds gradient_histogram_acc_words(K, F, B) uint64 and
+// `scratch` gradient_histogram_scratch_words(N, K) int32, 16-byte aligned;
+// both are cleared here as needed. `out` is (3, K, F, B) float32. Returns the first
 // CUDA error of the memsets and launches, or 0.
 int gradient_histogram(int device, const void* bins, int bins_u8,
                        const int* node, const float* g, const float* h,
@@ -449,7 +508,10 @@ int gradient_histogram(int device, const void* bins, int bins_u8,
   const bool local = n_nodes <= SHARED_NODES;
 
   const long long per_channel = (long long)n_nodes * n_features * n_bins;
-  err = cudaMemsetAsync(acc, 0, 3 * per_channel * sizeof(unsigned long long), s);
+  unsigned int* nonfinite = (unsigned int*)(acc + 3 * per_channel);
+  err = cudaMemsetAsync(
+      acc, 0, acc_words(n_nodes, n_features, n_bins) * sizeof(unsigned long long),
+      s);
   if (err != cudaSuccess) return (int)err;
   err = cudaMemsetAsync(scratch, 0, l.cursor * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
@@ -477,18 +539,18 @@ int gradient_histogram(int device, const void* bins, int bins_u8,
   err = bins_u8 ? launch_hist<unsigned char>(bins, g, h, w, rows, table,
                                              bstart + n_nodes, n_table, n_rows,
                                              n_features, n_nodes, n_bins,
-                                             max_bits, acc, s)
+                                             max_bits, acc, nonfinite, s)
                 : launch_hist<int>(bins, g, h, w, rows, table,
                                    bstart + n_nodes, n_table, n_rows,
                                    n_features, n_nodes, n_bins, max_bits, acc,
-                                   s);
+                                   nonfinite, s);
   if (err != cudaSuccess) return (int)err;
 
   const long long n_out = 3 * per_channel;
   const int threads = 256;
   const long long fblocks = (n_out + threads - 1) / threads;
-  finalize_kernel<<<(unsigned)fblocks, threads, 0, s>>>(acc, max_bits, n_rows,
-                                                        per_channel, out);
+  finalize_kernel<<<(unsigned)fblocks, threads, 0, s>>>(
+      acc, max_bits, nonfinite, n_rows, per_channel, out);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,8 @@ Reads and writes the reference package's format (its ``GBDTArtifact``):
 a JSON header (``kind``, ``format_version``, ``library_version``, ``depth``,
 ``feature_names``, ``plan``, ``config``, ``metrics``) and eight arrays (the
 forest's seven fields and ``bin_edges``), plus a ``<key>.features.json``
-sidecar with the feature order. The feature plan is kept as its raw JSON.
+sidecar with the feature order. The feature plan (`FeaturePlan`) is written
+and read by `plan_to_json` / `plan_from_json`, the reference's format.
 """
 
 from __future__ import annotations
@@ -12,16 +13,50 @@ from __future__ import annotations
 import dataclasses
 import io as _io
 import json
+from typing import Any, Mapping
 
 import numpy as np
 import torch
 
 from cobalt_smart_lender_ai_tpu_torch import __version__
 from cobalt_smart_lender_ai_tpu_torch.convert import forest_from_numpy, forest_to_numpy
+from cobalt_smart_lender_ai_tpu_torch.data.features import FeaturePlan
 from cobalt_smart_lender_ai_tpu_torch.io.store import ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models.gbdt import Forest
 
 FORMAT_VERSION = 1
+
+
+def plan_to_json(plan: FeaturePlan) -> dict:
+    return {
+        "numeric_names": list(plan.numeric_names),
+        # Pairs, not a dict: headers are dumped with sort_keys=True, and the
+        # one-hot layout that transform_raw_rows replays follows this
+        # mapping's order.
+        "categorical_vocab": [[k, list(v)] for k, v in plan.categorical_vocab.items()],
+        "label_vocab": {k: list(v) for k, v in plan.label_vocab.items()},
+        "medians": dict(plan.medians),
+        "log_cols": list(plan.log_cols),
+        "tree_feature_names": list(plan.tree_feature_names),
+        "nn_feature_names": list(plan.nn_feature_names),
+        "asof": plan.asof,
+    }
+
+
+def plan_from_json(d: Mapping[str, Any]) -> FeaturePlan:
+    vocab = d["categorical_vocab"]
+    return FeaturePlan(
+        numeric_names=tuple(d["numeric_names"]),
+        categorical_vocab={
+            k: tuple(v) for k, v in (vocab.items() if isinstance(vocab, dict) else vocab)
+        },
+        label_vocab={k: tuple(v) for k, v in d["label_vocab"].items()},
+        medians={k: float(v) for k, v in d["medians"].items()},
+        log_cols=tuple(d["log_cols"]),
+        tree_feature_names=tuple(d["tree_feature_names"]),
+        nn_feature_names=tuple(d["nn_feature_names"]),
+        asof=d.get("asof"),
+    )
 
 
 @dataclasses.dataclass
@@ -31,7 +66,7 @@ class GBDTArtifact:
     forest: Forest
     feature_names: tuple[str, ...]
     bin_edges: np.ndarray | None = None
-    plan: dict | None = None
+    plan: FeaturePlan | None = None
     config: dict = dataclasses.field(default_factory=dict)
     metrics: dict = dataclasses.field(default_factory=dict)
 
@@ -45,7 +80,7 @@ class GBDTArtifact:
             "library_version": __version__,
             "depth": int(self.forest.depth),
             "feature_names": list(self.feature_names),
-            "plan": self.plan,
+            "plan": None if self.plan is None else plan_to_json(self.plan),
             "config": self.config,
             "metrics": self.metrics,
         }
@@ -84,7 +119,7 @@ class GBDTArtifact:
             forest=forest_from_numpy(arrays, int(header["depth"]), device),
             feature_names=tuple(header["feature_names"]),
             bin_edges=arrays.get("bin_edges"),
-            plan=header.get("plan"),
+            plan=None if header.get("plan") is None else plan_from_json(header["plan"]),
             config=header.get("config", {}),
             metrics=header.get("metrics", {}),
         )

@@ -23,7 +23,14 @@ import dataclasses
 
 import torch
 
-__all__ = ["BinSpec", "compute_bin_edges", "float_threshold", "quantile_levels", "transform"]
+__all__ = [
+    "BinSpec",
+    "bin_edges_and_transform",
+    "compute_bin_edges",
+    "float_threshold",
+    "quantile_levels",
+    "transform",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +101,14 @@ def transform(spec: BinSpec, X: torch.Tensor) -> torch.Tensor:
         b = torch.searchsorted(spec.edges[f].contiguous(), col, right=False) + 1
         out[:, f] = torch.where(torch.isnan(col), 0, b).to(dtype)
     return out
+
+
+def bin_edges_and_transform(X: torch.Tensor, n_bins: int = 255) -> tuple[BinSpec, torch.Tensor]:
+    """The quantile edges of ``X`` and its bins, on ``X``'s device: the
+    device ingest's features go to the GBDT sketch without leaving the
+    device. The same bits as `compute_bin_edges` then `transform`."""
+    spec = compute_bin_edges(X, n_bins=n_bins)
+    return spec, transform(spec, X)
 
 
 def float_threshold(spec: BinSpec, feature: torch.Tensor, thr_bin: torch.Tensor) -> torch.Tensor:

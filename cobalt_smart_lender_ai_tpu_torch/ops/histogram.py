@@ -11,6 +11,10 @@ other.
 
 Three channels per bucket: gradient, hessian and the row-weight cover, so a
 node's cover falls out as ``hw[k, f, :].sum()`` for any feature ``f``.
+
+Non-finite inputs give the same bins on both: a bin that a NaN reaches, or
+both a +inf and a -inf, holds NaN; one that only infinities of one sign
+reach holds that infinity; every other bin holds its finite sum.
 """
 
 from __future__ import annotations
@@ -58,7 +62,8 @@ def gradient_histogram_reference(
     running sum drifts where one bin takes many equal values: at the
     full-width fit's first level (1.84M rows; g is 0.5 or -1.88 at the
     first tree) float32 atomics miss the float64 sum by ~1e-3 of the bin,
-    which no kernel could be held to."""
+    which no kernel could be held to. A NaN or an infinity reaches only
+    the bins of its row, where the float64 sum leaves NaN or the infinity."""
     N, F = bins.shape
     feat = torch.arange(F, dtype=torch.int64, device=bins.device)
     seg = ((node_local.long()[:, None] * F + feat) * n_bins + bins.long()).reshape(-1)
@@ -77,6 +82,8 @@ def _library() -> ctypes.CDLL:
     lib.gradient_histogram.restype = i
     lib.gradient_histogram_scratch_words.argtypes = [i, i]
     lib.gradient_histogram_scratch_words.restype = ctypes.c_longlong
+    lib.gradient_histogram_acc_words.argtypes = [i, i, i]
+    lib.gradient_histogram_acc_words.restype = ctypes.c_longlong
     lib.gradient_histogram_error_string.argtypes = [i]
     lib.gradient_histogram_error_string.restype = ctypes.c_char_p
     return lib
@@ -100,7 +107,7 @@ def gradient_histogram_channels(
 
     ``bins`` is ``(N, F)`` uint8 or int32, ``node_local`` ``(N,)`` int32 in
     ``[0, n_nodes)`` (rows outside it add nothing), ``g``, ``h``, ``w``
-    ``(N,)`` float32 and finite. A CPU ``bins`` runs
+    ``(N,)`` float32. A CPU ``bins`` runs
     `gradient_histogram_reference`; a CUDA ``bins`` launches the kernel once
     on the current stream (counted in ``gradient_histogram_channels.launches``)
     or raises. The launch groups the active rows (node in range, g, h or w
@@ -108,7 +115,10 @@ def gradient_histogram_channels(
     block sums one node's rows only. Its sums are int64 fixed point: g and h
     agree with the plain version within float32 rounding, the cover bit for
     bit, and two launches on the same inputs, or on the same rows in
-    another order, give the same bits."""
+    another order, give the same bits. A NaN or infinity in g, h or w leaves
+    the bins its row reaches as the plain version leaves them (NaN, or the
+    infinity); the other bins keep their fixed-point sums, whose scale is
+    taken over the finite values only."""
     if bins.device.type == "cpu":
         out = gradient_histogram_reference(
             bins, node_local, g, h, w, n_nodes=n_nodes, n_bins=n_bins
@@ -136,7 +146,10 @@ def gradient_histogram_channels(
         raise ValueError(f"uint8 bins cannot index n_bins={n_bins}")
     lib = _library()
     out = torch.empty((3, n_nodes, F, n_bins), dtype=torch.float32, device=bins.device)
-    acc = torch.empty(3 * n_nodes * F * n_bins, dtype=torch.int64, device=bins.device)
+    # The int64 sums, then the words of non-finite bits of each bin.
+    acc = torch.empty(
+        lib.gradient_histogram_acc_words(n_nodes, F, n_bins), dtype=torch.int64, device=bins.device
+    )
     # Largest |g|, |h|, |w|, per-node counts and segment offsets, the work
     # table and the row indices grouped by node.
     scratch = torch.empty(

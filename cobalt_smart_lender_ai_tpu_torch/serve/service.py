@@ -10,6 +10,11 @@ the `MicroBatcher` into a power-of-two row bucket scored with SHAP, and
 ``/predict_bulk_csv`` chunks its rows into buckets scored without. On
 ``device="cuda"`` the kernel runs or the request fails; only an explicit
 ``device="cpu"`` runs the plain PyTorch versions.
+
+A SHAP launch that fails at run time does not fail its requests: the same
+rows are scored again by the margin-only launch (``walk_kernel`` on the
+card), and each answers with ``"shap_values": null`` and ``"degraded":
+true``; only a failing margin launch fails them.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 
 from cobalt_smart_lender_ai_tpu_torch.config import ServeConfig
 from cobalt_smart_lender_ai_tpu_torch.data import schema
+from cobalt_smart_lender_ai_tpu_torch.data.device_pipeline import transform_raw_rows
 from cobalt_smart_lender_ai_tpu_torch.device import resolve_device
 from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models.gbdt import gain_importances
@@ -196,6 +202,22 @@ class _CompiledModel:
         _, prob = self.margin_fn(X)
         return prob.cpu().numpy(), None, None
 
+    def score_explained(
+        self, batch: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray | None, float | None, str | None]:
+        """The /predict scoring of a padded batch: ``(prob, phis, base,
+        shap_error)``. With SHAP when the model has it; when the SHAP launch
+        raises, the margin-only launch scores the same rows and the error is
+        returned instead of phis (degraded). Raises only if that launch fails
+        too."""
+        if self.shap_fn is None:
+            return self.score(batch, with_shap=False)[0], None, None, self.shap_error
+        try:
+            return (*self.score(batch, with_shap=True), None)
+        except Exception as exc:
+            error = f"{type(exc).__name__}: {exc}"
+        return self.score(batch, with_shap=False)[0], None, None, error
+
     def predict_proba(self, X: np.ndarray, deadline: Deadline | None = None) -> np.ndarray:
         """P(default) for an (N, F) float array: chunks of ``max_batch_rows``
         rows, each zero-padded to its power-of-two bucket and scored by one
@@ -231,8 +253,11 @@ class MicroBatcher:
     power-of-two bucket, runs ONE fused launch with SHAP, and resolves each
     future with its own row. A request whose deadline expires while queued
     resolves to `DeadlineExceeded` without taking a batch slot; one that
-    expires during the launch resolves to it afterwards. A batch that fails
-    fails its requests; the worker keeps running."""
+    expires during the launch resolves to it afterwards. A batch whose SHAP
+    launch fails is scored margin-only and answered degraded
+    (`_CompiledModel.score_explained`, counted in ``degraded_batches``); a
+    batch whose margin launch fails too fails its requests; the worker keeps
+    running."""
 
     def __init__(self, service: "ScorerService", *, max_wait_s: float, max_rows: int):
         self._service = service
@@ -249,6 +274,7 @@ class MicroBatcher:
         self.coalesced_rows = 0
         self.max_batch_rows = 0
         self.expired_in_queue = 0
+        self.degraded_batches = 0
         self._thread = threading.Thread(target=self._run, daemon=True, name="microbatcher")
         self._thread.start()
 
@@ -309,6 +335,7 @@ class MicroBatcher:
             "avg_batch_rows": round(self.coalesced_rows / b, 3) if b else 0.0,
             "max_batch_rows": self.max_batch_rows,
             "expired_in_queue": self.expired_in_queue,
+            "degraded_batches": self.degraded_batches,
             "queued": self.queue_depth(),
             "worker_alive": self._thread.is_alive(),
         }
@@ -368,8 +395,9 @@ class MicroBatcher:
         buf = scratch[:bucket]
         buf[:n] = model.rows_array([row for row, _, _ in live])
         buf[n:] = 0.0
-        with_shap = model.shap_fn is not None
-        probs, phis, base = model.score(buf, with_shap)
+        probs, phis, base, shap_error = model.score_explained(buf)
+        if phis is None and model.shap_fn is not None:
+            self.degraded_batches += 1
         self.batches += 1
         self.coalesced_rows += n
         self.max_batch_rows = max(self.max_batch_rows, n)
@@ -384,7 +412,7 @@ class MicroBatcher:
                     float(probs[i]),
                     None if phis is None else phis[i].tolist(),
                     base,
-                    model.shap_error,
+                    shap_error,
                 )
             )
 
@@ -449,6 +477,8 @@ class ScorerService:
         self._clock = clock
         self._model_key = self.config.model_key
         self._model = _CompiledModel(artifact, self.config, self.device)
+        #: Direct-path requests whose SHAP launch failed at run time.
+        self.degraded_direct = 0
         self.batcher: MicroBatcher | None = None
         if self.config.microbatch_enabled:
             self.batcher = MicroBatcher(
@@ -508,6 +538,7 @@ class ScorerService:
             "shap": "ok" if model.shap_fn is not None else "degraded",
             "degraded": model.shap_fn is None,
             "launches": fused_score.launches,
+            "degraded_direct": self.degraded_direct,
             "microbatch": (
                 {"enabled": False}
                 if self.batcher is None
@@ -544,13 +575,14 @@ class ScorerService:
     def _predict_direct(self, row: Mapping[str, float], dl: Deadline | None) -> dict:
         """The un-coalesced path: this request's own (1, F) launch."""
         model = self._model
-        with_shap = model.shap_fn is not None
-        probs, phis, base = model.score(model.rows_array([row]), with_shap)
+        probs, phis, base, shap_error = model.score_explained(model.rows_array([row]))
+        if phis is None and model.shap_fn is not None:
+            self.degraded_direct += 1
         if dl is not None:
             dl.check("scored")
         return self._response(
             row,
-            (float(probs[0]), None if phis is None else phis[0].tolist(), base, model.shap_error),
+            (float(probs[0]), None if phis is None else phis[0].tolist(), base, shap_error),
         )
 
     def predict_single(
@@ -595,6 +627,48 @@ class ScorerService:
             return await _in_executor(self._predict_direct, row, dl)
         result = await await_under_deadline(afut, dl, "queued for micro-batch")
         return self._response(row, result)
+
+    def predict_raw(
+        self, payload: Mapping[str, Any], *, deadline: Deadline | None = None
+    ) -> dict:
+        """Score one RAW LendingClub row (``term`` as ``" 36 months"``,
+        ``int_rate`` as ``"13.56%"``, categorical strings, missing cells absent
+        or null) through the artifact's `FeaturePlan` and the ingest's own
+        transform (`data.device_pipeline.transform_raw_rows`), then one
+        margin-only launch (``walk_kernel`` on the card). No train/serve
+        skew: the row gets the bits its batch row got at training time on
+        this device. Unknown categories score as all-zero one-hot blocks and
+        missing numerics as NaN (the GBDT's learned missing direction). A
+        service method with no HTTP route, as in the reference."""
+        dl = deadline if deadline is not None else self._new_deadline()
+        model = self._model
+        plan = model.artifact.plan
+        if plan is None:
+            raise ValidationError(
+                "raw-row scoring requires an artifact that carries its "
+                "feature plan; this model was saved without one"
+            )
+        if not isinstance(payload, Mapping):
+            raise ValidationError("body must be a JSON object")
+        feats = transform_raw_rows(plan, [dict(payload)], device=self.device)
+        if dl is not None:
+            dl.check("raw row transformed")
+        name_pos = {n: i for i, n in enumerate(plan.tree_feature_names)}
+        unknown = [n for n in model.feature_names if n not in name_pos]
+        if unknown:
+            raise ValidationError(
+                "feature plan does not produce serving features "
+                f"{unknown[:4]}; retrain with the device pipeline"
+            )
+        idx = torch.tensor([name_pos[n] for n in model.feature_names], device=self.device)
+        x = feats.index_select(1, idx).contiguous()
+        _, prob = model.margin_fn(x)
+        row = x[0].cpu().tolist()
+        return {
+            "prob_default": float(prob[0]),
+            "features": list(model.feature_names),
+            "engineered_row": dict(zip(model.feature_names, row)),
+        }
 
     # -- bulk -----------------------------------------------------------------------
 

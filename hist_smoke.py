@@ -32,9 +32,10 @@ from cobalt_smart_lender_ai_tpu_torch.ops.histogram import gradient_histogram_ch
 PROFILED_LAUNCHES = 10
 
 
-def stage_ms(bins: torch.Tensor, call: dict, n_bins: int) -> dict[str, float]:
+def stage_ms(bins: torch.Tensor, call: dict, n_bins: int) -> tuple[dict[str, float], int]:
     """Device ms per launch of each kernel and memset that one histogram
-    launch runs, by name, from the profiler's trace of the card."""
+    launch runs, by name, from the profiler's trace of the card, and the
+    launches whose records the profiler kept."""
     args = (bins, call["node"], call["g"], call["h"], call["w"])
     kw = dict(n_nodes=call["K"], n_bins=n_bins)
     return cs.device_ms_by_kernel(
@@ -59,8 +60,8 @@ def main() -> int:
     records = cs.histogram_phase(bins, calls, cfg.n_bins)
     for r, c in zip(records, calls):
         print(cs.histogram_line(r, card))
-        r["stage_ms"] = stage_ms(bins, c, cfg.n_bins)
-        print(f"  stages (device ms per launch): "
+        r["stage_ms"], kept = stage_ms(bins, c, cfg.n_bins)
+        print(f"  stages (device ms per launch, {kept} of {PROFILED_LAUNCHES} kept): "
               + " ".join(f"{k}={v:.6f}" for k, v in r["stage_ms"].items()) + f" [{card}]")
     print(f"hist_smoke: {time.perf_counter() - t0:.1f}s [{card}]")
     print(json.dumps({"card": card, "records": records}))

@@ -18,19 +18,34 @@ zero-padded bucket. Of ``gradient_histogram``: cover bit-identical, g and h of
 each node within 1e-5 of that node's largest |value| in the channel, two
 launches bit-identical (integer fixed-point sums), the same rows in another
 order bit-identical (the kernel groups rows by node in no fixed order), and
-a small fit on the card bit-identical twice over.
+a small fit on the card bit-identical twice over; non-finite g, h or w
+give the plain version's NaN or infinity in the bins they reach, and the
+other bins their exact sums. Of the raw path: the device ingest on the card
+equals the CPU's (bitwise outside the log1p columns, which are within
+3e-7), and `predict_raw` on the card reproduces each raw row's ingested row
+bit for bit and scores it as the margin-only launch does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from datetime import datetime
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from cobalt_smart_lender_ai_tpu_torch.config import ServeConfig
 from cobalt_smart_lender_ai_tpu_torch.convert import forest_from_numpy
+from cobalt_smart_lender_ai_tpu_torch.data import schema
+from cobalt_smart_lender_ai_tpu_torch.data.device_pipeline import (
+    run_device_ingest,
+    tokenize_raw_frame,
+    transform_raw_rows,
+)
+from cobalt_smart_lender_ai_tpu_torch.data.frame import row_dicts
+from cobalt_smart_lender_ai_tpu_torch.data.synthetic import synthetic_lendingclub_frame
 from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models.gbdt import GBDTClassifier
 from cobalt_smart_lender_ai_tpu_torch.ops.histogram import (
@@ -42,6 +57,7 @@ from cobalt_smart_lender_ai_tpu_torch.ops.score import (
     fused_score_reference,
     pack_forest,
 )
+from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService
 
 ROOT = Path(__file__).resolve().parent.parent
 TOL_PROB = 1e-6
@@ -294,3 +310,109 @@ def test_fit_on_card_is_deterministic(card):
     b = GBDTClassifier(device="cuda", **kw).fit(X, y).forest
     for f in ("feature", "thr_bin", "missing_left", "gain", "cover", "leaf_value"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def _nonfinite_inputs():
+    """Level inputs with NaN, +inf and -inf in each of g, h and w, plus two
+    rows of one node that share every bin, one +inf and one -inf in g."""
+    K, B = 8, 255
+    bins, node, g, h, w = _histogram_inputs(12, 40_000, 20, B, K, np.uint8)
+    rng = np.random.default_rng(12)
+    for v in (g, h, w):
+        idx = rng.choice(node.shape[0], 12, replace=False)
+        v[idx[:4]], v[idx[4:8]], v[idx[8:]] = np.nan, np.inf, -np.inf
+    bins[1], node[1] = bins[0], node[0]
+    g[0], g[1] = np.inf, -np.inf
+    return bins, node, g, h, w, K, B
+
+
+@pytest.mark.cuda
+def test_histogram_kernel_nonfinite_inputs_on_card(card):
+    """NaN and infinities reach only their bins, as in the plain version:
+    NaN where a NaN or both infinities landed, the infinity where only one
+    sign did; every other bin bit-equal to a launch with those values
+    zeroed (the scale is taken over the finite values only)."""
+    bins, node, g, h, w, K, B = _nonfinite_inputs()
+    t = [torch.from_numpy(a).to(card) for a in (bins, node, g, h, w)]
+    got = torch.stack(gradient_histogram_channels(*t, n_nodes=K, n_bins=B))
+    ref = gradient_histogram_reference(*t, n_nodes=K, n_bins=B)
+    zeroed = [torch.from_numpy(np.nan_to_num(a, nan=0.0, posinf=0.0, neginf=0.0)).to(card)
+              for a in (g, h, w)]
+    finite = torch.stack(gradient_histogram_channels(*t[:2], *zeroed, n_nodes=K, n_bins=B))
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(ref[0]).any()) and bool(torch.isposinf(ref[1]).any())
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert torch.equal(torch.isposinf(got), torch.isposinf(ref))
+    assert torch.equal(torch.isneginf(got), torch.isneginf(ref))
+    ok = torch.isfinite(ref)
+    assert torch.equal(got[ok], finite[ok])
+    assert torch.equal(got[2][ok[2]], ref[2][ok[2]])
+
+
+TODAY = datetime(2026, 8, 1)
+LOG_RTOL = 3e-7
+
+
+@pytest.fixture(scope="module")
+def raw_ingests():
+    """One seeded raw table, tokenized once, ingested on the card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the raw path's fit and scoring run the kernels")
+    frame = synthetic_lendingclub_frame(20_000, seed=5)
+    tok = tokenize_raw_frame(frame, today=TODAY)
+    return frame, run_device_ingest(tok, device="cuda"), run_device_ingest(tok, device="cpu")
+
+
+@pytest.mark.cuda
+def test_device_ingest_on_card_matches_cpu(raw_ingests):
+    _, card, cpu = raw_ingests
+    assert dataclasses.asdict(card.report) == dataclasses.asdict(cpu.report)
+    log_cols = set(cpu.plan.log_cols)
+    assert dataclasses.replace(card.plan, medians={}) == dataclasses.replace(cpu.plan, medians={})
+    for k, v in cpu.plan.medians.items():
+        assert np.isclose(card.plan.medians[k], v, rtol=LOG_RTOL, atol=0) if k in log_cols \
+            else card.plan.medians[k] == v, k
+    for a, b in ((card.tree, cpu.tree), (card.nn, cpu.nn)):
+        A, B = a.X.cpu().numpy(), b.X.numpy()
+        nan = np.isnan(A) & np.isnan(B)
+        for j, name in enumerate(a.feature_names):
+            ok = np.isclose(A[:, j], B[:, j], rtol=LOG_RTOL, atol=0) if name in log_cols \
+                else A[:, j] == B[:, j]
+            assert (ok | nan[:, j]).all(), name
+    exact = [j for j, n in enumerate(cpu.tree.feature_names) if n not in log_cols]
+    assert torch.equal(card.bins.cpu()[:, exact], cpu.bins[:, exact])
+
+
+@pytest.mark.cuda
+def test_predict_raw_on_card_reproduces_batch_rows(raw_ingests, tmp_path):
+    frame, card, _ = raw_ingests
+    sel = card.tree.select(schema.SERVING_FEATURES)
+    model = GBDTClassifier(n_estimators=8, max_depth=4, n_bins=64, device="cuda").fit(sel.X, sel.y)
+    GBDTArtifact(
+        forest=model.forest.to("cpu"),
+        feature_names=tuple(schema.SERVING_FEATURES),
+        bin_edges=model.bin_spec.edges.cpu().numpy(),
+        plan=card.plan,
+    ).save(ObjectStore(str(tmp_path)), "m")
+    svc = ScorerService.from_store(ObjectStore(str(tmp_path)), ServeConfig(model_key="m"), device="cuda")
+    try:
+        payloads = row_dicts(frame, np.arange(32))
+        raw = transform_raw_rows(card.plan, payloads, device="cuda")
+        tree = card.tree.X
+        idx = [card.plan.tree_feature_names.index(n) for n in schema.SERVING_FEATURES]
+        matched = 0
+        for payload, r in zip(payloads, raw):
+            hit = ((tree == r) | (torch.isnan(tree) & torch.isnan(r))).all(dim=1).nonzero()
+            if hit.numel() == 0:
+                continue  # dropped by cleaning
+            before = fused_score.launches
+            resp = svc.predict_raw(payload)
+            assert fused_score.launches == before + 1
+            row = tree[int(hit[0, 0])].cpu().numpy()[idx]
+            got = np.array([resp["engineered_row"][n] for n in schema.SERVING_FEATURES], np.float32)
+            assert np.array_equal(got.view(np.int32), row.view(np.int32))
+            assert resp["prob_default"] == float(svc._model.score(row[None, :], with_shap=False)[0][0])
+            matched += 1
+        assert matched >= 28
+    finally:
+        svc.close()

@@ -122,3 +122,22 @@ def test_fixed_point_design_meets_the_tolerance():
 def test_shape_guard():
     assert histogram_supported(255) and histogram_supported(9000)
     assert not histogram_supported(10_000) and not histogram_supported(0)
+
+
+def test_plain_version_nonfinite_bins():
+    """Pins what the plain version does with non-finite inputs, which the
+    kernel is held to on the card: a bin that a NaN or both infinities reach
+    holds NaN, one that only one sign of infinity reaches holds it, and the
+    other bins their finite sums."""
+    inf, nan = float("inf"), float("nan")
+    bins = torch.tensor([[0, 1], [0, 2], [1, 1], [1, 3], [2, 3]], dtype=torch.uint8)
+    node = torch.zeros(5, dtype=torch.int32)
+    g = torch.tensor([1.0, nan, 2.0, inf, 3.0])
+    h = torch.tensor([inf, -inf, 1.0, 1.0, 1.0])
+    w = torch.tensor([1.0, 1.0, -inf, 1.0, 1.0])
+    hg, hh, hw = gradient_histogram_channels(bins, node, g, h, w, n_nodes=1, n_bins=4)
+    want_g = [[nan, inf, 3.0, 0.0], [0.0, 3.0, nan, 3.0 + inf]]
+    want_h = [[nan, 2.0, 1.0, 0.0], [0.0, inf + 1.0, -inf, 2.0]]
+    want_w = [[2.0, -inf, 1.0, 0.0], [0.0, -inf, 1.0, 2.0]]
+    for got, want in ((hg, want_g), (hh, want_h), (hw, want_w)):
+        torch.testing.assert_close(got[0], torch.tensor(want), equal_nan=True, rtol=0, atol=0)

@@ -1,11 +1,12 @@
 """Rules the PyTorch port keeps.
 
 - The port package and ``chip_smoke.py`` import neither JAX nor anything of
-  the JAX package (``cobalt_smart_lender_ai_tpu``); importing the port's
-  serving stack in a fresh interpreter leaves ``jax`` unloaded.
+  the JAX package (``cobalt_smart_lender_ai_tpu``), nor pandas (the card's
+  machine has none); importing the port's serving stack, or its data layer,
+  in a fresh interpreter leaves ``jax`` and ``pandas`` unloaded.
 - Its entry points run on the CUDA device unless the caller asks for the
-  CPU: with CUDA unavailable, the default-device service constructors and
-  `GBDTClassifier` raise instead of running on the CPU, and ``chip_smoke.py`` exits non-zero
+  CPU: with CUDA unavailable, the default-device service constructors,
+  `GBDTClassifier` and `split_mask` raise instead of running on the CPU, and ``chip_smoke.py`` exits non-zero
   without printing a result.
 """
 
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from cobalt_smart_lender_ai_tpu_torch.data.split import split_mask
 from cobalt_smart_lender_ai_tpu_torch.io import ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models.gbdt import GBDTClassifier
 from cobalt_smart_lender_ai_tpu_torch.serve import __main__ as cli
@@ -44,7 +46,7 @@ def _imported_modules(path: Path) -> set[str]:
 
 def _forbidden(mod: str) -> bool:
     top = mod.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "optax", "cobalt_smart_lender_ai_tpu")
+    return top in ("jax", "jaxlib", "flax", "optax", "cobalt_smart_lender_ai_tpu", "pandas")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -52,27 +54,35 @@ def test_port_files_import_no_jax_and_no_reference_package(path):
     bad = sorted(m for m in _imported_modules(path) if _forbidden(m))
     assert not bad, f"{path.name} imports {bad}"
     text = path.read_text()
-    assert "import jax" not in text
+    assert "import jax" not in text and "import pandas" not in text
     assert "cobalt_smart_lender_ai_tpu." not in text.replace("cobalt_smart_lender_ai_tpu_torch", "")
 
 
-def test_importing_the_serving_stack_leaves_jax_unloaded():
+def _loaded_after_import(modules: tuple[str, ...]) -> str:
+    """Modules of JAX, the JAX package or pandas that a fresh interpreter
+    holds after importing the port's ``modules``."""
     code = (
         "import sys\n"
-        "import cobalt_smart_lender_ai_tpu_torch.serve.__main__\n"
-        "import cobalt_smart_lender_ai_tpu_torch.serve.http_asyncio\n"
-        "import cobalt_smart_lender_ai_tpu_torch.convert\n"
-        "import cobalt_smart_lender_ai_tpu_torch.models.gbdt\n"
-        "import cobalt_smart_lender_ai_tpu_torch.ops.metrics\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'cobalt_smart_lender_ai_tpu'))\n"
+        + "".join(f"import cobalt_smart_lender_ai_tpu_torch.{m}\n" for m in modules)
+        + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'cobalt_smart_lender_ai_tpu', 'pandas'))\n"
         "print(bad)\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]"
+    return out.stdout.strip()
+
+
+def test_importing_the_serving_stack_leaves_jax_unloaded():
+    modules = ("serve.__main__", "serve.http_asyncio", "convert", "models.gbdt", "ops.metrics")
+    assert _loaded_after_import(modules) == "[]"
+
+
+def test_importing_the_data_layer_leaves_jax_and_pandas_unloaded():
+    modules = ("data.device_pipeline", "data.synthetic", "data.split", "io.artifacts")
+    assert _loaded_after_import(modules) == "[]"
 
 
 @pytest.fixture
@@ -85,6 +95,9 @@ def test_default_device_raises_without_cuda(no_cuda):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         ScorerService.from_store(ObjectStore(str(ROOT / "artifacts")))
+    with pytest.raises(RuntimeError, match="cuda"):
+        split_mask(10, 0.2, 22)
+    assert split_mask(10, 0.2, 22, device="cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
@@ -92,7 +105,9 @@ def test_default_device_raises_without_cuda(no_cuda):
 
 def test_new_port_modules_are_checked():
     names = {p.relative_to(PORT).as_posix() for p in PORT_FILES if p.is_relative_to(PORT)}
-    assert {"ops/histogram.py", "ops/binning.py", "ops/metrics.py", "device.py"} <= names
+    assert {"ops/histogram.py", "ops/binning.py", "ops/metrics.py", "device.py",
+            "data/device_pipeline.py", "data/frame.py", "data/synthetic.py",
+            "data/split.py", "data/clean.py", "data/features.py"} <= names
 
 
 def test_classifier_defaults_to_cuda_and_raises_without_it(no_cuda):

@@ -306,3 +306,67 @@ def test_bulk_probabilities_match_plain_scoring(service):
     prob = service.predict_proba(X)  # chunks of 4096, padded to buckets
     want = torch.sigmoid(predict_margin(service._model.artifact.forest, torch.from_numpy(X)))
     np.testing.assert_array_equal(prob, want.numpy())
+
+
+def _boom(*args, **kwargs):
+    raise RuntimeError("SHAP launch failed at run time")
+
+
+@pytest.mark.parametrize("path", ["batched", "direct"])
+def test_runtime_shap_failure_degrades(store_root, service, monkeypatch, path):
+    """A SHAP launch that raises at run time answers 200 with
+    ``"shap_values": null`` and ``"degraded": true``, with the prob of the
+    margin-only launch on the same row, as the JAX service does; the
+    degraded answers are counted in /readyz."""
+    svc = service
+    if path == "direct":
+        svc = ScorerService.from_store(
+            ObjectStore(store_root), ServeConfig(microbatch_enabled=False), device="cpu"
+        )
+    monkeypatch.setattr(svc._model, "shap_fn", _boom)
+    server = make_async_server(svc, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{server.port}"
+    try:
+        before = _get(url + "/readyz")[1]
+        payload = _payloads(1, seed=11)[0]
+        status, got = _post(url + "/predict", json.dumps(payload).encode())
+        after = _get(url + "/readyz")[1]
+    finally:
+        server.close()
+        if path == "direct":
+            svc.close()
+    assert status == 200, got
+    assert got["degraded"] is True
+    assert got["shap_values"] is None and got["base_value"] is None
+    row = svc._model.rows_array([_canonical(payload)])
+    assert got["prob_default"] == float(svc._model.score(row, with_shap=False)[0][0])
+    if path == "batched":
+        assert after["microbatch"]["degraded_batches"] == before["microbatch"]["degraded_batches"] + 1
+    else:
+        assert after["degraded_direct"] == before["degraded_direct"] + 1
+
+
+@pytest.mark.parametrize("microbatch", [True, False], ids=["batched", "direct"])
+def test_failing_margin_launch_still_fails(store_root, monkeypatch, microbatch):
+    """Degrading needs the margin-only launch: if it fails too, the request
+    fails (500 over HTTP)."""
+    svc = ScorerService.from_store(
+        ObjectStore(store_root), ServeConfig(microbatch_enabled=microbatch), device="cpu"
+    )
+    monkeypatch.setattr(svc._model, "shap_fn", _boom)
+    monkeypatch.setattr(svc._model, "margin_fn", _boom)
+    server = make_async_server(svc, "127.0.0.1", 0)
+    try:
+        status, _ = _post(f"http://127.0.0.1:{server.port}/predict",
+                          json.dumps(_payloads(1, seed=12)[0]).encode())
+        with pytest.raises(RuntimeError, match="at run time"):
+            svc.predict_single(_payloads(1, seed=13)[0])
+    finally:
+        server.close()
+        svc.close()
+    assert status == 500
+
+
+def _canonical(payload: dict) -> dict:
+    alias = schema.SERVING_FIELD_ALIASES
+    return {alias.get(k, k): float(v) for k, v in payload.items()}
