@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --only-scoring   # phases 1-4, then the scoring split
+    python3 chip_smoke.py --full-protocol  # build, then phase 8b at the defaults
 
 Phases, each of which must pass:
 
@@ -78,13 +79,38 @@ Phases, each of which must pass:
    of the walk kernel (``shap_kernel`` or ``walk_kernel``) and of
    ``score_finalize_kernel``, from ``torch.profiler`` (last, as the
    profiler slows later launches), with the calls whose records the
-   profiler kept.
+   profiler kept;
+8. the training protocol, `run_pipeline` from the raw table to a published
+   artifact at full width (146 raw columns, 104 tree features after the
+   leakage drop), ``today`` pinned; it runs before phase 7:
+   a. card against CPU: one 50,000-loan frame through `run_pipeline` on
+      the card and on the CPU under a cut profile whose candidates draw no
+      row or column samples (`CHECK_PROFILE`): the same selected features,
+      candidates, folds and best params, every CV job's AUC and the
+      held-out AUC within 1e-4;
+   b. the main path: phase 6's 2.3M-loan frame through `run_pipeline` with
+      the reference CLI's quick profile (RFE in steps of 20 with a 20-tree
+      depth-3 selector, a 4 x 2 search; rows and width not cut): seconds
+      and histogram launches of each stage (each launch count as the
+      stage's fits make them: one per tree level), the selected features,
+      every candidate's mean CV AUC, the best params, CV and held-out AUC
+      and peak card memory; ``metrics.json`` with the reference's keys, the
+      artifact reloaded bit for bit, and 16 raw rows through
+      `ScorerService.predict_raw` on it (margins bitwise equal to
+      `fused_score_reference` on the same card tensor, prob within 1e-6);
+      then the first tree's histograms, kernel against plain as in 5b, at
+      the default RFE selector's shape (64 bins, the 104 features, depth
+      6) and at a depth-9 candidate's (255 bins, the 20 selected features,
+      up to K = 256 nodes).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing neither, when
 CUDA is unavailable or any phase fails. ``--only-scoring`` runs phases 1-4
 and 7 (the short loop for work on ``csrc/score_forest.cu``) and prints
-neither line.
+neither line. ``--full-protocol`` builds, then runs phase 8b with the
+reference's default `RFEConfig` (104 -> 20 features at step 1, 84 refits of
+50 trees) and `TuneConfig` (20 candidates x 3 folds, every candidate to its
+full ``n_estimators``) on a new 2.3M-loan frame, and prints neither line.
 """
 
 from __future__ import annotations
@@ -92,6 +118,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 import subprocess
 import sys
 import tempfile
@@ -106,7 +133,13 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from cobalt_smart_lender_ai_tpu_torch.config import GBDTConfig, ServeConfig
+from cobalt_smart_lender_ai_tpu_torch.config import (
+    GBDTConfig,
+    PipelineConfig,
+    RFEConfig,
+    ServeConfig,
+    TuneConfig,
+)
 from cobalt_smart_lender_ai_tpu_torch.data import schema
 from cobalt_smart_lender_ai_tpu_torch.data.device_pipeline import (
     run_device_ingest,
@@ -114,7 +147,7 @@ from cobalt_smart_lender_ai_tpu_torch.data.device_pipeline import (
     transform_raw_rows,
 )
 from cobalt_smart_lender_ai_tpu_torch.data.features import drop_training_leakage
-from cobalt_smart_lender_ai_tpu_torch.data.frame import row_dicts
+from cobalt_smart_lender_ai_tpu_torch.data.frame import RawFrame, row_dicts
 from cobalt_smart_lender_ai_tpu_torch.data.split import split_mask, train_test_split_hashed
 from cobalt_smart_lender_ai_tpu_torch.data.synthetic import synthetic_lendingclub_frame
 from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
@@ -131,6 +164,8 @@ from cobalt_smart_lender_ai_tpu_torch.ops.score import (
     fused_score_reference,
     pack_forest,
 )
+from cobalt_smart_lender_ai_tpu_torch.parallel.rfe import SELECTOR_BINS
+from cobalt_smart_lender_ai_tpu_torch.pipeline import PipelineResult, quick_config, run_pipeline
 from cobalt_smart_lender_ai_tpu_torch.serve.http_asyncio import make_async_server
 from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService
 
@@ -987,25 +1022,37 @@ def _boom(*args, **kwargs):
     raise RuntimeError("SHAP launch made to fail")
 
 
+def raw_table(n_rows: int = RAW_ROWS) -> tuple[RawFrame, float]:
+    """The seeded raw LendingClub table and the host seconds it took."""
+    t0 = time.perf_counter()
+    frame = synthetic_lendingclub_frame(n_rows, seed=SEED)
+    return frame, time.perf_counter() - t0
+
+
 def raw_path_phase(
-    card: str, n_rows: int = RAW_ROWS, check_rows: int = RAW_CHECK_ROWS, device: str = "cuda"
-) -> tuple[dict, dict]:
-    """Phase 6; returns (summary, launches of each kernel on this path).
-    ``device="cpu"`` and small row counts rehearse it without a card."""
+    card: str,
+    n_rows: int = RAW_ROWS,
+    check_rows: int = RAW_CHECK_ROWS,
+    device: str = "cuda",
+    frame: RawFrame | None = None,
+) -> tuple[dict, dict, tuple]:
+    """Phase 6 on ``frame`` (``raw_table(n_rows)`` if None); returns
+    (summary, launches of each kernel on this path, the training split of
+    all tree features after the leakage drop as ``(X, y, names)`` on the
+    host, for phase 8's histogram shapes). ``device="cpu"`` and small row
+    counts rehearse it without a card."""
     dev = torch.device(device)
     out: dict = {"card_vs_cpu": ingest_card_vs_cpu(check_rows, device)}
 
     # b. Raw table -> host tokenize -> card ingest -> split -> fit.
-    t0 = time.perf_counter()
-    frame = synthetic_lendingclub_frame(n_rows, seed=SEED)
-    out["generate_s"] = time.perf_counter() - t0
+    if frame is None:
+        frame, out["generate_s"] = raw_table(n_rows)
     out["raw_columns"] = len(frame.columns)
     picks = np.sort(np.random.default_rng(SEED).choice(frame.n_rows, RAW_SERVE_ROWS, replace=False))
     payloads = row_dicts(frame, picks)
     t0 = time.perf_counter()
     tok = tokenize_raw_frame(frame, today=TODAY)
     out["tokenize_s"] = time.perf_counter() - t0
-    del frame  # the raw table leaves the host once tokenized
     out["rows_in"] = tok.n_rows
 
     gradient_histogram_channels.launches = 0
@@ -1024,8 +1071,11 @@ def raw_path_phase(
     out["report"] = dataclasses.asdict(res.report)
     ff = drop_training_leakage(res.tree)
     out["tree_features_after_leakage_drop"] = ff.n_features
-    sel = ff.select(schema.SERVING_FEATURES)
-    X_train, X_test, y_train, y_test = train_test_split_hashed(sel.X, sel.y)
+    X_all, X_test, y_train, y_test = train_test_split_hashed(ff.X, ff.y)
+    train_rows = (X_all.cpu(), y_train.cpu(), ff.feature_names)
+    sel = torch.tensor([ff.feature_names.index(n) for n in schema.SERVING_FEATURES], device=dev)
+    X_train, X_test = X_all.index_select(1, sel), X_test.index_select(1, sel)
+    del X_all
     n_pos = float(y_train.sum())
     spw = (float(X_train.shape[0]) - n_pos) / max(n_pos, 1.0)
     cfg = GBDTConfig(**{**TRAIN_CONFIG, "scale_pos_weight": spw})
@@ -1047,7 +1097,7 @@ def raw_path_phase(
     out["classification_report"] = binary_classification_report(y_test, pred)
     if out["held_out_auc"] < 0.90 and n_rows == RAW_ROWS:
         raise AssertionError(f"held-out AUC {out['held_out_auc']} on the raw path")
-    del X_train, X_test, y_train, y_test, sel, ff, margin, pred
+    del X_train, X_test, y_train, y_test, ff, margin, pred
 
     # c. Publish with the plan, serve raw rows on the card.
     with tempfile.TemporaryDirectory(prefix="chip_smoke_raw_") as root:
@@ -1069,7 +1119,7 @@ def raw_path_phase(
             service.close()
     launches = {"gradient_histogram": hist_launches, "score_forest": out["serve"]["predict_raw_launches"]}
     print(f"raw_path: {json.dumps(out)} [{card}]")
-    return out, launches
+    return out, launches, train_rows
 
 
 def serve_raw_rows(service: ScorerService, res, payloads: list[dict], dev: torch.device) -> dict:
@@ -1164,6 +1214,188 @@ def degraded_predict(service: ScorerService) -> dict:
             "degraded_batches": ready["microbatch"]["degraded_batches"]}
 
 
+# -- the training protocol ---------------------------------------------------------
+
+#: Loans of the card-vs-CPU protocol run (8a), and its profile: RFE 104 -> 62
+#: -> 20 with a 10-tree selector, and a 4 x 2 search over depths 3 and 5 whose
+#: CPU run takes seconds. Its candidates draw no row or column samples: the
+#: card's random generator draws other numbers than the CPU's.
+PROTOCOL_CHECK_ROWS = 50_000
+CHECK_PROFILE = PipelineConfig(
+    rfe=RFEConfig(n_select=20, step=42, n_estimators=10, max_depth=3),
+    tune=TuneConfig(
+        n_iter=4,
+        cv_folds=2,
+        param_space={"n_estimators": (10, 20), "max_depth": (3, 5), "learning_rate": (0.1,)},
+    ),
+)
+#: CV and held-out AUC, card against CPU.
+TOL_PROTOCOL_AUC = 1e-4
+#: Raw rows scored through predict_raw on the pipeline's artifact.
+PROTOCOL_SERVE_ROWS = 16
+#: The depth of phase 8b's deepest histogram shape: the search's depth-9
+#: candidates (K = 256 nodes at the last level).
+DEEPEST = 9
+
+
+def protocol_card_vs_cpu(device: str = "cuda", n_rows: int = PROTOCOL_CHECK_ROWS) -> dict:
+    """Phase 8a: `run_pipeline` on one raw frame, on the card and on the CPU."""
+    frame = synthetic_lendingclub_frame(n_rows, seed=SEED)
+    runs, secs = {}, {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        runs[dev] = run_pipeline(CHECK_PROFILE, raw=frame, device=dev, today=TODAY)
+        secs[dev] = time.perf_counter() - t0
+    card, cpu = runs[device], runs["cpu"]
+    cc, pc = card.search.cv_results_, cpu.search.cv_results_
+    if card.selected_features != cpu.selected_features:
+        raise AssertionError(f"RFE selected {card.selected_features} on the card, "
+                             f"{cpu.selected_features} on the CPU")
+    if cc["params"] != pc["params"] or not np.array_equal(cc["val_masks"], pc["val_masks"]):
+        raise AssertionError("the search's candidates or folds differ between card and CPU")
+    if card.best_params != cpu.best_params:
+        raise AssertionError(f"best params {card.best_params} on the card, {cpu.best_params} on the CPU")
+    cv_err = float(np.abs(cc["split_test_scores"] - pc["split_test_scores"]).max())
+    test_err = abs(card.test_auc - cpu.test_auc)
+    if max(cv_err, test_err) > TOL_PROTOCOL_AUC:
+        raise AssertionError(f"AUCs differ between card and CPU: CV by {cv_err}, test by {test_err}")
+    return {"loans": n_rows, "card_s": secs[device], "cpu_s": secs["cpu"],
+            "selected_features": list(card.selected_features), "best_params": card.best_params,
+            "cv_auc_max_abs_err": cv_err, "test_auc_abs_err": test_err,
+            "test_auc": card.test_auc, "hist_launches": card.hist_launches}
+
+
+def expected_launches(cfg: PipelineConfig, res: PipelineResult, n_features: int) -> dict[str, int]:
+    """Histogram launches each stage of `run_pipeline` must make on the card:
+    one per tree level of every fit (RFE refits, CV jobs, the refit)."""
+    rfe_cfg = cfg.rfe
+    n_iters = -(-(n_features - rfe_cfg.n_select) // rfe_cfg.step)
+    search = 0
+    for cand in res.search.cv_results_["params"]:
+        c = cfg.gbdt.replace(**cand)
+        search += cfg.tune.cv_folds * c.n_estimators * c.max_depth
+    best = cfg.gbdt.replace(**res.best_params)
+    search += best.n_estimators * best.max_depth
+    return {"host_frontier": 0, "device_ingest": 0,
+            "rfe": n_iters * rfe_cfg.n_estimators * rfe_cfg.max_depth,
+            "search": search, "eval": 0}
+
+
+def protocol_phase(
+    card: str, frame: RawFrame, cfg: PipelineConfig, train_rows: tuple, device: str = "cuda"
+) -> tuple[dict, dict, list[dict]]:
+    """Phase 8b: the main path, `run_pipeline` from the raw table to a
+    published artifact, served by `predict_raw`; then the first tree's
+    histograms at the protocol's new shapes. Returns (summary, launches of
+    each kernel on the path, histogram records)."""
+    dev = torch.device(device)
+    picks = np.sort(np.random.default_rng(SEED + 8).choice(frame.n_rows, PROTOCOL_SERVE_ROWS, replace=False))
+    payloads = row_dicts(frame, picks)
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_protocol_") as root:
+        store = ObjectStore(root)
+        key = cfg.serve.model_key
+        gradient_histogram_channels.launches = 0
+        fused_score.launches = 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = run_pipeline(cfg, raw=frame, store=store, device=dev, today=TODAY)
+        out["run_pipeline_s"] = time.perf_counter() - t0
+        hist_launches = gradient_histogram_channels.launches
+        if dev.type == "cuda":
+            out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        n_features = len(train_rows[2])
+        expect = expected_launches(cfg, res, n_features)
+        if dev.type == "cuda" and (res.hist_launches != expect or hist_launches != sum(expect.values())):
+            raise AssertionError(f"histogram launches {res.hist_launches} (total {hist_launches}), "
+                                 f"expected {expect}")
+        out.update(
+            stage_s=res.timings, hist_launches=res.hist_launches, tree_features=n_features,
+            selected_features=list(res.selected_features),
+            candidates=res.search.cv_results_["params"],
+            mean_cv_auc=res.search.cv_results_["mean_test_score"].tolist(),
+            best_params=res.best_params, cv_auc=res.cv_auc, test_auc=res.test_auc,
+            scale_pos_weight=res.scale_pos_weight,
+        )
+        if len(res.selected_features) != cfg.rfe.n_select or not 0.5 < res.test_auc <= 1.0:
+            raise AssertionError(f"{len(res.selected_features)} features, test AUC {res.test_auc}")
+        metrics = store.get_json(key + ".metrics.json")
+        if set(metrics) != {"auc", "classification_report", "best_params"}:
+            raise AssertionError(f"metrics.json keys {sorted(metrics)}")
+        if store.get_json(key + ".features.json") != list(res.selected_features):
+            raise AssertionError("features.json differs from the selected features")
+        art = GBDTArtifact.load(store, key, dev)
+        for f in ("feature", "thr_bin", "thr_float", "missing_left", "gain", "cover", "leaf_value"):
+            if not torch.equal(getattr(art.forest, f), getattr(res.artifact.forest, f).to(dev)):
+                raise AssertionError(f"the reloaded artifact differs in {f}")
+        if art.plan is None or art.feature_names != res.selected_features:
+            raise AssertionError("the reloaded artifact lost its plan or its features")
+        service = ScorerService.from_store(store, ServeConfig(model_key=key), device=dev)
+        try:
+            fused_score.launches = 0
+            resps = [service.predict_raw(p) for p in payloads]
+            score_launches = fused_score.launches
+            if dev.type == "cuda" and score_launches != len(payloads):
+                raise AssertionError(f"{score_launches} fused_score launches for {len(payloads)} rows")
+            rows = [np.array([r["engineered_row"][n] for n in service.feature_names], np.float32)
+                    for r in resps]
+            out["predict_raw"] = {
+                "rows": len(resps), "launches": score_launches,
+                "prob_max_abs_err": _margin_only_vs_plain(
+                    service._model, rows, [r["prob_default"] for r in resps]),
+            }
+        finally:
+            service.close()
+    del res, art
+    records = []  # kernel against plain: on the card only
+    if dev.type == "cuda":
+        records = protocol_histogram_shapes(train_rows, out["selected_features"],
+                                            out["scale_pos_weight"], dev)
+    for r in records:
+        print(histogram_line(r, card))
+    print(f"protocol: {json.dumps(out)} [{card}]")
+    return out, {"gradient_histogram": hist_launches, "score_forest": score_launches}, records
+
+
+def protocol_rows(frame: RawFrame, device: str = "cuda") -> tuple:
+    """The training split of every tree feature after the leakage drop, as
+    phase 6 makes it, on the host: ``(X, y, names)``."""
+    res = run_device_ingest(tokenize_raw_frame(frame, today=TODAY), device=device)
+    ff = drop_training_leakage(res.tree)
+    X_train, _, y_train, _ = train_test_split_hashed(ff.X, ff.y)
+    return X_train.cpu(), y_train.cpu(), ff.feature_names
+
+
+def protocol_histogram_shapes(train_rows: tuple, selected: list[str], spw: float,
+                              dev: torch.device) -> list[dict]:
+    """The first tree's histogram calls, kernel against plain (as 5b), at the
+    shapes the protocol brings: the default RFE selector's (64 bins, every
+    tree feature, depth 6) and a depth-9 search candidate's (255 bins, the
+    selected features, up to K = 256 nodes)."""
+    X_cpu, y_cpu, names = train_rows
+    X, y = X_cpu.to(dev), y_cpu.to(dev)
+    rfe_cfg = RFEConfig()
+    bins = transform(compute_bin_edges(X, SELECTOR_BINS), X)
+    hp = gbdt.GBDTHyperparams.from_config(GBDTConfig(
+        n_estimators=rfe_cfg.n_estimators, max_depth=rfe_cfg.max_depth, n_bins=SELECTOR_BINS,
+        scale_pos_weight=spw))
+    calls = first_tree_calls(bins, y, hp, gbdt.fold_in(rfe_cfg.seed, 0), SELECTOR_BINS,
+                             rfe_cfg.max_depth)
+    records = [dict(r, shape=f"rfe selector F={bins.shape[1]} B={SELECTOR_BINS} {r['shape']}")
+               for r in histogram_phase(bins, calls, SELECTOR_BINS)]
+    del bins, calls
+    Xs = X.index_select(1, torch.tensor([names.index(n) for n in selected], device=dev))
+    del X
+    cfg = GBDTConfig(n_estimators=1, max_depth=DEEPEST, scale_pos_weight=spw)
+    bins = transform(compute_bin_edges(Xs, cfg.n_bins), Xs)
+    calls = first_tree_calls(bins, y, gbdt.GBDTHyperparams.from_config(cfg), cfg.seed,
+                             cfg.n_bins, DEEPEST)
+    records += [dict(r, shape=f"depth {DEEPEST} F={bins.shape[1]} B={cfg.n_bins} {r['shape']}")
+                for r in histogram_phase(bins, calls, cfg.n_bins)]
+    return records
+
+
 def print_scoring_split(card: str) -> None:
     for r in scoring_split("cuda"):
         kernels = " ".join(f"{k}={r[k]:.6f}" for k in SCORE_KERNELS if k in r)
@@ -1174,12 +1406,21 @@ def print_scoring_split(card: str) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument(
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument(
         "--only-scoring",
         action="store_true",
         help="run phases 1-4 and the scoring split only; print no ok line",
     )
+    mode.add_argument(
+        "--full-protocol",
+        action="store_true",
+        help="build, then run phase 8b with the reference's default RFE (104 -> 20 "
+        "features at step 1) and 20 x 3 search; print no ok line",
+    )
     args = parser.parse_args()
+    # The training protocol's stage and progress lines, on stderr.
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -1198,6 +1439,14 @@ def main() -> int:
     for name in kernels_built:
         print(_build.build_log.get(name, f"{name}: library was already built"), file=sys.stderr)
 
+    if args.full_protocol:
+        frame, generate_s = raw_table()
+        print(f"raw table: {frame.n_rows} loans generated in {generate_s:.1f}s [{card}]")
+        t0 = time.perf_counter()
+        protocol_phase(card, frame, PipelineConfig(), protocol_rows(frame))
+        print(f"full protocol phase: {time.perf_counter() - t0:.1f}s [{card}]")
+        return 0
+
     records = kernel_phase("cuda")
     for r in records:
         print(f"kernel score_forest bucket={r['bucket']} shap={r['with_shap']} "
@@ -1214,9 +1463,20 @@ def main() -> int:
     hist_records, training = training_phase(card)
     training["phase_s"] = time.perf_counter() - t0
     print(f"training: {json.dumps(training)} [{card}]")
+    frame, generate_s = raw_table()
+    print(f"raw table: {frame.n_rows} loans generated in {generate_s:.1f}s [{card}]")
     t0 = time.perf_counter()
-    raw, raw_launches = raw_path_phase(card)
+    raw, raw_launches, train_rows = raw_path_phase(card, frame=frame)
     print(f"raw_path phase: {time.perf_counter() - t0:.1f}s [{card}]")
+    # Phase 8 runs before phase 7: a profiler session slows later launches.
+    t0 = time.perf_counter()
+    check = protocol_card_vs_cpu()
+    print(f"protocol card_vs_cpu: {json.dumps(check)} [{card}]")
+    protocol, protocol_launches, protocol_hist = protocol_phase(
+        card, frame, quick_config(), train_rows
+    )
+    del frame, train_rows
+    print(f"protocol phase: {time.perf_counter() - t0:.1f}s [{card}]")
     print_scoring_split(card)
 
     main_rec = next(r for r in records if r["bucket"] == 64)
@@ -1229,9 +1489,11 @@ def main() -> int:
             "replaces": "cobalt_smart_lender_ai_tpu/ops/score_pallas.py:408",
             "launches": serving["launches"],
             "raw_path_launches": raw_launches["score_forest"],
+            "protocol_launches": protocol_launches["score_forest"],
             "max_abs_err": max(
                 [max(r.get("prob", 0.0), r.get("phis", 0.0)) for r in records]
-                + [raw["serve"]["prob_max_abs_err"], raw["degraded"]["prob_max_abs_err"]]
+                + [raw["serve"]["prob_max_abs_err"], raw["degraded"]["prob_max_abs_err"],
+                   protocol["predict_raw"]["prob_max_abs_err"]]
             ),
             "ms": main_rec["ms"],
             "plain_ms": main_rec["plain_ms"],
@@ -1246,7 +1508,8 @@ def main() -> int:
             "replaces": "cobalt_smart_lender_ai_tpu/ops/hist_pallas.py:51",
             "launches": training["hist_launches"],
             "raw_path_launches": raw_launches["gradient_histogram"],
-            "max_abs_err": max(r["max_abs_err"] for r in hist_records),
+            "protocol_launches": protocol_launches["gradient_histogram"],
+            "max_abs_err": max(r["max_abs_err"] for r in hist_records + protocol_hist),
             "ms": hist_main["ms"],
             "plain_ms": hist_main["plain_ms"],
             "bound_ms": hist_main["bound_ms"],

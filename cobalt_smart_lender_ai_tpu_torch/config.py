@@ -1,11 +1,22 @@
-"""Configuration: the GBDT hyperparameters (`GBDTConfig`, the reference's
-fields and defaults) and the subset of the reference `ServeConfig` that the
-port's scoring service reads."""
+"""Configuration: the GBDT hyperparameters (`GBDTConfig`), the training
+protocol's (`DataConfig`, `RFEConfig`, `TuneConfig`, `PipelineConfig`) and the
+subset of the reference `ServeConfig` that the port's scoring service reads.
+Each keeps the reference's field names and defaults for the fields the port
+reads."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Mapping, Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """How the engineered table is split into training and held-out rows
+    (the reference trainer's 80/20 split, seed 22)."""
+
+    test_fraction: float = 0.2
+    split_seed: int = 22
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,3 +92,51 @@ class ServeConfig:
     #: Per-request wall-clock budget, checked at cooperative checkpoints
     #: (``DeadlineExceeded`` -> HTTP 504). ``None`` disables deadlines.
     request_deadline_s: float | None = 30.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TuneConfig:
+    """The randomized search: ``RandomizedSearchCV(n_iter=20,
+    cv=StratifiedKFold(3))`` over the reference trainer's literal grid. Every
+    candidate is scored on every fold to its full ``n_estimators`` (the
+    reference's successive halving engages only on a chunked schedule, which
+    the port does not have)."""
+
+    n_iter: int = 20
+    cv_folds: int = 3
+    seed: int = 22
+    param_space: Mapping[str, Sequence[Any]] = dataclasses.field(
+        default_factory=lambda: {
+            "n_estimators": (100, 200, 300),
+            "max_depth": (3, 5, 7, 9),
+            "learning_rate": (0.01, 0.05, 0.1),
+            "subsample": (0.8, 1.0),
+            "colsample_bytree": (0.5, 0.8, 1.0),
+            "gamma": (0.0, 1.0, 5.0),
+        }
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class RFEConfig:
+    """Recursive feature elimination to exactly ``n_select`` features: the
+    reference trainer's ``RFE(XGBClassifier(...), n_features_to_select=20,
+    step=1)``, with a lighter selector GBDT."""
+
+    n_select: int = 20
+    step: int = 1
+    n_estimators: int = 50
+    max_depth: int = 6
+    scale_pos_weight: float = 1.0
+    seed: int = 42
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Everything `pipeline.run_pipeline` reads."""
+
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    gbdt: GBDTConfig = dataclasses.field(default_factory=GBDTConfig)
+    tune: TuneConfig = dataclasses.field(default_factory=TuneConfig)
+    rfe: RFEConfig = dataclasses.field(default_factory=RFEConfig)
+    serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)

@@ -5,7 +5,8 @@ a JSON header (``kind``, ``format_version``, ``library_version``, ``depth``,
 ``feature_names``, ``plan``, ``config``, ``metrics``) and eight arrays (the
 forest's seven fields and ``bin_edges``), plus a ``<key>.features.json``
 sidecar with the feature order. The feature plan (`FeaturePlan`) is written
-and read by `plan_to_json` / `plan_from_json`, the reference's format.
+and read by `plan_to_json` / `plan_from_json`, the reference's format, and a
+training run's ``metrics.json`` by `save_metrics`.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from cobalt_smart_lender_ai_tpu_torch import __version__
 from cobalt_smart_lender_ai_tpu_torch.convert import forest_from_numpy, forest_to_numpy
 from cobalt_smart_lender_ai_tpu_torch.data.features import FeaturePlan
+from cobalt_smart_lender_ai_tpu_torch.device import resolve_device
 from cobalt_smart_lender_ai_tpu_torch.io.store import ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models.gbdt import Forest
 
@@ -103,8 +105,11 @@ class GBDTArtifact:
 
     @classmethod
     def from_bytes(
-        cls, data: bytes, device: torch.device | str = "cpu"
+        cls, data: bytes, device: torch.device | str = "cuda"
     ) -> "GBDTArtifact":
+        """The artifact with its forest on ``device`` (``cuda`` unless the
+        caller asks for ``cpu``)."""
+        dev = resolve_device(device)
         z = np.load(_io.BytesIO(data), allow_pickle=False)
         header = json.loads(bytes(z["__header__"]).decode())
         if header.get("kind") != "gbdt":
@@ -116,7 +121,7 @@ class GBDTArtifact:
             )
         arrays = {k: z[k] for k in z.files if k != "__header__"}
         return cls(
-            forest=forest_from_numpy(arrays, int(header["depth"]), device),
+            forest=forest_from_numpy(arrays, int(header["depth"]), dev),
             feature_names=tuple(header["feature_names"]),
             bin_edges=arrays.get("bin_edges"),
             plan=None if header.get("plan") is None else plan_from_json(header["plan"]),
@@ -126,6 +131,12 @@ class GBDTArtifact:
 
     @classmethod
     def load(
-        cls, store: ObjectStore, key: str, device: torch.device | str = "cpu"
+        cls, store: ObjectStore, key: str, device: torch.device | str = "cuda"
     ) -> "GBDTArtifact":
         return cls.from_bytes(store.get_bytes(key + ".npz"), device)
+
+
+def save_metrics(store: ObjectStore, key: str, metrics: Mapping[str, Any]) -> None:
+    """``metrics.json`` with the reference trainer's schema: ``auc``,
+    ``classification_report``, ``best_params``."""
+    store.put_json(key, dict(metrics))

@@ -19,9 +19,11 @@ max_depth`` trivial, as in the reference.
 Randomness: the row and column samples of tree ``t`` come from a
 `torch.Generator` on the fit's device seeded from ``(seed, t)``, so a
 chunked fit draws what an unchunked one does. These are not the reference's
-threefry streams: with sampling on, the port's forests differ from the
-reference's tree by tree and agree in held-out AUC; with ``subsample =
-colsample_bytree = 1`` they agree split for split.
+threefry streams, and the card's generator draws other numbers than the
+CPU's: with sampling on, the port's forests differ from the reference's (and
+the card's from the CPU's) tree by tree and agree in held-out AUC; with
+``subsample = colsample_bytree = 1`` they agree split for split. A fit that
+is one of many (an RFE refit, a CV job) takes its seed from `fold_in`.
 """
 
 from __future__ import annotations
@@ -155,6 +157,15 @@ def _tree_generator(seed: int, tree_idx: int, device: torch.device) -> torch.Gen
     return gen
 
 
+def fold_in(seed: int, data: int) -> int:
+    """A 32-bit seed derived from ``(seed, data)``, for one fit of many (an
+    RFE refit, a CV job): the stand-in for the reference's
+    ``jax.random.fold_in``, so that each fit's stream depends only on its
+    key and not on which fits ran before it."""
+    words = [int(seed) & 0xFFFFFFFF, int(data) & 0xFFFFFFFF]
+    return int(np.random.SeedSequence(words).generate_state(1)[0])
+
+
 HistogramFn = Callable[..., tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
@@ -252,9 +263,23 @@ def fit_binned_resumable(
                     n_nodes=K // 2,
                     n_bins=n_bins,
                 )
+                # A right-child bin that holds none of the node's training
+                # rows (an exact zero count: covers are integers) gets
+                # exact zero sums, not the last-bit residue of parent -
+                # left. Thresholds across such bins then tie exactly and
+                # the first wins, on the card as on the CPU; the rows of
+                # weight 0 (a CV job's fold) that fall there go the same way
+                # on both.
+                right_w = prev[2] - left[2]
+                empty = right_w == 0
+                right = (
+                    torch.where(empty, 0.0, prev[0] - left[0]),
+                    torch.where(empty, 0.0, prev[1] - left[1]),
+                    right_w,
+                )
                 hg, hh, hw = (
-                    torch.stack([lc, pc - lc], dim=1).reshape(K, F, n_bins)
-                    for lc, pc in zip(left, prev)
+                    torch.stack([lc, rc], dim=1).reshape(K, F, n_bins)
+                    for lc, rc in zip(left, right)
                 )
             prev = (hg, hh, hw)
             covers[off : off + K] = hw[:, 0, :].sum(-1)

@@ -500,7 +500,7 @@ class ScorerService:
         is resolved first, so ``cuda`` without CUDA fails before any load."""
         cfg = config or ServeConfig()
         dev = resolve_device(device)
-        artifact = GBDTArtifact.load(store, cfg.model_key)
+        artifact = GBDTArtifact.load(store, cfg.model_key, dev)
         return cls(artifact, cfg, device=dev, clock=clock)
 
     def close(self) -> None:

@@ -23,7 +23,9 @@ give the plain version's NaN or infinity in the bins they reach, and the
 other bins their exact sums. Of the raw path: the device ingest on the card
 equals the CPU's (bitwise outside the log1p columns, which are within
 3e-7), and `predict_raw` on the card reproduces each raw row's ingested row
-bit for bit and scores it as the margin-only launch does.
+bit for bit and scores it as the margin-only launch does. Of the training
+protocol: RFE eliminates the CPU's features, and each CV job's AUC is
+within 1e-4 of the CPU's.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import numpy as np
 import pytest
 import torch
 
-from cobalt_smart_lender_ai_tpu_torch.config import ServeConfig
+from cobalt_smart_lender_ai_tpu_torch.config import GBDTConfig, RFEConfig, ServeConfig
 from cobalt_smart_lender_ai_tpu_torch.convert import forest_from_numpy
 from cobalt_smart_lender_ai_tpu_torch.data import schema
 from cobalt_smart_lender_ai_tpu_torch.data.device_pipeline import (
@@ -47,7 +49,8 @@ from cobalt_smart_lender_ai_tpu_torch.data.device_pipeline import (
 from cobalt_smart_lender_ai_tpu_torch.data.frame import row_dicts
 from cobalt_smart_lender_ai_tpu_torch.data.synthetic import synthetic_lendingclub_frame
 from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
-from cobalt_smart_lender_ai_tpu_torch.models.gbdt import GBDTClassifier
+from cobalt_smart_lender_ai_tpu_torch.models.gbdt import GBDTClassifier, GBDTHyperparams
+from cobalt_smart_lender_ai_tpu_torch.ops.binning import compute_bin_edges, transform
 from cobalt_smart_lender_ai_tpu_torch.ops.histogram import (
     gradient_histogram_channels,
     gradient_histogram_reference,
@@ -57,6 +60,8 @@ from cobalt_smart_lender_ai_tpu_torch.ops.score import (
     fused_score_reference,
     pack_forest,
 )
+from cobalt_smart_lender_ai_tpu_torch.parallel.rfe import rfe_select
+from cobalt_smart_lender_ai_tpu_torch.parallel.tune import cross_validate_gbdt, stratified_kfold_masks
 from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -416,3 +421,31 @@ def test_predict_raw_on_card_reproduces_batch_rows(raw_ingests, tmp_path):
         assert matched >= 28
     finally:
         svc.close()
+
+
+@pytest.mark.cuda
+def test_protocol_fits_on_card_match_the_cpu(card):
+    """RFE and CV jobs (a third of the rows at weight 0, depths 3 to 9, up
+    to K = 256 nodes) through the kernel: the same eliminated features and
+    every job's AUC within 1e-4 of the CPU's plain fits. The candidates draw
+    no samples (the card's random generator is not the CPU's)."""
+    rng = np.random.default_rng(3)
+    N, F = 20_000, 24
+    X = rng.normal(size=(N, F)).astype(np.float32)
+    logit = X[:, 0] - 0.8 * X[:, 1] + 0.5 * X[:, 2] * X[:, 3] - 1.0
+    y = (rng.random(N) < 1.0 / (1.0 + np.exp(-logit))).astype(np.float32)
+    X[rng.random(X.shape) < 0.05] = np.nan
+    cfg = RFEConfig(n_select=8, step=5, n_estimators=10, max_depth=6)
+    got = rfe_select(X, y, cfg, device="cuda")
+    ref = rfe_select(X, y, cfg, device="cpu")
+    assert np.array_equal(got.support_, ref.support_) and np.array_equal(got.ranking_, ref.ranking_)
+    Xt = torch.from_numpy(X)
+    bins = transform(compute_bin_edges(Xt, n_bins=255), Xt)
+    val = torch.from_numpy(stratified_kfold_masks(y, 3, 22))
+    hps = [GBDTHyperparams.from_config(GBDTConfig(n_estimators=n, max_depth=d, learning_rate=0.1))
+           for n, d in ((20, 3), (10, 5), (6, 9))]
+    before = gradient_histogram_channels.launches
+    on_card = cross_validate_gbdt(bins.cuda(), torch.from_numpy(y).cuda(), hps, val.cuda(), 22, n_bins=255)
+    assert gradient_histogram_channels.launches - before == 3 * (20 * 3 + 10 * 5 + 6 * 9)
+    on_cpu = cross_validate_gbdt(bins, torch.from_numpy(y), hps, val, 22, n_bins=255)
+    assert float(np.abs(on_card - on_cpu).max()) <= 1e-4

@@ -172,7 +172,7 @@ def test_artifact_loads_and_scores_identically_in_jax(small_model, data, tmp_pat
     jm = np.asarray(jax_gbdt.predict_margin(jart.forest, jnp.asarray(X)))
     np.testing.assert_array_equal(small_model.predict_margin(X).numpy(), jm)
     # And back into the port, forest intact.
-    back = GBDTArtifact.load(store, "models/gbdt/model_tree")
+    back = GBDTArtifact.load(store, "models/gbdt/model_tree", "cpu")
     assert torch.equal(back.forest.thr_bin, small_model.forest.thr_bin)
 
 

@@ -6,8 +6,13 @@
   in a fresh interpreter leaves ``jax`` and ``pandas`` unloaded.
 - Its entry points run on the CUDA device unless the caller asks for the
   CPU: with CUDA unavailable, the default-device service constructors,
-  `GBDTClassifier` and `split_mask` raise instead of running on the CPU, and ``chip_smoke.py`` exits non-zero
-  without printing a result.
+  `GBDTClassifier`, `split_mask`, `GBDTArtifact.load`/``from_bytes``,
+  `rfe_select`, `randomized_search`, `run_pipeline` and the serving and
+  training CLIs raise instead of running on the CPU, and ``chip_smoke.py``
+  exits non-zero without printing a result.
+- The training CLI (``python -m cobalt_smart_lender_ai_tpu_torch.pipeline``)
+  runs the quick protocol on the CPU when asked, and publishes the artifact,
+  its features and ``metrics.json``.
 """
 
 from __future__ import annotations
@@ -23,9 +28,14 @@ import numpy as np
 import pytest
 import torch
 
+from cobalt_smart_lender_ai_tpu_torch import pipeline
+from cobalt_smart_lender_ai_tpu_torch.config import PipelineConfig, RFEConfig, TuneConfig
 from cobalt_smart_lender_ai_tpu_torch.data.split import split_mask
-from cobalt_smart_lender_ai_tpu_torch.io import ObjectStore
+from cobalt_smart_lender_ai_tpu_torch.data.synthetic import synthetic_lendingclub_frame
+from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models.gbdt import GBDTClassifier
+from cobalt_smart_lender_ai_tpu_torch.parallel.rfe import rfe_select
+from cobalt_smart_lender_ai_tpu_torch.parallel.tune import randomized_search
 from cobalt_smart_lender_ai_tpu_torch.serve import __main__ as cli
 from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService, resolve_device
 
@@ -85,6 +95,11 @@ def test_importing_the_data_layer_leaves_jax_and_pandas_unloaded():
     assert _loaded_after_import(modules) == "[]"
 
 
+def test_importing_the_training_protocol_leaves_jax_and_pandas_unloaded():
+    modules = ("config", "parallel.tune", "parallel.rfe", "pipeline")
+    assert _loaded_after_import(modules) == "[]"
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -101,13 +116,65 @@ def test_default_device_raises_without_cuda(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+    store = ObjectStore(str(ROOT / "artifacts"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        GBDTArtifact.load(store, "models/gbdt/model_tree")
+    with pytest.raises(RuntimeError, match="cuda"):
+        GBDTArtifact.from_bytes(store.get_bytes("models/gbdt/model_tree.npz"))
+    art = GBDTArtifact.load(store, "models/gbdt/model_tree", device="cpu")
+    assert art.forest.device == torch.device("cpu")
+
+
+def test_training_protocol_defaults_to_cuda_and_raises_without_it(no_cuda):
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(200, 4)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        rfe_select(X, y, RFEConfig(n_select=2))
+    with pytest.raises(RuntimeError, match="cuda"):
+        randomized_search(X, y, tune=TuneConfig(n_iter=1, cv_folds=2))
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeline.run_pipeline(PipelineConfig(), raw=synthetic_lendingclub_frame(50, seed=1))
+    assert pipeline.parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeline.main(["--synthetic-rows", "50", "--quick"])
+
+
+def test_training_cli_runs_the_quick_protocol_on_the_cpu_when_asked(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"  # the suite shares its cores with other workers
+    out = subprocess.run(
+        [sys.executable, "-m", "cobalt_smart_lender_ai_tpu_torch.pipeline",
+         "--store", str(tmp_path), "--synthetic-rows", "3000", "--quick", "--device", "cpu"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=240,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    summary = ast.literal_eval(out.stdout.strip().splitlines()[-1])
+    assert summary["n_selected"] == 20 and 0.9 < summary["test_auc"] <= 1.0
+    assert set(summary["best_params"]) == {"n_estimators", "max_depth", "learning_rate", "subsample"}
+    assert list(summary["timings"]) == ["host_frontier", "device_ingest", "rfe", "search", "eval"]
+    store = ObjectStore(str(tmp_path))
+    key = PipelineConfig().serve.model_key
+    assert len(store.get_json(key + ".features.json")) == 20
+    assert set(store.get_json(key + ".metrics.json")) == {"auc", "classification_report", "best_params"}
+    assert GBDTArtifact.load(store, key, "cpu").plan is not None
+
+
+def test_training_cli_rejects_what_is_not_ported():
+    with pytest.raises(NotImplementedError, match="A3"):
+        pipeline.main(["--device", "cpu"])  # no raw table: the CSV reader is missing
+    with pytest.raises(NotImplementedError, match="A3"):
+        pipeline.main(["--device", "cpu", "--synthetic-rows", "50", "--pandas-ingest"])
+    with pytest.raises(NotImplementedError, match="A4"):
+        pipeline.main(["--device", "cpu", "--synthetic-rows", "50", "--resume"])
 
 
 def test_new_port_modules_are_checked():
     names = {p.relative_to(PORT).as_posix() for p in PORT_FILES if p.is_relative_to(PORT)}
     assert {"ops/histogram.py", "ops/binning.py", "ops/metrics.py", "device.py",
             "data/device_pipeline.py", "data/frame.py", "data/synthetic.py",
-            "data/split.py", "data/clean.py", "data/features.py"} <= names
+            "data/split.py", "data/clean.py", "data/features.py", "config.py",
+            "parallel/tune.py", "parallel/rfe.py", "pipeline.py"} <= names
 
 
 def test_classifier_defaults_to_cuda_and_raises_without_it(no_cuda):

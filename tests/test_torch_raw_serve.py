@@ -139,7 +139,7 @@ def jax_trained(tmp_path_factory):
 
 def test_jax_artifact_with_plan_loads_in_port(jax_trained):
     root, plan = jax_trained
-    art = GBDTArtifact.load(ObjectStore(str(root)), KEY)
+    art = GBDTArtifact.load(ObjectStore(str(root)), KEY, "cpu")
     assert plan_to_json(art.plan) == jax_plan_to_json(plan)
     assert list(art.plan.categorical_vocab) == list(plan.categorical_vocab)
 

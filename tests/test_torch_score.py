@@ -114,7 +114,7 @@ def committed():
     """The committed serving artifact (300 trees, depth 7, 20 features),
     loaded by both packages."""
     jax_art = JaxArtifact.load(JaxStore(str(ROOT / "artifacts")), "models/gbdt/model_tree")
-    art = GBDTArtifact.load(ObjectStore(str(ROOT / "artifacts")), "models/gbdt/model_tree")
+    art = GBDTArtifact.load(ObjectStore(str(ROOT / "artifacts")), "models/gbdt/model_tree", "cpu")
     return jax_art.forest, art.forest, len(art.feature_names)
 
 
