@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port on one GPU and hold its kernels to their plain versions.
 
     python3 chip_smoke.py                  # every phase
-    python3 chip_smoke.py --only-scoring   # phases 1-4, then the scoring split
+    python3 chip_smoke.py --only-scoring   # phases 1-4 and 9, then the scoring split
     python3 chip_smoke.py --full-protocol  # build, then phase 8b at the defaults
 
 Phases, each of which must pass:
@@ -75,11 +75,11 @@ Phases, each of which must pass:
    d. a SHAP launch made to fail on that service: ``/predict`` over HTTP
       answers 200, degraded, with the margin-only launch's probability,
       within 1e-6 of the plain version's;
-7. the scoring split: at each bucket of phase 3, the device time per call
-   of the walk kernel (``shap_kernel`` or ``walk_kernel``) and of
-   ``score_finalize_kernel``, from ``torch.profiler`` (last, as the
-   profiler slows later launches), with the calls whose records the
-   profiler kept;
+7. the scoring split: at each bucket of phase 3 and each precision (f32,
+   bf16, int8), the device time per call of the walk kernel
+   (``shap_kernel`` or ``walk_kernel``) and of ``score_finalize_kernel``,
+   from ``torch.profiler`` (last, as the profiler slows later launches),
+   with the calls whose records the profiler kept;
 8. the training protocol, `run_pipeline` from the raw table to a published
    artifact at full width (146 raw columns, 104 tree features after the
    leakage drop), ``today`` pinned; it runs before phase 7:
@@ -101,12 +101,28 @@ Phases, each of which must pass:
       then the first tree's histograms, kernel against plain as in 5b, at
       the default RFE selector's shape (64 bins, the 104 features, depth
       6) and at a depth-9 candidate's (255 bins, the 20 selected features,
-      up to K = 256 nodes).
+      up to K = 256 nodes);
+9. the quantized forests, at the committed model's full width; it runs
+   right after phase 4:
+   a. the forest packed at bf16 and at int8 on the card and on the CPU,
+      each through the publish gate (``pack_forest(check=True)``): the same
+      table hash and tree records, and `quantization_report` on the card
+      (the kernel) equal to the CPU's (the plain version) in its margin
+      fields, its prob field within 1e-7; each precision's record bytes per
+      tree;
+   b. as phase 3, at each precision: the kernel against the plain version
+      on phase 3's rows at the five buckets, margins bitwise (on the card,
+      on the CPU, across two calls), then ms, plain ms and ``bound_ms``
+      (the bytes of the quantized records and tables);
+   c. as phase 4, a `ScorerService` at ``forest_precision="int8"`` on the
+      card: ``/readyz`` reports ``int8`` and the table hash, responses
+      match the plain int8 scorer on the CPU, and the launches are the
+      warm-ups, the gate's two and one per micro-batch and bulk chunk.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing neither, when
-CUDA is unavailable or any phase fails. ``--only-scoring`` runs phases 1-4
-and 7 (the short loop for work on ``csrc/score_forest.cu``) and prints
+CUDA is unavailable or any phase fails. ``--only-scoring`` runs phases 1-4,
+9 and 7 (the short loop for work on ``csrc/score_forest.cu``) and prints
 neither line. ``--full-protocol`` builds, then runs phase 8b with the
 reference's default `RFEConfig` (104 -> 20 features at step 1, 84 refits of
 50 trees) and `TuneConfig` (20 candidates x 3 folds, every candidate to its
@@ -163,6 +179,8 @@ from cobalt_smart_lender_ai_tpu_torch.ops.score import (
     fused_score,
     fused_score_reference,
     pack_forest,
+    quantization_report,
+    tree_table_layout,
 )
 from cobalt_smart_lender_ai_tpu_torch.parallel.rfe import SELECTOR_BINS
 from cobalt_smart_lender_ai_tpu_torch.pipeline import PipelineResult, quick_config, run_pipeline
@@ -225,9 +243,15 @@ def shap_flops(depth: int) -> int:
 def bound_ms(pack, n_rows: int, with_shap: bool) -> tuple[float, str]:
     """Least time the card could take: the larger of the bytes the call must
     move (each input read once, each output written once) over HBM bandwidth
-    and its FP32 operations over the FP32 peak."""
+    and its FP32 operations over the FP32 peak. The forest's bytes are those
+    of its stored precision: thresholds and leaves as stored, and at bf16
+    and int8 the ``all_left`` bytes, at int8 the affine tables too."""
     T, L, d, F = pack.n_trees, 2**pack.depth, pack.depth, pack.n_features
-    tensors = [pack.feature, pack.thr, pack.missing_left, pack.leaf]
+    tensors = [pack.feature, pack.thr_q, pack.missing_left, pack.leaf_q]
+    if pack.precision != "f32":
+        tensors.append(pack.all_left)
+    if pack.precision == "int8":
+        tensors += [pack.thr_scale, pack.thr_zero, pack.leaf_scale, pack.leaf_zero]
     if with_shap:
         tensors += [pack.path_feature, pack.slot, pack.r_play]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
@@ -280,16 +304,18 @@ def compare(kernel_out, plain_out, with_shap: bool) -> dict:
     return err
 
 
-def kernel_phase(device: str = "cuda") -> list[dict]:
-    """score_forest vs its plain version at the serving buckets; returns one
-    record per bucket (errors, times, bound)."""
+def kernel_phase(device: str = "cuda", precision: str = "f32") -> list[dict]:
+    """score_forest vs its plain version at the serving buckets, on the
+    committed forest packed at ``precision``; returns one record per bucket
+    (errors, times, bound). The rows are phase 3's at every precision."""
     art = GBDTArtifact.load(ObjectStore(str(STORE)), MODEL_KEY, device)
     F = len(art.feature_names)
-    pack = pack_forest(art.forest, F)
-    cpu_pack = pack_forest(art.forest.to("cpu"), F)
+    f32_pack = pack_forest(art.forest, F)
+    pack = f32_pack if precision == "f32" else pack_forest(art.forest, F, precision)
+    cpu_pack = pack_forest(art.forest.to("cpu"), F, precision)
     records = []
     for bucket, with_shap in BUCKETS:
-        Xn = seeded_rows(pack, bucket, SEED + bucket)
+        Xn = seeded_rows(f32_pack, bucket, SEED + bucket)
         X = torch.from_numpy(Xn).to(device)
         out = fused_score(pack, X, n_features=F, with_shap=with_shap)
         plain = fused_score_reference(pack, X, n_features=F, with_shap=with_shap)
@@ -303,7 +329,7 @@ def kernel_phase(device: str = "cuda") -> list[dict]:
         )[0]
         if not torch.equal(out[0].cpu(), cpu_margin):
             raise AssertionError(f"bucket {bucket}: margins differ from the CPU")
-        rec = {"bucket": bucket, "with_shap": with_shap, **err}
+        rec = {"bucket": bucket, "with_shap": with_shap, "precision": precision, **err}
         if device == "cuda":
             kreps = 20 if with_shap else 200
             rec["ms"] = time_ms(
@@ -358,13 +384,23 @@ def serving_phase(
     bulk_rows: int = 5000,
     store_root: Path = STORE,
     model_key: str = MODEL_KEY,
+    precision: str = "f32",
 ) -> dict:
-    """The port's serving path over HTTP: concurrent /predict, one bulk CSV,
-    one importance request. Counts kernel launches over the whole phase."""
+    """The port's serving path over HTTP, with the forest packed at
+    ``precision``: concurrent /predict, one bulk CSV, one importance
+    request. Counts kernel launches over the whole phase: at startup one
+    per warmed bucket, plus at bf16 and int8 the publish gate's two (the
+    quantized pack's probe rows and its f32 reference's)."""
     store = ObjectStore(str(store_root))
     fused_score.launches = 0
-    service = ScorerService.from_store(store, ServeConfig(model_key=model_key), device=device)
+    config = ServeConfig(model_key=model_key, forest_precision=precision)
+    service = ScorerService.from_store(store, config, device=device)
     warm = fused_score.launches
+    warmed = service._model.warm_buckets
+    gate = 0 if precision == "f32" else 2
+    if device == "cuda" and warm != len(warmed["shap"]) + len(warmed["margin"]) + gate:
+        raise AssertionError(f"{warm} startup launches for the buckets {warmed} and "
+                             f"{gate} gate launches")
     server = make_async_server(service, "127.0.0.1", 0)
     base = f"http://127.0.0.1:{server.port}"
     try:
@@ -395,6 +431,8 @@ def serving_phase(
     finally:
         server.close()
         service.close()
+    if (ready["precision"], ready["quant_table"]) != (precision, service._model.pack.table_hash):
+        raise AssertionError(f"/readyz reports {ready['precision']} {ready['quant_table']}")
     launches = fused_score.launches
     batches = ready["microbatch"]["batches"]
     bulk_chunks = -(-bulk_rows // service.config.max_batch_rows)
@@ -407,7 +445,7 @@ def serving_phase(
     # Check the answers against the plain version on the CPU.
     art = GBDTArtifact.load(store, model_key, "cpu")
     F = len(art.feature_names)
-    cpu_pack = pack_forest(art.forest, F)
+    cpu_pack = pack_forest(art.forest, F, precision)
     Xr = torch.tensor(
         [[float(r[k]) for k in _request_keys()] for r in rows], dtype=torch.float32
     )
@@ -431,6 +469,8 @@ def serving_phase(
     if not imp["top_features"] or len(bulk["predictions"]) != bulk_rows:
         raise AssertionError("empty importance or short bulk response")
     return {
+        "precision": precision,
+        "quant_table": ready["quant_table"],
         "launches": launches,
         "warmup_launches": warm,
         "microbatches": batches,
@@ -445,6 +485,47 @@ def serving_phase(
 def _request_keys() -> list[str]:
     alias = {v: k for k, v in schema.SERVING_FIELD_ALIASES.items()}
     return [alias.get(n, n) for n in schema.SERVING_FEATURES]
+
+
+#: The quantized precisions of phase 9; the publish gate's prob field on
+#: the card against the CPU's (two sigmoids).
+QUANTIZED = ("bf16", "int8")
+TOL_REPORT_PROB = 1e-7
+REPORT_MARGIN_FIELDS = ("mean_abs_margin_delta", "max_abs_margin_delta")
+QUANT_ARRAYS = ("thr_q", "leaf_q", "all_left", "thr_affine", "leaf_scale", "leaf_zero", "thr", "leaf")
+
+
+def quantized_pack_phase(precision: str, device: str = "cuda") -> dict:
+    """Phase 9a: the committed forest packed at ``precision`` on the card
+    and on the CPU, each through the publish gate (``check=True``): the
+    same table hash, stored tables and dequantized values (`QUANT_ARRAYS`;
+    the SHAP cover ratios are computed on each device), and the card's
+    `quantization_report` (scored by the kernel) equal to the CPU's (the
+    plain version) in its margin fields, its prob field within
+    `TOL_REPORT_PROB`."""
+    art = GBDTArtifact.load(ObjectStore(str(STORE)), MODEL_KEY, device)
+    F = len(art.feature_names)
+    cpu_forest = art.forest.to("cpu")
+    pack = pack_forest(art.forest, F, precision, check=True)
+    cpu_pack = pack_forest(cpu_forest, F, precision, check=True)
+    differ = [k for k in QUANT_ARRAYS if not torch.equal(getattr(pack, k).cpu(), getattr(cpu_pack, k))]
+    if pack.table_hash != cpu_pack.table_hash or differ:
+        raise AssertionError(f"{precision}: the card's pack differs from the CPU's in {differ}")
+    report = quantization_report(art.forest, pack, F)
+    cpu_report = quantization_report(cpu_forest, cpu_pack, F)
+    prob_err = abs(report["mean_abs_prob_delta"] - cpu_report["mean_abs_prob_delta"])
+    if any(report[k] != cpu_report[k] for k in REPORT_MARGIN_FIELDS) or prob_err > TOL_REPORT_PROB:
+        raise AssertionError(f"{precision}: card report {report} != CPU report {cpu_report}")
+    if not report["within_tolerance"]:
+        raise AssertionError(f"{precision}: outside its tolerance: {report}")
+    return {
+        "precision": precision,
+        "table_hash": pack.table_hash,
+        "record_bytes": 4 * tree_table_layout(pack.depth, precision)[1],
+        "f32_record_bytes": 4 * tree_table_layout(pack.depth)[1],
+        "report_prob_err": prob_err,
+        **{k: report[k] for k in (*REPORT_MARGIN_FIELDS, "mean_abs_prob_delta")},
+    }
 
 
 #: Kernels of one `fused_score` call on the card.
@@ -534,16 +615,18 @@ def _record_spacing(prof, name: str, wall_us: float) -> str:
             f"max {gaps.max():.1f} us after record {int(gaps.argmax())}")
 
 
-def scoring_split(device: str = "cuda") -> list[dict]:
+def scoring_split(device: str = "cuda", precision: str = "f32") -> list[dict]:
     """Device ms per call of each kernel of `fused_score` at each bucket of
-    `kernel_phase`, by name, from ``torch.profiler`` over `PROFILED_CALLS`
-    calls (`device_ms_by_kernel`)."""
+    `kernel_phase` (its rows, the forest packed at ``precision``), by name,
+    from ``torch.profiler`` over `PROFILED_CALLS` calls
+    (`device_ms_by_kernel`)."""
     art = GBDTArtifact.load(ObjectStore(str(STORE)), MODEL_KEY, device)
     F = len(art.feature_names)
-    pack = pack_forest(art.forest, F)
+    f32_pack = pack_forest(art.forest, F)
+    pack = f32_pack if precision == "f32" else pack_forest(art.forest, F, precision)
     records = []
     for bucket, with_shap in BUCKETS:
-        X = torch.from_numpy(seeded_rows(pack, bucket, SEED + bucket)).to(device)
+        X = torch.from_numpy(seeded_rows(f32_pack, bucket, SEED + bucket)).to(device)
         walk = "shap_kernel" if with_shap else "walk_kernel"
         ms, kept = device_ms_by_kernel(
             lambda: fused_score(pack, X, n_features=F, with_shap=with_shap),
@@ -551,7 +634,8 @@ def scoring_split(device: str = "cuda") -> list[dict]:
             (walk, "score_finalize_kernel"),
         )
         split = {k: v for k, v in ms.items() if k in SCORE_KERNELS}
-        records.append({"bucket": bucket, "with_shap": with_shap, "kept": kept, **split})
+        records.append({"bucket": bucket, "with_shap": with_shap, "precision": precision,
+                        "kept": kept, **split})
     return records
 
 
@@ -1396,12 +1480,33 @@ def protocol_histogram_shapes(train_rows: tuple, selected: list[str], spw: float
     return records
 
 
+def quantized_phase(card: str) -> tuple[list[dict], dict]:
+    """Phase 9: the bf16 and int8 packs (9a), the kernel against the plain
+    version at every bucket on phase 3's rows (9b), and an int8 service
+    over HTTP (9c). Prints each record; returns the kernel records and the
+    service's."""
+    records = []
+    for precision in QUANTIZED:
+        print(f"quantized pack: {json.dumps(quantized_pack_phase(precision))} [{card}]")
+        for r in kernel_phase("cuda", precision):
+            records.append(r)
+            print(f"kernel score_forest precision={precision} bucket={r['bucket']} "
+                  f"shap={r['with_shap']} ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} "
+                  f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+                  f"err={ {k: r[k] for k in ('prob', 'phis', 'additivity') if k in r} } "
+                  f"[{card}]")
+    serving = serving_phase("cuda", precision="int8")
+    print(f"serving: {json.dumps(serving)} [{card}]")
+    return records, serving
+
+
 def print_scoring_split(card: str) -> None:
-    for r in scoring_split("cuda"):
-        kernels = " ".join(f"{k}={r[k]:.6f}" for k in SCORE_KERNELS if k in r)
-        print(f"split score_forest bucket={r['bucket']} shap={r['with_shap']} "
-              f"(device ms per call, {r['kept']} of {PROFILED_CALLS} calls kept) "
-              f"{kernels} [{card}]")
+    for precision in ("f32", *QUANTIZED):
+        for r in scoring_split("cuda", precision):
+            kernels = " ".join(f"{k}={r[k]:.6f}" for k in SCORE_KERNELS if k in r)
+            print(f"split score_forest precision={precision} bucket={r['bucket']} "
+                  f"shap={r['with_shap']} (device ms per call, {r['kept']} of "
+                  f"{PROFILED_CALLS} calls kept) {kernels} [{card}]")
 
 
 def main() -> int:
@@ -1410,7 +1515,7 @@ def main() -> int:
     mode.add_argument(
         "--only-scoring",
         action="store_true",
-        help="run phases 1-4 and the scoring split only; print no ok line",
+        help="run phases 1-4, 9 and the scoring split only; print no ok line",
     )
     mode.add_argument(
         "--full-protocol",
@@ -1456,6 +1561,7 @@ def main() -> int:
               f"[{card}]")
     serving = serving_phase("cuda")
     print(f"serving: {json.dumps(serving)} [{card}]")
+    quantized_records, quantized_serving = quantized_phase(card)
     if args.only_scoring:
         print_scoring_split(card)
         return 0
@@ -1490,10 +1596,14 @@ def main() -> int:
             "launches": serving["launches"],
             "raw_path_launches": raw_launches["score_forest"],
             "protocol_launches": protocol_launches["score_forest"],
+            "precisions": ["f32", *QUANTIZED],
+            "quantized_launches": quantized_serving["launches"],
             "max_abs_err": max(
-                [max(r.get("prob", 0.0), r.get("phis", 0.0)) for r in records]
+                [max(r.get("prob", 0.0), r.get("phis", 0.0)) for r in records + quantized_records]
                 + [raw["serve"]["prob_max_abs_err"], raw["degraded"]["prob_max_abs_err"],
-                   protocol["predict_raw"]["prob_max_abs_err"]]
+                   protocol["predict_raw"]["prob_max_abs_err"],
+                   quantized_serving["predict_prob"], quantized_serving["predict_phis"],
+                   quantized_serving["bulk_prob"]]
             ),
             "ms": main_rec["ms"],
             "plain_ms": main_rec["plain_ms"],

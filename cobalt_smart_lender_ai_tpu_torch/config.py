@@ -81,7 +81,9 @@ class ServeConfig:
     microbatch_enabled: bool = True
     microbatch_max_wait_ms: float = 2.0
     microbatch_max_rows: int = 64
-    #: Packed forest representation. Only ``"f32"`` is ported so far.
+    #: Packed forest representation: ``"f32"`` (bit-exact), ``"bf16"`` or
+    #: ``"int8"`` (dequantized inside the scoring kernel; gated at startup
+    #: against ``ops.score.PRECISION_TOLERANCES``).
     forest_precision: str = "f32"
     #: When the SHAP kernel cannot take the model's shape (see
     #: `ops.score.shap_supported`), serve probabilities with

@@ -51,7 +51,28 @@
 // so margins are bit-identical to it. The sigmoid is 1 / (1 + expf(-m)). The
 // finalize sums each row's phi_part in group order and casts to f32 once;
 // only the shared atomics inside one tree add in no fixed order.
+//
+// Precisions. A forest is stored at f32, bf16 or int8 (ops/score.py::
+// pack_forest, as the reference packs it): thresholds and leaf values in
+// the record at that precision, int8 with per-feature threshold tables
+// (scale, zero; one (2, F) f32 table by pointer) and the tree's leaf scale
+// and zero in its record; a bf16 or int8 record also marks the trivial
+// splits (`all_left`, whose f32 threshold +inf cannot be quantized). Both
+// kernels dequantize: bf16 widened with __bfloat162float, int8 as
+// __fmaf_rn(q, scale, zero), one rounding, as the reference's XLA contracts
+// `q * scale + zero` into one FMA (two roundings differ on about a tenth of
+// the committed int8 pack's values); an all_left node gets a +inf threshold,
+// so `goes_left` keeps its one comparison. `walk_kernel` is templated on the
+// precision and dequantizes each node it visits. `shap_kernel` keeps the
+// precision a runtime branch of its staging step: a tree lands in shared
+// memory as an image of its f32 record (the feature and SHAP sections
+// copied to their f32 places, the stored values beside the image), is
+// dequantized once into the image's threshold and leaf sections, and from
+// the node decisions on the kernel reads the f32 image at compile-time
+// offsets, as at f32. Margins remain the landed (dequantized) leaf values
+// summed in tree order, bit-identical to the reference's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define MAX_DEPTH 10
@@ -65,28 +86,47 @@
 // per device by score_forest_set_wt.
 __constant__ float c_wt[(MAX_DEPTH + 1) * WT_STRIDE * WT_STRIDE];
 
+// Precision codes (the index in ops/score.py's PRECISIONS).
+#define PREC_F32 0
+#define PREC_BF16 1
+#define PREC_INT8 2
+
 // ---- one tree's tables: a record of 32-bit words ----------------------------
 // ops/score.py::tree_table_layout builds the same layout. Every section
 // starts on a 16-byte boundary, so a record is copied 16 bytes at a time:
-//   thr f32[I] | feature i32[I] | leaf f32[L] | r_play f32[L*d]
+//   thr q[I] | feature i32[I] | leaf q[L] | r_play f32[L*d]
 //   | path_feature i32[L*d] | missing_left u8[I] | slot u8[L*d]
+// and, at bf16 and int8, | all_left u8[I] | leaf scale, zero f32[2]
+// (q is f32, bf16 or i8). The f32 record ends after slot (al = laff = -1).
 struct TreeLayout {
-  int thr, feat, leaf, rplay, pf, ml, slot, words;
+  int thr, feat, leaf, rplay, pf, ml, slot, al, laff, words;
 };
 
 __host__ __device__ constexpr int pad4(int words) { return (words + 3) & ~3; }
 
-__host__ __device__ constexpr TreeLayout tree_layout(int d) {
+// Words of n values of `bytes` bytes each.
+__host__ __device__ constexpr int value_words(int n, int bytes) {
+  return (n * bytes + 3) / 4;
+}
+
+__host__ __device__ constexpr TreeLayout tree_layout(int d, int precision) {
   const int L = 1 << d, I = L - 1, LD = L * d;
+  const int b = precision == PREC_F32 ? 4 : precision == PREC_BF16 ? 2 : 1;
   TreeLayout t{};
   t.thr = 0;
-  t.feat = t.thr + pad4(I);
+  t.feat = t.thr + pad4(value_words(I, b));
   t.leaf = t.feat + pad4(I);
-  t.rplay = t.leaf + pad4(L);
+  t.rplay = t.leaf + pad4(value_words(L, b));
   t.pf = t.rplay + pad4(LD);
   t.ml = t.pf + pad4(LD);
   t.slot = t.ml + pad4((I + 3) / 4);
   t.words = t.slot + pad4((LD + 3) / 4);
+  t.al = t.laff = -1;
+  if (precision != PREC_F32) {
+    t.al = t.words;
+    t.laff = t.al + pad4((I + 3) / 4);
+    t.words = t.laff + pad4(2);
+  }
   return t;
 }
 
@@ -99,31 +139,78 @@ static __device__ __forceinline__ float sigmoid(float m) {
   return 1.0f / (1.0f + expf(-m));
 }
 
+// ---- dequantization ------------------------------------------------------------
+
+// Value i of a bf16 or int8 section, widened to f32 (int8: q * scale +
+// zero, rounded once). The _ldg forms read global memory through the
+// read-only cache, the others shared memory.
+static __device__ __forceinline__ float bf16_at(const int* sec, int i) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(reinterpret_cast<const unsigned short*>(sec)[i]));
+}
+static __device__ __forceinline__ float bf16_ldg(const int* sec, int i) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(sec) + i)));
+}
+static __device__ __forceinline__ float int8_at(const int* sec, int i, float scale,
+                                                float zero) {
+  return __fmaf_rn((float)reinterpret_cast<const signed char*>(sec)[i], scale, zero);
+}
+static __device__ __forceinline__ float int8_ldg(const int* sec, int i, float scale,
+                                                 float zero) {
+  return __fmaf_rn((float)__ldg(reinterpret_cast<const signed char*>(sec) + i),
+                   scale, zero);
+}
+
 // ---- margin only: one thread per (row, tree of the block's group) -----------
 
+// `thr_affine` is the (2, F) per-feature threshold scale and zero (read at
+// int8 only).
+template <int P>
 __global__ void walk_kernel(const int* __restrict__ tables,
+                            const float* __restrict__ thr_affine,
                             const float* __restrict__ x, int n_rows,
                             int n_features, int n_trees, int depth,
                             int trees_per_group, float* __restrict__ leaf_val) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= n_rows) return;
-  const TreeLayout lay = tree_layout(depth);
+  const TreeLayout lay = tree_layout(depth, P);
   const int n_internal = (1 << depth) - 1;
   const float* xr = x + (size_t)row * n_features;
   const int t0 = blockIdx.y * trees_per_group;
   const int t1 = min(n_trees, t0 + trees_per_group);
   for (int t = t0; t < t1; ++t) {
     const int* rec = tables + (size_t)t * lay.words;
-    const float* thr = reinterpret_cast<const float*>(rec + lay.thr);
     const int* feat = rec + lay.feat;
     const unsigned char* ml = reinterpret_cast<const unsigned char*>(rec + lay.ml);
     int node = 0;
     for (int p = 0; p < depth; ++p) {
-      const float v = __ldg(xr + __ldg(feat + node));
-      node = 2 * node + (goes_left(v, __ldg(thr + node), __ldg(ml + node)) ? 1 : 2);
+      const int f = __ldg(feat + node);
+      const float v = __ldg(xr + f);
+      float thr;
+      if constexpr (P == PREC_F32) {
+        thr = __ldg(reinterpret_cast<const float*>(rec + lay.thr) + node);
+      } else if (__ldg(reinterpret_cast<const unsigned char*>(rec + lay.al) + node)) {
+        thr = INFINITY;
+      } else if constexpr (P == PREC_BF16) {
+        thr = bf16_ldg(rec + lay.thr, node);
+      } else {
+        thr = int8_ldg(rec + lay.thr, node, __ldg(thr_affine + f),
+                       __ldg(thr_affine + n_features + f));
+      }
+      node = 2 * node + (goes_left(v, thr, __ldg(ml + node)) ? 1 : 2);
     }
-    const float* leaf = reinterpret_cast<const float*>(rec + lay.leaf);
-    leaf_val[(size_t)t * n_rows + row] = __ldg(leaf + (node - n_internal));
+    const int l = node - n_internal;
+    float lv;
+    if constexpr (P == PREC_F32) {
+      lv = __ldg(reinterpret_cast<const float*>(rec + lay.leaf) + l);
+    } else if constexpr (P == PREC_BF16) {
+      lv = bf16_ldg(rec + lay.leaf, l);
+    } else {
+      const float* aff = reinterpret_cast<const float*>(rec + lay.laff);
+      lv = int8_ldg(rec + lay.leaf, l, __ldg(aff), __ldg(aff + 1));
+    }
+    leaf_val[(size_t)t * n_rows + row] = lv;
   }
 }
 
@@ -144,46 +231,115 @@ static __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Start copying one tree's record into shared memory, 16 bytes a thread.
-static __device__ __forceinline__ void stage_tree(int* dst, const int* src,
-                                                  int words) {
+// A tree in shared memory is always an image of its f32 record (layout
+// tree_layout(D, PREC_F32)), so the SHAP loop reads every section at a
+// compile-time offset whatever the stored precision. A bf16 or int8 tree
+// also keeps, after its image, its stored thresholds, leaves, all_left
+// bytes and leaf scale and zero as they are (`raw_words`), which
+// `dequantize_tree` widens into the image's threshold and leaf sections.
+__host__ __device__ constexpr int raw_words(int d, int precision) {
+  if (precision == PREC_F32) return 0;
+  const TreeLayout q = tree_layout(d, precision);
+  return (q.feat - q.thr) + (q.rplay - q.leaf) + (q.words - q.al);
+}
+
+static __device__ __forceinline__ void copy_words(int* dst, const int* src, int words) {
   for (int i = 4 * threadIdx.x; i < words; i += 4 * blockDim.x)
     cp_async16(dst + i, src + i);
+}
+
+// Start copying the record `src` (stored layout q) into the shared buffer
+// `dst` (image layout f), 16 bytes a thread: at f32 the record as it is; at
+// bf16 and int8 its feature and SHAP sections to their places in the image
+// (the same words in both layouts) and its stored values to the raw area.
+static __device__ __forceinline__ void stage_tree(int* dst, const int* src,
+                                                  TreeLayout f, TreeLayout q,
+                                                  int precision) {
+  if (precision == PREC_F32) {
+    copy_words(dst, src, f.words);
+  } else {
+    int* raw = dst + f.words;
+    const int a = q.feat - q.thr, b = q.rplay - q.leaf;
+    copy_words(dst + f.feat, src + q.feat, q.leaf - q.feat);
+    copy_words(dst + f.rplay, src + q.rplay, q.al - q.rplay);
+    copy_words(raw, src + q.thr, a);
+    copy_words(raw + a, src + q.leaf, b);
+    copy_words(raw + a + b, src + q.al, q.words - q.al);
+  }
   cp_async_commit();
 }
 
+// A staged bf16 or int8 tree -> its f32 thresholds (+inf at all_left) and
+// leaf values in the image's thr and leaf sections, by all the block's
+// threads.
+static __device__ __forceinline__ void dequantize_tree(
+    int* tab, TreeLayout f, TreeLayout q, int precision,
+    const float* __restrict__ thr_affine, int n_features, int n_internal,
+    int n_leaves) {
+  const int* raw = tab + f.words;
+  const int a = q.feat - q.thr, b = q.rplay - q.leaf;
+  const unsigned char* al = reinterpret_cast<const unsigned char*>(raw + a + b);
+  const float* aff = reinterpret_cast<const float*>(raw + a + b + (q.laff - q.al));
+  const int* feat = tab + f.feat;
+  float* thr = reinterpret_cast<float*>(tab + f.thr);
+  float* leaf = reinterpret_cast<float*>(tab + f.leaf);
+  const bool bf16 = precision == PREC_BF16;
+  for (int k = threadIdx.x; k < n_internal + n_leaves; k += blockDim.x) {
+    if (k < n_internal) {
+      float v;
+      if (al[k]) {
+        v = INFINITY;
+      } else if (bf16) {
+        v = bf16_at(raw, k);
+      } else {
+        const int ft = feat[k];
+        v = int8_at(raw, k, __ldg(thr_affine + ft), __ldg(thr_affine + n_features + ft));
+      }
+      thr[k] = v;
+    } else {
+      const int l = k - n_internal;
+      leaf[l] = bf16 ? bf16_at(raw + a, l) : int8_at(raw + a, l, aff[0], aff[1]);
+    }
+  }
+}
+
 // Shared-memory layout of shap_kernel, in bytes (ops/score.py mirrors it in
-// `shap_smem_bytes` for its shape guard): two tree records, the (rows, F)
+// `shap_smem_bytes` for its shape guard): two trees (double-buffered, each
+// the f32 image and at bf16 and int8 the raw stored values), the (rows, F)
 // f64 totals, the row tile, this tree's (rows, F) f32 sums and the tile's
 // node decisions.
-static size_t shap_smem_bytes(int depth, int n_features, int rows) {
+static size_t shap_smem_bytes(int depth, int n_features, int rows, int precision) {
   const size_t RF = (size_t)rows * n_features;
-  return 8 * (size_t)tree_layout(depth).words + 16 * RF +
-         (size_t)rows * ((1 << depth) - 1);
+  const int tree_words = tree_layout(depth, PREC_F32).words + raw_words(depth, precision);
+  return 8 * (size_t)tree_words + 16 * RF + (size_t)rows * ((1 << depth) - 1);
 }
 
 // Up to depth 7 the compiler is held to four blocks an SM (64 registers a
 // thread, a few spilled): the leaf threads' coefficients then stay in flight
 // on 32 warps instead of 16, which the walk's grid needs more than the
-// registers. Deeper trees keep every register they need.
+// registers. Deeper trees keep every register they need. `q` is
+// tree_layout(D, precision), the layout of the records in `tables`;
+// `thr_affine` is read at int8 only.
 template <int D>
 __global__ void __launch_bounds__(MAX_SHAP_THREADS, D <= 7 ? 4 : 1)
-    shap_kernel(const int* __restrict__ tables, const float* __restrict__ x,
-                int n_rows, int n_features, int n_trees, int rows_per_block,
-                int trees_per_group, float* __restrict__ leaf_val,
-                double* __restrict__ phi_part) {
+    shap_kernel(const int* __restrict__ tables, const TreeLayout q,
+                int precision, const float* __restrict__ thr_affine,
+                const float* __restrict__ x, int n_rows, int n_features,
+                int n_trees, int rows_per_block, int trees_per_group,
+                float* __restrict__ leaf_val, double* __restrict__ phi_part) {
   constexpr int L = 1 << D;
   constexpr int I = L - 1;
-  constexpr TreeLayout lay = tree_layout(D);
+  constexpr TreeLayout lay = tree_layout(D, PREC_F32);  // the shared image
   const float* wt = c_wt + D * WT_STRIDE * WT_STRIDE;
   const int R = rows_per_block;
   const int nf = n_features;
+  const int tree_words = lay.words + raw_words(D, precision);
 
   extern __shared__ __align__(16) unsigned char smem[];
-  int* s_tab = reinterpret_cast<int*>(smem);                         // 2 records
-  double* s_phi = reinterpret_cast<double*>(s_tab + 2 * lay.words);  // R*F, group
-  float* s_x = reinterpret_cast<float*>(s_phi + R * nf);             // R*F
-  float* s_tphi = s_x + R * nf;                                      // R*F, tree
+  int* s_tab = reinterpret_cast<int*>(smem);                          // 2 trees
+  double* s_phi = reinterpret_cast<double*>(s_tab + 2 * tree_words);  // R*F, group
+  float* s_x = reinterpret_cast<float*>(s_phi + R * nf);              // R*F
+  float* s_tphi = s_x + R * nf;                                       // R*F, tree
   unsigned char* s_gl = reinterpret_cast<unsigned char*>(s_tphi + R * nf);  // R*I
 
   const int tid = threadIdx.x;
@@ -193,7 +349,7 @@ __global__ void __launch_bounds__(MAX_SHAP_THREADS, D <= 7 ? 4 : 1)
   const int t0 = blockIdx.y * trees_per_group;
   const int n_local = min(trees_per_group, n_trees - t0);
 
-  stage_tree(s_tab, tables + (size_t)t0 * lay.words, lay.words);
+  stage_tree(s_tab, tables + (size_t)t0 * q.words, lay, q, precision);
   for (int k = tid; k < R * nf; k += nt) {
     s_x[k] = (k / nf) < rows ? x[(size_t)row0 * nf + k] : 0.0f;
     s_phi[k] = 0.0;
@@ -201,18 +357,22 @@ __global__ void __launch_bounds__(MAX_SHAP_THREADS, D <= 7 ? 4 : 1)
   }
 
   for (int i = 0; i < n_local; ++i) {
-    const int* tab = s_tab + (i & 1) * lay.words;
+    int* tab = s_tab + (i & 1) * tree_words;
     // The other buffer held tree i-1, which every thread is done with (the
     // barrier before the last fold): fetch tree i+1 into it, then wait for
     // tree i only.
     if (i + 1 < n_local) {
-      stage_tree(s_tab + ((i + 1) & 1) * lay.words,
-                 tables + (size_t)(t0 + i + 1) * lay.words, lay.words);
+      stage_tree(s_tab + ((i + 1) & 1) * tree_words,
+                 tables + (size_t)(t0 + i + 1) * q.words, lay, q, precision);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();  // tree i's record (and, at i == 0, the row tile) is in
+    if (precision != PREC_F32) {
+      dequantize_tree(tab, lay, q, precision, thr_affine, nf, I, L);
+      __syncthreads();
+    }
     const float* s_thr = reinterpret_cast<const float*>(tab + lay.thr);
     const int* s_feat = tab + lay.feat;
     const float* s_leaf = reinterpret_cast<const float*>(tab + lay.leaf);
@@ -390,12 +550,13 @@ __global__ void __launch_bounds__(FIN_THREADS)
 }
 
 template <int D>
-static cudaError_t launch_shap(const int* tables, const float* x, int n_rows,
-                               int n_features, int n_trees, int rows_per_block,
-                               int trees_per_group, int n_groups, int threads,
-                               float* leaf_val, double* phi_part,
-                               cudaStream_t stream) {
-  const size_t smem = shap_smem_bytes(D, n_features, rows_per_block);
+static cudaError_t launch_shap(const int* tables, int precision,
+                               const float* thr_affine, const float* x,
+                               int n_rows, int n_features, int n_trees,
+                               int rows_per_block, int trees_per_group,
+                               int n_groups, int threads, float* leaf_val,
+                               double* phi_part, cudaStream_t stream) {
+  const size_t smem = shap_smem_bytes(D, n_features, rows_per_block, precision);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         shap_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -403,28 +564,50 @@ static cudaError_t launch_shap(const int* tables, const float* x, int n_rows,
   }
   const dim3 grid((n_rows + rows_per_block - 1) / rows_per_block, n_groups);
   shap_kernel<D><<<grid, threads, smem, stream>>>(
-      tables, x, n_rows, n_features, n_trees, rows_per_block, trees_per_group,
-      leaf_val, phi_part);
+      tables, tree_layout(D, precision), precision, thr_affine, x, n_rows,
+      n_features, n_trees, rows_per_block, trees_per_group, leaf_val, phi_part);
   return cudaGetLastError();
 }
 
-static cudaError_t launch_walk(const int* tables, const float* x, int n_rows,
-                               int n_features, int n_trees, int depth,
-                               int rows_per_block, int trees_per_group,
-                               int n_groups, int threads, float* leaf_val,
-                               double* phi_part, cudaStream_t stream) {
+template <int P>
+static cudaError_t launch_margin(const int* tables, const float* thr_affine,
+                                 const float* x, int n_rows, int n_features,
+                                 int n_trees, int depth, int rows_per_block,
+                                 int trees_per_group, int n_groups, int threads,
+                                 float* leaf_val, cudaStream_t stream) {
+  const dim3 grid((n_rows + rows_per_block - 1) / rows_per_block, n_groups);
+  walk_kernel<P><<<grid, threads, 0, stream>>>(tables, thr_affine, x, n_rows,
+                                               n_features, n_trees, depth,
+                                               trees_per_group, leaf_val);
+  return cudaGetLastError();
+}
+
+static cudaError_t launch_walk(const int* tables, int precision,
+                               const float* thr_affine, const float* x,
+                               int n_rows, int n_features, int n_trees,
+                               int depth, int rows_per_block,
+                               int trees_per_group, int n_groups, int threads,
+                               float* leaf_val, double* phi_part,
+                               cudaStream_t stream) {
   if (phi_part == nullptr) {
-    const dim3 grid((n_rows + rows_per_block - 1) / rows_per_block, n_groups);
-    walk_kernel<<<grid, threads, 0, stream>>>(tables, x, n_rows, n_features,
-                                              n_trees, depth, trees_per_group,
-                                              leaf_val);
-    return cudaGetLastError();
+#define MARGIN_CASE(P)                                                         \
+  case P:                                                                      \
+    return launch_margin<P>(tables, thr_affine, x, n_rows, n_features, n_trees, \
+                            depth, rows_per_block, trees_per_group, n_groups,   \
+                            threads, leaf_val, stream);
+    switch (precision) {
+      MARGIN_CASE(PREC_F32)
+      MARGIN_CASE(PREC_BF16)
+      MARGIN_CASE(PREC_INT8)
+    }
+#undef MARGIN_CASE
+    return cudaErrorInvalidValue;
   }
-#define SHAP_CASE(D)                                                        \
-  case D:                                                                   \
-    return launch_shap<D>(tables, x, n_rows, n_features, n_trees,           \
-                          rows_per_block, trees_per_group, n_groups, threads, \
-                          leaf_val, phi_part, stream);
+#define SHAP_CASE(D)                                                           \
+  case D:                                                                      \
+    return launch_shap<D>(tables, precision, thr_affine, x, n_rows, n_features, \
+                          n_trees, rows_per_block, trees_per_group, n_groups,   \
+                          threads, leaf_val, phi_part, stream);
   switch (depth) {
     SHAP_CASE(1)
     SHAP_CASE(2)
@@ -455,19 +638,25 @@ const char* score_forest_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Words of one tree's record at `depth` (ops/score.py checks its own layout
-// against it).
-int score_forest_table_words(int depth) {
-  return depth < 1 || depth > MAX_DEPTH ? -1 : tree_layout(depth).words;
+// Words of one tree's record at `depth` and `precision` (ops/score.py
+// checks its own layout against it).
+int score_forest_table_words(int depth, int precision) {
+  return depth < 1 || depth > MAX_DEPTH || precision < PREC_F32 ||
+                 precision > PREC_INT8
+             ? -1
+             : tree_layout(depth, precision).words;
 }
 
 // One call on `stream`: the walk kernel over (row tiles x n_groups) blocks of
 // `threads`, then the finalize kernel. `tables` is (n_trees, words) records,
-// 16-byte aligned; leaf_val is (n_trees, n_rows) f32 scratch. `phis == NULL`
+// 16-byte aligned, at `precision` (PREC_*); `thr_affine` is the (2,
+// n_features) per-feature threshold scale and zero, read at int8 only;
+// leaf_val is (n_trees, n_rows) f32 scratch. `phis == NULL`
 // selects the margin-only walk (rows_per_block == threads, one row a
 // thread); otherwise phi_part is (n_groups, n_rows, n_features) f64 scratch
 // and phis is (n_rows, n_features). Returns the first launch error.
-int score_forest(int device, const int* tables, const float* x, int n_rows,
+int score_forest(int device, const int* tables, int precision,
+                 const float* thr_affine, const float* x, int n_rows,
                  int n_features, int n_trees, int depth, int rows_per_block,
                  int trees_per_group, int n_groups, int threads,
                  float* leaf_val, double* phi_part, float* margin, float* prob,
@@ -480,7 +669,8 @@ int score_forest(int device, const int* tables, const float* x, int n_rows,
       n_trees < 0 || trees_per_group < 1 ||
       n_groups != (n_trees + trees_per_group - 1) / trees_per_group ||
       n_groups > 65535 || threads < 32 || threads % 32 != 0 ||
-      ((size_t)tables & 15) != 0 ||
+      ((size_t)tables & 15) != 0 || precision < PREC_F32 ||
+      precision > PREC_INT8 || (precision == PREC_INT8 && thr_affine == nullptr) ||
       (shap ? (rows_per_block < 1 || rows_per_block > MAX_SHAP_ROWS ||
                threads > MAX_SHAP_THREADS ||
                (n_groups > 0 && phi_part == nullptr))
@@ -488,9 +678,9 @@ int score_forest(int device, const int* tables, const float* x, int n_rows,
   if (bad) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (n_groups > 0) {
-    err = launch_walk(tables, x, n_rows, n_features, n_trees, depth,
-                      rows_per_block, trees_per_group, n_groups, threads,
-                      leaf_val, shap ? phi_part : nullptr, s);
+    err = launch_walk(tables, precision, thr_affine, x, n_rows, n_features,
+                      n_trees, depth, rows_per_block, trees_per_group, n_groups,
+                      threads, leaf_val, shap ? phi_part : nullptr, s);
     if (err != cudaSuccess) return (int)err;
   }
   int fin_blocks = (n_rows + FIN_ITEMS - 1) / FIN_ITEMS;

@@ -8,13 +8,18 @@ tree order) or raises; on a CPU tensor it runs `fused_score_reference`, the
 plain PyTorch version of the same function. There is no fallback from one to
 the other. `launch_plan` sizes the walk's grid on the host.
 
-`pack_forest` builds the kernel's input bundle once per model: the node
-tables of the forest plus the row-independent per-leaf TreeSHAP tables
-(`explain.treeshap.leaf_tables`), one record of all of them per tree
-(`tree_tables`, the layout the kernel copies into shared memory), and the
-SHAP base value, a forest-only scalar computed here, outside the kernel, as
-a plain PyTorch reduction. Only the f32 pack is ported; bf16 and int8 packs
-raise ``NotImplementedError``.
+`pack_forest` builds the kernel's input bundle once per model, in one of
+three precisions: the node tables of the forest with thresholds and leaf
+values stored as f32, bf16 or int8 (affine tables per feature for the
+thresholds and per tree for the leaves, as the reference quantizes them),
+the row-independent per-leaf TreeSHAP tables (`explain.treeshap.leaf_tables`),
+one record of all of them per tree (`tree_tables`, the layout the kernel
+copies into shared memory), and the SHAP base value of the dequantized
+leaves, a forest-only scalar computed here as a plain PyTorch reduction. The
+kernel dequantizes inside each call; the pack also keeps the dequantized f32
+thresholds and leaves (`dequantize`), which the plain version scores with.
+A bf16 or int8 pack is gated at build time against `PRECISION_TOLERANCES`
+(`quantization_report` on `probe_rows`), as the reference gates it.
 """
 
 from __future__ import annotations
@@ -22,11 +27,14 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import hashlib
 import math
 import threading
+from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from cobalt_smart_lender_ai_tpu_torch.explain.treeshap import (
     bilinear_kernel,
@@ -43,13 +51,17 @@ from cobalt_smart_lender_ai_tpu_torch.ops import _build
 
 __all__ = [
     "PRECISIONS",
+    "PRECISION_TOLERANCES",
     "ForestPack",
     "LaunchPlan",
+    "dequantize",
     "fused_score",
     "fused_score_reference",
     "fused_supported",
     "launch_plan",
     "pack_forest",
+    "probe_rows",
+    "quantization_report",
     "shap_smem_bytes",
     "shap_supported",
     "tree_table_layout",
@@ -57,6 +69,32 @@ __all__ = [
 ]
 
 PRECISIONS = ("f32", "bf16", "int8")
+#: Bytes of one stored threshold or leaf value at each precision.
+_VALUE_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
+
+#: The reference's publish-time tolerance contract for the quantized packs,
+#: measured against the f32 forest on `probe_rows`: mean and max |margin
+#: delta| and mean |prob delta|. The max bound is a loose catastrophe
+#: ceiling (rows sitting on a threshold may flip to a sibling leaf under any
+#: quantization); the means carry the calibration contract. A pack beyond
+#: its bound raises at `pack_forest(..., check=True)` and never serves.
+PRECISION_TOLERANCES: dict[str, dict[str, float]] = {
+    "f32": {
+        "mean_abs_margin_delta": 0.0,
+        "max_abs_margin_delta": 0.0,
+        "mean_abs_prob_delta": 0.0,
+    },
+    "bf16": {
+        "mean_abs_margin_delta": 0.25,
+        "max_abs_margin_delta": 4.0,
+        "mean_abs_prob_delta": 0.05,
+    },
+    "int8": {
+        "mean_abs_margin_delta": 0.40,
+        "max_abs_margin_delta": 4.0,
+        "mean_abs_prob_delta": 0.08,
+    },
+}
 
 #: Deepest tree the kernel takes (its SHAP path is instantiated per depth).
 MAX_DEPTH = 10
@@ -81,20 +119,35 @@ SMEM_LIMIT = 232_448
 @dataclasses.dataclass(frozen=True)
 class ForestPack:
     """The kernel's input bundle. Node tables are (T, I); leaf tables are
-    (T, L, d); ``base`` is the SHAP base value (a 0-d tensor)."""
+    (T, L, d); ``base`` is the SHAP base value (a 0-d tensor). ``thr_q`` and
+    ``leaf_q`` are stored at ``precision`` with the reference's affine
+    tables beside them (identity tables at f32 and bf16); ``thr`` and
+    ``leaf`` are their f32 dequantization (``thr`` is ``+inf`` where
+    ``all_left``), which is ``thr_q`` and ``leaf_q`` themselves at f32."""
 
     feature: torch.Tensor  # (T, I) int32
-    thr: torch.Tensor  # (T, I) float32
+    thr_q: torch.Tensor  # (T, I) float32 | bfloat16 | int8
     missing_left: torch.Tensor  # (T, I) bool
+    all_left: torch.Tensor  # (T, I) bool: trivial splits (f32 threshold +inf)
+    leaf_q: torch.Tensor  # (T, L) float32 | bfloat16 | int8
+    thr_scale: torch.Tensor  # (1, F) float32, per feature
+    thr_zero: torch.Tensor  # (1, F) float32
+    leaf_scale: torch.Tensor  # (1, T) float32, per tree
+    leaf_zero: torch.Tensor  # (1, T) float32
+    thr: torch.Tensor  # (T, I) float32
     leaf: torch.Tensor  # (T, L) float32
     path_feature: torch.Tensor  # (T, L, d) int32
     slot: torch.Tensor  # (T, L, d) uint8
     r_play: torch.Tensor  # (T, L, d) float32
     base: torch.Tensor  # () float32
     tables: torch.Tensor  # (T, W) int32: one `tree_table_layout` record per tree
+    thr_affine: torch.Tensor  # (2, F) float32: thr_scale over thr_zero, for the kernel
     depth: int
     n_features: int
     precision: str = "f32"
+    #: md5 of the quantized tensors and tables, as the reference computes
+    #: it; the string "f32" for an f32 pack.
+    table_hash: str = "f32"
 
     @property
     def n_trees(self) -> int:
@@ -105,38 +158,248 @@ class ForestPack:
         return self.feature.device
 
 
-def pack_forest(forest: Forest, n_features: int, precision: str = "f32") -> ForestPack:
-    """Build the kernel's input bundle on the forest's device."""
+def _per_feature_thr_tables(
+    feature: np.ndarray, thr: np.ndarray, n_features: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Per-feature affine tables over each feature's finite thresholds (the
+    ranges in float64, the tables stored as float32)."""
+    lo = np.full(n_features, np.inf, np.float64)
+    hi = np.full(n_features, -np.inf, np.float64)
+    finite = np.isfinite(thr)
+    np.minimum.at(lo, feature[finite], thr[finite])
+    np.maximum.at(hi, feature[finite], thr[finite])
+    seen = np.isfinite(lo)
+    lo = np.where(seen, lo, 0.0)
+    hi = np.where(seen, hi, 0.0)
+    span = hi - lo
+    scale = np.where(span > 0, span / 254.0, 1.0)
+    zero = (hi + lo) / 2.0
+    return scale.astype(np.float32), zero.astype(np.float32)
+
+
+def _quantize_affine(values: np.ndarray, scale: np.ndarray, zero: np.ndarray) -> np.ndarray:
+    """``round((v - zero) / scale)`` in the inputs' float32, half to even,
+    clipped to [-127, 127]."""
+    q = np.round((values - zero) / scale)
+    return np.clip(q, -127, 127).astype(np.int8)
+
+
+def _table_hash(precision: str, *arrays: np.ndarray) -> str:
+    h = hashlib.md5(precision.encode())
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    """A bf16 tensor's bytes as a numpy array (numpy has no bf16)."""
+    return t.view(torch.int16).numpy()
+
+
+def _quantize(
+    precision: str, feature: np.ndarray, thr: np.ndarray, leaf: np.ndarray, n_features: int
+) -> dict[str, Any]:
+    """The stored thresholds and leaves, the four affine tables and the
+    table hash of a pack, on the host, with the reference's dtype at every
+    step. bf16 rounds to nearest even (``+inf`` stays ``+inf``); int8
+    encodes each threshold through its feature's table (a trivial ``+inf``
+    threshold encodes 0 and is routed by ``all_left``) and each leaf
+    through its tree's."""
+    T = thr.shape[0]
+    thr_scale = np.ones((1, n_features), np.float32)
+    thr_zero = np.zeros((1, n_features), np.float32)
+    leaf_scale = np.ones((1, T), np.float32)
+    leaf_zero = np.zeros((1, T), np.float32)
+    if precision == "f32":
+        thr_q, leaf_q = torch.from_numpy(thr), torch.from_numpy(leaf)
+        table_hash = "f32"
+    elif precision == "bf16":
+        thr_q = torch.from_numpy(thr).to(torch.bfloat16)
+        leaf_q = torch.from_numpy(leaf).to(torch.bfloat16)
+        table_hash = _table_hash(precision, _bits(thr_q), _bits(leaf_q))
+    else:  # int8
+        scale_f, zero_f = _per_feature_thr_tables(feature, thr, n_features)
+        thr_scale[0], thr_zero[0] = scale_f, zero_f
+        node_scale = scale_f[feature]
+        node_zero = zero_f[feature]
+        thr_np = _quantize_affine(np.where(np.isposinf(thr), node_zero, thr), node_scale, node_zero)
+        lo_t = leaf.min(axis=1)
+        hi_t = leaf.max(axis=1)
+        span_t = hi_t - lo_t
+        leaf_scale[0] = np.where(span_t > 0, span_t / 254.0, 1.0)
+        leaf_zero[0] = (hi_t + lo_t) / 2.0
+        leaf_np = _quantize_affine(leaf, leaf_scale[0][:, None], leaf_zero[0][:, None])
+        table_hash = _table_hash(
+            precision, thr_np, leaf_np, thr_scale, thr_zero, leaf_scale, leaf_zero
+        )
+        thr_q, leaf_q = torch.from_numpy(thr_np), torch.from_numpy(leaf_np)
+    return dict(
+        thr_q=thr_q,
+        leaf_q=leaf_q,
+        thr_scale=torch.from_numpy(thr_scale),
+        thr_zero=torch.from_numpy(thr_zero),
+        leaf_scale=torch.from_numpy(leaf_scale),
+        leaf_zero=torch.from_numpy(leaf_zero),
+        table_hash=table_hash,
+    )
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as ``__fmaf_rn`` and the
+    reference's CPU FMA round it (two float32 roundings differ on about a
+    tenth of an int8 pack's values). The product of two float32s is exact
+    in float64; the float64 sum, rounded to odd (to the neighbour whose
+    last bit is set when it is inexact, from TwoSum's exact error), then
+    rounds to float32 as the exact sum would. A float64 sum rounded to
+    nearest would round twice."""
+    p = a.double() * b.double()
+    c = c.double().expand_as(p)
+    s = p + c
+    sb = s - p
+    err = (p - (s - sb)) + (c - sb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def dequantize(
+    precision: str,
+    feature: torch.Tensor,
+    thr_q: torch.Tensor,
+    leaf_q: torch.Tensor,
+    all_left: torch.Tensor,
+    thr_scale: torch.Tensor,
+    thr_zero: torch.Tensor,
+    leaf_scale: torch.Tensor,
+    leaf_zero: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The f32 thresholds and leaves a pack scores with (the plain version
+    of the kernel's staging step): bf16 widened; int8 as ``q * scale +
+    zero`` rounded once (`_fma_f32`), thresholds through their feature's
+    table and leaves through their tree's; ``+inf`` at ``all_left`` (for
+    a non-NaN value the reference's ``(x <= thr) | all_left``)."""
+    if precision == "f32":
+        return thr_q, leaf_q
+    thr, leaf = thr_q.float(), leaf_q.float()
+    if precision == "int8":
+        f = feature.long()
+        thr = _fma_f32(thr, thr_scale[0][f], thr_zero[0][f])
+        leaf = _fma_f32(leaf, leaf_scale[0][:, None], leaf_zero[0][:, None])
+    return torch.where(all_left, math.inf, thr), leaf
+
+
+def pack_forest(
+    forest: Forest, n_features: int, precision: str = "f32", *, check: bool = True
+) -> ForestPack:
+    """Build the kernel's input bundle on the forest's device.
+
+    The stored tables are built on the host in numpy, as the reference
+    builds them, then uploaded. ``check`` gates a bf16 or int8 pack against
+    `PRECISION_TOLERANCES` (`quantization_report`) and raises
+    ``ValueError`` when it is outside, so it never serves."""
     if precision not in PRECISIONS:
         raise ValueError(f"forest_precision must be one of {PRECISIONS}, got {precision!r}")
-    if precision != "f32":
-        raise NotImplementedError(
-            f"forest_precision={precision!r} is not ported to the CUDA scoring "
-            "kernel yet; only 'f32' packs are supported"
-        )
+    device = forest.feature.device
     feature = forest.feature.to(torch.int32).contiguous()
     if feature.numel() and (
         int(feature.min()) < 0 or int(feature.max()) >= n_features
     ):
         raise ValueError(f"forest tests a feature outside [0, {n_features})")
+    feature_h = feature.cpu()
+    thr32 = forest.thr_float.to(torch.float32).cpu().contiguous()
+    q = _quantize(
+        precision,
+        feature_h.numpy(),
+        thr32.numpy(),
+        forest.leaf_value.to(torch.float32).cpu().contiguous().numpy(),
+        n_features,
+    )
+    table_hash = q.pop("table_hash")
+    q["all_left"] = torch.isposinf(thr32)
+    # Dequantized on the host too, so a pack scores alike on every device.
+    thr, leaf = (t.to(device) for t in dequantize(precision, feature_h, **q))
+    stored = {k: v.to(device) for k, v in q.items()}
     pf, slot, r_play, ratio = leaf_tables(feature, forest.cover, forest.depth)
     parts = dict(
         feature=feature,
-        thr=forest.thr_float.to(torch.float32).contiguous(),
         missing_left=forest.missing_left.to(torch.bool).contiguous(),
-        leaf=forest.leaf_value.to(torch.float32).contiguous(),
         path_feature=pf.to(torch.int32).contiguous(),
         slot=slot.contiguous(),
         r_play=r_play.contiguous(),
+        **stored,
     )
-    return ForestPack(
+    pack = ForestPack(
         **parts,
-        base=expected_margin(forest.leaf_value, ratio),
-        tables=tree_tables(int(forest.depth), **parts),
+        thr=thr.contiguous(),
+        leaf=leaf.contiguous(),
+        base=expected_margin(leaf, ratio),
+        tables=tree_tables(int(forest.depth), precision, **parts),
+        thr_affine=torch.cat([stored["thr_scale"], stored["thr_zero"]]).contiguous(),
         depth=int(forest.depth),
         n_features=int(n_features),
         precision=precision,
+        table_hash=table_hash,
     )
+    if check and precision != "f32":
+        report = quantization_report(forest, pack, n_features)
+        if not report["within_tolerance"]:
+            raise ValueError(
+                f"{precision} quantization exceeds the committed tolerance "
+                f"contract: {report}"
+            )
+    return pack
+
+
+def probe_rows(forest: Forest, n_features: int, rows: int = 64) -> np.ndarray:
+    """The publish gate's deterministic probe matrix: rows straddling the
+    forest's own finite thresholds at ±1% and ±3% offsets, then an all-NaN
+    row and an all-zeros row. No random numbers: the gate gives the same
+    verdict on every host."""
+    thr = forest.thr_float.to(torch.float32).cpu().numpy()
+    feature = forest.feature.to(torch.int32).cpu().numpy()
+    per_feature: list[np.ndarray] = []
+    for f in range(n_features):
+        vals = np.unique(thr[(feature == f) & np.isfinite(thr)])
+        per_feature.append(vals if vals.size else np.zeros(1, np.float32))
+    n_body = max(rows - 2, 1)
+    X = np.zeros((n_body + 2, n_features), np.float32)
+    offsets = np.array([-0.01, 0.01, -0.03, 0.03], np.float32)
+    for f, vals in enumerate(per_feature):
+        idx = np.arange(n_body) % vals.size
+        off = offsets[np.arange(n_body) % offsets.size]
+        X[:n_body, f] = vals[idx] * (1.0 + off) + off
+    X[n_body] = np.nan
+    X[n_body + 1] = 0.0
+    return X
+
+
+def quantization_report(forest: Forest, pack: ForestPack, n_features: int) -> dict[str, Any]:
+    """The publish gate: ``pack`` against an f32 pack of the same forest on
+    `probe_rows`, both scored by `fused_score` on the pack's device (the
+    kernel on the card, the plain version on the CPU; f32 margins equal the
+    reference's ``predict_margin`` bit for bit): mean and max |margin
+    delta|, mean |prob delta| against the f32 margins' sigmoid, and whether
+    each is within `PRECISION_TOLERANCES[pack.precision]`."""
+    X = torch.from_numpy(probe_rows(forest, n_features)).to(pack.device)
+    ref = pack if pack.precision == "f32" else pack_forest(forest, n_features, "f32")
+    ref_margin = fused_score(ref, X, n_features=n_features, with_shap=False)[0].cpu().numpy()
+    margin, prob = fused_score(pack, X, n_features=n_features, with_shap=False)
+    dm = np.abs(margin.cpu().numpy() - ref_margin)
+    with np.errstate(over="ignore"):
+        ref_prob = 1.0 / (1.0 + np.exp(-ref_margin))
+    dp = np.abs(prob.cpu().numpy() - ref_prob)
+    tol = PRECISION_TOLERANCES[pack.precision]
+    report = {
+        "precision": pack.precision,
+        "probe_rows": int(X.shape[0]),
+        "mean_abs_margin_delta": float(dm.mean()),
+        "max_abs_margin_delta": float(dm.max()),
+        "mean_abs_prob_delta": float(dp.mean()),
+        "tolerance": dict(tol),
+    }
+    report["within_tolerance"] = all(report[k] <= tol[k] for k in tol)
+    return report
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -147,22 +410,30 @@ def _round_up(n: int, multiple: int) -> int:
     return _ceil_div(n, multiple) * multiple
 
 
-def tree_table_layout(depth: int) -> tuple[dict[str, tuple[int, int]], int]:
+def tree_table_layout(
+    depth: int, precision: str = "f32"
+) -> tuple[dict[str, tuple[int, int]], int]:
     """One tree's record as ``score_forest.cu`` (``tree_layout``) reads it:
     ``{section: (word offset, words)}`` and the record's words. Every section
     starts on a 16-byte boundary, so the kernel copies a record 16 bytes at a
-    time; the byte tables are packed four to a word."""
+    time; 1- and 2-byte tables are packed four or two to a word. ``thr_q``
+    and ``leaf_q`` are stored at ``precision``; a bf16 or int8 record adds
+    the ``all_left`` bytes and the tree's leaf scale and zero
+    (``leaf_affine``), after the sections an f32 record has."""
     L = 2**depth
     I, LD = L - 1, L * depth
-    sections = (
-        ("thr", I),
+    b = _VALUE_BYTES[precision]
+    sections = [
+        ("thr_q", _ceil_div(I * b, 4)),
         ("feature", I),
-        ("leaf", L),
+        ("leaf_q", _ceil_div(L * b, 4)),
         ("r_play", LD),
         ("path_feature", LD),
         ("missing_left", _ceil_div(I, 4)),
         ("slot", _ceil_div(LD, 4)),
-    )
+    ]
+    if precision != "f32":
+        sections += [("all_left", _ceil_div(I, 4)), ("leaf_affine", 2)]
     layout, offset = {}, 0
     for name, words in sections:
         layout[name] = (offset, words)
@@ -171,35 +442,41 @@ def tree_table_layout(depth: int) -> tuple[dict[str, tuple[int, int]], int]:
 
 
 def _as_words(t: torch.Tensor) -> torch.Tensor:
-    """(T, ...) tensor of 1- or 4-byte elements -> (T, words) int32, the
-    bytes zero-padded to whole words."""
-    t = t.reshape(t.shape[0], math.prod(t.shape[1:]))
-    if t.element_size() == 4:
-        return t.view(torch.int32)
-    b = t.to(torch.uint8)
-    padded = torch.zeros((b.shape[0], _round_up(b.shape[1], 4)), dtype=torch.uint8, device=b.device)
-    padded[:, : b.shape[1]] = b
-    return padded.view(torch.int32)
+    """(T, ...) tensor -> (T, words) int32 of its bytes, zero-padded to
+    whole words."""
+    b = t.reshape(t.shape[0], -1).contiguous().view(torch.uint8)
+    return F.pad(b, (0, (-b.shape[1]) % 4)).view(torch.int32)
 
 
-def tree_tables(depth: int, **parts: torch.Tensor) -> torch.Tensor:
+def tree_tables(depth: int, precision: str = "f32", **parts: torch.Tensor) -> torch.Tensor:
     """The (T, W) int32 records of `tree_table_layout`, one per tree, from
-    the pack's tables (one keyword per section)."""
-    layout, words = tree_table_layout(depth)
+    the pack's tables (one keyword per section; ``leaf_affine`` is made
+    from ``leaf_scale`` and ``leaf_zero``)."""
+    layout, words = tree_table_layout(depth, precision)
     feature = parts["feature"]
+    if "leaf_affine" in layout:
+        parts = dict(
+            parts, leaf_affine=torch.stack([parts["leaf_scale"][0], parts["leaf_zero"][0]], 1)
+        )
     tables = torch.zeros((feature.shape[0], words), dtype=torch.int32, device=feature.device)
     for name, (offset, n) in layout.items():
-        tables[:, offset : offset + n] = _as_words(parts[name].contiguous())
+        tables[:, offset : offset + n] = _as_words(parts[name])
     return tables
 
 
-def shap_smem_bytes(depth: int, n_features: int, rows: int) -> int:
+def shap_smem_bytes(depth: int, n_features: int, rows: int, precision: str = "f32") -> int:
     """Dynamic shared memory of one SHAP block (``score_forest.cu`` computes
-    the same sum for its launch): two tree records (double-buffered), the
-    (rows, F) f64 totals of the block's tree group, the row tile, this
-    tree's (rows, F) f32 sums, and the tile's node decisions."""
-    RF = rows * n_features
-    return 8 * tree_table_layout(depth)[1] + 16 * RF + rows * (2**depth - 1)
+    the same sum for its launch): two trees (double-buffered), each an image
+    of its f32 record and, for a bf16 or int8 pack, its stored thresholds,
+    leaves, ``all_left`` bytes and leaf affine beside it; the (rows, F) f64
+    totals of the block's tree group, the row tile, this tree's (rows, F)
+    f32 sums, and the tile's node decisions."""
+    raw = 0
+    if precision != "f32":
+        q = tree_table_layout(depth, precision)[0]
+        raw = sum(_round_up(q[k][1], 4) for k in ("thr_q", "leaf_q", "all_left", "leaf_affine"))
+    image = tree_table_layout(depth)[1]
+    return 8 * (image + raw) + 16 * rows * n_features + rows * (2**depth - 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,12 +553,11 @@ def fused_supported(depth: int) -> bool:
     return 1 <= depth <= MAX_DEPTH
 
 
-def shap_supported(depth: int, n_features: int) -> bool:
+def shap_supported(depth: int, n_features: int, precision: str = "f32") -> bool:
     """Shape guard of the SHAP kernel: the depth it is instantiated for, and
-    two tree records plus the (rows, F) accumulators in shared memory at the
-    largest tile."""
+    its shared memory (`shap_smem_bytes`) at the largest tile."""
     return fused_supported(depth) and (
-        shap_smem_bytes(depth, n_features, MAX_ROWS_PER_BLOCK) <= SMEM_LIMIT
+        shap_smem_bytes(depth, n_features, MAX_ROWS_PER_BLOCK, precision) <= SMEM_LIMIT
     )
 
 
@@ -289,7 +565,8 @@ def fused_score_reference(
     pack: ForestPack, X: torch.Tensor, *, n_features: int, with_shap: bool = True
 ):
     """The plain PyTorch version of `fused_score`: same returns, same f32
-    margins bit for bit, probabilities and phis to float tolerance."""
+    margins bit for bit, probabilities and phis to float tolerance. It
+    scores with the pack's dequantized thresholds and leaves (`dequantize`)."""
     leaves = landed_leaves(pack.feature, pack.thr, pack.missing_left, pack.depth, X)
     trees = torch.arange(pack.n_trees, device=X.device)
     margin = sum_trees_in_order(pack.leaf[trees, leaves])
@@ -332,15 +609,18 @@ def _library(device_index: int) -> ctypes.CDLL:
     with _LIB_LOCK:
         if device_index not in _WT_DEVICES:
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.score_forest.argtypes = [i, p, p] + [i] * 8 + [p] * 6
+            lib.score_forest.argtypes = [i, p, i, p, p] + [i] * 8 + [p] * 6
             lib.score_forest.restype = i
-            lib.score_forest_table_words.argtypes = [i]
+            lib.score_forest_table_words.argtypes = [i, i]
             lib.score_forest_table_words.restype = i
-            for depth in range(1, MAX_DEPTH + 1):
-                if lib.score_forest_table_words(depth) != tree_table_layout(depth)[1]:
-                    raise RuntimeError(
-                        f"score_forest.cu and tree_table_layout disagree at depth {depth}"
-                    )
+            for code, precision in enumerate(PRECISIONS):
+                for depth in range(1, MAX_DEPTH + 1):
+                    words = tree_table_layout(depth, precision)[1]
+                    if lib.score_forest_table_words(depth, code) != words:
+                        raise RuntimeError(
+                            "score_forest.cu and tree_table_layout disagree at "
+                            f"depth {depth}, precision {precision}"
+                        )
             lib.score_forest_set_wt.argtypes = [i, p]
             lib.score_forest_set_wt.restype = i
             lib.score_forest_error_string.argtypes = [i]
@@ -371,7 +651,7 @@ def fused_score(
     ``(N, F)`` and a 0-d tensor. A CPU ``X`` runs `fused_score_reference`; a
     CUDA ``X`` launches the walk and finalize kernels once each on the
     current stream (one call, counted in ``fused_score.launches``) or
-    raises."""
+    raises; the walk dequantizes a bf16 or int8 pack inside the call."""
     if X.device.type == "cpu":
         return fused_score_reference(pack, X, n_features=n_features, with_shap=with_shap)
     if X.device.type != "cuda":
@@ -388,7 +668,7 @@ def fused_score(
     if not fused_supported(pack.depth):
         raise ValueError(f"score_forest takes depth 1..{MAX_DEPTH}, got {pack.depth}")
     N = X.shape[0]
-    if with_shap and not shap_supported(pack.depth, n_features):
+    if with_shap and not shap_supported(pack.depth, n_features, pack.precision):
         raise ValueError(
             f"score_forest's SHAP path does not take depth {pack.depth} with "
             f"{n_features} features: its shared memory would not fit"
@@ -406,6 +686,8 @@ def fused_score(
         err = lib.score_forest(
             dev,
             pack.tables.data_ptr(),
+            PRECISIONS.index(pack.precision),
+            pack.thr_affine.data_ptr(),
             X.data_ptr(),
             N,
             n_features,

@@ -1,10 +1,12 @@
 """CLI: restore the model artifact and serve the scoring API on the GPU.
 
     python -m cobalt_smart_lender_ai_tpu_torch.serve --store artifacts \\
-        [--device cuda|cpu] [--port N]
+        [--device cuda|cpu] [--port N] [--forest-precision f32|bf16|int8]
 
 ``--device`` defaults to ``cuda``; without a CUDA device the command fails
 at startup. ``--device cpu`` runs the plain PyTorch versions of the kernels.
+A bf16 or int8 forest is gated at startup against the committed tolerances
+and refused outside them.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
         "--forest-precision",
         choices=("f32", "bf16", "int8"),
         default=ServeConfig.forest_precision,
-        help="packed forest representation (only f32 is ported)",
+        help="packed forest representation: f32 (bit-exact), bf16 or int8 "
+        "(gated at startup against the committed tolerances)",
     )
     return parser.parse_args(argv)
 
@@ -74,7 +77,8 @@ def main(argv: Sequence[str] | None = None) -> None:
     print(
         f"[INFO] model restored from {args.store}/{args.model_key}: "
         f"{ready['n_features']} features on {ready['device']} "
-        f"(kernel {ready['kernel']}, forest precision {ready['precision']})"
+        f"(kernel {ready['kernel']}, forest precision {ready['precision']}, "
+        f"quant table {ready['quant_table']})"
     )
     from cobalt_smart_lender_ai_tpu_torch.serve.http_asyncio import serve_forever
 

@@ -123,10 +123,13 @@ class _CompiledModel:
     """One restored artifact packed for the fused kernel on ``device``: the
     pack, the scoring callables, the warmed buckets and the gains.
 
-    Construction launches every micro-batch bucket (with SHAP) and one bulk
-    bucket (without) once on an all-zeros batch: the kernel is built
-    and checked at startup, and a model whose smoke scores are not finite
-    never serves."""
+    The pack is built at ``config.forest_precision`` with the publish gate
+    on: a bf16 or int8 forest outside `PRECISION_TOLERANCES` raises here
+    and never serves (the gate scores its probe rows with two launches, the
+    quantized pack's and its f32 reference's). Construction then launches
+    every micro-batch bucket (with SHAP) and one bulk bucket (without) once
+    on an all-zeros batch: the kernel is built and checked at startup, and
+    a model whose smoke scores are not finite never serves."""
 
     def __init__(self, artifact: GBDTArtifact, config: ServeConfig, device: torch.device):
         self.artifact = artifact
@@ -139,9 +142,9 @@ class _CompiledModel:
         depth = forest.depth
         if not fused_supported(depth):
             raise ValueError(f"the scoring kernel does not take depth {depth}")
-        self.pack = pack_forest(forest, self.n_features, config.forest_precision)
+        self.pack = pack_forest(forest, self.n_features, config.forest_precision, check=True)
         self.shap_error: str | None = None
-        if not shap_supported(depth, self.n_features):
+        if not shap_supported(depth, self.n_features, self.pack.precision):
             err = (
                 f"the SHAP kernel does not take depth {depth} with "
                 f"{self.n_features} features"
@@ -524,8 +527,10 @@ class ScorerService:
 
     def ready(self) -> tuple[bool, dict]:
         """``GET /readyz`` — the model is packed on its device and every
-        warmed bucket scored. A SHAP path the kernel cannot take is reported
-        as degraded; probabilities still serve."""
+        warmed bucket scored. ``precision`` and ``quant_table`` (the pack's
+        table hash, "f32" at f32) name the forest being served. A SHAP path
+        the kernel cannot take is reported as degraded; probabilities still
+        serve."""
         model = self._model
         payload = {
             "status": "ok",
@@ -534,6 +539,7 @@ class ScorerService:
             "device": str(model.device),
             "kernel": model.kernel,
             "precision": model.pack.precision,
+            "quant_table": model.pack.table_hash,
             "warm_buckets": model.warm_buckets,
             "shap": "ok" if model.shap_fn is not None else "degraded",
             "degraded": model.shap_fn is None,

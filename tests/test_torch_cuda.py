@@ -14,7 +14,11 @@ kernel adds a tree's contributions with atomics in no fixed order), and
 ``base + sum(phis)`` within 1e-4 of the margin. The cases cover what the
 grid of (row tile x tree group) can get wrong: forests whose last tree
 group is not full, depths 1 to 10, ragged row tiles, an all-NaN row and a
-zero-padded bucket. Of ``gradient_histogram``: cover bit-identical, g and h of
+zero-padded bucket. The bf16 and int8 packs are held to the same
+tolerances (the kernel dequantizes as the plain version does: margins
+bitwise), on the committed model and on synthetic forests with all-left
+splits at depths 1 to 10, and an int8 service serves as the plain int8
+scorer. Of ``gradient_histogram``: cover bit-identical, g and h of
 each node within 1e-5 of that node's largest |value| in the channel, two
 launches bit-identical (integer fixed-point sums), the same rows in another
 order bit-identical (the kernel groups rows by node in no fixed order), and
@@ -189,6 +193,74 @@ def test_kernel_all_nan_and_padded_rows_on_card(card_pack, with_shap):
     X[0] = np.nan
     X[5:] = 0.0
     _assert_kernel_matches_plain(pack, cpu_pack, X, with_shap)
+
+
+QUANTIZED = ("bf16", "int8")
+
+
+@pytest.fixture(scope="module")
+def card_quantized_packs():
+    """The committed forest packed at bf16 and int8 on the card (through
+    the publish gate) and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the score_forest kernel has no CPU mode")
+    art = GBDTArtifact.load(ObjectStore(str(ROOT / "artifacts")), "models/gbdt/model_tree", "cpu")
+    F = len(art.feature_names)
+    card_forest = art.forest.to("cuda")
+    return {
+        p: (pack_forest(card_forest, F, p), pack_forest(art.forest, F, p)) for p in QUANTIZED
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", QUANTIZED)
+@pytest.mark.parametrize(
+    "rows, with_shap",
+    [(1, True), (8, True), (64, True), (65, True), (256, False), (4096, False), (4097, False)],
+)
+def test_quantized_kernel_matches_plain_on_card(card_pack, card_quantized_packs, precision, rows, with_shap):
+    """The kernel dequantizes the bf16 or int8 pack as the plain version
+    does: margins bitwise, on the card and on the CPU."""
+    pack, cpu_pack = card_quantized_packs[precision]
+    _assert_kernel_matches_plain(pack, cpu_pack, _rows(card_pack[0], rows, seed=rows), with_shap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", QUANTIZED)
+@pytest.mark.parametrize("depth", range(1, 11))
+def test_quantized_kernel_synthetic_depths_on_card(card_pack, precision, depth):
+    """Synthetic forests with +inf (all-left) splits at every depth the
+    kernel takes; an all-NaN row and a zero-padded tail in each batch."""
+    F = 12
+    forest = _synthetic_forest(depth, 37, F, seed=depth)
+    pack = pack_forest(forest.to("cuda"), F, precision, check=False)
+    cpu_pack = pack_forest(forest, F, precision, check=False)
+    rng = np.random.default_rng(depth)
+    for rows, with_shap in ((1, True), (9, True), (130, False)):
+        X = rng.normal(size=(rows, F)).astype(np.float32)
+        X[rng.random(X.shape) < 0.1] = np.nan
+        X[0] = np.nan
+        X[rows - rows // 3 :] = 0.0
+        _assert_kernel_matches_plain(pack, cpu_pack, X, with_shap)
+
+
+@pytest.mark.cuda
+def test_int8_service_on_card(card_pack):
+    """`ScorerService` at int8 on the card: it starts through the gate and
+    answers /predict and bulk as the plain int8 scorer on the CPU."""
+    art = GBDTArtifact.load(ObjectStore(str(ROOT / "artifacts")), "models/gbdt/model_tree", "cuda")
+    F = len(art.feature_names)
+    service = ScorerService(art, ServeConfig(forest_precision="int8"), device="cuda")
+    try:
+        _, ready = service.ready()
+        assert (ready["kernel"], ready["precision"]) == ("score_forest", "int8")
+        cpu_pack = pack_forest(art.forest.to("cpu"), F, "int8")
+        assert ready["quant_table"] == cpu_pack.table_hash
+        X = _rows(card_pack[0], 300, seed=5)
+        want = fused_score_reference(cpu_pack, torch.from_numpy(X), n_features=F, with_shap=False)[1]
+        assert float(np.abs(service.predict_proba(X) - want.numpy()).max()) <= TOL_PROB
+    finally:
+        service.close()
 
 
 @pytest.fixture(scope="module")

@@ -210,12 +210,22 @@ def test_cli_builds_a_cpu_service_when_asked():
         svc.close()
 
 
-def test_cli_rejects_unported_precisions():
+def test_cli_rejects_unported_precisions(capsys):
+    """The three precisions the reference serves start; any other is refused
+    before anything is loaded."""
+    for precision in ("f64", "fp8"):
+        with pytest.raises(SystemExit):
+            cli.parse_args(["--store", str(ROOT / "artifacts"), "--forest-precision", precision])
+        assert "invalid choice" in capsys.readouterr().err
     args = cli.parse_args(
-        ["--store", str(ROOT / "artifacts"), "--device", "cpu", "--forest-precision", "int8"]
+        ["--store", str(ROOT / "artifacts"), "--device", "cpu", "--forest-precision", "bf16"]
     )
-    with pytest.raises(NotImplementedError, match="f32"):
-        cli.build_service(args)
+    svc = cli.build_service(args)
+    try:
+        _, payload = svc.ready()
+        assert payload["precision"] == "bf16" and payload["quant_table"] != "f32"
+    finally:
+        svc.close()
 
 
 def _run_chip_smoke(cwd: Path) -> subprocess.CompletedProcess:

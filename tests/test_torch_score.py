@@ -273,12 +273,14 @@ def test_forest_from_numpy_checks_shapes(committed):
 
 
 def test_pack_rejects_unported_precisions(mini):
+    """Every precision the reference packs is ported (bf16 and int8 are held
+    to JAX in ``tests/test_torch_quantized.py``); any other is refused."""
     _, forest, F = mini
     for precision in ("bf16", "int8"):
-        with pytest.raises(NotImplementedError, match="only 'f32'"):
+        assert pack_forest(forest, F, precision, check=False).precision == precision
+    for precision in ("f64", "fp8", "F32"):
+        with pytest.raises(ValueError, match="forest_precision"):
             pack_forest(forest, F, precision)
-    with pytest.raises(ValueError, match="forest_precision"):
-        pack_forest(forest, F, "f64")
     with pytest.raises(ValueError, match="outside"):
         pack_forest(forest, 2)
 
