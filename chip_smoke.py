@@ -90,13 +90,17 @@ Phases, each of which must pass:
       held-out AUC within 1e-4;
    b. the main path: phase 6's 2.3M-loan frame through `run_pipeline` with
       the reference CLI's quick profile (RFE in steps of 20 with a 20-tree
-      depth-3 selector, a 4 x 2 search; rows and width not cut): seconds
-      and histogram launches of each stage (each launch count as the
-      stage's fits make them: one per tree level), the selected features,
-      every candidate's mean CV AUC, the best params, CV and held-out AUC
-      and peak card memory; ``metrics.json`` with the reference's keys, the
-      artifact reloaded bit for bit, and 16 raw rows through
-      `ScorerService.predict_raw` on it (margins bitwise equal to
+      depth-3 selector, a 4 x 2 search in ``"auto"`` chunks, so successive
+      halving; rows and width not cut) into a store: the cleaned, tree and
+      nn tables written as CSV and a manifest per stage (the seconds and
+      bytes of the tables are printed), the halving report (rungs, chunk,
+      survivors), seconds and histogram launches of each stage (each
+      launch count as the stage's fits make them: one per tree level, a
+      halving job's trees in whole chunks up to its last rung), the
+      selected features, every candidate's mean CV AUC, the best params, CV
+      and held-out AUC and peak card memory; ``metrics.json`` with the
+      reference's keys, the artifact reloaded bit for bit, and 16 raw rows
+      through `ScorerService.predict_raw` on it (margins bitwise equal to
       `fused_score_reference` on the same card tensor, prob within 1e-6);
       then the first tree's histograms, kernel against plain as in 5b, at
       the default RFE selector's shape (64 bins, the 104 features, depth
@@ -119,6 +123,27 @@ Phases, each of which must pass:
       match the plain int8 scorer on the CPU, and the launches are the
       warm-ups, the gate's two and one per micro-batch and bulk chunk.
 
+10. the protocol's resumable, halving path, right after 8b, on its
+    columns and its store:
+    a. the quick search again on 8b's selected training columns and
+       ``scale_pos_weight``, with halving and exhaustive: each survivor's
+       split scores bitwise the exhaustive run's, the halving run bitwise
+       8b's search, its chunk and rungs those the cost model and ladder
+       give at this row count (26 and 75/150/300 at ~1.8M rows); wall
+       seconds and launches of both, and the histogram's device ms per
+       level over the first chunk of a rung's job (CUDA events);
+    b. `run_pipeline(raw=None, resume=True)` on 8b's store: ``clean``,
+       ``engineer``, ``rfe`` and ``search`` restored, the refit's forest
+       and held-out AUC bitwise 8b's; then, after
+       ``PipelineCheckpoint.invalidate("search")``, the search rerun with
+       results, artifact and selection bitwise 8b's; seconds to validate
+       the manifests, to restore the tree CSV and of each run; 4 raw rows
+       served by the resumed artifact (one launch each);
+    c. card against CPU at 50,000 loans (8a's frame): RFECV of the quick
+       selector (``support_``, ``ranking_`` equal, scores within 1e-6) and
+       a search in chunks of 12 trees whose candidates draw nothing (the
+       same halving report and winner, scores within 1e-4).
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing neither, when
 CUDA is unavailable or any phase fails. ``--only-scoring`` runs phases 1-4,
@@ -135,6 +160,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import math
 import subprocess
 import sys
 import tempfile
@@ -182,8 +208,24 @@ from cobalt_smart_lender_ai_tpu_torch.ops.score import (
     quantization_report,
     tree_table_layout,
 )
-from cobalt_smart_lender_ai_tpu_torch.parallel.rfe import SELECTOR_BINS
-from cobalt_smart_lender_ai_tpu_torch.pipeline import PipelineResult, quick_config, run_pipeline
+from cobalt_smart_lender_ai_tpu_torch.parallel.budget import resolve_chunk_trees
+from cobalt_smart_lender_ai_tpu_torch.parallel.rfe import SELECTOR_BINS, rfe_select
+from cobalt_smart_lender_ai_tpu_torch.parallel.tune import (
+    _pow2_jobs,
+    halving_ladder,
+    randomized_search,
+    sample_candidates,
+    search_buckets,
+    stratified_kfold_masks,
+)
+from cobalt_smart_lender_ai_tpu_torch.pipeline import (
+    STAGES,
+    PipelineResult,
+    quick_config,
+    run_pipeline,
+    stage_fingerprints,
+)
+from cobalt_smart_lender_ai_tpu_torch.reliability import PipelineCheckpoint
 from cobalt_smart_lender_ai_tpu_torch.serve.http_asyncio import make_async_server
 from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService
 
@@ -1349,89 +1391,130 @@ def protocol_card_vs_cpu(device: str = "cuda", n_rows: int = PROTOCOL_CHECK_ROWS
             "test_auc": card.test_auc, "hist_launches": card.hist_launches}
 
 
+def search_launches(base: GBDTConfig, tune: TuneConfig, search) -> int:
+    """Histogram launches of `randomized_search`: one per tree level of
+    every tree each CV job boosted, then of the refit. Under halving a job
+    boosts whole chunks up to its last rung's budget (capped at its
+    ``n_estimators``): ``min(chunk * ceil(scored_at / chunk), n_estimators)``
+    trees, from the report's ``scored_at_trees`` and its depth's chunk."""
+    report = search.cv_results_.get("halving")
+    total = 0
+    for c, cand in enumerate(search.cv_results_["params"]):
+        g = base.replace(**cand)
+        trees = g.n_estimators
+        if report is not None:
+            chunk = report["chunk_trees"][g.max_depth]
+            trees = min(chunk * math.ceil(report["scored_at_trees"][c] / chunk), g.n_estimators)
+        total += tune.cv_folds * trees * g.max_depth
+    best = base.replace(**search.best_params_)
+    return total + best.n_estimators * best.max_depth
+
+
 def expected_launches(cfg: PipelineConfig, res: PipelineResult, n_features: int) -> dict[str, int]:
     """Histogram launches each stage of `run_pipeline` must make on the card:
     one per tree level of every fit (RFE refits, CV jobs, the refit)."""
     rfe_cfg = cfg.rfe
     n_iters = -(-(n_features - rfe_cfg.n_select) // rfe_cfg.step)
-    search = 0
-    for cand in res.search.cv_results_["params"]:
-        c = cfg.gbdt.replace(**cand)
-        search += cfg.tune.cv_folds * c.n_estimators * c.max_depth
-    best = cfg.gbdt.replace(**res.best_params)
-    search += best.n_estimators * best.max_depth
     return {"host_frontier": 0, "device_ingest": 0,
             "rfe": n_iters * rfe_cfg.n_estimators * rfe_cfg.max_depth,
-            "search": search, "eval": 0}
+            "search": search_launches(cfg.gbdt, cfg.tune, res.search), "eval": 0}
+
+
+def serve_payloads(store: ObjectStore, key: str, payloads: list[dict], dev: torch.device) -> dict:
+    """`ScorerService.predict_raw` on raw payloads with the published
+    artifact: one ``score_forest`` launch per row (on the card), each
+    prob against the plain version of the margin-only launch."""
+    service = ScorerService.from_store(store, ServeConfig(model_key=key), device=dev)
+    try:
+        fused_score.launches = 0
+        resps = [service.predict_raw(p) for p in payloads]
+        launches = fused_score.launches
+        if dev.type == "cuda" and launches != len(payloads):
+            raise AssertionError(f"{launches} fused_score launches for {len(payloads)} rows")
+        rows = [np.array([r["engineered_row"][n] for n in service.feature_names], np.float32)
+                for r in resps]
+        return {"rows": len(resps), "launches": launches,
+                "prob_max_abs_err": _margin_only_vs_plain(
+                    service._model, rows, [r["prob_default"] for r in resps])}
+    finally:
+        service.close()
+
+
+def same_forest(a: gbdt.Forest, b: gbdt.Forest) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f).to(getattr(a, f).device))
+               for f in ("feature", "thr_bin", "thr_float", "missing_left", "gain", "cover",
+                         "leaf_value"))
 
 
 def protocol_phase(
-    card: str, frame: RawFrame, cfg: PipelineConfig, train_rows: tuple, device: str = "cuda"
-) -> tuple[dict, dict, list[dict]]:
+    card: str, frame: RawFrame, cfg: PipelineConfig, train_rows: tuple, root: str,
+    device: str = "cuda",
+) -> tuple[dict, dict, list[dict], PipelineResult, list[dict]]:
     """Phase 8b: the main path, `run_pipeline` from the raw table to a
-    published artifact, served by `predict_raw`; then the first tree's
-    histograms at the protocol's new shapes. Returns (summary, launches of
-    each kernel on the path, histogram records)."""
+    published artifact in the store at ``root`` (with its intermediate
+    tables and stage manifests), served by `predict_raw`; then the first
+    tree's histograms at the protocol's new shapes. Returns (summary,
+    launches of each kernel on the path, histogram records, the run's
+    result, the raw payloads it served)."""
     dev = torch.device(device)
     picks = np.sort(np.random.default_rng(SEED + 8).choice(frame.n_rows, PROTOCOL_SERVE_ROWS, replace=False))
     payloads = row_dicts(frame, picks)
     out: dict = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_protocol_") as root:
-        store = ObjectStore(root)
-        key = cfg.serve.model_key
-        gradient_histogram_channels.launches = 0
-        fused_score.launches = 0
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        res = run_pipeline(cfg, raw=frame, store=store, device=dev, today=TODAY)
-        out["run_pipeline_s"] = time.perf_counter() - t0
-        hist_launches = gradient_histogram_channels.launches
-        if dev.type == "cuda":
-            out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-        n_features = len(train_rows[2])
-        expect = expected_launches(cfg, res, n_features)
-        if dev.type == "cuda" and (res.hist_launches != expect or hist_launches != sum(expect.values())):
-            raise AssertionError(f"histogram launches {res.hist_launches} (total {hist_launches}), "
-                                 f"expected {expect}")
-        out.update(
-            stage_s=res.timings, hist_launches=res.hist_launches, tree_features=n_features,
-            selected_features=list(res.selected_features),
-            candidates=res.search.cv_results_["params"],
-            mean_cv_auc=res.search.cv_results_["mean_test_score"].tolist(),
-            best_params=res.best_params, cv_auc=res.cv_auc, test_auc=res.test_auc,
-            scale_pos_weight=res.scale_pos_weight,
-        )
-        if len(res.selected_features) != cfg.rfe.n_select or not 0.5 < res.test_auc <= 1.0:
-            raise AssertionError(f"{len(res.selected_features)} features, test AUC {res.test_auc}")
-        metrics = store.get_json(key + ".metrics.json")
-        if set(metrics) != {"auc", "classification_report", "best_params"}:
-            raise AssertionError(f"metrics.json keys {sorted(metrics)}")
-        if store.get_json(key + ".features.json") != list(res.selected_features):
-            raise AssertionError("features.json differs from the selected features")
-        art = GBDTArtifact.load(store, key, dev)
-        for f in ("feature", "thr_bin", "thr_float", "missing_left", "gain", "cover", "leaf_value"):
-            if not torch.equal(getattr(art.forest, f), getattr(res.artifact.forest, f).to(dev)):
-                raise AssertionError(f"the reloaded artifact differs in {f}")
-        if art.plan is None or art.feature_names != res.selected_features:
-            raise AssertionError("the reloaded artifact lost its plan or its features")
-        service = ScorerService.from_store(store, ServeConfig(model_key=key), device=dev)
-        try:
-            fused_score.launches = 0
-            resps = [service.predict_raw(p) for p in payloads]
-            score_launches = fused_score.launches
-            if dev.type == "cuda" and score_launches != len(payloads):
-                raise AssertionError(f"{score_launches} fused_score launches for {len(payloads)} rows")
-            rows = [np.array([r["engineered_row"][n] for n in service.feature_names], np.float32)
-                    for r in resps]
-            out["predict_raw"] = {
-                "rows": len(resps), "launches": score_launches,
-                "prob_max_abs_err": _margin_only_vs_plain(
-                    service._model, rows, [r["prob_default"] for r in resps]),
-            }
-        finally:
-            service.close()
-    del res, art
+    store = ObjectStore(root)
+    key = cfg.serve.model_key
+    gradient_histogram_channels.launches = 0
+    fused_score.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = run_pipeline(cfg, raw=frame, store=store, device=dev, today=TODAY)
+    out["run_pipeline_s"] = time.perf_counter() - t0
+    hist_launches = gradient_histogram_channels.launches
+    if dev.type == "cuda":
+        out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    n_features = len(train_rows[2])
+    expect = expected_launches(cfg, res, n_features)
+    if dev.type == "cuda" and (res.hist_launches != expect or hist_launches != sum(expect.values())):
+        raise AssertionError(f"histogram launches {res.hist_launches} (total {hist_launches}), "
+                             f"expected {expect}")
+    report = res.search.cv_results_.get("halving")
+    out.update(
+        stage_s=res.timings, hist_launches=res.hist_launches, tree_features=n_features,
+        selected_features=list(res.selected_features),
+        candidates=res.search.cv_results_["params"],
+        mean_cv_auc=res.search.cv_results_["mean_test_score"].tolist(),
+        best_params=res.best_params, cv_auc=res.cv_auc, test_auc=res.test_auc,
+        scale_pos_weight=res.scale_pos_weight, stages_run=list(res.stages_run),
+        intermediates=res.intermediates, halving=report,
+    )
+    if cfg.tune.halving_enabled and cfg.tune.chunk_trees is not None and report is None:
+        raise AssertionError("the quick profile's search ran without halving")
+    if report is not None:
+        print(f"halving rungs (8b): budgets={report['budgets']} chunk={report['chunk_trees']} "
+              f"rungs={json.dumps(report['rungs'])} survivors={report['survivors']} "
+              f"scored_at_trees={report['scored_at_trees']} [{card}]")
+    if res.intermediates:
+        sizes = res.intermediates["bytes"]
+        print(f"intermediates (8b): {res.intermediates['seconds']:.3f}s to write "
+              f"{sum(sizes.values())} bytes ({json.dumps(sizes)}) [{card}]")
+    if len(res.selected_features) != cfg.rfe.n_select or not 0.5 < res.test_auc <= 1.0:
+        raise AssertionError(f"{len(res.selected_features)} features, test AUC {res.test_auc}")
+    metrics = store.get_json(key + ".metrics.json")
+    if set(metrics) != {"auc", "classification_report", "best_params"}:
+        raise AssertionError(f"metrics.json keys {sorted(metrics)}")
+    if store.get_json(key + ".features.json") != list(res.selected_features):
+        raise AssertionError("features.json differs from the selected features")
+    ckpt = PipelineCheckpoint(store, cfg.reliability.checkpoint_prefix)
+    if any(ckpt.load(stage) is None for stage in STAGES):
+        raise AssertionError("a stage manifest is missing after the run")
+    art = GBDTArtifact.load(store, key, dev)
+    if not same_forest(art.forest, res.artifact.forest):
+        raise AssertionError("the reloaded artifact differs")
+    if art.plan is None or art.feature_names != res.selected_features:
+        raise AssertionError("the reloaded artifact lost its plan or its features")
+    del art
+    out["predict_raw"] = serve_payloads(store, key, payloads, dev)
+    score_launches = out["predict_raw"]["launches"]
     records = []  # kernel against plain: on the card only
     if dev.type == "cuda":
         records = protocol_histogram_shapes(train_rows, out["selected_features"],
@@ -1439,7 +1522,7 @@ def protocol_phase(
     for r in records:
         print(histogram_line(r, card))
     print(f"protocol: {json.dumps(out)} [{card}]")
-    return out, {"gradient_histogram": hist_launches, "score_forest": score_launches}, records
+    return out, {"gradient_histogram": hist_launches, "score_forest": score_launches}, records, res, payloads
 
 
 def protocol_rows(frame: RawFrame, device: str = "cuda") -> tuple:
@@ -1478,6 +1561,220 @@ def protocol_histogram_shapes(train_rows: tuple, selected: list[str], spw: float
     records += [dict(r, shape=f"depth {DEEPEST} F={bins.shape[1]} B={cfg.n_bins} {r['shape']}")
                 for r in histogram_phase(bins, calls, cfg.n_bins)]
     return records
+
+
+# -- the protocol's resumable, halving path (phase 10) ---------------------------------
+
+#: Report keys of the reference's halving search.
+HALVING_KEYS = ("eta", "budgets", "rungs", "pruned_candidates", "survivors", "scored_at_trees",
+                "dispatches", "chunk_trees")
+#: 10c: card against CPU. RFECV's scores (20-tree depth-3 fold fits)
+#: within 1e-6; the chunked search's (up to 48 trees of depth 5) within
+#: 8a's tolerance: the card's fixed-point histogram sums round otherwise
+#: than the CPU's float sums, and over 48 trees the margins drift apart by
+#: ulps that reorder a few rows (2.03e-6 measured on the H100).
+TOL_RFECV_AUC = 1e-6
+#: 10c's search: chunks of 12 trees, candidates that draw nothing.
+CHUNKED_TUNE = TuneConfig(
+    n_iter=4, cv_folds=2, chunk_trees=12,
+    param_space={"n_estimators": (24, 48), "max_depth": (3, 5), "learning_rate": (0.1, 0.3)},
+)
+
+
+def _cv_equal(a: dict, b: dict) -> bool:
+    """Two searches' results bitwise equal: candidates, split and mean
+    scores, and the halving report."""
+    return (a["params"] == b["params"]
+            and np.array_equal(a["split_test_scores"], b["split_test_scores"])
+            and np.array_equal(a["mean_test_score"], b["mean_test_score"])
+            and a.get("halving") == b.get("halving"))
+
+
+def halving_phase(card: str, train_rows: tuple, cfg: PipelineConfig, res: PipelineResult,
+                  device: str = "cuda") -> dict:
+    """Phase 10a: the quick profile's search on 8b's selected training
+    columns and ``scale_pos_weight``, with halving and exhaustive: each
+    survivor's split scores bitwise the exhaustive run's, the halving run
+    bitwise 8b's search, the rungs and chunk those the reference's cost
+    model and ladder give at this row count; then one chunk of a rung-1 job
+    with CUDA events around each histogram launch (on the card)."""
+    dev = torch.device(device)
+    X_cpu, y_cpu, names = train_rows
+    X = X_cpu.index_select(1, torch.tensor([names.index(n) for n in res.selected_features])).to(dev)
+    y = y_cpu.to(dev)
+    N, F = X.shape
+    base = cfg.gbdt.replace(scale_pos_weight=res.scale_pos_weight)
+    runs, out = {}, {"rows": N, "features": F}
+    for mode, halving in (("halving", True), ("exhaustive", False)):
+        tune = dataclasses.replace(cfg.tune, halving_enabled=halving)
+        gradient_histogram_channels.launches = 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        runs[mode] = randomized_search(X, y, base, tune, device=dev)
+        _sync(dev)
+        out[f"{mode}_s"] = time.perf_counter() - t0
+        out[f"{mode}_launches"] = gradient_histogram_channels.launches
+        expect = search_launches(base, tune, runs[mode])
+        if dev.type == "cuda" and out[f"{mode}_launches"] != expect:
+            raise AssertionError(f"{mode} search: {out[f'{mode}_launches']} launches, expected {expect}")
+    hv, ex = runs["halving"], runs["exhaustive"]
+    report = hv.cv_results_.get("halving")
+    if report is None or "halving" in ex.cv_results_:
+        raise AssertionError("halving did not engage, or engaged in the exhaustive run")
+    surv = report["survivors"]
+    if not np.array_equal(hv.cv_results_["split_test_scores"][surv], ex.cv_results_["split_test_scores"][surv]):
+        raise AssertionError("a survivor's scores differ from the exhaustive run's")
+    if not _cv_equal(hv.cv_results_, res.search.cv_results_) or hv.best_params_ != res.best_params:
+        raise AssertionError("the halving search differs from 8b's on the same columns")
+    # The reference's cost model and ladder at this shape.
+    cands = hv.cv_results_["params"]
+    K = cfg.tune.cv_folds
+    cfgs = [base.replace(**c) for c in cands]
+    chunk_of = {}
+    for d in sorted({c.max_depth for c in cfgs}):
+        groups = [g for g in search_buckets(cands, base) if cfgs[g[0]].max_depth == d]
+        cap = max(cfgs[i].n_estimators for g in groups for i in g)
+        ck = resolve_chunk_trees(cfg.tune.chunk_trees, n_trees=cap, n_rows=N, n_feats=F,
+                                 n_bins=base.n_bins, depth=d, hist_subtract=base.hist_subtract,
+                                 n_jobs=max(_pow2_jobs(len(g) * K, 1) for g in groups))
+        chunk_of[d] = cap if ck is None else min(ck, cap)
+    budgets = halving_ladder(max(c.n_estimators for c in cfgs), len(cands),
+                             eta=cfg.tune.halving_eta, min_rungs=cfg.tune.halving_min_rungs)
+    if report["chunk_trees"] != chunk_of or report["budgets"] != budgets:
+        raise AssertionError(f"rungs {report['budgets']} chunk {report['chunk_trees']}, "
+                             f"the cost model gives {budgets} and {chunk_of}")
+    out.update(budgets=budgets, chunk_trees=chunk_of, rungs=report["rungs"], survivors=surv,
+               scored_at_trees=report["scored_at_trees"], best_params=hv.best_params_,
+               exhaustive_best_params=ex.best_params_,
+               quick_shape_26_and_75_150_300=(chunk_of == {3: 26} and budgets == [75, 150, 300]))
+    if dev.type == "cuda":
+        out["rung_hist"] = rung_histogram(X, y, y_cpu, base, cfg.tune, cands.index(hv.best_params_),
+                                          chunk_of)
+    print(f"halving vs exhaustive (10a): {json.dumps(out)} [{card}]")
+    return out
+
+
+def rung_histogram(X, y, y_cpu, base: GBDTConfig, tune: TuneConfig, best: int, chunk_of: dict) -> dict:
+    """The histogram inside a halving rung: the first chunk of candidate
+    ``best``'s fold-0 job, with CUDA events around each launch; device ms
+    per launch at each level."""
+    dev = X.device
+    F = X.shape[1]
+    K = tune.cv_folds
+    hp = gbdt.GBDTHyperparams.from_config(base.replace(**sample_candidates(
+        tune.param_space, tune.n_iter, tune.seed)[best]))
+    bins = transform(compute_bin_edges(X, base.n_bins), X)
+    val = torch.from_numpy(stratified_kfold_masks(y_cpu.numpy(), K, tune.seed)).to(dev)
+    timer = TimedHistogram()
+    chunk = chunk_of[hp.max_depth]
+    gbdt.fit_binned_resumable(
+        bins, y, 1.0 - val[0].float(), torch.ones(F, dtype=torch.bool, device=dev), hp,
+        gbdt.fold_in(tune.seed, best * K), n_trees_cap=chunk, depth_cap=hp.max_depth,
+        n_bins=base.n_bins, histogram=timer,
+    )
+    total = timer.total_ms()
+    per_call = [s.elapsed_time(e) for s, e in timer.events]
+    return {
+        "candidate": best, "trees": chunk, "launches": len(per_call), "ms_total": total,
+        "ms_per_level": [float(np.mean(per_call[lvl::hp.max_depth])) for lvl in range(hp.max_depth)],
+    }
+
+
+def resume_phase(card: str, root: str, cfg: PipelineConfig, res: PipelineResult,
+                 payloads: list[dict], device: str = "cuda") -> dict:
+    """Phase 10b: resume 8b's run from its store on the card: all stages up
+    to the search restored, the refit and the artifact bitwise 8b's; then,
+    with the search's manifest invalidated, the search rerun bitwise 8b's;
+    then raw rows served by the resumed artifact."""
+    dev = torch.device(device)
+    store = ObjectStore(root)
+    ckpt = PipelineCheckpoint(store, cfg.reliability.checkpoint_prefix)
+    out: dict = {}
+    fps = stage_fingerprints(cfg)
+    t0 = time.perf_counter()
+    valid = {stage: ckpt.valid(stage, fps[stage]) for stage in STAGES}
+    out["validate_s"] = time.perf_counter() - t0
+    if not all(valid.values()):
+        raise AssertionError(f"8b's manifests do not validate: {valid}")
+    out["tree_csv_bytes"] = ckpt.load("engineer")["pointers"][cfg.data.tree_key]["size"]
+    key = cfg.serve.model_key
+    best = cfg.gbdt.replace(**res.best_params)
+    runs = {}
+    for name, skipped, run in (
+        ("resume", ("clean", "engineer", "rfe", "search"), ("eval",)),
+        ("resume_after_invalidate", ("clean", "engineer", "rfe"), ("search", "eval")),
+    ):
+        if name == "resume_after_invalidate":
+            ckpt.invalidate("search")
+        gradient_histogram_channels.launches = 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        r = runs[name] = run_pipeline(cfg, raw=None, store=store, resume=True, device=dev, today=TODAY)
+        out[f"{name}_s"] = time.perf_counter() - t0
+        out[f"{name}_stage_s"] = r.timings
+        out[f"{name}_launches"] = gradient_histogram_channels.launches
+        if r.stages_skipped != skipped or r.stages_run != run:
+            raise AssertionError(f"{name}: ran {r.stages_run}, skipped {r.stages_skipped}")
+        if not same_forest(r.artifact.forest, res.artifact.forest) or r.test_auc != res.test_auc:
+            raise AssertionError(f"{name}: the artifact or test AUC differs from 8b's")
+        if r.selected_features != res.selected_features or r.best_params != res.best_params:
+            raise AssertionError(f"{name}: the selection or the best params differ from 8b's")
+    refit = best.n_estimators * best.max_depth
+    rerun = search_launches(cfg.gbdt.replace(scale_pos_weight=res.scale_pos_weight), cfg.tune, res.search)
+    if dev.type == "cuda" and (out["resume_launches"], out["resume_after_invalidate_launches"]) != (refit, rerun):
+        raise AssertionError(f"resumed runs made {out['resume_launches']} and "
+                             f"{out['resume_after_invalidate_launches']} launches, not {refit} and {rerun}")
+    # The first resume's "restore" stage is the read of the tree CSV:
+    # fetched and verified against its pointer, parsed, moved to the card.
+    out["read_tree_csv_s"] = runs["resume"].timings["restore"]
+    if not _cv_equal(runs["resume_after_invalidate"].search.cv_results_, res.search.cv_results_):
+        raise AssertionError("the rerun search's results differ from 8b's")
+    if not GBDTArtifact.load(store, key, dev).forest.leaf_value.equal(res.artifact.forest.leaf_value.to(dev)):
+        raise AssertionError("the stored artifact differs from 8b's")
+    out["predict_raw"] = serve_payloads(store, key, payloads[:4], dev)
+    print(f"resume (10b): {json.dumps(out)} [{card}]")
+    return out
+
+
+def selection_card_vs_cpu(card: str, n_rows: int = PROTOCOL_CHECK_ROWS, device: str = "cuda") -> dict:
+    """Phase 10c: RFECV and a chunked halving search on the card and on the
+    CPU, on 8a's frame. Nothing draws at random (the quick selector;
+    candidates with subsample = colsample = 1)."""
+    X, y, _ = protocol_rows(synthetic_lendingclub_frame(n_rows, seed=SEED), device)
+    n_pos = float(y.sum())
+    rfe_cfg = dataclasses.replace(quick_config().rfe, scale_pos_weight=(len(y) - n_pos) / n_pos)
+    out: dict = {"rows": int(X.shape[0]), "features": int(X.shape[1])}
+    sel, secs = {}, {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        sel[dev] = rfe_select(X, y, rfe_cfg, cv_folds=3, device=dev)
+        secs[dev] = time.perf_counter() - t0
+    card_r, cpu_r = sel[device], sel["cpu"]
+    if not (np.array_equal(card_r.support_, cpu_r.support_) and np.array_equal(card_r.ranking_, cpu_r.ranking_)):
+        raise AssertionError("RFECV selects other features on the card")
+    if sorted(card_r.cv_scores_) != sorted(cpu_r.cv_scores_):
+        raise AssertionError("RFECV scored other feature counts on the card")
+    rfecv_err = max(abs(card_r.cv_scores_[n] - cpu_r.cv_scores_[n]) for n in cpu_r.cv_scores_)
+    out.update(rfecv_card_s=secs[device], rfecv_cpu_s=secs["cpu"], rfecv_cv_scores=cpu_r.cv_scores_,
+               rfecv_n_features=cpu_r.n_features_, rfecv_max_abs_err=rfecv_err)
+    Xs = X[:, torch.from_numpy(np.flatnonzero(cpu_r.support_))]
+    search = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        search[dev] = randomized_search(Xs, y, GBDTConfig(), CHUNKED_TUNE, device=dev)
+        secs[dev] = time.perf_counter() - t0
+    card_s, cpu_s = search[device].cv_results_, search["cpu"].cv_results_
+    if "halving" not in cpu_s or any(card_s["halving"][k] != cpu_s["halving"][k] for k in HALVING_KEYS):
+        raise AssertionError("the halving reports differ between card and CPU")
+    search_err = float(np.abs(card_s["split_test_scores"] - cpu_s["split_test_scores"]).max())
+    if search[device].best_params_ != search["cpu"].best_params_:
+        raise AssertionError("the halving search picked another winner on the card")
+    out.update(search_card_s=secs[device], search_cpu_s=secs["cpu"], halving=cpu_s["halving"],
+               best_params=search["cpu"].best_params_, search_max_abs_err=search_err)
+    if rfecv_err > TOL_RFECV_AUC or search_err > TOL_PROTOCOL_AUC:
+        raise AssertionError(f"card and CPU scores differ: RFECV by {rfecv_err}, search by {search_err}")
+    print(f"selection card_vs_cpu (10c): {json.dumps(out)} [{card}]")
+    return out
 
 
 def quantized_phase(card: str) -> tuple[list[dict], dict]:
@@ -1548,7 +1845,8 @@ def main() -> int:
         frame, generate_s = raw_table()
         print(f"raw table: {frame.n_rows} loans generated in {generate_s:.1f}s [{card}]")
         t0 = time.perf_counter()
-        protocol_phase(card, frame, PipelineConfig(), protocol_rows(frame))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_protocol_") as root:
+            protocol_phase(card, frame, PipelineConfig(), protocol_rows(frame), root)
         print(f"full protocol phase: {time.perf_counter() - t0:.1f}s [{card}]")
         return 0
 
@@ -1578,11 +1876,21 @@ def main() -> int:
     t0 = time.perf_counter()
     check = protocol_card_vs_cpu()
     print(f"protocol card_vs_cpu: {json.dumps(check)} [{card}]")
-    protocol, protocol_launches, protocol_hist = protocol_phase(
-        card, frame, quick_config(), train_rows
-    )
-    del frame, train_rows
-    print(f"protocol phase: {time.perf_counter() - t0:.1f}s [{card}]")
+    quick = quick_config()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_protocol_") as root:
+        protocol, protocol_launches, protocol_hist, res, payloads = protocol_phase(
+            card, frame, quick, train_rows, root
+        )
+        del frame
+        print(f"protocol phase: {time.perf_counter() - t0:.1f}s [{card}]")
+        # Phase 10, on 8b's columns and store.
+        t0 = time.perf_counter()
+        halving = halving_phase(card, train_rows, quick, res)
+        del train_rows
+        resumed = resume_phase(card, root, quick, res, payloads)
+        del res
+    selection_card_vs_cpu(card)
+    print(f"halving and resume phase: {time.perf_counter() - t0:.1f}s [{card}]")
     print_scoring_split(card)
 
     main_rec = next(r for r in records if r["bucket"] == 64)
@@ -1596,12 +1904,14 @@ def main() -> int:
             "launches": serving["launches"],
             "raw_path_launches": raw_launches["score_forest"],
             "protocol_launches": protocol_launches["score_forest"],
+            "resume_launches": resumed["predict_raw"]["launches"],
             "precisions": ["f32", *QUANTIZED],
             "quantized_launches": quantized_serving["launches"],
             "max_abs_err": max(
                 [max(r.get("prob", 0.0), r.get("phis", 0.0)) for r in records + quantized_records]
                 + [raw["serve"]["prob_max_abs_err"], raw["degraded"]["prob_max_abs_err"],
                    protocol["predict_raw"]["prob_max_abs_err"],
+                   resumed["predict_raw"]["prob_max_abs_err"],
                    quantized_serving["predict_prob"], quantized_serving["predict_phis"],
                    quantized_serving["bulk_prob"]]
             ),
@@ -1619,6 +1929,9 @@ def main() -> int:
             "launches": training["hist_launches"],
             "raw_path_launches": raw_launches["gradient_histogram"],
             "protocol_launches": protocol_launches["gradient_histogram"],
+            "halving_launches": halving["halving_launches"],
+            "exhaustive_launches": halving["exhaustive_launches"],
+            "resume_launches": resumed["resume_launches"] + resumed["resume_after_invalidate_launches"],
             "max_abs_err": max(r["max_abs_err"] for r in hist_records + protocol_hist),
             "ms": hist_main["ms"],
             "plain_ms": hist_main["plain_ms"],

@@ -1,8 +1,8 @@
 """Configuration: the GBDT hyperparameters (`GBDTConfig`), the training
-protocol's (`DataConfig`, `RFEConfig`, `TuneConfig`, `PipelineConfig`) and the
-subset of the reference `ServeConfig` that the port's scoring service reads.
-Each keeps the reference's field names and defaults for the fields the port
-reads."""
+protocol's (`DataConfig`, `RFEConfig`, `TuneConfig`, `ReliabilityConfig`,
+`PipelineConfig`) and the subset of the reference `ServeConfig` that the
+port's scoring service reads. Each keeps the reference's field names and
+defaults for the fields the port reads."""
 
 from __future__ import annotations
 
@@ -12,11 +12,27 @@ from typing import Any, Mapping, Sequence
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """How the engineered table is split into training and held-out rows
-    (the reference trainer's 80/20 split, seed 22)."""
+    """Where the protocol's tables live in the object store, how the raw
+    table is cleaned, and how the engineered table is split into training
+    and held-out rows (the reference trainer's 80/20 split, seed 22)."""
 
+    raw_key: str = "dataset/1-raw/raw.csv"
+    cleaned_key: str = "dataset/2-intermediate/cleaned_01.csv"
+    tree_key: str = "dataset/2-intermediate/cleaned_02_tree.csv"
+    nn_key: str = "dataset/2-intermediate/cleaned_02_nn.csv"
     test_fraction: float = 0.2
     split_seed: int = 22
+    #: Drop a cleaned column more than this percentage missing.
+    null_col_threshold: float = 70.0
+    #: Drop a prepared row missing more than this many live columns.
+    row_null_allowance: int = 20
+
+
+def _check_chunk_trees(ct: Any) -> None:
+    if ct == "auto":
+        return
+    if ct is not None and (isinstance(ct, bool) or not isinstance(ct, int) or ct <= 0):
+        raise ValueError(f"chunk_trees must be None, 'auto' or a positive int, got {ct!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,23 +53,16 @@ class GBDTConfig:
     seed: int = 42
     #: Boosting rounds per chunk of the fit (margins carried between chunks,
     #: bit-identical to one chunk: `models.gbdt.fit_binned_chunked`). None
-    #: fits in one chunk. The reference's ``"auto"`` (derived from a
-    #: dispatch-time budget) is not ported and raises ``NotImplementedError``.
+    #: fits in one chunk; ``"auto"`` derives the chunk from the workload's
+    #: shape against the reference's dispatch budget
+    #: (`parallel.budget.resolve_chunk_trees`).
     chunk_trees: int | str | None = None
     #: Sibling-subtraction histograms: left children built, right = parent -
     #: left.
     hist_subtract: bool = True
 
     def __post_init__(self):
-        ct = self.chunk_trees
-        if ct == "auto":
-            raise NotImplementedError(
-                "chunk_trees='auto' needs the dispatch budget of the reference's "
-                "parallel/budget.py, which is not ported yet (ROADMAP.md, port "
-                "queue); pass None or a positive int"
-            )
-        if ct is not None and (isinstance(ct, bool) or not isinstance(ct, int) or ct <= 0):
-            raise ValueError(f"chunk_trees must be None or a positive int, got {ct!r}")
+        _check_chunk_trees(self.chunk_trees)
 
     def replace(self, **kw: Any) -> "GBDTConfig":
         return dataclasses.replace(self, **kw)
@@ -99,14 +108,25 @@ class ServeConfig:
 @dataclasses.dataclass(frozen=True)
 class TuneConfig:
     """The randomized search: ``RandomizedSearchCV(n_iter=20,
-    cv=StratifiedKFold(3))`` over the reference trainer's literal grid. Every
-    candidate is scored on every fold to its full ``n_estimators`` (the
-    reference's successive halving engages only on a chunked schedule, which
-    the port does not have)."""
+    cv=StratifiedKFold(3))`` over the reference trainer's literal grid."""
 
     n_iter: int = 20
     cv_folds: int = 3
     seed: int = 22
+    #: Boosting rounds per chunk of every CV job (margins carried between
+    #: chunks; the scores do not change). ``"auto"`` derives it per depth
+    #: from the reference's dispatch budget (`parallel.budget`). None = one
+    #: chunk, so successive halving cannot engage.
+    chunk_trees: int | str | None = None
+    #: Successive halving over the chunked schedule
+    #: (`parallel.tune.successive_halving_search`): at each rung of
+    #: `halving_ladder` every live candidate is scored on its carried
+    #: margins and the bottom ``1 - 1/halving_eta`` are pruned. Engages only
+    #: when some depth chunks and the ladder has ``halving_min_rungs`` rungs;
+    #: otherwise, and always when False, the exhaustive search runs.
+    halving_enabled: bool = True
+    halving_eta: int = 2
+    halving_min_rungs: int = 2
     param_space: Mapping[str, Sequence[Any]] = dataclasses.field(
         default_factory=lambda: {
             "n_estimators": (100, 200, 300),
@@ -131,14 +151,47 @@ class RFEConfig:
     max_depth: int = 6
     scale_pos_weight: float = 1.0
     seed: int = 42
+    #: Boosting rounds per chunk of each selector refit (None, ``"auto"`` or
+    #: an int; bit-identical to one chunk).
+    chunk_trees: int | str | None = None
+
+    def __post_init__(self):
+        _check_chunk_trees(self.chunk_trees)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReliabilityConfig:
+    """The store's retry policy and the pipeline's stage checkpoints (the
+    fields of the reference's ``ReliabilityConfig`` that the pipeline
+    reads)."""
+
+    #: Retry policy for store I/O (`reliability.retry.RetryPolicy`).
+    max_attempts: int = 4
+    base_delay_s: float = 0.05
+    max_delay_s: float = 2.0
+    backoff_multiplier: float = 2.0
+    jitter: float = 0.1
+    deadline_s: float | None = None
+    #: Wrap the pipeline's store in a `ResilientStore` (retries and reads
+    #: verified against their content pointers).
+    wrap_store: bool = True
+    verify_reads: bool = True
+    #: Write a manifest after each stage, so a crashed run can resume.
+    checkpoints: bool = True
+    checkpoint_prefix: str = "checkpoints/"
+    #: Restore the stages whose manifests still validate.
+    resume: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Everything `pipeline.run_pipeline` reads."""
 
+    #: Write the cleaned, tree and nn tables to the store (with a store).
+    save_intermediate: bool = True
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     gbdt: GBDTConfig = dataclasses.field(default_factory=GBDTConfig)
     tune: TuneConfig = dataclasses.field(default_factory=TuneConfig)
     rfe: RFEConfig = dataclasses.field(default_factory=RFEConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
+    reliability: ReliabilityConfig = dataclasses.field(default_factory=ReliabilityConfig)

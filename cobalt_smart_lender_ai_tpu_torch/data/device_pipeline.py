@@ -57,7 +57,7 @@ from cobalt_smart_lender_ai_tpu_torch.data.features import (
     log1p_masked,
     one_hot_codes,
 )
-from cobalt_smart_lender_ai_tpu_torch.data.frame import column_names, string_column
+from cobalt_smart_lender_ai_tpu_torch.data.frame import RawFrame, column_names, string_column
 from cobalt_smart_lender_ai_tpu_torch.data.split import _mix_u32
 from cobalt_smart_lender_ai_tpu_torch.device import resolve_device
 from cobalt_smart_lender_ai_tpu_torch.ops.binning import (
@@ -107,6 +107,10 @@ class DeviceIngestResult:
     bin_spec: BinSpec
     bins: torch.Tensor  # (N, F_tree) uint8 bin indices
     report: CleanReport
+    #: The clean stage's table on the host (``keep_cleaned=True`` only):
+    #: categorical codes decoded to their vocabulary strings (missing where
+    #: NaN), every other column float64.
+    cleaned: RawFrame | None = None
 
 
 # --- Stringy frontier (host) ----------------------------------------------------
@@ -323,18 +327,36 @@ _ROW_NULL_ALLOWANCE = 20
 _N_BINS = 255
 
 
+def _decode_cleaned(X: torch.Tensor, tok: TokenizedFrame, live: Sequence[str], pos: Mapping[str, int]) -> RawFrame:
+    """The clean stage's table on the host, as the reference keeps it."""
+    Xc = X.index_select(1, torch.tensor([pos[c] for c in live], device=X.device)).cpu().numpy()
+    columns, missing = {}, {}
+    for j, c in enumerate(live):
+        col = Xc[:, j]
+        i = pos[c]
+        if tok.kinds[i] == "categorical" and tok.vocab.get(i):
+            nan = np.isnan(col)
+            cats = np.asarray(tok.vocab[i], dtype=str)
+            columns[c] = np.where(nan, "", cats[np.where(nan, 0, col).astype(np.int64)])
+            missing[c] = nan
+        else:
+            columns[c] = col.astype(np.float64)
+    return RawFrame(columns, missing)
+
+
 def run_device_ingest(
     tok: TokenizedFrame,
     *,
     device: torch.device | str = "cuda",
+    n_bins: int = _N_BINS,
+    null_col_threshold: float = _NULL_COL_THRESHOLD,
+    row_null_allowance: int = _ROW_NULL_ALLOWANCE,
     keep_cleaned: bool = False,
 ) -> DeviceIngestResult:
     """Clean -> prepare -> engineer -> bin the tokenized matrix on
-    ``device`` (``cuda`` unless the caller asks for ``cpu``)."""
-    if keep_cleaned:
-        raise NotImplementedError(
-            "keep_cleaned (the decoded clean-stage frame) is not ported yet"
-        )
+    ``device`` (``cuda`` unless the caller asks for ``cpu``), with the
+    reference pipeline's thresholds unless given. ``keep_cleaned`` brings
+    the clean stage's table to the host as ``DeviceIngestResult.cleaned``."""
     dev = resolve_device(device)
     X = torch.from_numpy(tok.X).to(dev)
     pos = {name: i for i, name in enumerate(tok.columns)}
@@ -363,7 +385,7 @@ def run_device_ingest(
     n_rows = int(X.shape[0])
     too_null = [
         c for c in live
-        if n_rows and 100.0 * counts[pos[c]] / n_rows > _NULL_COL_THRESHOLD
+        if n_rows and 100.0 * counts[pos[c]] / n_rows > null_col_threshold
     ]
     report.dropped_null_columns = too_null
     live = [c for c in live if c not in set(too_null)]
@@ -383,11 +405,12 @@ def run_device_ingest(
         X = _dedupe_keep_first(X, [pos[c] for c in live])
         report.n_duplicates_removed = before - int(X.shape[0])
     report.n_rows_out = int(X.shape[0])
+    cleaned = _decode_cleaned(X, tok, live, pos) if keep_cleaned else None
 
     # Prepare: leakage/useless drop, then the row-null threshold.
     fe_drop = set(schema.FE_LEAKAGE_COLS) | set(schema.FE_USELESS_COLS)
     live = [c for c in live if c not in fe_drop]
-    X = _compact_by_nonnull(X, sel(live), max(len(live) - _ROW_NULL_ALLOWANCE, 0))
+    X = _compact_by_nonnull(X, sel(live), max(len(live) - row_null_allowance, 0))
 
     # Prepare renames (values already tokenized; the reference appends each
     # derived column at the end and drops its source).
@@ -503,7 +526,7 @@ def run_device_ingest(
     del X, Xn, filled, indicators, tree_blocks, nn_blocks
 
     # The GBDT sketch: quantile edges and bins of the tree features.
-    spec, bins = bin_edges_and_transform(X_tree, n_bins=_N_BINS)
+    spec, bins = bin_edges_and_transform(X_tree, n_bins=n_bins)
 
     # Names and the replay plan.
     tree_names = list(numeric_names)
@@ -536,6 +559,7 @@ def run_device_ingest(
         bin_spec=spec,
         bins=bins,
         report=report,
+        cleaned=cleaned,
     )
 
 

@@ -6,11 +6,12 @@ from cobalt_smart_lender_ai_tpu_torch.io.artifacts import (
     plan_to_json,
     save_metrics,
 )
-from cobalt_smart_lender_ai_tpu_torch.io.store import ObjectStore, StoreKeyError
+from cobalt_smart_lender_ai_tpu_torch.io.store import PTR_SUFFIX, ObjectStore, StoreKeyError
 
 __all__ = [
     "GBDTArtifact",
     "ObjectStore",
+    "PTR_SUFFIX",
     "StoreKeyError",
     "plan_from_json",
     "plan_to_json",

@@ -43,6 +43,7 @@ from cobalt_smart_lender_ai_tpu_torch.ops.binning import (
     transform,
 )
 from cobalt_smart_lender_ai_tpu_torch.ops.histogram import gradient_histogram_channels
+from cobalt_smart_lender_ai_tpu_torch.parallel.budget import resolve_chunk_trees
 
 
 @dataclasses.dataclass(frozen=True)
@@ -535,10 +536,12 @@ class GBDTClassifier:
             n_bins=cfg.n_bins,
             hist_subtract=cfg.hist_subtract,
         )
-        if cfg.chunk_trees is not None:
-            forest = fit_binned_chunked(
-                bins, y, sw, fm, hp, cfg.seed, chunk_trees=cfg.chunk_trees, **kw
-            )
+        chunk = resolve_chunk_trees(
+            cfg.chunk_trees, n_trees=cfg.n_estimators, n_rows=N, n_feats=F,
+            n_bins=cfg.n_bins, depth=cfg.max_depth, hist_subtract=cfg.hist_subtract,
+        )
+        if chunk is not None:
+            forest = fit_binned_chunked(bins, y, sw, fm, hp, cfg.seed, chunk_trees=chunk, **kw)
         else:
             forest = fit_binned(bins, y, sw, fm, hp, cfg.seed, **kw)
         self.forest = attach_float_thresholds(forest, self.bin_spec)

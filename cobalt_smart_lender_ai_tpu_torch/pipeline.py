@@ -6,18 +6,31 @@ fit, persist), as the reference package's device-ingest path runs it.
     -> leakage drop -> hashed split (seed 22) -> scale_pos_weight
     -> RFE to 20 features -> randomized search (20 x 3 CV) and refit
     -> held-out eval -> <key>.npz + <key>.features.json + <key>.metrics.json
+       (+ the confusion-matrix and feature-importance PNGs)
 
 Every fit runs through the histogram kernel on the card (``device="cpu"``
 runs the plain versions). The artifact carries its `FeaturePlan`, so
 `ScorerService.predict_raw` scores raw rows with it.
 
-    python -m cobalt_smart_lender_ai_tpu_torch.pipeline --store artifacts \\
-        --synthetic-rows 100000 [--seed S] [--quick] [--device cuda|cpu]
+With a store, the reference's resilience comes along: the store is wrapped
+in a `ResilientStore` (retries, reads verified against their content
+pointers), the ingest saves the cleaned, tree and nn tables as CSV
+(``save_intermediate``), and after each stage a manifest pins the stage's
+outputs and the fingerprint of the configuration it depends on
+(`reliability.checkpoint`). A run with ``resume=True`` (CLI ``--resume``)
+restores every leading stage whose manifest still validates: the
+engineered table from its CSV, RFE's selection and the search's best
+parameters (then only the refit runs). Without a raw table the raw one is
+read from the store's ``data.raw_key``.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): reading the raw table from the store (``raw=None``), checkpoints and
-``resume``, the pandas ingest path; the plots and telemetry spans are left
-out.
+    python -m cobalt_smart_lender_ai_tpu_torch.pipeline --store artifacts \\
+        --synthetic-rows 100000 [--seed S] [--quick] [--no-halving] [--resume] \\
+        [--device cuda|cpu]
+
+Not ported yet: the pandas ingest path (``--pandas-ingest`` raises,
+naming ROADMAP.md A3; so a valid ``clean`` manifest under a stale
+``engineer`` one re-runs the ingest from the raw table), and the
+pipeline's telemetry spans and metrics.
 """
 
 from __future__ import annotations
@@ -33,20 +46,49 @@ import numpy as np
 import torch
 
 from cobalt_smart_lender_ai_tpu_torch.config import PipelineConfig, RFEConfig, TuneConfig
+from cobalt_smart_lender_ai_tpu_torch.data import schema
 from cobalt_smart_lender_ai_tpu_torch.data.device_pipeline import (
     run_device_ingest,
     tokenize_raw_frame,
 )
-from cobalt_smart_lender_ai_tpu_torch.data.features import drop_training_leakage
+from cobalt_smart_lender_ai_tpu_torch.data.features import FeatureFrame, drop_training_leakage
+from cobalt_smart_lender_ai_tpu_torch.data.frame import RawFrame
 from cobalt_smart_lender_ai_tpu_torch.data.split import train_test_split_hashed
 from cobalt_smart_lender_ai_tpu_torch.device import resolve_device
-from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore, save_metrics
+from cobalt_smart_lender_ai_tpu_torch.io import (
+    GBDTArtifact,
+    ObjectStore,
+    plan_from_json,
+    plan_to_json,
+    save_metrics,
+)
+from cobalt_smart_lender_ai_tpu_torch.io.frames import frame_to_csv
+from cobalt_smart_lender_ai_tpu_torch.models.gbdt import GBDTClassifier, gain_importances
 from cobalt_smart_lender_ai_tpu_torch.ops.histogram import gradient_histogram_channels
-from cobalt_smart_lender_ai_tpu_torch.ops.metrics import binary_classification_report, roc_auc
+from cobalt_smart_lender_ai_tpu_torch.ops.metrics import (
+    binary_classification_report,
+    confusion_matrix,
+    roc_auc,
+)
 from cobalt_smart_lender_ai_tpu_torch.parallel.rfe import rfe_select
 from cobalt_smart_lender_ai_tpu_torch.parallel.tune import SearchResult, randomized_search
+from cobalt_smart_lender_ai_tpu_torch.reliability import (
+    PipelineCheckpoint,
+    ResilientStore,
+    config_fingerprint,
+    policy_from_config,
+)
 
-__all__ = ["PipelineResult", "main", "quick_config", "run_pipeline"]
+__all__ = [
+    "STAGES",
+    "PipelineResult",
+    "feature_table",
+    "main",
+    "quick_config",
+    "run_pipeline",
+    "stage_fingerprints",
+    "table_features",
+]
 
 logger = logging.getLogger("cobalt_smart_lender_ai_tpu_torch.pipeline")
 
@@ -64,22 +106,33 @@ class PipelineResult:
     search: SearchResult
     scale_pos_weight: float
     #: Wall seconds per stage (``host_frontier``, ``device_ingest``, ``rfe``,
-    #: ``search``, ``eval``), each ending with the device synchronised.
+    #: ``search``, ``eval``; on resume ``restore`` and ``refit``), each ending
+    #: with the device synchronised.
     timings: dict[str, float]
     #: Histogram kernel launches per stage (none on the CPU, where the plain
     #: version runs).
     hist_launches: dict[str, int]
+    #: The stages that computed in this run, and those restored from a
+    #: valid checkpoint manifest.
+    stages_run: tuple[str, ...] = ()
+    stages_skipped: tuple[str, ...] = ()
+    #: The intermediate tables written in this run: ``{"seconds": wall
+    #: seconds of writing them and pinning them in the stage manifests,
+    #: "bytes": {key: size}}`` (empty when none).
+    intermediates: dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def quick_config() -> PipelineConfig:
     """The reference CLI's ``--quick`` profile: RFE in steps of 20 with a
-    20-tree depth-3 selector, and a 4 x 2 search. Rows and width are not
-    cut."""
+    20-tree depth-3 selector, and a 4 x 2 search in ``"auto"`` chunks, so
+    successive halving engages wherever a chunk is shorter than the fit.
+    Rows and width are not cut."""
     return PipelineConfig(
         rfe=RFEConfig(n_select=20, step=20, n_estimators=20, max_depth=3),
         tune=TuneConfig(
             n_iter=4,
             cv_folds=2,
+            chunk_trees="auto",
             param_space={
                 "n_estimators": (150, 300),
                 "max_depth": (3,),
@@ -88,6 +141,61 @@ def quick_config() -> PipelineConfig:
             },
         ),
     )
+
+
+#: The checkpointed stages, in order.
+STAGES = ("clean", "engineer", "rfe", "search")
+
+
+def stage_fingerprints(cfg: PipelineConfig) -> dict[str, str]:
+    """Each checkpointed stage's fingerprint: of the configuration it
+    depends on, and only that (the reference's, without its mesh)."""
+    return {
+        "clean": config_fingerprint("clean", cfg.data),
+        "engineer": config_fingerprint("engineer", cfg.data),
+        "rfe": config_fingerprint("rfe", cfg.data, cfg.rfe),
+        "search": config_fingerprint("search", cfg.data, cfg.rfe, cfg.gbdt, cfg.tune),
+    }
+
+
+def feature_table(ff: FeatureFrame) -> RawFrame:
+    """A feature frame as the stored table: its float32 columns, then the
+    label (the reference's ``FeatureFrame.to_pandas``)."""
+    X = ff.X.cpu().numpy()
+    cols = {name: X[:, j] for j, name in enumerate(ff.feature_names)}
+    if ff.y is not None:
+        cols[schema.LABEL_COL] = ff.y.cpu().numpy()
+    return RawFrame(cols)
+
+
+def table_features(frame: RawFrame, device: torch.device) -> FeatureFrame:
+    """The inverse of `feature_table`: the label column popped, the rest as
+    float32 features on ``device``."""
+    names = [n for n in frame.columns if n != schema.LABEL_COL]
+    X = np.stack([frame[n].astype(np.float32) for n in names], axis=1)
+    y = frame[schema.LABEL_COL].astype(np.float32)
+    return FeatureFrame(tuple(names), torch.from_numpy(X).to(device), torch.from_numpy(y).to(device))
+
+
+def _save_plots(store: ObjectStore, key: str, y_test, y_pred, est, selected) -> None:
+    """The reference trainer's confusion-matrix and feature-importance
+    PNGs next to the model. matplotlib is optional: without it (the card's
+    machine has none) the run logs the reference's warning and goes on."""
+    try:
+        from cobalt_smart_lender_ai_tpu_torch.io.plots import (
+            render_confusion_matrix,
+            render_feature_importance,
+        )
+
+        cm = confusion_matrix(y_test, y_pred).cpu().numpy()
+        gains, _ = gain_importances(est.forest.to("cpu"), len(selected))
+        store.put_bytes(key + ".confusion_matrix.png", render_confusion_matrix(cm))
+        store.put_bytes(
+            key + ".feature_importance.png",
+            render_feature_importance(selected, gains.numpy()),
+        )
+    except Exception as exc:
+        logger.warning("plot artifacts skipped (%s)", exc)
 
 
 def run_pipeline(
@@ -100,25 +208,24 @@ def run_pipeline(
     today: datetime | None = None,
 ) -> PipelineResult:
     """Train and publish from the raw table ``raw`` (a `RawFrame`, or any
-    frame `tokenize_raw_frame` reads) on ``device`` (``cuda`` unless the
-    caller asks for ``cpu``). ``today`` is the snapshot date of the date ->
-    age features (default: the day of the run); pinning it makes a retrain
-    on the same table reproducible. With a ``store``, the artifact, its
-    features and ``metrics.json`` are written under
-    ``config.serve.model_key``."""
+    frame `tokenize_raw_frame` reads; None reads ``config.data.raw_key``
+    from ``store``) on ``device`` (``cuda`` unless the caller asks for
+    ``cpu``). ``today`` is the snapshot date of the date -> age features
+    (default: the day of the run); pinning it makes a retrain on the same
+    table reproducible. With a ``store``, the artifact, its features,
+    ``metrics.json`` and the plots are written under
+    ``config.serve.model_key``, and each stage is checkpointed; with
+    ``resume=True`` (default ``config.reliability.resume``) the stages
+    whose manifests validate are restored instead of run."""
     cfg = config or PipelineConfig()
     dev = resolve_device(device)
-    if raw is None:
-        raise NotImplementedError(
-            "loading the raw table from the store needs the CSV reader, which "
-            "is not ported yet (ROADMAP.md, A3); pass raw="
-        )
-    if resume:
-        raise NotImplementedError(
-            "checkpoints and resume are not ported yet (ROADMAP.md, A4)"
-        )
+    rel = cfg.reliability
+    resume = rel.resume if resume is None else resume
     timings: dict[str, float] = {}
     launches: dict[str, int] = {}
+    stages_run: list[str] = []
+    stages_skipped: list[str] = []
+    intermediates: dict[str, Any] = {}
     counted = gradient_histogram_channels.launches
 
     def tick(name: str, t0: float) -> float:
@@ -132,22 +239,84 @@ def run_pipeline(
         logger.info("%s done in %.2fs", name, timings[name])
         return t
 
-    t = time.perf_counter()
-    tok = tokenize_raw_frame(raw, today=today)
-    t = tick("host_frontier", t)
-    ingest = run_device_ingest(tok, device=dev)
-    del tok
-    tree_ff, plan = ingest.tree, ingest.plan
-    logger.info(
-        "device ingest: %d rows, dropped %d null-heavy cols, %d dupes, %d tree features",
-        ingest.report.n_rows_out,
-        len(ingest.report.dropped_null_columns),
-        ingest.report.n_duplicates_removed,
-        tree_ff.n_features,
+    if store is not None and rel.wrap_store and not isinstance(store, ResilientStore):
+        store = ResilientStore(store, policy_from_config(rel), verify_reads=rel.verify_reads)
+    ckpt = (
+        PipelineCheckpoint(store, rel.checkpoint_prefix)
+        if store is not None and rel.checkpoints
+        else None
     )
-    del ingest
-    t = tick("device_ingest", t)
+    fp = stage_fingerprints(cfg)
+    fp_clean, fp_engineer, fp_rfe, fp_search = (fp[s] for s in STAGES)
+    # A stage is skipped only if every stage upstream of it was.
+    can_resume = bool(resume) and ckpt is not None
+    skip_clean = can_resume and ckpt.valid("clean", fp_clean)
+    skip_engineer = skip_clean and ckpt.valid("engineer", fp_engineer)
+    skip_rfe = skip_engineer and ckpt.valid("rfe", fp_rfe)
+    skip_search = skip_rfe and ckpt.valid("search", fp_search)
 
+    t = time.perf_counter()
+    if skip_engineer:
+        plan = plan_from_json(ckpt.load("engineer")["extra"]["plan"])
+        tree_ff = table_features(store.load_frame(cfg.data.tree_key), dev)
+        stages_skipped += ["clean", "engineer"]
+        logger.info(
+            "resume: restored the engineered table (%d rows x %d features) from %s",
+            tree_ff.n_rows, tree_ff.n_features, cfg.data.tree_key,
+        )
+        t = tick("restore", t)
+    else:
+        if raw is None:
+            if store is None:
+                raise ValueError("provide a raw frame or an object store")
+            raw = store.load_frame(cfg.data.raw_key)
+        tok = tokenize_raw_frame(raw, today=today)
+        t = tick("host_frontier", t)
+        keep = store is not None and cfg.save_intermediate
+        ingest = run_device_ingest(
+            tok,
+            device=dev,
+            n_bins=cfg.gbdt.n_bins,
+            null_col_threshold=cfg.data.null_col_threshold,
+            row_null_allowance=cfg.data.row_null_allowance,
+            keep_cleaned=keep,
+        )
+        del tok
+        tree_ff, plan = ingest.tree, ingest.plan
+        logger.info(
+            "device ingest: %d rows, dropped %d null-heavy cols, %d dupes, %d tree features",
+            ingest.report.n_rows_out,
+            len(ingest.report.dropped_null_columns),
+            ingest.report.n_duplicates_removed,
+            tree_ff.n_features,
+        )
+        if keep:
+            t_save = time.perf_counter()
+            tables = {
+                cfg.data.cleaned_key: ingest.cleaned,
+                cfg.data.tree_key: feature_table(tree_ff),
+                cfg.data.nn_key: feature_table(ingest.nn),
+            }
+            sizes = {}
+            for key, table in tables.items():
+                data = frame_to_csv(table)  # what store.save_frame writes
+                store.put_bytes(key, data)
+                sizes[key] = len(data)
+                del data
+            if ckpt is not None:
+                ckpt.write("clean", fingerprint=fp_clean, outputs=[cfg.data.cleaned_key])
+                ckpt.write(
+                    "engineer",
+                    fingerprint=fp_engineer,
+                    outputs=[cfg.data.tree_key, cfg.data.nn_key],
+                    extra={"plan": plan_to_json(plan)},
+                )
+            intermediates = {"seconds": time.perf_counter() - t_save, "bytes": sizes}
+        del ingest
+        stages_run += ["clean", "engineer"]
+        t = tick("device_ingest", t)
+
+    # The hashed split is stateless: recomputed on every run, resumed or not.
     ff = drop_training_leakage(tree_ff)
     del tree_ff
     X_train, X_test, y_train, y_test = train_test_split_hashed(
@@ -160,33 +329,82 @@ def run_pipeline(
         X_train.shape[0], X_test.shape[0], spw,
     )
 
-    rfe = rfe_select(
-        X_train, y_train, dataclasses.replace(cfg.rfe, scale_pos_weight=spw), device=dev
-    )
-    selected = tuple(n for n, keep in zip(ff.feature_names, rfe.support_) if keep)
-    logger.info("RFE selected %d features: %s", len(selected), selected)
-    t = tick("rfe", t)
+    support = None
+    if skip_rfe:
+        extra = ckpt.load("rfe")["extra"]
+        if extra.get("feature_names") == list(ff.feature_names):
+            support = np.zeros(len(ff.feature_names), dtype=bool)
+            support[np.asarray(extra["support_idx"], dtype=int)] = True
+            selected = tuple(extra["selected"])
+            stages_skipped.append("rfe")
+            logger.info("resume: restored the RFE selection (%d features)", len(selected))
+        else:  # the engineered columns drifted from under the manifest
+            skip_rfe = skip_search = False
+    if support is None:
+        rfe = rfe_select(
+            X_train, y_train, dataclasses.replace(cfg.rfe, scale_pos_weight=spw), device=dev
+        )
+        support = rfe.support_
+        selected = tuple(n for n, keep in zip(ff.feature_names, support) if keep)
+        logger.info("RFE selected %d features: %s", len(selected), selected)
+        if ckpt is not None:
+            ckpt.write(
+                "rfe",
+                fingerprint=fp_rfe,
+                extra={
+                    "support_idx": np.flatnonzero(support).tolist(),
+                    "selected": list(selected),
+                    "feature_names": list(ff.feature_names),
+                    "scale_pos_weight": spw,
+                },
+            )
+        stages_run.append("rfe")
+        t = tick("rfe", t)
 
     # The search and the final model see the selected columns only.
-    sel_idx = torch.from_numpy(np.flatnonzero(rfe.support_)).to(dev)
+    sel_idx = torch.from_numpy(np.flatnonzero(support)).to(dev)
     Xtr_sel = X_train.index_select(1, sel_idx)
     Xte_sel = X_test.index_select(1, sel_idx)
     del X_train, X_test, ff
-    search = randomized_search(
-        Xtr_sel, y_train, cfg.gbdt.replace(scale_pos_weight=spw), cfg.tune, device=dev
-    )
+    base = cfg.gbdt.replace(scale_pos_weight=spw)
+    if skip_search:
+        # The search is checkpointed as its best params; the final model is
+        # the refit that `randomized_search` itself makes after CV.
+        extra = ckpt.load("search")["extra"]
+        best_params = dict(extra["best_params"])
+        est = GBDTClassifier(base.replace(**best_params), device=dev).fit(Xtr_sel, y_train)
+        search = SearchResult(
+            best_params_=best_params,
+            best_score_=float(extra["cv_auc"]),
+            best_estimator_=est,
+            cv_results_={},
+        )
+        stages_skipped.append("search")
+        logger.info("resume: restored best params %s, refit only", best_params)
+        t = tick("refit", t)
+    else:
+        search = randomized_search(Xtr_sel, y_train, base, cfg.tune, device=dev)
+        if ckpt is not None:
+            ckpt.write(
+                "search",
+                fingerprint=fp_search,
+                extra={"best_params": search.best_params_, "cv_auc": float(search.best_score_)},
+            )
+        stages_run.append("search")
+        t = tick("search", t)
     logger.info("search best CV AUC %.4f with %s", search.best_score_, search.best_params_)
-    t = tick("search", t)
 
     est = search.best_estimator_
     test_auc = float(roc_auc(y_test, est.predict_margin(Xte_sel)))
+    y_pred = est.predict(Xte_sel)
     metrics = {
         # The reference trainer's metrics.json schema.
         "auc": test_auc,
-        "classification_report": binary_classification_report(y_test, est.predict(Xte_sel)),
+        "classification_report": binary_classification_report(y_test, y_pred),
         "best_params": search.best_params_,
     }
     logger.info("test ROC-AUC %.4f", test_auc)
+    stages_run.append("eval")
     t = tick("eval", t)
 
     artifact = GBDTArtifact(
@@ -205,6 +423,7 @@ def run_pipeline(
         key = cfg.serve.model_key
         artifact.save(store, key)
         save_metrics(store, key + ".metrics.json", metrics)
+        _save_plots(store, key, y_test, y_pred, est, selected)
         logger.info("artifact persisted at %s", key)
 
     return PipelineResult(
@@ -218,6 +437,9 @@ def run_pipeline(
         scale_pos_weight=spw,
         timings=timings,
         hist_launches=launches,
+        stages_run=tuple(stages_run),
+        stages_skipped=tuple(stages_skipped),
+        intermediates=intermediates,
     )
 
 
@@ -235,9 +457,14 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
         "--quick",
         action="store_true",
         help="the reference's slim profile: RFE in steps of 20 with a 20-tree "
-        "depth-3 selector and a 4 x 2 search; like the full profile it is an "
-        "exhaustive search (every candidate to its full n_estimators on every "
-        "fold), since successive halving is not ported",
+        "depth-3 selector and a 4 x 2 search in 'auto' chunks (successive "
+        "halving wherever a chunk is shorter than the fit)",
+    )
+    parser.add_argument(
+        "--no-halving",
+        action="store_true",
+        help="exhaustive search (every candidate trained to its full "
+        "n_estimators) instead of the successive-halving scheduler",
     )
     parser.add_argument(
         "--device",
@@ -245,7 +472,10 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
         help="cuda (the default; the CUDA kernels) or cpu (their plain versions)",
     )
     parser.add_argument(
-        "--resume", action="store_true", help="not ported yet: raises (ROADMAP.md, A4)"
+        "--resume",
+        action="store_true",
+        help="skip the stages whose checkpoint manifests still validate (restart "
+        "from the last good stage instead of the raw data)",
     )
     parser.add_argument(
         "--pandas-ingest", action="store_true", help="not ported yet: raises (ROADMAP.md, A3)"
@@ -260,6 +490,8 @@ def main(argv: Sequence[str] | None = None) -> PipelineResult:
     if args.pandas_ingest:
         raise NotImplementedError("the pandas ingest path is not ported yet (ROADMAP.md, A3)")
     cfg = quick_config() if args.quick else PipelineConfig()
+    if args.no_halving:
+        cfg = dataclasses.replace(cfg, tune=dataclasses.replace(cfg.tune, halving_enabled=False))
     raw = None
     if args.synthetic_rows:
         from cobalt_smart_lender_ai_tpu_torch.data.synthetic import synthetic_lendingclub_frame
@@ -275,6 +507,8 @@ def main(argv: Sequence[str] | None = None) -> PipelineResult:
             "n_selected": len(result.selected_features),
             "timings": result.timings,
             "hist_launches": result.hist_launches,
+            "stages_run": result.stages_run,
+            "stages_skipped": result.stages_skipped,
         }
     )
     return result

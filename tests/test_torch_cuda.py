@@ -29,7 +29,13 @@ equals the CPU's (bitwise outside the log1p columns, which are within
 3e-7), and `predict_raw` on the card reproduces each raw row's ingested row
 bit for bit and scores it as the margin-only launch does. Of the training
 protocol: RFE eliminates the CPU's features, and each CV job's AUC is
-within 1e-4 of the CPU's.
+within 1e-4 of the CPU's; RFECV selects the CPU's features with every
+count's score within 1e-6 of the CPU's; and a chunked successive-halving
+search gives the CPU's report (rungs, pruned, survivors, scored trees),
+scores within 1e-4 (as the CV jobs above: up to 40 trees of depth 5, whose
+margins drift by ulps between the card's fixed-point sums and the CPU's
+float sums) and the CPU's winner, its histogram launches one per level of
+every tree its jobs boosted in whole chunks.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ import numpy as np
 import pytest
 import torch
 
-from cobalt_smart_lender_ai_tpu_torch.config import GBDTConfig, RFEConfig, ServeConfig
+from cobalt_smart_lender_ai_tpu_torch.config import GBDTConfig, RFEConfig, ServeConfig, TuneConfig
 from cobalt_smart_lender_ai_tpu_torch.convert import forest_from_numpy
 from cobalt_smart_lender_ai_tpu_torch.data import schema
 from cobalt_smart_lender_ai_tpu_torch.data.device_pipeline import (
@@ -65,7 +71,11 @@ from cobalt_smart_lender_ai_tpu_torch.ops.score import (
     pack_forest,
 )
 from cobalt_smart_lender_ai_tpu_torch.parallel.rfe import rfe_select
-from cobalt_smart_lender_ai_tpu_torch.parallel.tune import cross_validate_gbdt, stratified_kfold_masks
+from cobalt_smart_lender_ai_tpu_torch.parallel.tune import (
+    cross_validate_gbdt,
+    randomized_search,
+    stratified_kfold_masks,
+)
 from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -521,3 +531,49 @@ def test_protocol_fits_on_card_match_the_cpu(card):
     assert gradient_histogram_channels.launches - before == 3 * (20 * 3 + 10 * 5 + 6 * 9)
     on_cpu = cross_validate_gbdt(bins, torch.from_numpy(y), hps, val, 22, n_bins=255)
     assert float(np.abs(on_card - on_cpu).max()) <= 1e-4
+
+
+def _selection_rows():
+    rng = np.random.default_rng(4)
+    N, F = 20_000, 30
+    X = rng.normal(size=(N, F)).astype(np.float32)
+    logit = X[:, 0] - 0.8 * X[:, 1] + 0.5 * X[:, 2] * X[:, 3] + 0.3 * X[:, 4] - 1.0
+    y = (rng.random(N) < 1.0 / (1.0 + np.exp(-logit))).astype(np.float32)
+    X[rng.random(X.shape) < 0.05] = np.nan
+    return X, y
+
+
+@pytest.mark.cuda
+def test_rfecv_on_card_matches_the_cpu(card):
+    X, y = _selection_rows()
+    cfg = RFEConfig(n_select=6, step=8, n_estimators=10, max_depth=3)
+    got = rfe_select(X, y, cfg, cv_folds=3, device="cuda")
+    ref = rfe_select(X, y, cfg, cv_folds=3, device="cpu")
+    assert np.array_equal(got.support_, ref.support_) and np.array_equal(got.ranking_, ref.ranking_)
+    assert sorted(got.cv_scores_) == sorted(ref.cv_scores_) == [6, 14, 22, 30]
+    assert max(abs(got.cv_scores_[n] - ref.cv_scores_[n]) for n in ref.cv_scores_) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_halving_search_on_card_matches_the_cpu(card):
+    X, y = _selection_rows()
+    tune = TuneConfig(
+        n_iter=4, cv_folds=2, chunk_trees=10,
+        param_space={"n_estimators": (20, 40), "max_depth": (3, 5), "learning_rate": (0.1, 0.3)},
+    )
+    before = gradient_histogram_channels.launches
+    got = randomized_search(X, y, GBDTConfig(), tune, device="cuda")
+    launches = gradient_histogram_channels.launches - before
+    ref = randomized_search(X, y, GBDTConfig(), tune, device="cpu")
+    report = ref.cv_results_["halving"]
+    assert got.cv_results_["halving"] == report and report["pruned_candidates"] == 3
+    assert float(np.abs(got.cv_results_["split_test_scores"] - ref.cv_results_["split_test_scores"]).max()) <= 1e-4
+    assert got.best_params_ == ref.best_params_
+    expect = 0
+    for c, cand in enumerate(ref.cv_results_["params"]):
+        g = GBDTConfig(**cand)
+        chunk = report["chunk_trees"][g.max_depth]
+        trees = min(chunk * -(-report["scored_at_trees"][c] // chunk), g.n_estimators)
+        expect += 2 * trees * g.max_depth
+    best = GBDTConfig(**got.best_params_)
+    assert launches == expect + best.n_estimators * best.max_depth

@@ -206,7 +206,8 @@ def test_roc_auc_matches_jax(ties):
 def test_unfitted_and_config_guards():
     with pytest.raises(RuntimeError, match="fit"):
         gbdt.GBDTClassifier(device="cpu").predict_margin(np.zeros((1, 2), np.float32))
-    with pytest.raises(NotImplementedError, match="auto"):
-        GBDTConfig(chunk_trees="auto")
+    assert GBDTConfig(chunk_trees="auto").chunk_trees == "auto"  # resolved by the cost model
+    with pytest.raises(ValueError, match="auto"):
+        GBDTConfig(chunk_trees="fast")
     with pytest.raises(ValueError, match="positive"):
         GBDTConfig(chunk_trees=0)

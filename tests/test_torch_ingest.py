@@ -13,7 +13,9 @@ thousand rows, with ``today`` pinned. Held to the reference:
   `FeaturePlan` (medians within ``LOG_RTOL``), tree / nn matrices and labels
   bit-identical except the log1p-derived columns, which are within
   ``LOG_RTOL`` (the port's log1p and XLA's differ in the last bits), and
-  bins bit-identical on every column log1p does not touch;
+  bins bit-identical on every column log1p does not touch; with
+  ``keep_cleaned=True`` the clean stage's decoded table equals the
+  reference's (numbers bitwise, strings and missing cells alike);
 - the hashed split, the stratified folds, ``_mix_u32`` on edge values, and
   `binary_classification_report`: the same rows and numbers.
 """
@@ -243,9 +245,27 @@ def test_serving_features_survive_ingest_and_leakage_drop(port_ingest):
     assert sel.feature_names == schema.SERVING_FEATURES and sel.X.shape[1] == 20
 
 
-def test_keep_cleaned_is_not_ported(port_ingest):
-    with pytest.raises(NotImplementedError, match="keep_cleaned"):
-        run_device_ingest(port_ingest[0], device="cpu", keep_cleaned=True)
+def test_keep_cleaned_is_not_ported(port_ingest, jax_ingest):
+    """``keep_cleaned=True`` is ported: the clean stage's table, decoded on
+    the host, equals the reference's ``DeviceIngestResult.cleaned`` column
+    for column (categories as their strings, missing where the reference's
+    are NaN; every other column float64, bitwise), and the ingest's other
+    outputs do not change."""
+    got = run_device_ingest(port_ingest[0], device="cpu", keep_cleaned=True)
+    ref = jax_dp.run_device_ingest(jax_ingest[0], keep_cleaned=True).cleaned
+    assert port_ingest[1].cleaned is None
+    assert got.cleaned.columns == [str(c) for c in ref.columns]
+    assert got.cleaned.n_rows == len(ref) == got.report.n_rows_out
+    for name in ref.columns:
+        col = ref[name]
+        if pd.api.types.is_numeric_dtype(col):
+            assert got.cleaned[name].dtype == np.float64, name
+            assert np.array_equal(got.cleaned[name], col.to_numpy(np.float64), equal_nan=True), name
+        else:
+            miss = col.isna().to_numpy()
+            assert np.array_equal(got.cleaned.missing(name), miss), name
+            assert np.array_equal(got.cleaned[name][~miss], col[~miss].astype(str).to_numpy()), name
+    assert torch.equal(got.tree.X.nan_to_num(-7.0), port_ingest[1].tree.X.nan_to_num(-7.0))
 
 
 def test_ingest_leaves_the_tokenized_matrix_alone(port_frame):

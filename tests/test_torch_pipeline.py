@@ -16,8 +16,25 @@ the reference:
 - the held-out AUC within 0.005;
 - the artifact the port writes loads in the JAX package and gives the
   port's margins bit for bit; ``.features.json`` and ``metrics.json`` as
-  `tests/test_pipeline.py` checks them;
-- what is not ported raises: ``raw=None``, ``resume=True``.
+  `tests/test_pipeline.py` checks them; the confusion-matrix and
+  feature-importance PNGs are the reference's renders of the run's
+  confusion matrix and gains, byte for byte;
+- without a raw table or a store it raises the reference's ``ValueError``.
+
+Checkpoints and resume, as ``tests/test_reliability.py`` holds the
+reference's, under a smaller configuration (3000 loans, RFE to 10 in one
+step, a 2 x 2 search of 40 trees):
+
+- a run killed in the search (``randomized_search`` made to raise) leaves
+  the ``clean``, ``engineer`` and ``rfe`` manifests; resumed without a raw
+  table it skips those stages, runs ``search`` and ``eval``, and publishes
+  the uninterrupted run's forest bit for bit;
+- resuming a finished run skips every stage up to the search (timings
+  ``restore``, ``refit``, ``eval``) and refits the same forest; a change to
+  RFE's configuration alone reruns ``rfe`` and ``search`` and nothing
+  upstream; ``resume=False`` recomputes every stage;
+- with the raw table saved at ``data.raw_key``, ``raw=None`` trains the
+  model that the table itself trains.
 """
 
 from __future__ import annotations
@@ -40,17 +57,25 @@ from cobalt_smart_lender_ai_tpu.config import TuneConfig as JaxTuneConfig
 from cobalt_smart_lender_ai_tpu.data.synthetic import synthetic_lendingclub_frame as jax_synthetic
 from cobalt_smart_lender_ai_tpu.io import GBDTArtifact as JaxArtifact
 from cobalt_smart_lender_ai_tpu.io import ObjectStore as JaxStore
+from cobalt_smart_lender_ai_tpu.io.plots import render_confusion_matrix as jax_render_cm
+from cobalt_smart_lender_ai_tpu.io.plots import render_feature_importance as jax_render_fi
 from cobalt_smart_lender_ai_tpu.models.gbdt import predict_margin as jax_predict_margin
 from cobalt_smart_lender_ai_tpu.parallel.mesh import make_mesh
 from cobalt_smart_lender_ai_tpu_torch import pipeline
 from cobalt_smart_lender_ai_tpu_torch.config import (
     GBDTConfig,
     PipelineConfig,
+    ReliabilityConfig,
     RFEConfig,
     TuneConfig,
 )
+from cobalt_smart_lender_ai_tpu_torch.data.features import drop_training_leakage
+from cobalt_smart_lender_ai_tpu_torch.data.split import train_test_split_hashed
 from cobalt_smart_lender_ai_tpu_torch.data.synthetic import synthetic_lendingclub_frame
 from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
+from cobalt_smart_lender_ai_tpu_torch.models.gbdt import gain_importances
+from cobalt_smart_lender_ai_tpu_torch.ops.metrics import confusion_matrix
+from cobalt_smart_lender_ai_tpu_torch.reliability import PipelineCheckpoint
 
 TODAY = datetime(2026, 8, 1)
 N_ROWS, SEED = 6000, 5
@@ -156,9 +181,138 @@ def test_port_artifact_loads_in_jax_with_the_same_margins(runs):
     assert torch.equal(back.forest.thr_float, res.artifact.forest.thr_float)
 
 
+def test_plots_are_the_reference_renders(runs):
+    res, store, _ = runs
+    cfg = PipelineConfig()
+    tree = pipeline.table_features(store.load_frame(cfg.data.tree_key), torch.device("cpu"))
+    ff = drop_training_leakage(tree)
+    _, X_test, _, y_test = train_test_split_hashed(ff.X, ff.y)
+    idx = torch.tensor([ff.feature_names.index(n) for n in res.selected_features])
+    pred = res.search.best_estimator_.predict(X_test.index_select(1, idx))
+    cm = confusion_matrix(y_test, pred).numpy()
+    gains, _ = gain_importances(res.artifact.forest, len(res.selected_features))
+    assert store.get_bytes(KEY + ".confusion_matrix.png") == jax_render_cm(cm)
+    assert store.get_bytes(KEY + ".feature_importance.png") == jax_render_fi(
+        res.selected_features, gains.numpy()
+    )
+
+
 def test_unported_options_raise():
-    frame = synthetic_lendingclub_frame(50, seed=1)
-    with pytest.raises(NotImplementedError, match="A3"):
+    """Without a raw table or a store there is nothing to train on: the
+    reference's ``ValueError`` (the name is kept from when ``raw=None`` and
+    ``resume=True`` raised as not ported)."""
+    with pytest.raises(ValueError, match="provide a raw frame or an object store"):
         pipeline.run_pipeline(PipelineConfig(), raw=None, device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        pipeline.run_pipeline(PipelineConfig(), raw=frame, resume=True, device="cpu")
+    with pytest.raises(ValueError, match="provide a raw frame or an object store"):
+        pipeline.run_pipeline(PipelineConfig(), raw=None, resume=True, device="cpu")
+    with pytest.raises(ValueError, match="provide a raw frame or an object store"):
+        jax_pipeline.run_pipeline(JaxPipelineConfig(), raw=None)
+
+
+# -- checkpoints and resume -------------------------------------------------------
+
+RESUME_ROWS = 3000
+FOREST_FIELDS = ("feature", "thr_bin", "thr_float", "missing_left", "gain", "cover", "leaf_value")
+
+
+def _resume_config(**rfe_kw) -> PipelineConfig:
+    rfe_cfg = dict(n_select=10, step=200, n_estimators=8, max_depth=3)
+    rfe_cfg.update(rfe_kw)
+    return PipelineConfig(
+        gbdt=GBDTConfig(n_bins=32),
+        rfe=RFEConfig(**rfe_cfg),
+        tune=TuneConfig(
+            n_iter=2, cv_folds=2,
+            param_space={"n_estimators": (40,), "max_depth": (3,), "learning_rate": (0.1, 0.3)},
+        ),
+        reliability=ReliabilityConfig(base_delay_s=0.0, max_delay_s=0.0, jitter=0.0),
+    )
+
+
+def _run(store, raw=None, resume=None, **rfe_kw):
+    return pipeline.run_pipeline(
+        _resume_config(**rfe_kw), raw=raw, store=store, resume=resume, device="cpu", today=TODAY
+    )
+
+
+def _same_forest(a, b) -> bool:
+    return all(torch.equal(getattr(a.artifact.forest, f), getattr(b.artifact.forest, f))
+               for f in FOREST_FIELDS)
+
+
+@pytest.fixture(scope="module")
+def small_raw():
+    return synthetic_lendingclub_frame(RESUME_ROWS, seed=11)
+
+
+@pytest.fixture(scope="module")
+def finished(small_raw, tmp_path_factory):
+    """An uninterrupted run and its store."""
+    store = ObjectStore(str(tmp_path_factory.mktemp("finished")))
+    return _run(store, raw=small_raw), store
+
+
+def test_resume_after_crash_skips_completed_stages(finished, small_raw, tmp_path, monkeypatch):
+    full, _ = finished
+    store = ObjectStore(str(tmp_path))
+
+    def boom(*args, **kwargs):
+        raise RuntimeError("killed mid-search")
+
+    monkeypatch.setattr(pipeline, "randomized_search", boom)
+    with pytest.raises(RuntimeError, match="killed mid-search"):
+        _run(store, raw=small_raw)
+    monkeypatch.undo()
+    ckpt = PipelineCheckpoint(store)
+    for stage in ("clean", "engineer", "rfe"):
+        assert ckpt.load(stage) is not None, stage
+    assert ckpt.load("search") is None
+    res = _run(store, resume=True)  # no raw table needed
+    assert res.stages_skipped == ("clean", "engineer", "rfe")
+    assert res.stages_run == ("search", "eval")
+    assert list(res.timings) == ["restore", "search", "eval"]
+    assert res.selected_features == full.selected_features and len(res.selected_features) == 10
+    assert _same_forest(res, full) and res.test_auc == full.test_auc
+    assert res.search.cv_results_["params"] == full.search.cv_results_["params"]
+    np.testing.assert_array_equal(
+        res.search.cv_results_["split_test_scores"], full.search.cv_results_["split_test_scores"]
+    )
+
+
+def test_resume_full_run_then_config_change(finished):
+    full, store = finished
+    assert full.stages_run == ("clean", "engineer", "rfe", "search", "eval")
+    assert full.stages_skipped == ()
+    assert set(full.intermediates["bytes"]) == {
+        "dataset/2-intermediate/cleaned_01.csv",
+        "dataset/2-intermediate/cleaned_02_tree.csv",
+        "dataset/2-intermediate/cleaned_02_nn.csv",
+    }
+    res = _run(store, resume=True)
+    assert res.stages_skipped == ("clean", "engineer", "rfe", "search")
+    assert res.stages_run == ("eval",)
+    assert list(res.timings) == ["restore", "refit", "eval"]
+    assert res.best_params == full.best_params and res.cv_auc == full.cv_auc
+    assert _same_forest(res, full) and res.test_auc == full.test_auc
+    assert res.intermediates == {}
+    changed = _run(store, resume=True, n_estimators=9)  # RFE's configuration alone
+    assert changed.stages_skipped == ("clean", "engineer")
+    assert changed.stages_run == ("rfe", "search", "eval")
+
+
+def test_resume_off_recomputes(finished, small_raw, tmp_path):
+    _, store = finished
+    fresh = ObjectStore(str(tmp_path))
+    _run(fresh, raw=small_raw)
+    res = _run(fresh, raw=small_raw, resume=False)
+    assert res.stages_run == ("clean", "engineer", "rfe", "search", "eval")
+    assert res.stages_skipped == ()
+
+
+def test_raw_table_from_the_store(finished, small_raw, tmp_path):
+    full, _ = finished
+    store = ObjectStore(str(tmp_path))
+    store.save_frame(PipelineConfig().data.raw_key, small_raw)
+    res = _run(store)
+    assert res.selected_features == full.selected_features
+    assert _same_forest(res, full) and res.test_auc == full.test_auc

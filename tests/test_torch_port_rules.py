@@ -12,7 +12,8 @@
   exits non-zero without printing a result.
 - The training CLI (``python -m cobalt_smart_lender_ai_tpu_torch.pipeline``)
   runs the quick protocol on the CPU when asked, and publishes the artifact,
-  its features and ``metrics.json``.
+  its features and ``metrics.json``; ``--resume`` on its store restores
+  every stage up to the search and refits.
 """
 
 from __future__ import annotations
@@ -96,7 +97,8 @@ def test_importing_the_data_layer_leaves_jax_and_pandas_unloaded():
 
 
 def test_importing_the_training_protocol_leaves_jax_and_pandas_unloaded():
-    modules = ("config", "parallel.tune", "parallel.rfe", "pipeline")
+    modules = ("config", "parallel.tune", "parallel.rfe", "parallel.budget", "pipeline",
+               "reliability", "io.frames", "io.plots")
     assert _loaded_after_import(modules) == "[]"
 
 
@@ -158,15 +160,28 @@ def test_training_cli_runs_the_quick_protocol_on_the_cpu_when_asked(tmp_path):
     assert len(store.get_json(key + ".features.json")) == 20
     assert set(store.get_json(key + ".metrics.json")) == {"auc", "classification_report", "best_params"}
     assert GBDTArtifact.load(store, key, "cpu").plan is not None
+    assert summary["stages_run"] == ("clean", "engineer", "rfe", "search", "eval")
+    # --resume on that store: every stage up to the search restored, one refit.
+    resumed = pipeline.main(["--store", str(tmp_path), "--quick", "--device", "cpu", "--resume"])
+    assert resumed.stages_skipped == ("clean", "engineer", "rfe", "search")
+    assert list(resumed.timings) == ["restore", "refit", "eval"]
+    assert resumed.best_params == summary["best_params"]
+    assert resumed.test_auc == pytest.approx(summary["test_auc"], abs=1e-4)
 
 
-def test_training_cli_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A3"):
-        pipeline.main(["--device", "cpu"])  # no raw table: the CSV reader is missing
+def test_training_cli_rejects_what_is_not_ported(tmp_path):
+    """What is left unported raises: the pandas ingest path, naming A3. The
+    cases that raised as not ported run as the reference's do: no raw table
+    and no store is the reference's ``ValueError``, and ``--resume`` on a
+    store without manifests reads the raw table from the store's
+    ``raw_key`` (absent here, so a ``FileNotFoundError`` naming it)."""
+    with pytest.raises(ValueError, match="provide a raw frame or an object store"):
+        pipeline.main(["--device", "cpu"])
     with pytest.raises(NotImplementedError, match="A3"):
         pipeline.main(["--device", "cpu", "--synthetic-rows", "50", "--pandas-ingest"])
-    with pytest.raises(NotImplementedError, match="A4"):
-        pipeline.main(["--device", "cpu", "--synthetic-rows", "50", "--resume"])
+    with pytest.raises(FileNotFoundError, match="raw.csv"):
+        pipeline.main(["--device", "cpu", "--store", str(tmp_path), "--resume", "--quick"])
+    assert pipeline.parse_args(["--resume", "--no-halving"]).resume
 
 
 def test_new_port_modules_are_checked():
@@ -174,7 +189,9 @@ def test_new_port_modules_are_checked():
     assert {"ops/histogram.py", "ops/binning.py", "ops/metrics.py", "device.py",
             "data/device_pipeline.py", "data/frame.py", "data/synthetic.py",
             "data/split.py", "data/clean.py", "data/features.py", "config.py",
-            "parallel/tune.py", "parallel/rfe.py", "pipeline.py"} <= names
+            "parallel/tune.py", "parallel/rfe.py", "pipeline.py",
+            "reliability/checkpoint.py", "reliability/retry.py", "reliability/stores.py",
+            "parallel/budget.py", "io/plots.py", "io/frames.py", "io/store.py"} <= names
 
 
 def test_classifier_defaults_to_cuda_and_raises_without_it(no_cuda):
