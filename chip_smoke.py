@@ -144,6 +144,30 @@ Phases, each of which must pass:
        a search in chunks of 12 trees whose candidates draw nothing (the
        same halving report and winner, scores within 1e-4).
 
+11. the observability of both main paths (`telemetry/`):
+    a. right after phase 4, phase 4's traffic to the committed model on
+       the card plus 4 bursts of 64 /predict held into one 64-row batch
+       each; ``/metrics`` parsed with the port's `parse_exposition`: the
+       ``score_forest`` programs' dispatches equal the
+       ``fused_score.launches`` delta over the phase, their CUDA-event
+       seconds are above 0, and the 64-row SHAP bucket's device ms per
+       dispatch is printed beside phase 3's; ``cobalt_device_mem_bytes``
+       present and `device_info`'s ``bytes_limit`` equal to
+       ``mem_get_info``'s total; ``/debug/trace`` holds ``serve.dispatch``
+       spans, ``/debug/slowest`` requests with their phases, ``/slo``
+       answers, ``X-Request-ID`` is echoed and minted;
+    b. on 8b's run: ``cobalt_pipeline_stage_seconds`` observed once per
+       stage, equal to ``result.timings``; ``pipeline.run`` with every
+       stage as a child span; the histogram programs' dispatches equal
+       8b's ``hist_launches`` (``rfe`` at the selector's 64 bins,
+       ``search`` at 255), their event seconds beside the stages';
+    c. the training CLI in a subprocess at 200,000 loans with
+       ``--ledger-out`` and ``--trace-out``: the ledger loads, its program
+       table has the histogram programs with dispatches, event seconds
+       and the H100 roofline estimate, and the trace parses;
+    d. 10,000 recorded dispatches timed on the host (µs each), and that
+       times 5c's launches as a share of 5c's fit wall.
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing neither, when
 CUDA is unavailable or any phase fails. ``--only-scoring`` runs phases 1-4,
@@ -196,9 +220,11 @@ from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models import gbdt
 from cobalt_smart_lender_ai_tpu_torch.ops import _build
 from cobalt_smart_lender_ai_tpu_torch.ops.binning import compute_bin_edges, transform
+from cobalt_smart_lender_ai_tpu_torch.ops.histogram import _program as histogram_program
 from cobalt_smart_lender_ai_tpu_torch.ops.histogram import (
     gradient_histogram_channels,
     gradient_histogram_reference,
+    histogram_cost,
 )
 from cobalt_smart_lender_ai_tpu_torch.ops.metrics import binary_classification_report, roc_auc
 from cobalt_smart_lender_ai_tpu_torch.ops.score import (
@@ -206,6 +232,7 @@ from cobalt_smart_lender_ai_tpu_torch.ops.score import (
     fused_score_reference,
     pack_forest,
     quantization_report,
+    score_cost,
     tree_table_layout,
 )
 from cobalt_smart_lender_ai_tpu_torch.parallel.budget import resolve_chunk_trees
@@ -228,16 +255,29 @@ from cobalt_smart_lender_ai_tpu_torch.pipeline import (
 from cobalt_smart_lender_ai_tpu_torch.reliability import PipelineCheckpoint
 from cobalt_smart_lender_ai_tpu_torch.serve.http_asyncio import make_async_server
 from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService
+from cobalt_smart_lender_ai_tpu_torch.telemetry import (
+    default_program_registry,
+    default_registry,
+    default_tracer,
+    device_info,
+    load_ledger,
+    parse_exposition,
+)
+from cobalt_smart_lender_ai_tpu_torch.telemetry.programs import (
+    ProgramHandle,
+    peak_bytes_estimate,
+    peak_flops_estimate,
+)
 
 ROOT = Path(__file__).resolve().parent
 STORE = ROOT / "artifacts"
 MODEL_KEY = ServeConfig.model_key
 SEED = 0
 
-#: Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and FP32
-#: (non-tensor-core) FLOP/s.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
+#: Published H100 SXM peaks (NVIDIA data sheet), the program registry's:
+#: HBM3 bytes/s and FP32 (non-tensor-core) FLOP/s.
+HBM_BYTES_PER_S = peak_bytes_estimate("NVIDIA H100")
+FP32_FLOP_PER_S = peak_flops_estimate("NVIDIA H100")
 
 TOL_PROB = 1e-6
 TOL_PHIS = 1e-5
@@ -274,37 +314,22 @@ def seeded_rows(pack, n: int, seed: int = SEED) -> np.ndarray:
     return X
 
 
-def shap_flops(depth: int) -> int:
-    """FLOP the SHAP kernel does per (row, tree, leaf), counted from
-    ``score_forest.cu``: player indicators, suffix and prefix polynomials,
-    the bilinear contraction and the contribution."""
-    d = depth
-    return d + 2 * (d - 1) * (3 * d + 1) + d * (d * (d + 1) + 2 * d) + 3 * d
-
-
-def bound_ms(pack, n_rows: int, with_shap: bool) -> tuple[float, str]:
-    """Least time the card could take: the larger of the bytes the call must
-    move (each input read once, each output written once) over HBM bandwidth
-    and its FP32 operations over the FP32 peak. The forest's bytes are those
-    of its stored precision: thresholds and leaves as stored, and at bf16
-    and int8 the ``all_left`` bytes, at int8 the affine tables too."""
-    T, L, d, F = pack.n_trees, 2**pack.depth, pack.depth, pack.n_features
-    tensors = [pack.feature, pack.thr_q, pack.missing_left, pack.leaf_q]
-    if pack.precision != "f32":
-        tensors.append(pack.all_left)
-    if pack.precision == "int8":
-        tensors += [pack.thr_scale, pack.thr_zero, pack.leaf_scale, pack.leaf_zero]
-    if with_shap:
-        tensors += [pack.path_feature, pack.slot, pack.r_play]
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    nbytes += n_rows * F * 4 + 2 * n_rows * 4 + (n_rows * F * 4 if with_shap else 0)
-    # Margin path: d compares and one add per row and tree, plus the sigmoid.
-    flops = n_rows * T * (d + 1) + 3 * n_rows
-    if with_shap:
-        flops += n_rows * T * L * shap_flops(d)
+def _bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """Least time of work that moves ``nbytes`` and does ``flops``: the
+    larger of bytes over HBM bandwidth and FP32 operations over the FP32
+    peak, in ms, and which of the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_ms(pack, n_rows: int, with_shap: bool) -> tuple[float, str]:
+    """Least time the card could take for one `fused_score` call, from
+    `score_cost`'s count of its bytes (each input read once, each output
+    written once; the forest at its stored precision) and FP32
+    operations."""
+    return _bound(*score_cost(n_rows, pack.n_trees, pack.depth, pack.n_features,
+                              pack.precision, with_shap))
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -764,19 +789,12 @@ def binning_phase(X_train: torch.Tensor, n_bins: int) -> tuple[object, torch.Ten
 
 
 def histogram_bound_ms(bins: torch.Tensor, g, h, w, n_nodes: int, n_bins: int) -> tuple[float, str]:
-    """Least time of one histogram pass, counted for this call's data.
-
-    Bytes: node, g, h and w of every row (16 B), the F bins of each active
-    row (one whose g, h or w is nonzero; the others add nothing, and the
-    kernel reads no bins for them) and the (3, K, F, B) f32 output written
-    once, over HBM bandwidth. Operations: three adds per (active row,
-    feature), over the FP32 peak."""
+    """Least time of one histogram pass, counted for this call's data:
+    `histogram_cost` at the rows this call finds active (g, h or w
+    nonzero), counted on the card."""
     N, F = bins.shape
     active = int(((g != 0) | (h != 0) | (w != 0)).sum())
-    nbytes = 16 * N + active * F * bins.element_size() + 3 * n_nodes * F * n_bins * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 3 * active * F / FP32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(*histogram_cost(N, F, n_nodes, n_bins, bins.element_size(), active))
 
 
 def library_histogram(bins, node, g, h, w, n_nodes: int, n_bins: int):
@@ -1466,9 +1484,12 @@ def protocol_phase(
     fused_score.launches = 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    obs = {"stages_before": stage_histogram()}
+    hist_before = program_counts("gradient_histogram/")
     t0 = time.perf_counter()
     res = run_pipeline(cfg, raw=frame, store=store, device=dev, today=TODAY)
     out["run_pipeline_s"] = time.perf_counter() - t0
+    obs["hist_programs"] = program_delta(hist_before, program_counts("gradient_histogram/"))
     hist_launches = gradient_histogram_channels.launches
     if dev.type == "cuda":
         out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -1522,6 +1543,7 @@ def protocol_phase(
     for r in records:
         print(histogram_line(r, card))
     print(f"protocol: {json.dumps(out)} [{card}]")
+    out["observability"] = obs  # phase 11b reads it
     return out, {"gradient_histogram": hist_launches, "score_forest": score_launches}, records, res, payloads
 
 
@@ -1797,6 +1819,265 @@ def quantized_phase(card: str) -> tuple[list[dict], dict]:
     return records, serving
 
 
+# -- observability (phase 11) -----------------------------------------------------
+
+#: Bursts of 64 concurrent /predict, each held into one 64-row batch (11a).
+BURSTS_64 = 4
+#: Rows of the training CLI's run in 11c.
+CLI_ROWS = 200_000
+#: Recorded dispatches timed on the host in 11d.
+OVERHEAD_DISPATCHES = 10_000
+
+
+def program_counts(prefix: str) -> dict[str, tuple[int, float]]:
+    """``{program: (dispatches, dispatch seconds)}`` of the programs whose
+    name starts with ``prefix`` (their finished events resolved)."""
+    return {
+        r["name"]: (r["dispatches"], r["dispatch_seconds"])
+        for r in default_program_registry().table()
+        if r["name"].startswith(prefix)
+    }
+
+
+def program_delta(before: dict, after: dict) -> dict[str, tuple[int, float]]:
+    """Dispatches and seconds each program added between two counts."""
+    out = {}
+    for name, (n, sec) in after.items():
+        n0, s0 = before.get(name, (0, 0.0))
+        if n != n0:
+            out[name] = (n - n0, sec - s0)
+    return out
+
+
+def _label_samples(fams: dict, family: str, label: str) -> dict[str, float]:
+    """``{label value: value}`` of a `parse_exposition` family."""
+    out = {}
+    for key, value in fams.get(family, {}).get("samples", {}).items():
+        for part in key.split("|")[1:]:
+            name, _, v = part.partition("=")
+            if name == label:
+                out[v] = value
+    return out
+
+
+def _get_with_id(url: str, request_id: str | None) -> tuple[int, dict, bytes]:
+    headers = {} if request_id is None else {"X-Request-ID": request_id}
+    with urllib.request.urlopen(urllib.request.Request(url, headers=headers), timeout=60) as resp:
+        return resp.status, dict(resp.headers), resp.read()
+
+
+def observability_serving_phase(card: str, kernel_records: list[dict], device: str = "cuda") -> dict:
+    """Phase 11a: phase 4's traffic (32 concurrent /predict, a 5,000-row
+    bulk CSV, an importance request) to the committed model on the card,
+    then `BURSTS_64` bursts of 64 concurrent /predict held into one 64-row
+    batch each; ``/metrics`` scraped and parsed with the port's
+    `parse_exposition`: the ``score_forest`` programs' dispatches sum to
+    the ``fused_score.launches`` delta over the phase and their event
+    seconds are above 0; the mean device ms per dispatch at the 64-row SHAP
+    bucket beside phase 3's CUDA-event ms there; ``cobalt_device_mem_bytes``
+    present, ``bytes_limit`` equal to ``mem_get_info``'s total;
+    ``/debug/trace``, ``/debug/slowest``, ``/slo`` and ``X-Request-ID``.
+    On ``device="cpu"`` the plain version's programs are read, and no
+    launch is counted."""
+    cuda = device == "cuda"
+    entry = "score_forest/" if cuda else "score_forest_plain/"
+    fused_score.launches = 0
+    before = program_counts(entry)
+    service = ScorerService.from_store(ObjectStore(str(STORE)), ServeConfig(), device=device)
+    server = make_async_server(service, "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{server.port}"
+    out: dict = {}
+    try:
+        rows = request_rows(32)
+        with ThreadPoolExecutor(max_workers=64) as pool:
+            list(pool.map(lambda r: _post(base + "/predict", json.dumps(r).encode(),
+                                          "application/json"), rows))
+            Xb = seeded_rows(service._model.pack, 5000, SEED + 1)
+            lines = [",".join(f'"{n}"' for n in service.feature_names)]
+            lines += [",".join("" if np.isnan(v) else repr(float(v)) for v in r) for r in Xb]
+            _post(base + "/predict_bulk_csv", "\n".join(lines).encode(), "text/csv")
+            _post(base + "/feature_importance_bulk", json.dumps({"data": rows[:2]}).encode(),
+                  "application/json")
+            burst = request_rows(64, SEED + 11)
+            for _ in range(BURSTS_64):
+                with service.batcher.pause():
+                    futs = [pool.submit(_post, base + "/predict", json.dumps(r).encode(),
+                                        "application/json") for r in burst]
+                    while service.batcher.queue_depth() < len(burst):
+                        time.sleep(0.001)
+                [f.result() for f in futs]
+        status, headers, text = _get_with_id(base + "/metrics", "chip-smoke-11a")
+        if status != 200 or headers.get("X-Request-ID") != "chip-smoke-11a":
+            raise AssertionError(f"/metrics answered {status} with X-Request-ID "
+                                 f"{headers.get('X-Request-ID')!r}")
+        fams = parse_exposition(text.decode())
+        _, minted, _ = _get_with_id(base + "/healthz", None)
+        if not minted.get("X-Request-ID"):
+            raise AssertionError("no X-Request-ID minted for a request without one")
+        trace = json.loads(_get_with_id(base + "/debug/trace", None)[2])
+        slowest = json.loads(_get_with_id(base + "/debug/slowest", None)[2])["slowest"]
+        slo = json.loads(_get_with_id(base + "/slo", None)[2])
+    finally:
+        server.close()
+        service.close()
+    launches = fused_score.launches
+    dispatches = _label_samples(fams, "cobalt_program_dispatches_total", "program")
+    seconds = _label_samples(fams, "cobalt_program_dispatch_seconds_total", "program")
+    scraped = {k: (int(dispatches[k]), seconds[k]) for k in dispatches if k.startswith(entry)}
+    delta = program_delta(before, scraped)
+    n_disp = sum(n for n, _ in delta.values())
+    if cuda and (n_disp != launches or launches == 0):
+        raise AssertionError(f"score_forest programs dispatched {n_disp} times, "
+                             f"fused_score.launches rose by {launches}: {delta}")
+    if not all(sec > 0 for _, sec in delta.values()):
+        raise AssertionError(f"a score_forest program has no event seconds: {delta}")
+    n64, s64 = delta[entry + "f32/64/shap"]
+    out["score_forest_dispatches"] = n_disp
+    out["score_forest_programs"] = {k: {"dispatches": n, "seconds": sec} for k, (n, sec) in delta.items()}
+    out["ms_per_dispatch_64_shap"] = s64 / n64 * 1e3
+    out["phase3_ms_64_shap"] = next(r["ms"] for r in kernel_records if r["bucket"] == 64)
+    mem = _label_samples(fams, "cobalt_device_mem_bytes", "device")
+    if cuda:
+        limit = device_info()[0]["memory_stats"]["bytes_limit"]
+        total = torch.cuda.mem_get_info(0)[1]
+        if not mem.get("cuda:0", 0) > 0 or limit != total:
+            raise AssertionError(f"cobalt_device_mem_bytes {mem}, bytes_limit {limit} vs "
+                                 f"mem_get_info {total}")
+        out["bytes_limit"] = limit
+    elif set(mem) != {"cpu"}:
+        raise AssertionError(f"cobalt_device_mem_bytes on the CPU: {mem}")
+    out["device_mem_bytes"] = mem
+    dispatch_spans = [e for e in trace["traceEvents"] if e.get("name") == "serve.dispatch"]
+    if not dispatch_spans:
+        raise AssertionError("/debug/trace holds no serve.dispatch span")
+    if not slowest or not all("dispatch" in r["phases_ms"] for r in slowest if r["route"] == "/predict"):
+        raise AssertionError(f"/debug/slowest lists no request with its phases: {slowest[:2]}")
+    if not slo.get("objectives"):
+        raise AssertionError(f"/slo answered {slo}")
+    out["trace_dispatch_spans"] = len(dispatch_spans)
+    out["slowest"] = [{"route": r["route"], "duration_ms": r["duration_ms"],
+                       "phases_ms": r["phases_ms"]} for r in slowest[:3]]
+    print(f"observability serving (11a): score_forest dispatches {n_disp} = launches {launches}; "
+          f"64-row SHAP bucket {out['ms_per_dispatch_64_shap']:.6f} ms per dispatch (CUDA events "
+          f"in the registry, {n64} dispatches) vs phase 3 {out['phase3_ms_64_shap']:.6f} ms "
+          f"[{card}]")
+    return out
+
+
+def stage_histogram() -> dict[str, tuple[int, float]]:
+    """``{stage: (count, sum)}`` of ``cobalt_pipeline_stage_seconds``."""
+    fam = default_registry().snapshot().get("cobalt_pipeline_stage_seconds", {})
+    return {s["labels"]["stage"]: (s["count"], s["sum"]) for s in fam.get("samples", [])}
+
+
+def observability_protocol(card: str, res: PipelineResult, obs: dict, cfg: PipelineConfig) -> dict:
+    """Phase 11b, on 8b's run: ``cobalt_pipeline_stage_seconds`` observed
+    once per stage, equal to ``result.timings`` to the snapshot's rounding;
+    the tracer's last ``pipeline.run`` span with every stage as a child; the
+    histogram programs' dispatches over the run equal to its
+    ``hist_launches``, split into ``rfe`` (the selector's bins) and
+    ``search`` (the model's), their event seconds beside the stages'."""
+    hist = {k: (c - obs["stages_before"].get(k, (0, 0.0))[0],
+                sm - obs["stages_before"].get(k, (0, 0.0))[1])
+            for k, (c, sm) in stage_histogram().items()}
+    for stage, sec in res.timings.items():
+        count, total = hist.get(stage, (0, 0.0))
+        if count != 1 or abs(total - round(sec, 6)) > 2e-6:
+            raise AssertionError(f"stage {stage}: {count} observations summing {total}, timing {sec}")
+    spans = default_tracer().export()
+    run = [sp for sp in spans if sp["name"] == "pipeline.run"][-1]
+    children = {sp["name"] for sp in spans if sp["parent_id"] == run["span_id"]}
+    if children != {f"pipeline.{s}" for s in res.timings}:
+        raise AssertionError(f"pipeline.run's children {sorted(children)}, stages {list(res.timings)}")
+    delta = obs["hist_programs"]
+    by_stage = {"rfe": SELECTOR_BINS, "search": cfg.gbdt.n_bins}
+    split = {}
+    for stage, n_bins in by_stage.items():
+        rows = [v for k, v in delta.items() if k.endswith(f"xB{n_bins}")]
+        split[stage] = (sum(n for n, _ in rows), sum(sec for _, sec in rows))
+    total = sum(n for n, _ in delta.values())
+    if total != sum(res.hist_launches.values()) or any(
+        split[st][0] != res.hist_launches[st] for st in split
+    ):
+        raise AssertionError(f"histogram programs {delta} against hist_launches {res.hist_launches}")
+    out = {
+        "hist_dispatches": total,
+        "hist_programs": {k: {"dispatches": n, "seconds": sec} for k, (n, sec) in delta.items()},
+    }
+    for stage, (n, sec) in split.items():
+        out[f"{stage}_hist_s"] = sec
+        out[f"{stage}_stage_s"] = res.timings[stage]
+        print(f"observability protocol (11b): {stage} stage {res.timings[stage]:.3f}s, of it "
+              f"{sec:.3f}s inside {n} histogram launches (CUDA events; "
+              f"{100 * sec / res.timings[stage]:.1f}%) [{card}]")
+    return out
+
+
+def observability_cli(card: str, root: str, n_rows: int = CLI_ROWS) -> dict:
+    """Phase 11c: the training CLI in a subprocess with ``--ledger-out``
+    and ``--trace-out``: the ledger loads with `load_ledger`, its program
+    table holds the histogram programs with dispatches, event seconds and
+    the H100 roofline estimate, and the trace parses."""
+    ledger_path, trace_path = f"{root}/ledger.json", f"{root}/trace.json"
+    cmd = [sys.executable, "-m", "cobalt_smart_lender_ai_tpu_torch.pipeline", "--quick",
+           "--synthetic-rows", str(n_rows), "--ledger-out", ledger_path, "--trace-out", trace_path]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the training CLI exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    ledger = load_ledger(ledger_path)
+    hist = [p for p in ledger["programs"] if p["name"].startswith("gradient_histogram/")]
+    if not hist or not all(p["dispatches"] > 0 and p["dispatch_seconds"] > 0
+                           and p["roofline_utilization"] is not None for p in hist):
+        raise AssertionError(f"the ledger's histogram programs: {hist}")
+    with open(trace_path) as fh:
+        trace = json.load(fh)
+    names = {e["name"] for e in trace["traceEvents"]}
+    if "pipeline.run" not in names:
+        raise AssertionError(f"the trace file holds {sorted(names)}")
+    out = {
+        "rows": n_rows,
+        "wall_s": wall,
+        "stages": ledger["stages"],
+        "programs": [{k: p[k] for k in ("name", "dispatches", "dispatch_seconds", "bound_seconds",
+                                        "roofline_utilization")} for p in hist],
+        "devices": ledger["env"]["devices"],
+    }
+    print(f"observability cli (11c): {json.dumps(out)} [{card}]")
+    return out
+
+
+def recording_overhead(card: str, fit_s: float, fit_launches: int) -> dict:
+    """Phase 11d: host µs of `OVERHEAD_DISPATCHES` recorded dispatches
+    with no kernel between the events (what the histogram wrapper adds to
+    a launch: the handle lookup, two event records, the cost count and the
+    pool's resolution of finished pairs; the wrapper fetched the current
+    stream before), on a handle of its own; that times 5c's launches, as a
+    share of 5c's fit wall."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    own = ProgramHandle("overhead", "kernel", {})
+    stream = torch.cuda.current_stream(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(OVERHEAD_DISPATCHES):
+        histogram_program(20, 255, dev)
+        pair = own.start(stream)
+        flops, nbytes = histogram_cost(1_840_000, 20, 64, 255, 1)
+        own.stop(pair, stream, rows=1_840_000, flops=flops, nbytes=nbytes)
+    us = (time.perf_counter() - t0) / OVERHEAD_DISPATCHES * 1e6
+    torch.cuda.synchronize()
+    if own.resolved()[0] != OVERHEAD_DISPATCHES:
+        raise AssertionError("the overhead handle lost dispatches")
+    out = {"us_per_dispatch": us, "fit_launches": fit_launches,
+           "fit_added_ms": us * fit_launches / 1e3, "fit_s": fit_s,
+           "fit_share": us * fit_launches / 1e6 / fit_s}
+    print(f"observability overhead (11d): {us:.3f} us per recorded dispatch; x {fit_launches} "
+          f"launches = {out['fit_added_ms']:.3f} ms, {100 * out['fit_share']:.3f}% of 5c's "
+          f"{fit_s:.3f}s fit [{card}]")
+    return out
+
+
 def print_scoring_split(card: str) -> None:
     for precision in ("f32", *QUANTIZED):
         for r in scoring_split("cuda", precision):
@@ -1845,8 +2126,10 @@ def main() -> int:
         frame, generate_s = raw_table()
         print(f"raw table: {frame.n_rows} loans generated in {generate_s:.1f}s [{card}]")
         t0 = time.perf_counter()
+        cfg = PipelineConfig()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_protocol_") as root:
-            protocol_phase(card, frame, PipelineConfig(), protocol_rows(frame), root)
+            protocol, _, _, res, _ = protocol_phase(card, frame, cfg, protocol_rows(frame), root)
+        observability_protocol(card, res, protocol.pop("observability"), cfg)
         print(f"full protocol phase: {time.perf_counter() - t0:.1f}s [{card}]")
         return 0
 
@@ -1859,6 +2142,7 @@ def main() -> int:
               f"[{card}]")
     serving = serving_phase("cuda")
     print(f"serving: {json.dumps(serving)} [{card}]")
+    observed = {"serving": observability_serving_phase(card, records)}
     quantized_records, quantized_serving = quantized_phase(card)
     if args.only_scoring:
         print_scoring_split(card)
@@ -1881,6 +2165,7 @@ def main() -> int:
         protocol, protocol_launches, protocol_hist, res, payloads = protocol_phase(
             card, frame, quick, train_rows, root
         )
+        observed["protocol"] = observability_protocol(card, res, protocol.pop("observability"), quick)
         del frame
         print(f"protocol phase: {time.perf_counter() - t0:.1f}s [{card}]")
         # Phase 10, on 8b's columns and store.
@@ -1891,6 +2176,11 @@ def main() -> int:
         del res
     selection_card_vs_cpu(card)
     print(f"halving and resume phase: {time.perf_counter() - t0:.1f}s [{card}]")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        observed["cli"] = observability_cli(card, root)
+    observed["overhead"] = recording_overhead(card, training["fit_s"], training["hist_launches"])
+    print(f"observability phase: {time.perf_counter() - t0:.1f}s [{card}]")
     print_scoring_split(card)
 
     main_rec = next(r for r in records if r["bucket"] == 64)

@@ -103,6 +103,22 @@ class ServeConfig:
     #: Per-request wall-clock budget, checked at cooperative checkpoints
     #: (``DeadlineExceeded`` -> HTTP 504). ``None`` disables deadlines.
     request_deadline_s: float | None = 30.0
+    #: Flight recorder (telemetry.flight, served at ``GET /debug/*``):
+    #: ring capacity, the always-capture slow threshold, and the size of
+    #: the top-K-by-latency board.
+    flight_capacity: int = 256
+    flight_slow_threshold_ms: float = 100.0
+    flight_top_k: int = 32
+    #: SLO engine (telemetry.slo, served at ``GET /slo`` and as
+    #: ``cobalt_slo_*`` gauges). Latency thresholds are snapped down to the
+    #: nearest histogram bucket bound at evaluation (reported per
+    #: objective); availability counts HTTP 5xx as bad.
+    slo_enabled: bool = True
+    slo_p99_ms: float = 10.0
+    slo_p999_ms: float = 100.0
+    slo_availability_target: float = 0.999
+    slo_windows_s: tuple[float, ...] = (60.0, 3600.0)
+    slo_fast_burn_threshold: float = 14.4
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,12 +31,20 @@ log1p and one-hot code on a raw payload, so a raw row reproduces its batch
 row bit for bit.
 
 Sharding waits for the port's multi-GPU work: this runs on one device.
+
+Telemetry, on the process-wide registry as the reference records it:
+``cobalt_ingest_rows_total`` counts the raw rows entering the ingest, and
+``cobalt_ingest_dispatch_seconds`` observes each device program of the
+ingest (and of `transform_raw_rows`), wall seconds ending with the device
+synchronised, so they hold the program's device work.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
+import time
 from datetime import datetime
 from typing import Any, Mapping, Sequence
 
@@ -65,6 +73,7 @@ from cobalt_smart_lender_ai_tpu_torch.ops.binning import (
     _nanquantile_column,
     bin_edges_and_transform,
 )
+from cobalt_smart_lender_ai_tpu_torch.telemetry.metrics import default_registry, log_buckets
 
 __all__ = [
     "DeviceIngestResult",
@@ -73,6 +82,29 @@ __all__ = [
     "tokenize_raw_frame",
     "transform_raw_rows",
 ]
+
+# Measured dispatch-seconds family for the run ledger's attribution
+# denominator (`telemetry/runledger.py` lists it).
+_INGEST_DISPATCH_S = default_registry().histogram(
+    "cobalt_ingest_dispatch_seconds",
+    "wall time of one device-ingest program dispatch",
+    buckets=log_buckets(1e-5, 120.0, per_decade=3),
+)
+_INGEST_ROWS = default_registry().counter(
+    "cobalt_ingest_rows_total",
+    "raw rows entering the device-resident ingest flow",
+)
+
+
+@contextlib.contextmanager
+def _dispatch(dev: torch.device):
+    """Time one device program of the ingest into
+    ``cobalt_ingest_dispatch_seconds``, ending with ``dev`` synchronised."""
+    t0 = time.perf_counter()
+    yield
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    _INGEST_DISPATCH_S.observe(time.perf_counter() - t0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -358,6 +390,7 @@ def run_device_ingest(
     reference pipeline's thresholds unless given. ``keep_cleaned`` brings
     the clean stage's table to the host as ``DeviceIngestResult.cleaned``."""
     dev = resolve_device(device)
+    _INGEST_ROWS.inc(tok.n_rows)
     X = torch.from_numpy(tok.X).to(dev)
     pos = {name: i for i, name in enumerate(tok.columns)}
     live = list(tok.columns)
@@ -367,21 +400,25 @@ def run_device_ingest(
         return torch.tensor([pos[n] for n in names], dtype=torch.int64, device=dev)
 
     # Clean rule 2: drop rows missing a value in any near-complete column.
-    counts = _null_counts(X)
+    with _dispatch(dev):
+        counts = _null_counts(X)
     near = [n for n in live if counts[pos[n]] < _ROW_DROP_NULL_LIMIT]
     before = int(X.shape[0])
-    X = _compact_by_nonnull(X, sel(near), len(near))  # a copy: tok.X stays
+    with _dispatch(dev):
+        X = _compact_by_nonnull(X, sel(near), len(near))  # a copy: tok.X stays
     report.n_rows_dropped_near_complete = before - int(X.shape[0])
 
     # Clean rule 3: the hardship fill, as its vocabulary code.
     if "hardship_status" in live:
         cats = tok.vocab.get(pos["hardship_status"], ())
         if schema.HARDSHIP_FILL in cats:
-            _fill_cols(X, [pos["hardship_status"]], [float(cats.index(schema.HARDSHIP_FILL))])
+            with _dispatch(dev):
+                _fill_cols(X, [pos["hardship_status"]], [float(cats.index(schema.HARDSHIP_FILL))])
 
     # Clean rule 4 (term / int_rate parse) happened at tokenize time.
     # Clean rule 5: missingness-threshold column drop.
-    counts = _null_counts(X)
+    with _dispatch(dev):
+        counts = _null_counts(X)
     n_rows = int(X.shape[0])
     too_null = [
         c for c in live
@@ -397,12 +434,14 @@ def run_device_ingest(
 
     # Clean rule 7: missing-means-zero fills.
     zero_cols = [c for c in schema.FILL_ZERO_COLS if c in live]
-    _fill_cols(X, [pos[c] for c in zero_cols], [0.0] * len(zero_cols))
+    with _dispatch(dev):
+        _fill_cols(X, [pos[c] for c in zero_cols], [0.0] * len(zero_cols))
 
     # Clean rule 8: keep-first dedupe over the live columns.
     before = int(X.shape[0])
     if before:
-        X = _dedupe_keep_first(X, [pos[c] for c in live])
+        with _dispatch(dev):
+            X = _dedupe_keep_first(X, [pos[c] for c in live])
         report.n_duplicates_removed = before - int(X.shape[0])
     report.n_rows_out = int(X.shape[0])
     cleaned = _decode_cleaned(X, tok, live, pos) if keep_cleaned else None
@@ -410,7 +449,8 @@ def run_device_ingest(
     # Prepare: leakage/useless drop, then the row-null threshold.
     fe_drop = set(schema.FE_LEAKAGE_COLS) | set(schema.FE_USELESS_COLS)
     live = [c for c in live if c not in fe_drop]
-    X = _compact_by_nonnull(X, sel(live), max(len(live) - row_null_allowance, 0))
+    with _dispatch(dev):
+        X = _compact_by_nonnull(X, sel(live), max(len(live) - row_null_allowance, 0))
 
     # Prepare renames (values already tokenized; the reference appends each
     # derived column at the end and drops its source).
@@ -438,7 +478,8 @@ def run_device_ingest(
     nan_surv: dict[str, bool] = {}
     if cat_all:
         vmax = max(1, max(len(tok.vocab.get(pos[c], ())) for c in cat_all))
-        present, has_nan = _vocab_census(X, [pos[c] for c in cat_all], vmax)
+        with _dispatch(dev):
+            present, has_nan = _vocab_census(X, [pos[c] for c in cat_all], vmax)
         for i, c in enumerate(cat_all):
             full = tok.vocab.get(pos[c], ())
             vocab_surv[c] = tuple(v for j, v in enumerate(full) if present[i, j])
@@ -483,10 +524,12 @@ def run_device_ingest(
     )
 
     log_mask = torch.from_numpy(np.isin(np.asarray(numeric_names), np.asarray(schema.LOG_COLS)))
-    Xn = _numeric_prep(X, sel(numeric_names), res_tables, log_mask)
-    nan_any = torch.isnan(Xn).any(dim=0).cpu().numpy()
-    medians = _nanmedians(Xn)
-    medians_np = medians.cpu().numpy()
+    with _dispatch(dev):
+        Xn = _numeric_prep(X, sel(numeric_names), res_tables, log_mask)
+    with _dispatch(dev):
+        nan_any = torch.isnan(Xn).any(dim=0).cpu().numpy()
+        medians = _nanmedians(Xn)
+        medians_np = medians.cpu().numpy()
 
     dti_pos = numeric_names.index("dti") if "dti" in numeric_names else -1
     inc_pos = numeric_names.index("annual_inc") if "annual_inc" in numeric_names else -1
@@ -497,36 +540,38 @@ def run_device_ingest(
 
     # Feature assembly: tree (numeric | one-hots), nn (imputed | indicators
     # | no_income | dti_NA | codes), label.
-    new_codes = []
-    for c, table in zip(cat_present, cat_tables):
-        col = X[:, pos[c]]
-        nan = torch.isnan(col)
-        new_codes.append(torch.where(nan, -1.0, table[torch.where(nan, 0.0, col).long()]))
-    tree_blocks = [Xn] + [
-        one_hot_codes(code, k) for code, k in zip(new_codes, n_classes) if k > 1
-    ]
-    X_tree = torch.cat(tree_blocks, dim=1)
-    filled, indicators = impute_with_indicators(Xn, medians, torch.from_numpy(need_ind).to(dev))
-    nn_blocks = [filled]
-    if ind_idx.size:
-        nn_blocks.append(indicators[:, torch.from_numpy(ind_idx).to(dev)])
-    if inc_pos >= 0:
-        inc = Xn[:, inc_pos]
-        nn_blocks.append((torch.isnan(inc) | (inc == 0)).to(torch.float32)[:, None])
-    if dti_pos >= 0:
-        nn_blocks.append(torch.isnan(Xn[:, dti_pos]).to(torch.float32)[:, None])
-    for code, k in zip(new_codes, n_classes):
-        nn_blocks.append(torch.where(code < 0, float(k), code)[:, None])
-    X_nn = torch.cat(nn_blocks, dim=1)
-    y = None
-    if has_label:
-        lcol = X[:, label_pos]
-        nan = torch.isnan(lcol)
-        y = torch.where(nan, float("nan"), label_table[torch.where(nan, 0.0, lcol).long()])
+    with _dispatch(dev):
+        new_codes = []
+        for c, table in zip(cat_present, cat_tables):
+            col = X[:, pos[c]]
+            nan = torch.isnan(col)
+            new_codes.append(torch.where(nan, -1.0, table[torch.where(nan, 0.0, col).long()]))
+        tree_blocks = [Xn] + [
+            one_hot_codes(code, k) for code, k in zip(new_codes, n_classes) if k > 1
+        ]
+        X_tree = torch.cat(tree_blocks, dim=1)
+        filled, indicators = impute_with_indicators(Xn, medians, torch.from_numpy(need_ind).to(dev))
+        nn_blocks = [filled]
+        if ind_idx.size:
+            nn_blocks.append(indicators[:, torch.from_numpy(ind_idx).to(dev)])
+        if inc_pos >= 0:
+            inc = Xn[:, inc_pos]
+            nn_blocks.append((torch.isnan(inc) | (inc == 0)).to(torch.float32)[:, None])
+        if dti_pos >= 0:
+            nn_blocks.append(torch.isnan(Xn[:, dti_pos]).to(torch.float32)[:, None])
+        for code, k in zip(new_codes, n_classes):
+            nn_blocks.append(torch.where(code < 0, float(k), code)[:, None])
+        X_nn = torch.cat(nn_blocks, dim=1)
+        y = None
+        if has_label:
+            lcol = X[:, label_pos]
+            nan = torch.isnan(lcol)
+            y = torch.where(nan, float("nan"), label_table[torch.where(nan, 0.0, lcol).long()])
     del X, Xn, filled, indicators, tree_blocks, nn_blocks
 
     # The GBDT sketch: quantile edges and bins of the tree features.
-    spec, bins = bin_edges_and_transform(X_tree, n_bins=n_bins)
+    with _dispatch(dev):
+        spec, bins = bin_edges_and_transform(X_tree, n_bins=n_bins)
 
     # Names and the replay plan.
     tree_names = list(numeric_names)
@@ -678,7 +723,8 @@ def transform_raw_rows(
                 mat[r, n_num + i] = cats.index(s) if s in cats else -1.0
     n_classes = [len(plan.categorical_vocab[c]) for c in cat_names]
     log_mask = torch.from_numpy(np.isin(np.asarray(numeric_names), np.asarray(plan.log_cols)))
-    out = _raw_row_features(torch.from_numpy(mat).to(dev), log_mask, n_classes, n_num)
+    with _dispatch(dev):
+        out = _raw_row_features(torch.from_numpy(mat).to(dev), log_mask, n_classes, n_num)
     if out.shape[1] != len(plan.tree_feature_names):
         raise ValueError(
             f"raw transform produced {out.shape[1]} features, plan expects "

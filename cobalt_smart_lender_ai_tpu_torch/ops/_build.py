@@ -14,6 +14,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -36,6 +37,10 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 #: Compiler output of each build done by this process (``-Xptxas=-v`` lists
 #: every kernel's registers, shared memory and spills).
 build_log: dict[str, str] = {}
+#: nvcc wall seconds of each build done by this process.
+build_seconds: dict[str, float] = {}
+#: Libraries whose build seconds a program handle has taken.
+_TAKEN: set[str] = set()
 
 
 def _nvcc() -> str:
@@ -66,7 +71,9 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds[name] = time.perf_counter() - t0
     build_log[name] = proc.stdout + proc.stderr
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -85,3 +92,24 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
         return lib
+
+
+def take_build_seconds(name: str) -> float:
+    """The nvcc seconds of this process's build of ``name`` the first time
+    they are asked for, then 0 (0 too when the library came from
+    ``_build/``): the program registry books a library's build once."""
+    with _LOCK:
+        if name in _TAKEN:
+            return 0.0
+        _TAKEN.add(name)
+        return build_seconds.get(name, 0.0)
+
+
+def build_stats() -> dict[str, float]:
+    """This process's kernel builds — the run ledger's ``compile`` block:
+    libraries built by nvcc, their wall seconds, libraries loaded."""
+    return {
+        "kernel_builds": len(build_seconds),
+        "kernel_build_seconds": round(sum(build_seconds.values()), 6),
+        "kernels_loaded": len(_LIBS),
+    }

@@ -22,15 +22,18 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+import time
 
 import torch
 
 from cobalt_smart_lender_ai_tpu_torch.ops import _build
+from cobalt_smart_lender_ai_tpu_torch.telemetry.programs import launch_handle
 
 __all__ = [
     "gradient_histogram",
     "gradient_histogram_channels",
     "gradient_histogram_reference",
+    "histogram_cost",
     "histogram_supported",
 ]
 
@@ -43,6 +46,39 @@ def histogram_supported(n_bins: int) -> bool:
     """Shape guard of the kernel: one (node, feature) histogram must fit in
     a block's shared memory."""
     return 1 <= n_bins and 3 * n_bins * 8 <= SMEM_LIMIT
+
+
+def histogram_cost(
+    n_rows: int,
+    n_features: int,
+    n_nodes: int,
+    n_bins: int,
+    bin_bytes: int,
+    active_rows: int | None = None,
+) -> tuple[int, int]:
+    """(FLOPs, bytes) of one histogram pass, from shapes and the count of
+    active rows (those whose g, h or w is nonzero; the others add nothing,
+    and the kernel reads no bins for them). ``active_rows=None`` takes
+    every row as active: the shape-only upper bound the program registry
+    records per launch, since counting active rows is a reduction on the
+    card.
+
+    Bytes: node, g, h and w of every row (16 B), the F bins of each active
+    row and the (3, K, F, B) f32 output written once. Operations: three
+    adds per (active row, feature)."""
+    active = n_rows if active_rows is None else active_rows
+    nbytes = 16 * n_rows + active * n_features * bin_bytes + 3 * n_nodes * n_features * n_bins * 4
+    return 3 * active * n_features, nbytes
+
+
+def _program(F: int, n_bins: int, device: torch.device):
+    return launch_handle(
+        "gradient_histogram",
+        f"F{F}xB{n_bins}",
+        device,
+        lambda: _build.take_build_seconds("gradient_histogram"),
+        cost_basis="shape-only upper bound: every row counted active",
+    )
 
 
 def gradient_histogram_reference(
@@ -118,10 +154,21 @@ def gradient_histogram_channels(
     another order, give the same bits. A NaN or infinity in g, h or w leaves
     the bins its row reaches as the plain version leaves them (NaN, or the
     infinity); the other bins keep their fixed-point sums, whose scale is
-    taken over the finite values only."""
+    taken over the finite values only.
+
+    Each call is recorded on its program handle (`telemetry.programs`,
+    ``gradient_histogram/F<F>xB<n_bins>``): CUDA events around the launch
+    on the card, wall seconds of the plain version on the CPU, and
+    `histogram_cost`'s shape-only FLOPs and bytes."""
     if bins.device.type == "cpu":
+        t0 = time.perf_counter()
         out = gradient_histogram_reference(
             bins, node_local, g, h, w, n_nodes=n_nodes, n_bins=n_bins
+        )
+        N, F = bins.shape
+        flops, nbytes = histogram_cost(N, F, n_nodes, n_bins, bins.element_size())
+        _program(F, n_bins, bins.device).record_dispatch(
+            time.perf_counter() - t0, rows=N, flops=flops, nbytes=nbytes
         )
         return out[0], out[1], out[2]
     if bins.device.type != "cuda":
@@ -156,6 +203,9 @@ def gradient_histogram_channels(
         lib.gradient_histogram_scratch_words(N, n_nodes), dtype=torch.int32, device=bins.device
     )
     dev = bins.device.index if bins.device.index is not None else torch.cuda.current_device()
+    prog = _program(F, n_bins, bins.device)
+    stream = torch.cuda.current_stream(bins.device)
+    pair = prog.start(stream)
     err = lib.gradient_histogram(
         dev,
         bins.data_ptr(),
@@ -171,11 +221,13 @@ def gradient_histogram_channels(
         acc.data_ptr(),
         scratch.data_ptr(),
         out.data_ptr(),
-        torch.cuda.current_stream(bins.device).cuda_stream,
+        stream.cuda_stream,
     )
     if err != 0:
         msg = lib.gradient_histogram_error_string(err).decode()
         raise RuntimeError(f"gradient_histogram: CUDA error {err} ({msg}) launching the kernel")
+    flops, nbytes = histogram_cost(N, F, n_nodes, n_bins, bins.element_size())
+    prog.stop(pair, stream, rows=N, flops=flops, nbytes=nbytes)
     with _COUNT_LOCK:
         gradient_histogram_channels.launches += 1
     return out[0], out[1], out[2]

@@ -30,6 +30,7 @@ import functools
 import hashlib
 import math
 import threading
+import time
 from typing import Any
 
 import numpy as np
@@ -48,6 +49,7 @@ from cobalt_smart_lender_ai_tpu_torch.models.gbdt import (
     sum_trees_in_order,
 )
 from cobalt_smart_lender_ai_tpu_torch.ops import _build
+from cobalt_smart_lender_ai_tpu_torch.telemetry.programs import launch_handle
 
 __all__ = [
     "PRECISIONS",
@@ -62,6 +64,8 @@ __all__ = [
     "pack_forest",
     "probe_rows",
     "quantization_report",
+    "score_cost",
+    "shap_flops",
     "shap_smem_bytes",
     "shap_supported",
     "tree_table_layout",
@@ -587,6 +591,54 @@ def fused_score_reference(
     return margin, prob, phis, pack.base
 
 
+def shap_flops(depth: int) -> int:
+    """FLOP the SHAP kernel does per (row, tree, leaf), counted from
+    ``score_forest.cu``: player indicators, suffix and prefix polynomials,
+    the bilinear contraction and the contribution."""
+    d = depth
+    return d + 2 * (d - 1) * (3 * d + 1) + d * (d * (d + 1) + 2 * d) + 3 * d
+
+
+@functools.lru_cache(maxsize=1024)
+def score_cost(
+    n_rows: int, n_trees: int, depth: int, n_features: int, precision: str, with_shap: bool
+) -> tuple[int, int]:
+    """(FLOPs, bytes) of one `fused_score` call, from shapes only.
+
+    Bytes: each input read once and each output written once — the node
+    tables (feature int32, the stored threshold, ``missing_left``), the
+    stored leaves, at bf16 and int8 the ``all_left`` bytes, at int8 the
+    four affine tables, with SHAP the per-leaf tables (path feature int32,
+    slot u8, r_play f32); the rows in, margin and prob out, with SHAP the
+    phis out. Operations: ``depth`` compares and one add per (row, tree)
+    and the sigmoid, plus `shap_flops` per (row, tree, leaf) with SHAP."""
+    T, d, F = n_trees, depth, n_features
+    n_nodes, n_leaves = 2**d - 1, 2**d
+    v = _VALUE_BYTES[precision]
+    nbytes = T * n_nodes * (4 + v + 1) + T * n_leaves * v
+    if precision != "f32":
+        nbytes += T * n_nodes
+    if precision == "int8":
+        nbytes += 4 * (2 * F + 2 * T)
+    if with_shap:
+        nbytes += T * n_leaves * d * (4 + 1 + 4)
+    nbytes += n_rows * F * 4 + 2 * n_rows * 4 + (n_rows * F * 4 if with_shap else 0)
+    flops = n_rows * T * (d + 1) + 3 * n_rows
+    if with_shap:
+        flops += n_rows * T * n_leaves * shap_flops(d)
+    return flops, nbytes
+
+
+def _program(pack: "ForestPack", n_rows: int, with_shap: bool, device: torch.device):
+    """The program handle of one call: the entry at its precision, its row
+    bucket (the power of two the service pads to) and SHAP or margin."""
+    bucket = 1 << max(0, n_rows - 1).bit_length()
+    key = f"{pack.precision}/{bucket}/{'shap' if with_shap else 'margin'}"
+    return launch_handle(
+        "score_forest", key, device, lambda: _build.take_build_seconds("score_forest")
+    )
+
+
 # -- the CUDA kernel ------------------------------------------------------------
 
 _LIB_LOCK = threading.Lock()
@@ -651,9 +703,23 @@ def fused_score(
     ``(N, F)`` and a 0-d tensor. A CPU ``X`` runs `fused_score_reference`; a
     CUDA ``X`` launches the walk and finalize kernels once each on the
     current stream (one call, counted in ``fused_score.launches``) or
-    raises; the walk dequantizes a bf16 or int8 pack inside the call."""
+    raises; the walk dequantizes a bf16 or int8 pack inside the call.
+    Each call is recorded on its program handle (`telemetry.programs`,
+    ``score_forest/<precision>/<row bucket>/<shap|margin>``): CUDA events
+    around the launch on the card, wall seconds of the plain version on
+    the CPU, and `score_cost`'s FLOPs and bytes."""
     if X.device.type == "cpu":
-        return fused_score_reference(pack, X, n_features=n_features, with_shap=with_shap)
+        t0 = time.perf_counter()
+        out = fused_score_reference(pack, X, n_features=n_features, with_shap=with_shap)
+        N = X.shape[0]
+        if N > 0:
+            flops, nbytes = score_cost(
+                N, pack.n_trees, pack.depth, n_features, pack.precision, with_shap
+            )
+            _program(pack, N, with_shap, X.device).record_dispatch(
+                time.perf_counter() - t0, rows=N, flops=flops, nbytes=nbytes
+            )
+        return out
     if X.device.type != "cuda":
         raise ValueError(f"fused_score runs on cpu or cuda tensors, got {X.device}")
     if X.dtype != torch.float32 or X.dim() != 2 or not X.is_contiguous():
@@ -683,6 +749,9 @@ def fused_score(
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=X.device)
         dev = X.device.index if X.device.index is not None else torch.cuda.current_device()
         lib = _library(dev)
+        prog = _program(pack, N, with_shap, X.device)
+        stream = torch.cuda.current_stream(X.device)
+        pair = prog.start(stream)
         err = lib.score_forest(
             dev,
             pack.tables.data_ptr(),
@@ -702,9 +771,13 @@ def fused_score(
             margin.data_ptr(),
             prob.data_ptr(),
             None if phis is None else phis.data_ptr(),
-            torch.cuda.current_stream(X.device).cuda_stream,
+            stream.cuda_stream,
         )
         _check(lib, err, "launching the kernels")
+        flops, nbytes = score_cost(
+            N, pack.n_trees, pack.depth, n_features, pack.precision, with_shap
+        )
+        prog.stop(pair, stream, rows=N, flops=flops, nbytes=nbytes)
         with _COUNT_LOCK:
             fused_score.launches += 1
     if not with_shap:

@@ -25,12 +25,18 @@ read from the store's ``data.raw_key``.
 
     python -m cobalt_smart_lender_ai_tpu_torch.pipeline --store artifacts \\
         --synthetic-rows 100000 [--seed S] [--quick] [--no-halving] [--resume] \\
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--ledger-out run.json] [--trace-out trace.json]
+
+Telemetry, as the reference records it: the whole run is a
+``pipeline.run`` span with a ``pipeline.<stage>`` child per stage, and
+each stage observes ``cobalt_pipeline_stage_seconds{stage}`` on the
+process-wide registry. ``--ledger-out`` writes the run ledger (stages,
+final metrics, the halving report, the stages run, the kernel cost table
+and the metrics snapshot) and ``--trace-out`` the spans as Perfetto JSON.
 
 Not ported yet: the pandas ingest path (``--pandas-ingest`` raises,
 naming ROADMAP.md A3; so a valid ``clean`` manifest under a stale
-``engineer`` one re-runs the ingest from the raw table), and the
-pipeline's telemetry spans and metrics.
+``engineer`` one re-runs the ingest from the raw table).
 """
 
 from __future__ import annotations
@@ -78,6 +84,17 @@ from cobalt_smart_lender_ai_tpu_torch.reliability import (
     config_fingerprint,
     policy_from_config,
 )
+from cobalt_smart_lender_ai_tpu_torch.telemetry import (
+    RunLedger,
+    default_registry,
+    default_tracer,
+    install_device_metrics,
+    install_program_metrics,
+    log_buckets,
+    record_span,
+    render_chrome_trace,
+    span,
+)
 
 __all__ = [
     "STAGES",
@@ -91,6 +108,15 @@ __all__ = [
 ]
 
 logger = logging.getLogger("cobalt_smart_lender_ai_tpu_torch.pipeline")
+
+#: Stage wall times on the process-wide registry. Stages run seconds to
+#: minutes, so the bounds run well past the latency defaults.
+_STAGE_SECONDS = default_registry().histogram(
+    "cobalt_pipeline_stage_seconds",
+    "wall time per pipeline stage (clean/engineer/rfe/search/refit/eval)",
+    ("stage",),
+    buckets=log_buckets(1e-2, 7200.0, per_decade=2),
+)
 
 
 @dataclasses.dataclass
@@ -216,7 +242,23 @@ def run_pipeline(
     ``metrics.json`` and the plots are written under
     ``config.serve.model_key``, and each stage is checkpointed; with
     ``resume=True`` (default ``config.reliability.resume``) the stages
-    whose manifests validate are restored instead of run."""
+    whose manifests validate are restored instead of run.
+
+    The whole run executes under a ``pipeline.run`` span; each stage
+    records a child span and a ``cobalt_pipeline_stage_seconds{stage}``
+    observation of its `PipelineResult.timings` seconds."""
+    with span("pipeline.run", resume=bool(resume)):
+        return _run_pipeline(config, raw, store, resume, device, today)
+
+
+def _run_pipeline(
+    config: PipelineConfig | None,
+    raw,
+    store: ObjectStore | None,
+    resume: bool | None,
+    device: torch.device | str,
+    today: datetime | None,
+) -> PipelineResult:
     cfg = config or PipelineConfig()
     dev = resolve_device(device)
     rel = cfg.reliability
@@ -232,8 +274,10 @@ def run_pipeline(
         nonlocal counted
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        t = time.perf_counter()
+        t = time.monotonic()  # the tracer's clock
         timings[name] = t - t0
+        _STAGE_SECONDS.labels(stage=name).observe(t - t0)
+        record_span(f"pipeline.{name}", t0, t)
         launches[name] = gradient_histogram_channels.launches - counted
         counted = gradient_histogram_channels.launches
         logger.info("%s done in %.2fs", name, timings[name])
@@ -255,7 +299,7 @@ def run_pipeline(
     skip_rfe = skip_engineer and ckpt.valid("rfe", fp_rfe)
     skip_search = skip_rfe and ckpt.valid("search", fp_search)
 
-    t = time.perf_counter()
+    t = time.monotonic()
     if skip_engineer:
         plan = plan_from_json(ckpt.load("engineer")["extra"]["plan"])
         tree_ff = table_features(store.load_frame(cfg.data.tree_key), dev)
@@ -480,6 +524,19 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
     parser.add_argument(
         "--pandas-ingest", action="store_true", help="not ported yet: raises (ROADMAP.md, A3)"
     )
+    parser.add_argument(
+        "--ledger-out",
+        default=None,
+        help="write a run ledger (JSON: config fingerprint, env/devices, stage "
+        "durations, search rungs, kernel cost table) to this path; render it "
+        "with the reference's tools/obs_report.py",
+    )
+    parser.add_argument(
+        "--trace-out",
+        default=None,
+        help="write the run's stage spans as Chrome Trace Event / Perfetto JSON "
+        "to this path (open in ui.perfetto.dev)",
+    )
     return parser.parse_args(argv)
 
 
@@ -498,7 +555,50 @@ def main(argv: Sequence[str] | None = None) -> PipelineResult:
 
         raw = synthetic_lendingclub_frame(args.synthetic_rows, seed=args.seed)
     store = ObjectStore(args.store) if args.store else None
+    ledger = None
+    if args.ledger_out:
+        # The kernel and device families on the process registry up front,
+        # so the ledger's metrics snapshot carries them too.
+        install_program_metrics()
+        install_device_metrics()
+        ledger = RunLedger(
+            "pipeline",
+            fingerprint=stage_fingerprints(cfg)["search"],
+            meta={
+                "quick": bool(args.quick),
+                "halving": not args.no_halving,
+                "synthetic_rows": int(args.synthetic_rows),
+                "seed": int(args.seed),
+                "resume": bool(args.resume),
+                "store": args.store,
+                "device": str(dev),
+            },
+        )
     result = run_pipeline(cfg, raw=raw, store=store, resume=args.resume, device=dev)
+    if ledger is not None:
+        ledger.add_stages(result.timings)
+        ledger.set(
+            "final_metrics",
+            {
+                "test_auc": result.test_auc,
+                "cv_auc": result.cv_auc,
+                "best_params": result.best_params,
+                "n_selected": len(result.selected_features),
+            },
+        )
+        halving_report = result.search.cv_results_.get("halving")
+        if halving_report is not None:
+            ledger.set("search_halving", halving_report)
+        ledger.set(
+            "stages_run",
+            {"run": list(result.stages_run), "skipped": list(result.stages_skipped)},
+        )
+        ledger.write(args.ledger_out)
+        logger.info("run ledger written to %s", args.ledger_out)
+    if args.trace_out:
+        with open(args.trace_out, "w") as fh:
+            fh.write(render_chrome_trace(default_tracer()))
+        logger.info("perfetto trace written to %s", args.trace_out)
     print(
         {
             "test_auc": result.test_auc,

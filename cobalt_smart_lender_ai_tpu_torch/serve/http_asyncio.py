@@ -2,11 +2,24 @@
 socket to the micro-batcher's future.
 
 Routes: ``POST /predict``, ``POST /predict_bulk_csv``,
-``POST /feature_importance_bulk``, ``GET /healthz``, ``GET /readyz``.
+``POST /feature_importance_bulk``, ``GET /healthz``, ``GET /readyz``, and
+the reference's observability routes: ``GET /metrics`` (Prometheus text,
+or OpenMetrics with exemplars on ``Accept: application/openmetrics-text``),
+``GET /slo``, ``GET /debug/requests`` and ``/debug/slowest`` (``?limit=``,
+``?n=``/``?k=``, 1..1000, and ``?phase=``, one of the flight recorder's
+phases; 422 otherwise), ``GET /debug/programs`` (the kernel cost table)
+and ``GET /debug/trace`` (the span ring as Perfetto JSON).
 Typed request errors (`reliability.errors`) keep their status: 422 invalid
 input, 413 payload too large, 504 deadline exceeded; the importance route
 answers 400 on empty data, and a bulk failure that is not typed is a 500
 ``bulk_failed``.
+
+Every request runs inside a `request_context` (a client's
+``X-Request-ID`` is honoured, else one is minted; it is echoed on the
+response) and a root ``http.request`` span: its latency and status feed
+``cobalt_request_latency_seconds``, a data-plane request is
+flight-recorded with its phases, and a non-2xx writes one structured log
+line.
 """
 
 from __future__ import annotations
@@ -18,7 +31,7 @@ import email.policy
 import json
 import threading
 from http.client import responses as _REASONS
-from urllib.parse import urlsplit
+from urllib.parse import parse_qs, urlsplit
 
 from cobalt_smart_lender_ai_tpu_torch.reliability.errors import (
     RequestError,
@@ -26,8 +39,44 @@ from cobalt_smart_lender_ai_tpu_torch.reliability.errors import (
     error_response,
 )
 from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService
+from cobalt_smart_lender_ai_tpu_torch.telemetry import (
+    EXPOSITION_CONTENT_TYPE,
+    META_ROUTES,
+    OPENMETRICS_CONTENT_TYPE,
+    TRACE_CONTENT_TYPE,
+    collect_phases,
+    default_program_registry,
+    default_tracer,
+    get_logger,
+    render_chrome_trace,
+    request_context,
+)
+from cobalt_smart_lender_ai_tpu_torch.telemetry.flight import PHASES
 
 __all__ = ["AsyncScorerServer", "make_async_server", "serve_forever"]
+
+_LOG = get_logger("cobalt.serve.http_asyncio")
+
+#: Hard ceiling for ``?limit=`` on the debug routes.
+DEBUG_LIMIT_MAX = 1000
+
+#: Routes that become metric label values; anything else is "unmatched", so
+#: a path-scanning client cannot mint one label per probe.
+_KNOWN_ROUTES = frozenset(
+    {
+        "/predict",
+        "/predict_bulk_csv",
+        "/feature_importance_bulk",
+        "/healthz",
+        "/readyz",
+        "/metrics",
+        "/slo",
+        "/debug/requests",
+        "/debug/slowest",
+        "/debug/trace",
+        "/debug/programs",
+    }
+)
 
 #: Request-line and header-line ceiling: a hostile peer must not buffer
 #: unbounded bytes into the loop.
@@ -68,7 +117,7 @@ async def _read_request(reader: asyncio.StreamReader):
     except ValueError:
         raise _BadRequest("malformed Content-Length") from None
     body = await reader.readexactly(length) if length > 0 else b""
-    return method, urlsplit(target).path, headers, body
+    return method, target, headers, body
 
 
 def _extract_csv(body: bytes, content_type: str) -> bytes:
@@ -93,6 +142,53 @@ def _json_body(body: bytes):
         return json.loads(body.decode() or "{}")
     except (UnicodeDecodeError, json.JSONDecodeError):
         raise ValidationError("body is not valid JSON") from None
+
+
+def validate_debug_limit(value: int, name: str = "limit") -> int:
+    """The debug routes' ``limit`` bound (1..DEBUG_LIMIT_MAX), 422 outside."""
+    if not 1 <= value <= DEBUG_LIMIT_MAX:
+        raise ValidationError(f"query param {name!r} must be between 1 and {DEBUG_LIMIT_MAX}")
+    return value
+
+
+def validate_debug_phase(phase: str | None) -> str | None:
+    """The debug routes' ``phase``: one of the flight recorder's phases."""
+    if phase is not None and phase not in PHASES:
+        raise ValidationError(f"query param 'phase' must be one of {sorted(PHASES)}")
+    return phase
+
+
+def _query_limit(query: dict, legacy: str, default: int) -> int:
+    """``?limit=`` (``?n=``/``?k=`` still accepted), bounded."""
+    name = "limit" if "limit" in query else legacy
+    raw = query.get(name, [None])[-1]
+    if raw is None:
+        return validate_debug_limit(default, name)
+    try:
+        value = int(raw)
+    except ValueError:
+        raise ValidationError(f"query param {name!r} must be an integer") from None
+    return validate_debug_limit(value, name)
+
+
+def debug_programs_payload() -> dict:
+    """``GET /debug/programs``: the kernel cost table and its totals."""
+    reg = default_program_registry()
+    return {"programs": reg.table(), "totals": reg.totals()}
+
+
+class _Response:
+    """What a route answers: status, body bytes and content type (or a JSON
+    object, encoded when it is written)."""
+
+    __slots__ = ("status", "obj", "data", "content_type")
+
+    def __init__(self, status: int, obj=None, data: bytes | None = None,
+                 content_type: str = "application/json"):
+        self.status = status
+        self.obj = obj
+        self.data = data
+        self.content_type = content_type
 
 
 class AsyncScorerServer:
@@ -188,16 +284,18 @@ class AsyncScorerServer:
                 try:
                     req = await _read_request(reader)
                 except _BadRequest as exc:
-                    await self._write(writer, 400, {"detail": str(exc), "error": "bad_request"}, False)
+                    # No route, request id or span yet to attribute it to.
+                    await self._write(
+                        writer, _Response(400, {"detail": str(exc), "error": "bad_request"}), None, False
+                    )
                     break
                 except (asyncio.IncompleteReadError, asyncio.LimitOverrunError):
                     break
                 if req is None:
                     break
-                method, path, headers, body = req
+                method, target, headers, body = req
                 keep_alive = headers.get("connection", "").lower() != "close"
-                status, obj = await self._handle(method, path, headers, body)
-                await self._write(writer, status, obj, keep_alive)
+                await self._dispatch_request(method, target, headers, body, writer, keep_alive)
                 if not keep_alive:
                     break
         except (ConnectionError, asyncio.CancelledError):
@@ -207,50 +305,155 @@ class AsyncScorerServer:
                 writer.close()
                 await writer.wait_closed()
 
+    async def _dispatch_request(
+        self, method: str, target: str, headers: dict, body: bytes,
+        writer: asyncio.StreamWriter, keep_alive: bool,
+    ) -> None:
+        """One request's envelope: its request id, a root ``http.request``
+        span (whose id is the request's trace id), the route, the response
+        write (the ``serialize`` phase of a data-plane request), then the
+        latency observation, the flight record and, on a non-2xx, a log
+        line."""
+        service = self.service
+        split = urlsplit(target)
+        path = split.path
+        route = path if path in _KNOWN_ROUTES else "unmatched"
+        with request_context(headers.get("x-request-id") or None) as rid:
+            with collect_phases() as phases, default_tracer().span(
+                "http.request", route=route, method=method, request_id=rid
+            ) as root:
+                resp = await self._handle(method, path, parse_qs(split.query), headers, body)
+                if path in META_ROUTES:
+                    await self._write(writer, resp, rid, keep_alive)
+                else:
+                    with service.phase("serialize"):
+                        await self._write(writer, resp, rid, keep_alive)
+            duration_s = root.duration_s or 0.0
+            code = None
+            if resp.status >= 400 and isinstance(resp.obj, dict):
+                code = resp.obj.get("error")
+            service.observe_request(route, resp.status, duration_s, code=code, trace_id=root.trace_id)
+            if route not in META_ROUTES:
+                service.flight.record(
+                    request_id=rid,
+                    trace_id=root.trace_id,
+                    route=route,
+                    method=method,
+                    status=resp.status,
+                    duration_s=duration_s,
+                    code=code,
+                    phases=phases.phases,
+                )
+            if resp.status >= 400:
+                _LOG.warning(
+                    "request_error",
+                    method=method,
+                    route=route,
+                    status=resp.status,
+                    code=code or "error",
+                    duration_ms=round(duration_s * 1000.0, 3),
+                    trace_id=root.trace_id,
+                    span_id=root.span_id,
+                )
+
     @staticmethod
-    async def _write(writer: asyncio.StreamWriter, status: int, obj, keep_alive: bool) -> None:
-        data = json.dumps(obj).encode()
-        head = (
-            f"HTTP/1.1 {status} {_REASONS.get(status, 'Unknown')}\r\n"
-            f"Content-Type: application/json\r\n"
-            f"Content-Length: {len(data)}\r\n"
-            f"Connection: {'keep-alive' if keep_alive else 'close'}\r\n\r\n"
-        ).encode("latin-1")
-        writer.write(head + data)
+    async def _write(
+        writer: asyncio.StreamWriter, resp: _Response, request_id: str | None, keep_alive: bool
+    ) -> None:
+        data = resp.data if resp.data is not None else json.dumps(resp.obj).encode()
+        lines = [
+            f"HTTP/1.1 {resp.status} {_REASONS.get(resp.status, 'Unknown')}",
+            f"Content-Type: {resp.content_type}",
+            f"Content-Length: {len(data)}",
+        ]
+        if request_id:
+            lines.append(f"X-Request-ID: {request_id}")
+        lines.append(f"Connection: {'keep-alive' if keep_alive else 'close'}")
+        writer.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1") + data)
         await writer.drain()
 
-    async def _handle(self, method: str, path: str, headers: dict, body: bytes):
-        """Route one request -> ``(status, JSON body)``."""
+    async def _handle(self, method: str, path: str, query: dict, headers: dict, body: bytes) -> _Response:
+        """Route one request."""
         service = self.service
         try:
-            if method == "GET" and path == "/healthz":
-                return 200, service.health()
-            if method == "GET" and path == "/readyz":
-                ready, payload = service.ready()
-                return (200 if ready else 503), payload
+            if method == "GET":
+                resp = self._get(path, query, headers)
+                if resp is not None:
+                    return resp
             if method == "POST" and path == "/predict":
-                return 200, await service.predict_single_async(_json_body(body))
+                return _Response(200, await service.predict_single_async(_json_body(body)))
             if method == "POST" and path == "/predict_bulk_csv":
                 csv_bytes = _extract_csv(body, headers.get("content-type", ""))
                 try:
-                    return 200, await service.predict_bulk_csv_async(csv_bytes)
+                    return _Response(200, await service.predict_bulk_csv_async(csv_bytes))
                 except RequestError:
                     raise
                 except Exception as e:  # the reference answers 500 here
-                    return 500, {"detail": f"Bulk prediction failed: {e}", "error": "bulk_failed"}
+                    return _Response(
+                        500, {"detail": f"Bulk prediction failed: {e}", "error": "bulk_failed"}
+                    )
             if method == "POST" and path == "/feature_importance_bulk":
                 payload = _json_body(body)  # malformed JSON -> 422
                 try:
-                    return 200, await service.feature_importance_bulk_async(payload)
+                    return _Response(200, await service.feature_importance_bulk_async(payload))
                 except ValidationError as e:
-                    return 400, e.body()  # empty data is a 400 on this route
+                    return _Response(400, e.body())  # empty data is a 400 on this route
             if method not in ("GET", "POST"):
-                return 501, {"detail": f"Unsupported method ({method!r})", "error": "unsupported_method"}
-            return 404, {"detail": "Not Found"}
+                return _Response(
+                    501,
+                    {"detail": f"Unsupported method ({method!r})", "error": "unsupported_method"},
+                )
+            return _Response(404, {"detail": "Not Found"})
         except RequestError as e:
-            return error_response(e)
+            return _Response(*error_response(e))
         except Exception as e:
-            return 500, {"detail": f"Internal server error: {e}", "error": "internal"}
+            return _Response(500, {"detail": f"Internal server error: {e}", "error": "internal"})
+
+    def _get(self, path: str, query: dict, headers: dict) -> _Response | None:
+        """A GET route's response, or None when no GET route matches."""
+        service = self.service
+        if path == "/healthz":
+            return _Response(200, service.health())
+        if path == "/readyz":
+            ready, payload = service.ready()
+            return _Response(200 if ready else 503, payload)
+        if path == "/metrics":
+            openmetrics = "application/openmetrics-text" in headers.get("accept", "")
+            return _Response(
+                200,
+                data=service.registry.render(openmetrics=openmetrics).encode(),
+                content_type=OPENMETRICS_CONTENT_TYPE if openmetrics else EXPOSITION_CONTENT_TYPE,
+            )
+        if path == "/slo":
+            if service.slo is None:
+                return _Response(404, {"detail": "SLO engine disabled", "error": "slo_disabled"})
+            return _Response(200, service.slo.evaluate(force=True))
+        if path == "/debug/requests":
+            n = _query_limit(query, "n", 50)
+            phase = validate_debug_phase(query.get("phase", [None])[-1])
+            return _Response(
+                200,
+                {
+                    "recent": service.flight.records(n, phase),
+                    "errors": service.flight.errors(n, phase),
+                    "stats": service.flight.stats(),
+                },
+            )
+        if path == "/debug/slowest":
+            k = _query_limit(query, "k", service.flight.top_k)
+            phase = validate_debug_phase(query.get("phase", [None])[-1])
+            return _Response(
+                200, {"slowest": service.flight.slowest(k, phase), "stats": service.flight.stats()}
+            )
+        if path == "/debug/programs":
+            return _Response(200, debug_programs_payload())
+        if path == "/debug/trace":
+            return _Response(
+                200,
+                data=render_chrome_trace(default_tracer()).encode(),
+                content_type=TRACE_CONTENT_TYPE,
+            )
+        return None
 
 
 def make_async_server(

@@ -15,6 +15,16 @@ A SHAP launch that fails at run time does not fail its requests: the same
 rows are scored again by the margin-only launch (``walk_kernel`` on the
 card), and each answers with ``"shap_values": null`` and ``"degraded":
 true``; only a failing margin launch fails them.
+
+Telemetry, with the reference's family names, types and labels: each
+service owns a `MetricsRegistry` (or uses the one passed as ``registry=``)
+holding the request, micro-batch and bulk families, ``cobalt_model_info``,
+``cobalt_shap_degraded_total``, the kernel (``cobalt_program_*``), device
+and SLO families; ``/readyz``'s micro-batch counters read the registry's
+cells. Each request's phases (``validate``, ``queue_wait``, ``dispatch``,
+``serialize``) feed ``cobalt_request_phase_seconds`` and the flight
+recorder; a ``dispatch`` phase ends when the scores are on the host, so it
+holds the card's work.
 """
 
 from __future__ import annotations
@@ -55,6 +65,19 @@ from cobalt_smart_lender_ai_tpu_torch.reliability.errors import (
     PayloadTooLarge,
     ValidationError,
 )
+from cobalt_smart_lender_ai_tpu_torch.telemetry import (
+    FlightRecorder,
+    MetricsRegistry,
+    SLOEngine,
+    add_phase,
+    current_request_id,
+    default_device_sampler,
+    default_objectives,
+    default_tracer,
+    install_device_metrics,
+    install_program_metrics,
+    request_context,
+)
 
 __all__ = [
     "SINGLE_INPUT_FIELDS",
@@ -80,6 +103,9 @@ _INT_FIELDS = frozenset(
 #: Bulk bucket launched once at startup beside the micro-batch buckets, so
 #: the margin-only path is built and checked before the first request.
 _WARM_BULK_ROWS = 256
+
+#: Rows-per-batch histogram bounds: 1 .. 1024.
+_BATCH_ROW_BUCKETS = tuple(float(1 << i) for i in range(11))
 
 #: Cells pandas' CSV reader reads as missing by default; the bulk route keeps
 #: its response shape without depending on pandas.
@@ -221,10 +247,17 @@ class _CompiledModel:
             error = f"{type(exc).__name__}: {exc}"
         return self.score(batch, with_shap=False)[0], None, None, error
 
-    def predict_proba(self, X: np.ndarray, deadline: Deadline | None = None) -> np.ndarray:
+    def predict_proba(
+        self,
+        X: np.ndarray,
+        deadline: Deadline | None = None,
+        observe: Callable[[int, float], None] | None = None,
+    ) -> np.ndarray:
         """P(default) for an (N, F) float array: chunks of ``max_batch_rows``
         rows, each zero-padded to its power-of-two bucket and scored by one
-        margin-only launch. The deadline is checked before each chunk."""
+        margin-only launch. The deadline is checked before each chunk;
+        ``observe(rows, seconds)`` gets each chunk's rows and seconds, the
+        scores on the host."""
         X = np.asarray(X, dtype=np.float32)
         N = X.shape[0]
         out = np.empty((N,), dtype=np.float32)
@@ -243,7 +276,10 @@ class _CompiledModel:
                 padded[:n] = chunk
                 padded[n:] = 0.0
                 chunk = padded
+            t0 = time.perf_counter()
             out[start : start + n] = self.score(chunk, with_shap=False)[0][:n]
+            if observe is not None:
+                observe(n, time.perf_counter() - t0)
         return out
 
 
@@ -260,26 +296,85 @@ class MicroBatcher:
     launch fails is scored margin-only and answered degraded
     (`_CompiledModel.score_explained`, counted in ``degraded_batches``); a
     batch whose margin launch fails too fails its requests; the worker keeps
-    running."""
+    running.
+
+    The counters live in the service's registry (``cobalt_microbatch_*``);
+    `stats()` and ``/readyz`` read the same cells. Each request's
+    ``queue_wait`` and ``dispatch`` seconds, measured on the worker, ride
+    its future back to the request's own context (the worker has none)."""
 
     def __init__(self, service: "ScorerService", *, max_wait_s: float, max_rows: int):
         self._service = service
         self._max_wait_s = max(0.0, float(max_wait_s))
         self._max_rows = max(1, int(max_rows))
         self._cond = threading.Condition()
-        self._queue: list[tuple] = []  # (row, deadline, future, enqueued_at)
+        # (row, deadline, future, enqueued_at, request_id): the id is taken
+        # at submit, since the worker thread has no request context.
+        self._queue: list[tuple] = []
         self._dispatch_lock = threading.Lock()
         self._paused = 0
         self._closed = False
         self._scratch: np.ndarray | None = None  # worker-only padding buffer
-        # Written by the worker thread only.
-        self.batches = 0
-        self.coalesced_rows = 0
-        self.max_batch_rows = 0
-        self.expired_in_queue = 0
+        #: Batches whose SHAP launch failed (written by the worker only).
         self.degraded_batches = 0
+        reg = service.registry
+        self._m_batches = reg.counter(
+            "cobalt_microbatch_batches_total",
+            "coalesced device dispatches run by the micro-batch scheduler",
+        )
+        self._m_rows = reg.counter(
+            "cobalt_microbatch_rows_total",
+            "request rows scored through coalesced micro-batches",
+        )
+        self._m_batch_rows = reg.histogram(
+            "cobalt_microbatch_batch_rows",
+            "distribution of coalesced batch sizes (rows per dispatch)",
+            buckets=_BATCH_ROW_BUCKETS,
+        )
+        self._m_coalesce_wait = reg.histogram(
+            "cobalt_microbatch_coalesce_wait_seconds",
+            "time a request spent queued before its batch dispatched",
+        )
+        self._m_expired = reg.counter(
+            "cobalt_microbatch_expired_total",
+            "requests resolved 504 by the batcher, by where the deadline "
+            "was detected (queued: before a batch slot; scored: after the "
+            "un-interruptible dispatch)",
+            ("where",),
+        )
+        self._m_max_batch = reg.gauge(
+            "cobalt_microbatch_max_batch_rows",
+            "largest batch coalesced so far (high-water mark)",
+        )
+        reg.gauge(
+            "cobalt_microbatch_worker_alive",
+            "1 while the micro-batch worker thread is running",
+        ).set_function(lambda: float(self._thread.is_alive()))
+        reg.gauge(
+            "cobalt_microbatch_queue_depth",
+            "requests currently waiting for a batch slot",
+        ).set_function(self.queue_depth)
+        # Queue depth as a sampled series too: when the device sampler
+        # runs, GET /debug/trace draws it as a Perfetto counter track.
+        default_device_sampler().add_series("microbatch_queue_depth", self.queue_depth)
         self._thread = threading.Thread(target=self._run, daemon=True, name="microbatcher")
         self._thread.start()
+
+    @property
+    def batches(self) -> int:
+        return int(self._m_batches.value)
+
+    @property
+    def coalesced_rows(self) -> int:
+        return int(self._m_rows.value)
+
+    @property
+    def max_batch_rows(self) -> int:
+        return int(self._m_max_batch.value)
+
+    @property
+    def expired_in_queue(self) -> int:
+        return int(self._m_expired.labels(where="queued").value)
 
     @property
     def closed(self) -> bool:
@@ -287,13 +382,14 @@ class MicroBatcher:
 
     def submit(self, row: Mapping[str, float], deadline: Deadline | None) -> Future:
         """Enqueue one validated row; the future resolves to ``(prob,
-        shap_row | None, base | None, shap_error | None)`` or raises the
+        shap_row | None, base | None, shap_error | None, phases)`` (this
+        request's ``queue_wait`` and ``dispatch`` seconds) or raises the
         request's error."""
         fut: Future = Future()
         with self._cond:
             if self._closed:
                 raise RuntimeError("micro-batcher is closed")
-            self._queue.append((row, deadline, fut, time.monotonic()))
+            self._queue.append((row, deadline, fut, time.monotonic(), current_request_id()))
             self._cond.notify_all()
         return fut
 
@@ -329,6 +425,7 @@ class MicroBatcher:
             self._closed = True
             self._cond.notify_all()
         self._thread.join(timeout=10.0)
+        default_device_sampler().remove_series("microbatch_queue_depth")
 
     def stats(self) -> dict:
         b = self.batches
@@ -374,40 +471,56 @@ class MicroBatcher:
                 try:
                     self._dispatch(batch)
                 except Exception as exc:  # fail this batch, keep serving
-                    for _, _, fut, _ in batch:
-                        if not fut.done():
-                            fut.set_exception(exc)
+                    for entry in batch:
+                        if not entry[2].done():
+                            entry[2].set_exception(exc)
 
     def _dispatch(self, batch: list) -> None:
         model = self._service._model
+        now = time.monotonic()
         live = []
-        for row, dl, fut, enq in batch:
+        for row, dl, fut, enq, rid in batch:
             if dl is not None and dl.expired():
-                self.expired_in_queue += 1
+                self._m_expired.labels(where="queued").inc()
                 if not fut.done():
                     fut.set_exception(dl.exceeded("queued for micro-batch"))
             else:
-                live.append((row, dl, fut))
+                live.append((row, dl, fut, enq, rid))
         if not live:
             return
         n = len(live)
+        for entry in live:
+            self._m_coalesce_wait.observe(now - entry[3])
         bucket = model.bucket_of(n)
-        scratch = self._scratch
-        if scratch is None or scratch.shape[0] < bucket or scratch.shape[1] != model.n_features:
-            scratch = self._scratch = np.zeros((bucket, model.n_features), np.float32)
-        buf = scratch[:bucket]
-        buf[:n] = model.rows_array([row for row, _, _ in live])
-        buf[n:] = 0.0
-        probs, phis, base, shap_error = model.score_explained(buf)
+        tracer = default_tracer()
+        # The span carries the submitters' request ids: the only link from a
+        # batch on this worker thread back to the requests it scored.
+        with tracer.span(
+            "serve.microbatch_dispatch",
+            rows=n,
+            bucket=bucket,
+            request_ids=[e[4] for e in live if e[4]],
+        ):
+            scratch = self._scratch
+            if scratch is None or scratch.shape[0] < bucket or scratch.shape[1] != model.n_features:
+                scratch = self._scratch = np.zeros((bucket, model.n_features), np.float32)
+            buf = scratch[:bucket]
+            buf[:n] = model.rows_array([e[0] for e in live])
+            buf[n:] = 0.0
+            with tracer.span("serve.dispatch", rows=n, bucket=bucket) as d_sp:
+                probs, phis, base, shap_error = model.score_explained(buf)
+        dispatch_s = d_sp.duration_s or 0.0
         if phis is None and model.shap_fn is not None:
             self.degraded_batches += 1
-        self.batches += 1
-        self.coalesced_rows += n
-        self.max_batch_rows = max(self.max_batch_rows, n)
-        for i, (_, dl, fut) in enumerate(live):
+        self._m_batches.inc()
+        self._m_rows.inc(n)
+        self._m_batch_rows.observe(n)
+        self._m_max_batch.set_max(n)
+        for i, (_, dl, fut, enq, _) in enumerate(live):
             if fut.done():
                 continue
             if dl is not None and dl.expired():
+                self._m_expired.labels(where="scored").inc()
                 fut.set_exception(dl.exceeded("micro-batch scored"))
                 continue
             fut.set_result(
@@ -416,6 +529,7 @@ class MicroBatcher:
                     None if phis is None else phis[i].tolist(),
                     base,
                     shap_error,
+                    {"queue_wait": max(0.0, now - enq), "dispatch": dispatch_s},
                 )
             )
 
@@ -474,12 +588,36 @@ class ScorerService:
         *,
         device: torch.device | str = "cuda",
         clock: Callable[[], float] = time.monotonic,
+        registry: MetricsRegistry | None = None,
     ):
         self.config = config or ServeConfig()
         self.device = resolve_device(device)
         self._clock = clock
         self._model_key = self.config.model_key
+        # A fresh registry per service by default: two services in one
+        # process never share counts. Pass ``registry=default_registry()``
+        # to scrape them with the process-wide families on one page.
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self._init_metrics()
+        self.flight = FlightRecorder(
+            capacity=self.config.flight_capacity,
+            slow_threshold_s=self.config.flight_slow_threshold_ms / 1000.0,
+            top_k=self.config.flight_top_k,
+        )
+        self.slo: SLOEngine | None = None
+        if self.config.slo_enabled:
+            self.slo = SLOEngine(
+                self.registry,
+                default_objectives(self.config),
+                clock=clock,
+                windows_s=self.config.slo_windows_s,
+                fast_burn_threshold=self.config.slo_fast_burn_threshold,
+            )
+            self.slo.register_gauges()
         self._model = _CompiledModel(artifact, self.config, self.device)
+        self._m_model_info.labels(
+            "unversioned", "direct", "none", self._model.pack.precision, self._model.kernel
+        ).set(1.0)
         #: Direct-path requests whose SHAP launch failed at run time.
         self.degraded_direct = 0
         self.batcher: MicroBatcher | None = None
@@ -498,13 +636,14 @@ class ScorerService:
         *,
         device: torch.device | str = "cuda",
         clock: Callable[[], float] = time.monotonic,
+        registry: MetricsRegistry | None = None,
     ) -> "ScorerService":
         """Startup restore of ``config.model_key`` from ``store``. The device
         is resolved first, so ``cuda`` without CUDA fails before any load."""
         cfg = config or ServeConfig()
         dev = resolve_device(device)
         artifact = GBDTArtifact.load(store, cfg.model_key, dev)
-        return cls(artifact, cfg, device=dev, clock=clock)
+        return cls(artifact, cfg, device=dev, clock=clock, registry=registry)
 
     def close(self) -> None:
         """Stop the micro-batch worker (queued requests drain first);
@@ -515,6 +654,100 @@ class ScorerService:
     @property
     def feature_names(self) -> list[str]:
         return self._model.feature_names
+
+    # -- telemetry --------------------------------------------------------------
+
+    def _init_metrics(self) -> None:
+        """Register the service-level families, with the reference's names,
+        types and label names, then the kernel and device families."""
+        reg = self.registry
+        self._m_latency = reg.histogram(
+            "cobalt_request_latency_seconds",
+            "request wall time by route and final HTTP status",
+            ("route", "status"),
+        )
+        self._m_phase = reg.histogram(
+            "cobalt_request_phase_seconds",
+            "request wall time attributed to each serving phase "
+            "(validate / queue_wait / dispatch / shap / serialize)",
+            ("phase",),
+        )
+        self._m_errors = reg.counter(
+            "cobalt_request_errors_total",
+            "non-2xx responses by route and typed error code",
+            ("route", "code"),
+        )
+        self._m_shap_degraded = reg.counter(
+            "cobalt_shap_degraded_total",
+            "scorable requests answered without SHAP attributions",
+        )
+        self._m_bulk_rows = reg.counter(
+            "cobalt_bulk_rows_total",
+            "rows scored through the bulk scoring path",
+        )
+        self._m_bulk_dispatches = reg.counter(
+            "cobalt_bulk_dispatches_total",
+            "device dispatches issued by the bulk scoring path",
+        )
+        self._m_bulk_dispatch_s = reg.histogram(
+            "cobalt_bulk_dispatch_seconds",
+            "wall time of one bulk dispatch, scores on the host",
+        )
+        self._m_model_info = reg.gauge(
+            "cobalt_model_info",
+            "1 for the model version currently serving (identity labels)",
+            ("version", "channel", "provenance_md5", "precision", "kernel"),
+        )
+        install_program_metrics(reg)
+        install_device_metrics(reg)
+
+    def observe_request(
+        self,
+        route: str,
+        status: int,
+        duration_s: float,
+        code: str | None = None,
+        trace_id: int | str | None = None,
+    ) -> None:
+        """Record one finished HTTP request (the server's middleware calls
+        this with the route template, never a raw path). ``trace_id``
+        becomes the latency bucket's OpenMetrics exemplar."""
+        self._m_latency.labels(route=route, status=str(status)).observe(
+            max(0.0, duration_s),
+            exemplar=None if trace_id is None else str(trace_id),
+        )
+        if status >= 400:
+            self._m_errors.labels(route=route, code=code or "error").inc()
+
+    def _observe_phase(self, name: str, duration_s: float) -> None:
+        """One phase's seconds into the phase histogram and the flight
+        record of the request in scope (nothing outside one)."""
+        duration_s = max(0.0, duration_s)
+        self._m_phase.labels(phase=name).observe(duration_s)
+        add_phase(name, duration_s)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        """Time one serving phase: a ``serve.<name>`` span plus
+        `_observe_phase`, recorded even when the block raises."""
+        try:
+            with default_tracer().span(f"serve.{name}") as sp:
+                yield sp
+        finally:
+            self._observe_phase(name, sp.duration_s or 0.0)
+
+    def _observe_bulk_dispatch(self, rows: int, seconds: float) -> None:
+        self._m_bulk_rows.inc(rows)
+        self._m_bulk_dispatches.inc()
+        self._m_bulk_dispatch_s.observe(max(0.0, seconds))
+
+    @staticmethod
+    def _ingress_request_id():
+        """Mint a request id for in-process callers that bring none: the id
+        taken at `MicroBatcher.submit` joins a batch span to its requests."""
+        if current_request_id() is None:
+            return request_context()
+        return contextlib.nullcontext(current_request_id())
 
     def _new_deadline(self) -> Deadline | None:
         return start_deadline(self.config.request_deadline_s, self._clock)
@@ -563,7 +796,7 @@ class ScorerService:
     # -- /predict -----------------------------------------------------------------
 
     def _response(self, row: Mapping[str, float], result: tuple) -> dict:
-        prob, phis_row, base, shap_error = result
+        prob, phis_row, base, shap_error = result[:4]
         resp = {
             "prob_default": prob,
             "features": list(self._model.feature_names),
@@ -576,12 +809,28 @@ class ScorerService:
             resp["shap_values"] = None
             resp["base_value"] = None
             resp["degraded"] = True
+            self._m_shap_degraded.inc()
         return resp
+
+    def _finish_batched(self, row: Mapping[str, float], result: tuple) -> dict:
+        """A batcher-scored request's response; the phases measured on the
+        worker are recorded here, in the request's own context."""
+        for name, seconds in result[4].items():
+            self._observe_phase(name, seconds)
+        return self._response(row, result)
+
+    def _validate(self, payload: Mapping[str, Any], dl: Deadline | None) -> dict[str, float]:
+        with self.phase("validate"):
+            row = validate_single_input(payload)
+            if dl is not None:
+                dl.check("input validated")
+        return row
 
     def _predict_direct(self, row: Mapping[str, float], dl: Deadline | None) -> dict:
         """The un-coalesced path: this request's own (1, F) launch."""
         model = self._model
-        probs, phis, base, shap_error = model.score_explained(model.rows_array([row]))
+        with self.phase("dispatch"):
+            probs, phis, base, shap_error = model.score_explained(model.rows_array([row]))
         if phis is None and model.shap_fn is not None:
             self.degraded_direct += 1
         if dl is not None:
@@ -597,42 +846,40 @@ class ScorerService:
         """``POST /predict``: probability + per-row SHAP. With the
         micro-batcher the request is coalesced with concurrent callers into
         one padded bucket launch."""
-        dl = deadline if deadline is not None else self._new_deadline()
-        row = validate_single_input(payload)
-        if dl is not None:
-            dl.check("input validated")
-        batcher = self.batcher
-        fut = None
-        if batcher is not None and not batcher.closed:
-            with contextlib.suppress(RuntimeError):  # closed in the gap
-                fut = batcher.submit(row, dl)
-        if fut is None:
-            return self._predict_direct(row, dl)
-        if dl is None:
-            return self._response(row, fut.result())
-        try:
-            return self._response(row, fut.result(timeout=max(0.0, dl.remaining())))
-        except (FutureTimeout, TimeoutError):
-            raise dl.exceeded("queued for micro-batch") from None
+        with self._ingress_request_id():
+            dl = deadline if deadline is not None else self._new_deadline()
+            row = self._validate(payload, dl)
+            batcher = self.batcher
+            fut = None
+            if batcher is not None and not batcher.closed:
+                with contextlib.suppress(RuntimeError):  # closed in the gap
+                    fut = batcher.submit(row, dl)
+            if fut is None:
+                return self._predict_direct(row, dl)
+            if dl is None:
+                return self._finish_batched(row, fut.result())
+            try:
+                return self._finish_batched(row, fut.result(timeout=max(0.0, dl.remaining())))
+            except (FutureTimeout, TimeoutError):
+                raise dl.exceeded("queued for micro-batch") from None
 
     async def predict_single_async(
         self, payload: Mapping[str, Any], *, deadline: Deadline | None = None
     ) -> dict:
         """Awaitable `predict_single`: the request coroutine suspends on the
         batcher's future under a loop-scheduled deadline."""
-        dl = deadline if deadline is not None else self._new_deadline()
-        row = validate_single_input(payload)
-        if dl is not None:
-            dl.check("input validated")
-        batcher = self.batcher
-        afut = None
-        if batcher is not None and not batcher.closed:
-            with contextlib.suppress(RuntimeError):
-                afut = batcher.submit_async(row, dl)
-        if afut is None:
-            return await _in_executor(self._predict_direct, row, dl)
-        result = await await_under_deadline(afut, dl, "queued for micro-batch")
-        return self._response(row, result)
+        with self._ingress_request_id():
+            dl = deadline if deadline is not None else self._new_deadline()
+            row = self._validate(payload, dl)
+            batcher = self.batcher
+            afut = None
+            if batcher is not None and not batcher.closed:
+                with contextlib.suppress(RuntimeError):
+                    afut = batcher.submit_async(row, dl)
+            if afut is None:
+                return await _in_executor(self._predict_direct, row, dl)
+            result = await await_under_deadline(afut, dl, "queued for micro-batch")
+            return self._finish_batched(row, result)
 
     def predict_raw(
         self, payload: Mapping[str, Any], *, deadline: Deadline | None = None
@@ -656,9 +903,10 @@ class ScorerService:
             )
         if not isinstance(payload, Mapping):
             raise ValidationError("body must be a JSON object")
-        feats = transform_raw_rows(plan, [dict(payload)], device=self.device)
-        if dl is not None:
-            dl.check("raw row transformed")
+        with self.phase("validate"):
+            feats = transform_raw_rows(plan, [dict(payload)], device=self.device)
+            if dl is not None:
+                dl.check("raw row transformed")
         name_pos = {n: i for i, n in enumerate(plan.tree_feature_names)}
         unknown = [n for n in model.feature_names if n not in name_pos]
         if unknown:
@@ -668,10 +916,12 @@ class ScorerService:
             )
         idx = torch.tensor([name_pos[n] for n in model.feature_names], device=self.device)
         x = feats.index_select(1, idx).contiguous()
-        _, prob = model.margin_fn(x)
+        with self.phase("dispatch"):
+            _, prob = model.margin_fn(x)
+            prob = float(prob[0])
         row = x[0].cpu().tolist()
         return {
-            "prob_default": float(prob[0]),
+            "prob_default": prob,
             "features": list(model.feature_names),
             "engineered_row": dict(zip(model.feature_names, row)),
         }
@@ -679,8 +929,11 @@ class ScorerService:
     # -- bulk -----------------------------------------------------------------------
 
     def predict_proba(self, X: np.ndarray, deadline: Deadline | None = None) -> np.ndarray:
-        """Bulk P(default) for an (N, F) float array."""
-        return self._model.predict_proba(X, deadline)
+        """Bulk P(default) for an (N, F) float array; each chunk's launch
+        feeds the ``cobalt_bulk_*`` families."""
+        X = np.asarray(X, dtype=np.float32)
+        with default_tracer().span("serve.bulk_score", rows=int(X.shape[0])):
+            return self._model.predict_proba(X, deadline, self._observe_bulk_dispatch)
 
     def predict_bulk_csv(self, csv_bytes: bytes, *, deadline: Deadline | None = None) -> dict:
         """``POST /predict_bulk_csv``: CSV in, records with an appended
@@ -710,7 +963,7 @@ class ScorerService:
         # A non-numeric feature column raises ValueError here: HTTP 500.
         X = np.array([by_name[n] for n in model.feature_names], dtype=np.float32).T
         X = X.reshape(n_rows, len(model.feature_names))
-        prob = model.predict_proba(X, dl)
+        prob = self.predict_proba(X, dl)
         records = []
         for i in range(n_rows):
             rec = {name: _json_cell(col[i]) for name, col in by_name.items()}

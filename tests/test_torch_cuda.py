@@ -35,7 +35,10 @@ search gives the CPU's report (rungs, pruned, survivors, scored trees),
 scores within 1e-4 (as the CV jobs above: up to 40 trees of depth 5, whose
 margins drift by ulps between the card's fixed-point sums and the CPU's
 float sums) and the CPU's winner, its histogram launches one per level of
-every tree its jobs boosted in whole chunks.
+every tree its jobs boosted in whole chunks. Of the program accounting:
+recording launches makes no device synchronisation and waits on an event
+only beyond the pool's bound, and every launch lands on its program with
+CUDA-event seconds.
 """
 
 from __future__ import annotations
@@ -77,6 +80,11 @@ from cobalt_smart_lender_ai_tpu_torch.parallel.tune import (
     stratified_kfold_masks,
 )
 from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService
+from cobalt_smart_lender_ai_tpu_torch.telemetry.programs import (
+    EVENT_POOL,
+    ProgramRegistry,
+    set_default_program_registry,
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 TOL_PROB = 1e-6
@@ -577,3 +585,74 @@ def test_halving_search_on_card_matches_the_cpu(card):
         expect += 2 * trees * g.max_depth
     best = GBDTConfig(**got.best_params_)
     assert launches == expect + best.n_estimators * best.max_depth
+
+
+@pytest.fixture
+def fresh_programs():
+    """A program registry of the test's own, the process default restored
+    after it."""
+    reg = ProgramRegistry()
+    prev = set_default_program_registry(reg)
+    yield reg
+    set_default_program_registry(prev)
+
+
+@pytest.mark.cuda
+def test_program_accounting_makes_no_sync_per_launch_on_card(card, fresh_programs, monkeypatch):
+    """1,000 histogram launches recorded through CUDA events: no device or
+    stream synchronisation, and event waits only beyond the pool's bound
+    (each on the oldest pair's end event); once the launches are done the
+    table holds every dispatch with its device seconds."""
+    n = 1000
+    bins, node, g, h, w = (
+        torch.from_numpy(np.ascontiguousarray(a)).to(card)
+        for a in _histogram_inputs(11, 20_000, 20, 255, 8, np.uint8)
+    )
+    gradient_histogram_channels(bins, node, g, h, w, n_nodes=8, n_bins=255)  # built, warm
+    torch.cuda.synchronize()
+    fresh_programs.reset()
+    calls = {"device": 0, "event": 0}
+    real_sync, real_event_sync = torch.cuda.synchronize, torch.cuda.Event.synchronize
+
+    def count(kind, fn):
+        def wrapped(*args, **kwargs):
+            calls[kind] += 1
+            return fn(*args, **kwargs)
+
+        return wrapped
+
+    monkeypatch.setattr(torch.cuda, "synchronize", count("device", real_sync))
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", count("event", real_event_sync))
+    before = gradient_histogram_channels.launches
+    for _ in range(n):
+        gradient_histogram_channels(bins, node, g, h, w, n_nodes=8, n_bins=255)
+    assert calls["device"] == 0
+    assert calls["event"] <= max(0, n - EVENT_POOL)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    (row,) = fresh_programs.table()
+    assert row["name"] == "gradient_histogram/F20xB255" and row["kind"] == "kernel"
+    assert row["dispatches"] == gradient_histogram_channels.launches - before == n
+    assert row["dispatch_seconds"] > 0 and row["dispatches_in_flight"] == 0
+    assert row["device_kind"] == torch.cuda.get_device_name(card)
+
+
+@pytest.mark.cuda
+def test_scoring_programs_count_the_launches_on_card(card_pack, fresh_programs):
+    """Every `fused_score` launch lands on its bucket's program, with event
+    seconds, the kernel's FLOPs and bytes and, on an H100, a roofline."""
+    pack, _, F = card_pack
+    before = fused_score.launches
+    for rows, with_shap in ((1, True), (64, True), (50, True), (4096, False)):
+        X = torch.from_numpy(_rows(pack, rows, rows)).cuda()
+        fused_score(pack, X, n_features=F, with_shap=with_shap)
+    torch.cuda.synchronize()
+    table = {r["name"]: r for r in fresh_programs.table()}
+    assert sorted(table) == [
+        "score_forest/f32/1/shap", "score_forest/f32/4096/margin", "score_forest/f32/64/shap"
+    ]
+    assert sum(r["dispatches"] for r in table.values()) == fused_score.launches - before == 4
+    assert table["score_forest/f32/64/shap"]["dispatches"] == 2
+    assert all(r["dispatch_seconds"] > 0 and r["flops"] > 0 for r in table.values())
+    h100 = torch.cuda.get_device_name(card).startswith("NVIDIA H100")
+    assert all((r["roofline_utilization"] is not None) == h100 for r in table.values())

@@ -19,7 +19,11 @@ the reference:
   `tests/test_pipeline.py` checks them; the confusion-matrix and
   feature-importance PNGs are the reference's renders of the run's
   confusion matrix and gains, byte for byte;
-- without a raw table or a store it raises the reference's ``ValueError``.
+- without a raw table or a store it raises the reference's ``ValueError``;
+- each stage observes ``cobalt_pipeline_stage_seconds`` once with its
+  ``timings`` seconds and records a ``pipeline.<stage>`` span under
+  ``pipeline.run``; the CLI's ``--ledger-out`` and ``--trace-out`` write a
+  ledger with the JAX CLI's top-level keys and a Perfetto trace.
 
 Checkpoints and resume, as ``tests/test_reliability.py`` holds the
 reference's, under a smaller configuration (3000 loans, RFE to 10 in one
@@ -40,6 +44,7 @@ step, a 2 x 2 search of 40 trees):
 from __future__ import annotations
 
 import functools
+import json
 from datetime import datetime
 
 import jax
@@ -76,6 +81,11 @@ from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models.gbdt import gain_importances
 from cobalt_smart_lender_ai_tpu_torch.ops.metrics import confusion_matrix
 from cobalt_smart_lender_ai_tpu_torch.reliability import PipelineCheckpoint
+from cobalt_smart_lender_ai_tpu_torch.telemetry import (
+    default_registry,
+    default_tracer,
+    load_ledger,
+)
 
 TODAY = datetime(2026, 8, 1)
 N_ROWS, SEED = 6000, 5
@@ -90,6 +100,16 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+#: What the port's run in `runs` left in the process-wide telemetry.
+TELEMETRY: dict = {}
+
+
+def _stage_histogram() -> dict[str, tuple[int, float]]:
+    """``{stage: (count, sum)}`` of ``cobalt_pipeline_stage_seconds``."""
+    fam = next(f for f in default_registry().families() if f.name == "cobalt_pipeline_stage_seconds")
+    return {labels[0]: (child.count, child.sum) for labels, child in fam._items()}
 
 
 @pytest.fixture(scope="module")
@@ -117,10 +137,13 @@ def runs(tmp_path_factory):
             tune=TuneConfig(n_iter=2, cv_folds=2, param_space=SPACE),
         )
         store = ObjectStore(str(tmp_path_factory.mktemp("port_pipeline")))
+        TELEMETRY["stages_before"] = _stage_histogram()
         res = pipeline.run_pipeline(
             cfg, raw=synthetic_lendingclub_frame(N_ROWS, seed=SEED), store=store,
             device="cpu", today=TODAY,
         )
+        TELEMETRY["stages_after"] = _stage_histogram()
+        TELEMETRY["spans"] = default_tracer().export()
     finally:
         mp.undo()
     return res, store, jres
@@ -149,6 +172,61 @@ def test_stages_are_timed(runs):
     assert all(t >= 0.0 for t in res.timings.values())
     # The plain histogram runs on the CPU: no kernel launch anywhere.
     assert set(res.hist_launches.values()) == {0}
+
+
+def test_each_stage_observes_the_stage_histogram_once(runs):
+    res, _, _ = runs
+    before, after = TELEMETRY["stages_before"], TELEMETRY["stages_after"]
+    for stage, seconds in res.timings.items():
+        count, total = after[stage]
+        count0, total0 = before.get(stage, (0, 0.0))
+        assert count - count0 == 1, stage
+        assert total - total0 == pytest.approx(seconds, abs=1e-9), stage
+    assert {s for s in after if after[s] != before.get(s)} == set(res.timings)
+
+
+def test_stage_spans_nest_under_the_run_span(runs):
+    res, _, _ = runs
+    spans = TELEMETRY["spans"]
+    run = [sp for sp in spans if sp["name"] == "pipeline.run"][-1]
+    children = [sp for sp in spans if sp["parent_id"] == run["span_id"]]
+    assert [sp["name"] for sp in children] == [f"pipeline.{s}" for s in res.timings]
+    for sp, seconds in zip(children, res.timings.values()):
+        assert sp["trace_id"] == run["trace_id"]
+        assert sp["duration_s"] == pytest.approx(seconds, abs=2e-6)
+        assert run["start_s"] <= sp["start_s"] <= sp["start_s"] + sp["duration_s"] <= (
+            run["start_s"] + run["duration_s"] + 1e-6
+        )
+
+
+def test_cli_ledger_and_trace_have_the_references_keys(runs, tmp_path, monkeypatch):
+    """The port's CLI with ``--ledger-out`` and ``--trace-out`` on a small
+    quick run, and the JAX CLI's own ledger code around the reference's run
+    of this module (its ``run_pipeline`` made to return that result): the
+    same top-level ledger keys, the port's trace a Perfetto document with
+    ``pipeline.run`` and its stages."""
+    _, _, jres = runs
+    port_ledger, port_trace = tmp_path / "port.json", tmp_path / "port_trace.json"
+    res = pipeline.main([
+        "--synthetic-rows", "3000", "--quick", "--device", "cpu",
+        "--ledger-out", str(port_ledger), "--trace-out", str(port_trace),
+    ])
+    jax_ledger, jax_trace = tmp_path / "jax.json", tmp_path / "jax_trace.json"
+    monkeypatch.setattr(jax_pipeline, "run_pipeline", lambda *a, **k: jres)
+    jax_pipeline.main(["--ledger-out", str(jax_ledger), "--trace-out", str(jax_trace)])
+    doc, ref = load_ledger(str(port_ledger)), json.loads(jax_ledger.read_text())
+    assert set(doc) == set(ref)
+    assert doc["stages"] == {k: round(v, 6) for k, v in res.timings.items()}
+    assert doc["final_metrics"]["n_selected"] == 20
+    assert doc["stages_run"] == {"run": list(res.stages_run), "skipped": []}
+    assert doc["meta"]["device"] == "cpu" and doc["kind"] == ref["kind"] == "pipeline"
+    hist = [p for p in doc["programs"] if p["name"].startswith("gradient_histogram_plain/")]
+    assert hist and all(p["dispatches"] > 0 and p["roofline_utilization"] is None for p in hist)
+    assert "cobalt_pipeline_stage_seconds" in doc["metrics"]
+    trace = json.loads(port_trace.read_text())
+    names = {e["name"] for e in trace["traceEvents"]}
+    assert {"pipeline.run"} | {f"pipeline.{s}" for s in res.timings} <= names
+    assert set(trace) == set(json.loads(jax_trace.read_text()))
 
 
 def test_metrics_and_features_json_reference_schema(runs):

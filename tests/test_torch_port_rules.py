@@ -2,8 +2,9 @@
 
 - The port package and ``chip_smoke.py`` import neither JAX nor anything of
   the JAX package (``cobalt_smart_lender_ai_tpu``), nor pandas (the card's
-  machine has none); importing the port's serving stack, or its data layer,
-  in a fresh interpreter leaves ``jax`` and ``pandas`` unloaded.
+  machine has none); importing the port's serving stack, its data layer,
+  its training protocol or its telemetry in a fresh interpreter leaves
+  ``jax`` and ``pandas`` unloaded.
 - Its entry points run on the CUDA device unless the caller asks for the
   CPU: with CUDA unavailable, the default-device service constructors,
   `GBDTClassifier`, `split_mask`, `GBDTArtifact.load`/``from_bytes``,
@@ -102,6 +103,13 @@ def test_importing_the_training_protocol_leaves_jax_and_pandas_unloaded():
     assert _loaded_after_import(modules) == "[]"
 
 
+def test_importing_the_telemetry_leaves_jax_and_pandas_unloaded():
+    modules = ("telemetry", "telemetry.metrics", "telemetry.tracing", "telemetry.logging",
+               "telemetry.traceexport", "telemetry.programs", "telemetry.devices",
+               "telemetry.runledger", "telemetry.flight", "telemetry.slo")
+    assert _loaded_after_import(modules) == "[]"
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -191,7 +199,11 @@ def test_new_port_modules_are_checked():
             "data/split.py", "data/clean.py", "data/features.py", "config.py",
             "parallel/tune.py", "parallel/rfe.py", "pipeline.py",
             "reliability/checkpoint.py", "reliability/retry.py", "reliability/stores.py",
-            "parallel/budget.py", "io/plots.py", "io/frames.py", "io/store.py"} <= names
+            "parallel/budget.py", "io/plots.py", "io/frames.py", "io/store.py",
+            "telemetry/__init__.py", "telemetry/metrics.py", "telemetry/tracing.py",
+            "telemetry/logging.py", "telemetry/traceexport.py", "telemetry/programs.py",
+            "telemetry/devices.py", "telemetry/runledger.py", "telemetry/flight.py",
+            "telemetry/slo.py"} <= names
 
 
 def test_classifier_defaults_to_cuda_and_raises_without_it(no_cuda):

@@ -14,6 +14,15 @@ in-process. Same payloads in, and:
 - identical ``top_features``;
 - typed errors: 422 invalid input, 400 empty importance data, 413 oversized
   bulk payloads.
+
+Telemetry, with both services on the committed model behind their HTTP
+servers and the same requests sent to each: every family the port
+publishes has the reference's name, type and label names; the request and
+error counts per route and status are equal (batching may coalesce
+differently, so rows per batch are not compared); ``X-Request-ID`` is
+echoed and minted where the client sent none; ``/debug/*`` rejects the
+same bad limits and phases with the same 422 bodies; ``/debug/*`` and
+``/slo`` answer bodies with the reference's keys.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import threading
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -370,3 +380,160 @@ def test_failing_margin_launch_still_fails(store_root, monkeypatch, microbatch):
 def _canonical(payload: dict) -> dict:
     alias = schema.SERVING_FIELD_ALIASES
     return {alias.get(k, k): float(v) for k, v in payload.items()}
+
+
+# -- telemetry: the same traffic through both services' HTTP servers ------------
+
+COMMITTED = str(Path(__file__).resolve().parent.parent / "artifacts")
+BAD_DEBUG_QUERIES = (
+    "/debug/requests?limit=0",
+    "/debug/requests?limit=1001",
+    "/debug/requests?n=abc",
+    "/debug/requests?phase=bogus",
+    "/debug/slowest?k=-1",
+    "/debug/slowest?limit=5000",
+    "/debug/slowest?phase=validate&k=x",
+)
+
+
+def _request(url: str, body: bytes | None = None, headers: dict | None = None):
+    """(status, headers, body bytes) of one request, errors included."""
+    req = urllib.request.Request(url, data=body, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _traffic(url: str) -> list[tuple[int, dict, bytes]]:
+    """The same requests to either server: valid and invalid /predict, a
+    bulk CSV, an importance request, a 404 and the probes."""
+    out = []
+    for i, body in enumerate(_payloads(6, seed=21)):
+        headers = {"Content-Type": "application/json"}
+        if i % 2:
+            headers["X-Request-ID"] = f"client-{i}"
+        out.append(_request(url + "/predict", json.dumps(body).encode(), headers))
+    bad = dict(_payloads(1, seed=22)[0], loan_amnt="many")
+    out.append(_request(url + "/predict", json.dumps(bad).encode(), {"Content-Type": "application/json"}))
+    out.append(_request(url + "/predict", b"{not json", {"Content-Type": "application/json"}))
+    out.append(_request(url + "/predict_bulk_csv", _bulk_csv(40), {"Content-Type": "text/csv"}))
+    out.append(_request(url + "/feature_importance_bulk", json.dumps({"data": []}).encode(),
+                        {"Content-Type": "application/json"}))
+    out.append(_request(url + "/nope"))
+    out.append(_request(url + "/healthz"))
+    out.append(_request(url + "/readyz"))
+    return out
+
+
+@pytest.fixture(scope="module")
+def telemetry_pair():
+    """(port responses, port scrape, JAX responses, JAX scrape, port and
+    JAX services' registries, both base URLs' bad-query answers) for the
+    committed model on the CPU."""
+    from cobalt_smart_lender_ai_tpu.serve import make_async_server as jax_make_async_server
+
+    out = {}
+    jax_svc = JaxScorerService.from_store(
+        JaxStore(COMMITTED), JaxServeConfig(prewarm_all_buckets=False, score_cache_size=0)
+    )
+    port_svc = ScorerService.from_store(ObjectStore(COMMITTED), ServeConfig(), device="cpu")
+    servers = {"jax": jax_make_async_server(jax_svc, "127.0.0.1", 0),
+               "port": make_async_server(port_svc, "127.0.0.1", 0)}
+    try:
+        for side, server in servers.items():
+            url = f"http://127.0.0.1:{server.port}"
+            out[side] = _traffic(url)
+            out[side + "_bad"] = [_request(url + q) for q in BAD_DEBUG_QUERIES]
+            out[side + "_metrics"] = _request(url + "/metrics")
+            out[side + "_slowest"] = _request(url + "/debug/slowest")
+            out[side + "_requests"] = _request(url + "/debug/requests?limit=3&phase=dispatch")
+            out[side + "_programs"] = _request(url + "/debug/programs")
+            out[side + "_slo"] = _request(url + "/slo")
+            out[side + "_trace"] = _request(url + "/debug/trace")
+    finally:
+        for server in servers.values():
+            server.close()
+        jax_svc.close()
+        port_svc.close()
+    out["port_registry"], out["jax_registry"] = port_svc.registry, jax_svc.registry
+    return out
+
+
+def test_every_port_family_is_the_references(telemetry_pair):
+    from cobalt_smart_lender_ai_tpu.telemetry import parse_exposition as jax_parse
+
+    from cobalt_smart_lender_ai_tpu_torch.telemetry import parse_exposition
+
+    status, headers, text = telemetry_pair["port_metrics"]
+    assert status == 200 and headers["Content-Type"] == telemetry_pair["jax_metrics"][1]["Content-Type"]
+    port = parse_exposition(text.decode())
+    ref = jax_parse(telemetry_pair["jax_metrics"][2].decode())
+    ref_fams = {f.name: f for f in telemetry_pair["jax_registry"].families()}
+    published = {f.name: f for f in telemetry_pair["port_registry"].families()}
+    assert set(published) <= set(ref_fams), sorted(set(published) - set(ref_fams))
+    for name, fam in published.items():
+        assert (fam.kind, tuple(fam.labelnames)) == (ref_fams[name].kind, tuple(ref_fams[name].labelnames)), name
+        assert port[name]["type"] == ref[name]["type"], name
+    for family in ("cobalt_request_latency_seconds", "cobalt_microbatch_batches_total",
+                   "cobalt_bulk_dispatches_total", "cobalt_program_dispatches_total",
+                   "cobalt_device_mem_bytes", "cobalt_slo_burn_rate", "cobalt_model_info",
+                   "cobalt_shap_degraded_total", "cobalt_request_phase_seconds"):
+        assert family in published, family
+
+
+def _counts(registry, family: str, kind: str) -> dict:
+    fam = next(f for f in registry.families() if f.name == family)
+    return {
+        labels: (child.count if kind == "histogram" else child.value)
+        for labels, child in fam._items()
+    }
+
+
+def test_request_and_error_counts_match_the_references(telemetry_pair):
+    port, ref = telemetry_pair["port_registry"], telemetry_pair["jax_registry"]
+    assert _counts(port, "cobalt_request_errors_total", "counter") == _counts(
+        ref, "cobalt_request_errors_total", "counter"
+    )
+    port_lat = _counts(port, "cobalt_request_latency_seconds", "histogram")
+    ref_lat = _counts(ref, "cobalt_request_latency_seconds", "histogram")
+    data_plane = {k: v for k, v in ref_lat.items() if k[0] != "/metrics"}
+    assert {k: v for k, v in port_lat.items() if k[0] != "/metrics"} == data_plane
+    assert data_plane[("/predict", "200")] == 6 and data_plane[("unmatched", "404")] == 1
+    statuses = [r[0] for r in telemetry_pair["port"]]
+    assert statuses == [r[0] for r in telemetry_pair["jax"]]
+
+
+def test_request_ids_are_echoed_and_minted(telemetry_pair):
+    for side in ("port", "jax"):
+        for i, (status, headers, _) in enumerate(telemetry_pair[side][:6]):
+            rid = headers.get("X-Request-ID")
+            assert rid == (f"client-{i}" if i % 2 else rid) and rid, (side, i)
+        minted = [telemetry_pair[side][i][1]["X-Request-ID"] for i in (0, 2, 4)]
+        assert len(set(minted)) == 3
+    assert telemetry_pair["port_metrics"][1].get("X-Request-ID")
+
+
+def test_debug_routes_reject_bad_queries_as_the_reference(telemetry_pair):
+    port = [(s, json.loads(b)) for s, _, b in telemetry_pair["port_bad"]]
+    ref = [(s, json.loads(b)) for s, _, b in telemetry_pair["jax_bad"]]
+    assert port == ref and {s for s, _ in port} == {422}
+
+
+def test_debug_and_slo_bodies_have_the_references_shape(telemetry_pair):
+    for route in ("slowest", "requests", "slo", "programs"):
+        port_status, _, port_body = telemetry_pair[f"port_{route}"]
+        ref_status, _, ref_body = telemetry_pair[f"jax_{route}"]
+        assert port_status == ref_status == 200, route
+        assert set(json.loads(port_body)) == set(json.loads(ref_body)), route
+    slowest = json.loads(telemetry_pair["port_slowest"][2])["slowest"]
+    predict = [r for r in slowest if r["route"] == "/predict" and r["status"] == 200]
+    assert predict and all({"validate", "dispatch"} <= set(r["phases_ms"]) for r in predict)
+    recent = json.loads(telemetry_pair["port_requests"][2])["recent"]
+    assert len(recent) == 3 and all("dispatch" in r["phases_ms"] for r in recent)
+    trace = json.loads(telemetry_pair["port_trace"][2])
+    names = {e["name"] for e in trace["traceEvents"]}
+    assert {"http.request", "serve.dispatch", "serve.microbatch_dispatch", "serve.validate"} <= names
+    programs = json.loads(telemetry_pair["port_programs"][2])["programs"]
+    assert any(p["name"].startswith("score_forest_plain/f32/") for p in programs)
