@@ -168,6 +168,43 @@ Phases, each of which must pass:
     d. 10,000 recorded dispatches timed on the host (µs each), and that
        times 5c's launches as a share of 5c's fit wall.
 
+12. the serving contract past the happy path, right after phase 9, each
+    part on its own `ScorerService` on the card behind the HTTP server,
+    over a temporary store holding the committed model (A), the same
+    forest cut to its first 150 trees (B) and a poisoned ``.npz``:
+    a. admission: 32 concurrent /predict against ``max_in_flight=4`` (the
+       batcher held, so exactly 4 are admitted) and 40 at once against 50
+       requests/s with a burst of 8 (on a held service clock; one more
+       admitted once 30 ms of it passed): every answer 200 or a typed 429
+       with ``Retry-After``, the counts equal to
+       ``cobalt_admission_admitted_total`` and
+       ``cobalt_admission_shed_total{gate}``, one launch per micro-batch;
+    b. the score cache: 16 distinct payloads, then the same 16 respelled
+       (aliases, ints and floats, key order): 16 hits, no launch and no
+       program dispatch, the bodies bit for bit; ms per hit and per miss;
+    c. hot reload under load: 8 client threads send /predict with 64 fixed
+       rows for 1 s, then for about 3 s more while 10 ``POST /admin/reload``
+       swap A -> B -> A ... and one to the poisoned key rolls back (500
+       ``reload_failed``):
+       every answer is its row's probability under A or B bit for bit (the
+       kernel's, scored directly first), every micro-batch (the request
+       ids of its ``serve.microbatch_dispatch`` span) is all A or all B,
+       requests sent after a swap returned get the new model, a payload
+       cached under A answers with B's probability after a swap, the
+       launches are the micro-batches plus each candidate's warm-up and
+       smoke launches, and ``cobalt_device_mem_bytes`` after the swaps is
+       within one model's bytes of its value before; reload wall seconds
+       and the requests' p50/p99 during the swaps and in the first second;
+    d. the watchdog: the worker killed (a `BaseException` raised in Python
+       before the launch) holding a batch of 8 queued /predict: 8 typed 500
+       ``worker_dead``, one restart in
+       ``cobalt_microbatch_worker_restarts_total`` and ``/readyz``, and the
+       next /predict scored on the card with its row's kernel bits;
+    e. the breaker: every store read failing, three reloads roll back and
+       the fourth answers 503 ``circuit_open`` with ``Retry-After`` without
+       reading; the store back and 0.5 s passed, the reload swaps and the
+       breaker walked open -> half_open -> closed; /predict 200 throughout.
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing neither, when
 CUDA is unavailable or any phase fails. ``--only-scoring`` runs phases 1-4,
@@ -182,13 +219,17 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
+import http.client
 import json
 import logging
 import math
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime
@@ -202,6 +243,7 @@ from torch.profiler import ProfilerActivity, profile
 from cobalt_smart_lender_ai_tpu_torch.config import (
     GBDTConfig,
     PipelineConfig,
+    ReliabilityConfig,
     RFEConfig,
     ServeConfig,
     TuneConfig,
@@ -252,7 +294,11 @@ from cobalt_smart_lender_ai_tpu_torch.pipeline import (
     run_pipeline,
     stage_fingerprints,
 )
-from cobalt_smart_lender_ai_tpu_torch.reliability import PipelineCheckpoint
+from cobalt_smart_lender_ai_tpu_torch.reliability import (
+    FaultInjectingStore,
+    FaultSpec,
+    PipelineCheckpoint,
+)
 from cobalt_smart_lender_ai_tpu_torch.serve.http_asyncio import make_async_server
 from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService
 from cobalt_smart_lender_ai_tpu_torch.telemetry import (
@@ -1898,8 +1944,10 @@ def observability_serving_phase(card: str, kernel_records: list[dict], device: s
             _post(base + "/predict_bulk_csv", "\n".join(lines).encode(), "text/csv")
             _post(base + "/feature_importance_bulk", json.dumps({"data": rows[:2]}).encode(),
                   "application/json")
-            burst = request_rows(64, SEED + 11)
-            for _ in range(BURSTS_64):
+            # Distinct rows per burst: a repeated payload is a score-cache
+            # hit, which never queues. 64 in flight is the admission cap.
+            for b in range(BURSTS_64):
+                burst = request_rows(64, SEED + 11 + b)
                 with service.batcher.pause():
                     futs = [pool.submit(_post, base + "/predict", json.dumps(r).encode(),
                                         "application/json") for r in burst]
@@ -2078,6 +2126,540 @@ def recording_overhead(card: str, fit_s: float, fit_launches: int) -> dict:
     return out
 
 
+# -- the serving contract past the happy path (phase 12) ---------------------------
+
+#: Artifact B of 12c: the committed forest cut to its first trees.
+B_KEY = "models/gbdt/model_tree_first150"
+B_TREES = 150
+POISON_KEY = "models/poison"
+#: Client threads and successful swaps of 12c, the pause between swaps
+#: that stretches the load to about 3 s, and the load's first second with
+#: no swap (the latency to compare with).
+SWAP_CLIENTS = 8
+SWAPS = 10
+SWAP_GAP_S = 0.25
+STEADY_S = 1.0
+#: How often 12c copies the newest spans out of the tracer's ring.
+SPAN_POLL_S = 0.025
+
+
+def _call(url: str, body: bytes | None = None, request_id: str | None = None) -> tuple:
+    """``(status, headers, JSON body)`` of one GET (no body) or POST, error
+    statuses included."""
+    headers = {"Content-Type": "application/json"}
+    if request_id is not None:
+        headers["X-Request-ID"] = request_id
+    req = urllib.request.Request(url, data=body, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, dict(resp.headers), json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def _burst(port: int, bodies: list[bytes]) -> list[tuple]:
+    """POST every body to /predict at once: one connection each, opened
+    first, then every request sent past one barrier. ``(status, headers,
+    JSON body)`` per body, in order."""
+    conns = [http.client.HTTPConnection("127.0.0.1", port, timeout=120) for _ in bodies]
+    for c in conns:
+        c.connect()
+    barrier = threading.Barrier(len(bodies))
+
+    def send(i: int) -> tuple:
+        barrier.wait()
+        conns[i].request("POST", "/predict", bodies[i], {"Content-Type": "application/json"})
+        r = conns[i].getresponse()
+        return r.status, dict(r.getheaders()), json.loads(r.read())
+
+    try:
+        with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+            return list(pool.map(send, range(len(bodies))))
+    finally:
+        for c in conns:
+            c.close()
+
+
+def _respelled(payload: dict) -> dict:
+    """The same application spelled otherwise: the underscored field names
+    for the two aliases, ints as floats and integral floats as ints, keys
+    in reverse order."""
+    field = {v: k for k, v in schema.SERVING_FIELD_ALIASES.items()}
+    out = {}
+    for key, value in reversed(list(payload.items())):
+        if isinstance(value, int):
+            value = float(value)
+        elif float(value).is_integer():
+            value = int(value)
+        out[schema.SERVING_FIELD_ALIASES.get(key, key) if key in field else key] = value
+    return out
+
+
+def hardening_store(root: Path, device: str = "cuda") -> tuple[ObjectStore, dict]:
+    """A temporary store with the committed model (A) under its own key,
+    the same forest cut to its first `B_TREES` trees (B) and a poisoned
+    ``.npz``; returns the store and ``{key: forest on device}``."""
+    store = ObjectStore(str(root))
+    art = GBDTArtifact.load(ObjectStore(str(STORE)), MODEL_KEY, "cpu")
+    art.save(store, MODEL_KEY)
+    forest = art.forest
+    cut = dataclasses.replace(forest, **{
+        f.name: getattr(forest, f.name)[:B_TREES]
+        for f in dataclasses.fields(forest) if f.name != "depth"
+    })
+    dataclasses.replace(art, forest=cut).save(store, B_KEY)
+    store.put_bytes(POISON_KEY + ".npz", b"\x00poisoned")
+    return store, {MODEL_KEY: forest.to(device), B_KEY: cut.to(device)}
+
+
+def _kernel_probs(forest, rows: list[dict]) -> np.ndarray:
+    """P(default) of each request row by one `fused_score` launch with SHAP
+    on the forest's device, as a micro-batch scores it."""
+    F = len(schema.SERVING_FEATURES)
+    X = torch.tensor([[float(r[k]) for k in _request_keys()] for r in rows],
+                     dtype=torch.float32, device=forest.device)
+    return fused_score(pack_forest(forest, F), X, n_features=F)[1].cpu().numpy()
+
+
+def _same_prob(got: float, want, device: str) -> bool:
+    """Bit for bit on the card, whose sigmoid does not depend on a row's
+    batch; within `TOL_PROB` for the plain version on the CPU, whose
+    vectorised and scalar sigmoid paths may differ in the last bit."""
+    return got == float(want) if device == "cuda" else abs(got - float(want)) <= TOL_PROB
+
+
+def _metric(fams: dict, family: str, **labels) -> float:
+    key = family + "".join(f"|{k}={v}" for k, v in sorted(labels.items()))
+    return fams[family]["samples"][key]
+
+
+def _scrape(base: str) -> dict:
+    status, _, text = _get_with_id(base + "/metrics", None)
+    if status != 200:
+        raise AssertionError(f"/metrics answered {status}")
+    return parse_exposition(text.decode())
+
+
+class _HeldClock:
+    """A service clock that moves only when told to: 12a's rate gate sees
+    its 40 requests arrive at one instant, as the token bucket's arithmetic
+    would on a burst that took no time."""
+
+    def __init__(self):
+        self.now = time.monotonic()
+
+    def __call__(self) -> float:
+        return self.now
+
+
+def _serve(store: ObjectStore, device: str, clock=time.monotonic, **kw):
+    """A service (with any `ServeConfig` fields, ``reliability=`` a dict of
+    `ReliabilityConfig` fields) and its server."""
+    rel = ReliabilityConfig(**kw.pop("reliability", {}))
+    service = ScorerService.from_store(
+        store, ServeConfig(reliability=rel, **kw), device=device, clock=clock
+    )
+    server = make_async_server(service, "127.0.0.1", 0)
+    return service, server, f"http://127.0.0.1:{server.port}"
+
+
+def admission_check(store: ObjectStore, device: str = "cuda") -> dict:
+    """12a: 32 concurrent /predict against an in-flight cap of 4 (the
+    batcher held, so the 4 admitted keep their slots), and 40 at once
+    against 50 requests/s with a burst of 8 (on a held service clock, then
+    one more after 30 ms of it): every answer 200 or a typed 429 with
+    ``Retry-After``, the counts equal to the admission families, one launch
+    per micro-batch."""
+    out = {}
+    for gate, rel, n in (("capacity", {"max_in_flight": 4}, 32),
+                         ("rate", {"rate_limit_rps": 50.0, "rate_limit_burst": 8}, 40)):
+        clock = _HeldClock()
+        service, server, base = _serve(
+            store, device, clock=clock if gate == "rate" else time.monotonic, reliability=rel
+        )
+        try:
+            bodies = [json.dumps(r).encode() for r in request_rows(n, SEED + 120 + n)]
+            launches, batches = fused_score.launches, service.batcher.batches
+            if gate == "capacity":
+                with ThreadPoolExecutor(max_workers=1) as pool, service.batcher.pause():
+                    fut = pool.submit(_burst, server.port, bodies)
+                    while service.admission.stats()["shed_capacity"] < n - 4:
+                        time.sleep(0.001)
+                answers = fut.result()
+            else:
+                answers = _burst(server.port, bodies)
+                clock.now += 1.5 / rel["rate_limit_rps"]  # one token back, not two
+                answers.append(_call(base + "/predict", json.dumps(request_rows(1, SEED + 99)[0])
+                                     .encode()))
+            fams = _scrape(base)
+            batches = service.batcher.batches - batches
+            launches = fused_score.launches - launches
+        finally:
+            server.close()
+            service.close()
+        ok = [a for a in answers if a[0] == 200]
+        shed = [a for a in answers if a[0] == 429]
+        if len(ok) + len(shed) != len(answers) or (gate == "rate" and answers[-1][0] != 200):
+            raise AssertionError(f"12a {gate}: statuses {sorted({a[0] for a in answers})}")
+        for _, headers, body in shed:
+            if body.get("error") != "shed" or int(headers.get("Retry-After", 0)) < 1:
+                raise AssertionError(f"12a {gate}: an untyped 429 {body} {headers}")
+        admitted = _metric(fams, "cobalt_admission_admitted_total")
+        shed_n = _metric(fams, "cobalt_admission_shed_total", gate=gate)
+        if (len(ok), len(shed)) != (admitted, shed_n):
+            raise AssertionError(f"12a {gate}: {len(ok)} 200s and {len(shed)} 429s, the families "
+                                 f"{admitted} admitted and {shed_n} shed")
+        if len(shed) != n - (4 if gate == "capacity" else 8):
+            raise AssertionError(f"12a {gate}: {len(shed)} of {n} shed")
+        if device == "cuda" and launches != batches:
+            raise AssertionError(f"12a {gate}: {launches} launches for {batches} micro-batches")
+        out[gate] = {"ok": len(ok), "shed": len(shed), "batches": batches, "launches": launches,
+                     "retry_after": sorted({h["Retry-After"] for _, h, _ in shed})}
+    return out
+
+
+def cache_check(store: ObjectStore, device: str = "cuda") -> dict:
+    """12b: 16 distinct payloads, then the same 16 respelled (aliases, ints
+    and floats, key order): the second pass is 16 hits that launch nothing
+    and dispatch no program, with the first pass's bodies bit for bit."""
+    service, server, base = _serve(store, device)
+    entry = "score_forest/" if device == "cuda" else "score_forest_plain/"
+    try:
+        rows = request_rows(16, SEED + 140)
+        miss_ms, hit_ms, first, second = [], [], [], []
+        for r in rows:
+            t0 = time.perf_counter()
+            first.append(_call(base + "/predict", json.dumps(r).encode()))
+            miss_ms.append((time.perf_counter() - t0) * 1e3)
+        launches, programs = fused_score.launches, program_counts(entry)
+        for r in rows:
+            t0 = time.perf_counter()
+            second.append(_call(base + "/predict", json.dumps(_respelled(r)).encode()))
+            hit_ms.append((time.perf_counter() - t0) * 1e3)
+        added = fused_score.launches - launches
+        dispatched = program_delta(programs, program_counts(entry))
+        ready = _call(base + "/readyz")[2]
+    finally:
+        server.close()
+        service.close()
+    if any(a[0] != 200 for a in first + second):
+        raise AssertionError(f"12b: statuses {[a[0] for a in first + second]}")
+    if added or dispatched:
+        raise AssertionError(f"12b: the cached pass launched {added} times, programs {dispatched}")
+    if [a[2] for a in second] != [a[2] for a in first]:
+        raise AssertionError("12b: a cached body differs from its first answer")
+    cache = ready["score_cache"]
+    if (cache["hits"], cache["misses"], cache["entries"]) != (16, 16, 16):
+        raise AssertionError(f"12b: /readyz score_cache {cache}")
+    return {"hits": cache["hits"], "misses": cache["misses"],
+            "miss_ms_p50": float(np.median(miss_ms)), "hit_ms_p50": float(np.median(hit_ms)),
+            "hit_ms_max": max(hit_ms)}
+
+
+def _model_bytes(model) -> int:
+    """Bytes of the tensors that one served model holds: its pack and its
+    forest."""
+    seen, total = set(), 0
+    for obj in (model.pack, model.artifact.forest):
+        for f in dataclasses.fields(obj):
+            t = getattr(obj, f.name)
+            if isinstance(t, torch.Tensor) and t.data_ptr() not in seen:
+                seen.add(t.data_ptr())
+                total += t.numel() * t.element_size()
+    return total
+
+
+def _live_bytes(base: str) -> float:
+    """``cobalt_device_mem_bytes`` of the card, scraped once the card is
+    idle."""
+    torch.cuda.synchronize()
+    return _label_samples(_scrape(base), "cobalt_device_mem_bytes", "device")["cuda:0"]
+
+
+def reload_check(card: str, store: ObjectStore, forests: dict, device: str = "cuda") -> dict:
+    """12c: `SWAP_CLIENTS` threads send /predict with 64 fixed rows for
+    `STEADY_S`, then for about 3 s more while `SWAPS` reloads over HTTP
+    swap A -> B -> A ... and one reload of the poisoned key rolls back. Every 200 carries its row's
+    probability under A or B bit for bit (the kernel's, scored directly
+    first), every micro-batch (its ``serve.microbatch_dispatch`` span's
+    request ids) is all A or all B, every request sent after a swap
+    returned and answered before the next began has the new model's bits,
+    the launches are the micro-batches plus each candidate's warm-up and
+    smoke launches, and the card's live bytes after the swaps are within
+    one model of those before."""
+    rows = request_rows(64, SEED + 160)
+    bodies = [json.dumps(r).encode() for r in rows]
+    ref = {MODEL_KEY: _kernel_probs(forests[MODEL_KEY], rows),
+           B_KEY: _kernel_probs(forests[B_KEY], rows)}
+    if np.abs(ref[MODEL_KEY] - ref[B_KEY]).min() <= 2 * TOL_PROB:
+        raise AssertionError("12c: a probe row scores the same under A and B")
+    cuda = device == "cuda"
+    service, server, base = _serve(store, device)
+    try:
+        # A payload cached under A answers with B's probability after a swap.
+        first = _call(base + "/predict", bodies[0])[2]["prob_default"]
+        again = _call(base + "/predict", bodies[0])[2]["prob_default"]
+        swap = _call(base + "/admin/reload", json.dumps({"model_key": B_KEY}).encode())
+        after = _call(base + "/predict", bodies[0])[2]["prob_default"]
+        back = _call(base + "/admin/reload", json.dumps({"model_key": MODEL_KEY}).encode())
+        a0, b0 = ref[MODEL_KEY][0], ref[B_KEY][0]
+        if not (_same_prob(first, a0, device) and again == first and _same_prob(after, b0, device)
+                and (swap[0], back[0]) == (200, 200)):
+            raise AssertionError(f"12c: cached A {first} {again}, after the swap {after}; "
+                                 f"reloads {swap[0]} {back[0]}")
+        mem_before = _live_bytes(base) if cuda else 0.0
+        one_model = _model_bytes(service._model)
+        launches, batches = fused_score.launches, service.batcher.batches
+        stop, clients_done = threading.Event(), threading.Event()
+        answers: list = []
+        spans: dict = {}
+        lock = threading.Lock()
+
+        def client(t: int) -> None:
+            i = 0
+            while not stop.is_set():
+                j = (t * 7 + i) % len(rows)
+                rid = f"12c-{t}-{i}"
+                t0 = time.perf_counter()
+                status, _, body = _call(base + "/predict", bodies[j], rid)
+                t1 = time.perf_counter()
+                with lock:
+                    answers.append((rid, j, t0, t1, status, body.get("prob_default")))
+                i += 1
+
+        def poll() -> None:
+            while True:
+                done = clients_done.is_set()
+                for s in default_tracer().export(limit=1024):
+                    if s["name"] == "serve.microbatch_dispatch":
+                        spans[s["span_id"]] = s["attrs"].get("request_ids", [])
+                if done:
+                    return
+                time.sleep(SPAN_POLL_S)
+
+        epochs, poisoned, reload_s = [], None, []
+        with ThreadPoolExecutor(max_workers=SWAP_CLIENTS + 1) as pool:
+            poller = pool.submit(poll)
+            clients = [pool.submit(client, t) for t in range(SWAP_CLIENTS)]
+            time.sleep(STEADY_S)
+            key = MODEL_KEY
+            for k in range(SWAPS):
+                if k == SWAPS // 2:
+                    poisoned = _call(base + "/admin/reload",
+                                     json.dumps({"model_key": POISON_KEY}).encode())
+                key = B_KEY if key == MODEL_KEY else MODEL_KEY
+                t0 = time.perf_counter()
+                status, _, body = _call(base + "/admin/reload", json.dumps({"model_key": key}).encode())
+                t1 = time.perf_counter()
+                if status != 200:
+                    raise AssertionError(f"12c: reload {k} answered {status} {body}")
+                epochs.append((t0, t1, key))
+                reload_s.append(t1 - t0)
+                time.sleep(SWAP_GAP_S)
+            stop.set()
+            for c in clients:
+                c.result()
+            clients_done.set()
+            poller.result()
+        batches = service.batcher.batches - batches
+        launches = fused_score.launches - launches
+        warm = service._model.warm_buckets
+        per_candidate = len(warm["shap"]) + len(warm["margin"]) + 1
+        ready = _call(base + "/readyz")[2]
+        gc.collect()
+        mem_after = _live_bytes(base) if cuda else 0.0
+    finally:
+        server.close()
+        service.close()
+    if poisoned is None or (poisoned[0], poisoned[2].get("error")) != (500, "reload_failed"):
+        raise AssertionError(f"12c: the poisoned reload answered {poisoned}")
+    if any(a[4] != 200 for a in answers):
+        raise AssertionError(f"12c: statuses {sorted({a[4] for a in answers})}")
+    model_of = {}
+    for rid, j, t0, t1, _, prob in answers:
+        which = [k for k in ref if _same_prob(prob, ref[k][j], device)]
+        if not which:
+            raise AssertionError(f"12c: request {rid} row {j} answered {prob!r}, neither A "
+                                 f"{ref[MODEL_KEY][j]!r} nor B {ref[B_KEY][j]!r}")
+        model_of[rid] = which[0]
+    for e, (_, end, key) in enumerate(epochs):
+        nxt = epochs[e + 1][0] if e + 1 < len(epochs) else math.inf
+        stale = [rid for rid, j, t0, t1, _, _ in answers
+                 if t0 >= end and t1 <= nxt and model_of[rid] != key]
+        if stale:
+            raise AssertionError(f"12c: {len(stale)} requests after swap {e} answered by the "
+                                 f"old model, e.g. {stale[:3]}")
+    ours = {rid for rid, *_ in answers}
+    mixed = [ids for ids in spans.values()
+             if len({model_of[i] for i in ids if i in ours}) > 1]
+    traced = sum(1 for ids in spans.values() if any(i in ours for i in ids))
+    if mixed:
+        raise AssertionError(f"12c: {len(mixed)} micro-batches mixed models, e.g. {mixed[0]}")
+    if traced != batches:
+        raise AssertionError(f"12c: {traced} traced micro-batches of ours, {batches} run")
+    if cuda and launches != batches + SWAPS * per_candidate:
+        raise AssertionError(f"12c: {launches} launches for {batches} micro-batches and {SWAPS} "
+                             f"candidates of {per_candidate} warm-up and smoke launches")
+    if abs(mem_after - mem_before) > one_model:
+        raise AssertionError(f"12c: {mem_before} live bytes before the swaps, {mem_after} after "
+                             f"(one model is {one_model})")
+    first_swap = epochs[0][0]
+    steady = np.array([(t1 - t0) * 1e3 for _, _, t0, t1, _, _ in answers if t1 < first_swap])
+    lat = np.array([(t1 - t0) * 1e3 for _, _, t0, t1, _, _ in answers if t0 >= first_swap])
+    out = {
+        "requests": len(answers),
+        "micro_batches": batches,
+        "launches": launches,
+        "swaps": SWAPS,
+        "reload_s_mean": float(np.mean(reload_s)),
+        "reload_s_max": float(np.max(reload_s)),
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p99_ms": float(np.percentile(lat, 99)),
+        "steady_requests": len(steady),
+        "steady_p50_ms": float(np.percentile(steady, 50)),
+        "steady_p99_ms": float(np.percentile(steady, 99)),
+        "hits": ready["score_cache"]["hits"],
+        "device_mem_bytes_before": mem_before,
+        "device_mem_bytes_after": mem_after,
+        "one_model_bytes": one_model,
+    }
+    print(f"hardening reload (12c): {SWAPS} swaps under {SWAP_CLIENTS} clients, reload wall "
+          f"{out['reload_s_mean']:.4f} s mean {out['reload_s_max']:.4f} s max; /predict p50 "
+          f"{out['p50_ms']:.3f} ms p99 {out['p99_ms']:.3f} ms over the {len(lat)} requests sent "
+          f"during the swaps, {out['steady_p50_ms']:.3f} / {out['steady_p99_ms']:.3f} ms over "
+          f"the {len(steady)} answered before the first ({batches} micro-batches, "
+          f"{out['hits']} cache hits in all) [{card}]")
+    return out
+
+
+class _WorkerKilled(BaseException):
+    """Raised once on the micro-batch worker, around a launch: not an
+    `Exception`, so the per-batch containment does not catch it."""
+
+
+def watchdog_check(store: ObjectStore, device: str = "cuda") -> dict:
+    """12d: the worker dies holding a batch of 8 queued /predict (killed in
+    Python before the launch): all 8 answer the typed 500 ``worker_dead``,
+    one restart is counted in the family and ``/readyz``, and the next
+    /predict scores on the card with the bits the kernel gives its row."""
+    service, server, base = _serve(store, device)
+    try:
+        rows = request_rows(8, SEED + 180)
+        want = _kernel_probs(service._model.artifact.forest, rows)
+        batcher = service.batcher
+        real = batcher._dispatch
+        died: list = []
+
+        def dispatch(batch):
+            if not died:
+                died.append(len(batch))
+                raise _WorkerKilled("micro-batch worker killed before its launch")
+            return real(batch)
+
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            with batcher.pause():
+                futs = [pool.submit(_call, base + "/predict", json.dumps(r).encode()) for r in rows]
+                while batcher.queue_depth() < 8:
+                    time.sleep(0.001)
+                batcher._dispatch = dispatch
+            answers = [f.result() for f in futs]
+        launches = fused_score.launches
+        status, _, body = _call(base + "/predict", json.dumps(rows[0]).encode())
+        launches = fused_score.launches - launches
+        fams = _scrape(base)
+        ready = _call(base + "/readyz")[2]
+    finally:
+        server.close()
+        service.close()
+    if died != [8] or [(a[0], a[2].get("error")) for a in answers] != [(500, "worker_dead")] * 8:
+        raise AssertionError(f"12d: died holding {died}, answers {[(a[0], a[2]) for a in answers]}")
+    restarts = _metric(fams, "cobalt_microbatch_worker_restarts_total")
+    dead = _metric(fams, "cobalt_microbatch_worker_dead_total")
+    if (restarts, dead, ready["microbatch"]["worker_restarts"]) != (1, 8, 1):
+        raise AssertionError(f"12d: restarts {restarts}, dead {dead}, /readyz {ready['microbatch']}")
+    if status != 200 or not _same_prob(body["prob_default"], want[0], device) or (
+            device == "cuda" and launches != 1):
+        raise AssertionError(f"12d: after the restart {status}, {launches} launches, "
+                             f"{body.get('prob_default')!r} against the kernel's {want}")
+    return {"worker_dead": 8, "restarts": 1, "next_launches": launches}
+
+
+def breaker_check(store: ObjectStore, device: str = "cuda") -> dict:
+    """12e: every read of the store fails: three reloads roll back, the
+    fourth answers 503 ``circuit_open`` with ``Retry-After`` and no read;
+    the store back and the reset time passed, the next reload swaps, and
+    the breaker has walked open -> half_open -> closed. /predict answers
+    200 between each step."""
+    flaky = FaultInjectingStore(store, faults={})
+    service, server, base = _serve(
+        flaky, device, reliability={"breaker_failure_threshold": 3, "breaker_reset_s": 0.5}
+    )
+    rows = iter(request_rows(6, SEED + 200))
+    predicts, reloads = [], []
+
+    def step(body: bytes = b"{}") -> None:
+        reloads.append(_call(base + "/admin/reload", body))
+        predicts.append(_call(base + "/predict", json.dumps(next(rows)).encode())[0])
+
+    try:
+        flaky.faults["get"] = FaultSpec(rate=1.0)
+        for _ in range(3):
+            step()
+        gets = flaky.calls["get"]
+        step()
+        untouched = flaky.calls["get"] == gets
+        del flaky.faults["get"]
+        time.sleep(0.55)
+        step()
+        transitions = list(service.store_breaker.transitions)
+        state = service.store_breaker.state
+    finally:
+        server.close()
+        service.close()
+    shapes = [(s, b.get("error")) for s, _, b in reloads]
+    want = [(500, "reload_failed")] * 3 + [(503, "circuit_open"), (200, None)]
+    if shapes != want or not untouched or "Retry-After" not in reloads[3][1]:
+        raise AssertionError(f"12e: reloads {shapes}, store read while open: {not untouched}, "
+                             f"headers {reloads[3][1]}")
+    if transitions != ["open", "half_open", "closed"] or state != "closed" or predicts != [200] * 5:
+        raise AssertionError(f"12e: transitions {transitions}, state {state}, /predict {predicts}")
+    return {"reloads": shapes, "transitions": transitions, "retry_after": reloads[3][1]["Retry-After"]}
+
+
+def hardening_phase(card: str, device: str = "cuda") -> dict:
+    """Phase 12: admission, the score cache, hot reload under load, the
+    watchdog and the store's breaker, each on its own service on the card,
+    over HTTP, against a temporary store holding A, B and a poisoned
+    object. ``launches`` counts the kernel's launches over the phase."""
+    t0 = time.perf_counter()
+    # The phase answers hundreds of 429s and 500s by design: one warning
+    # line each would flood stderr.
+    http_log = logging.getLogger("cobalt.serve.http_asyncio")
+    level = http_log.level
+    http_log.setLevel(logging.ERROR)
+    fused_score.launches = 0
+    try:
+        out = _hardening(card, device)
+    finally:
+        http_log.setLevel(level)
+    out["launches"] = fused_score.launches
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"hardening (12): {json.dumps(out)} [{card}]")
+    print(f"hardening cache (12b): per hit {out['cache']['hit_ms_p50']:.3f} ms p50 against "
+          f"{out['cache']['miss_ms_p50']:.3f} ms per miss over HTTP [{card}]")
+    return out
+
+
+def _hardening(card: str, device: str) -> dict:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hardening_") as root:
+        store, forests = hardening_store(Path(root), device)
+        out = {"admission": admission_check(store, device), "cache": cache_check(store, device)}
+        out["reload"] = reload_check(card, store, forests, device)
+        out["watchdog"] = watchdog_check(store, device)
+        out["breaker"] = breaker_check(store, device)
+    return out
+
+
 def print_scoring_split(card: str) -> None:
     for precision in ("f32", *QUANTIZED):
         for r in scoring_split("cuda", precision):
@@ -2147,6 +2729,7 @@ def main() -> int:
     if args.only_scoring:
         print_scoring_split(card)
         return 0
+    hardening = hardening_phase(card)
     t0 = time.perf_counter()
     hist_records, training = training_phase(card)
     training["phase_s"] = time.perf_counter() - t0
@@ -2197,6 +2780,7 @@ def main() -> int:
             "resume_launches": resumed["predict_raw"]["launches"],
             "precisions": ["f32", *QUANTIZED],
             "quantized_launches": quantized_serving["launches"],
+            "hardening_launches": hardening["launches"],
             "max_abs_err": max(
                 [max(r.get("prob", 0.0), r.get("phis", 0.0)) for r in records + quantized_records]
                 + [raw["serve"]["prob_max_abs_err"], raw["degraded"]["prob_max_abs_err"],

@@ -69,6 +69,48 @@ class GBDTConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ReliabilityConfig:
+    """The store's retry policy, the pipeline's stage checkpoints, and the
+    serving admission and circuit-breaker limits (the fields of the
+    reference's ``ReliabilityConfig`` that the port reads; the serving
+    deadline and SHAP degrade stay flat on `ServeConfig`)."""
+
+    #: Retry policy for store I/O (`reliability.retry.RetryPolicy`).
+    max_attempts: int = 4
+    base_delay_s: float = 0.05
+    max_delay_s: float = 2.0
+    backoff_multiplier: float = 2.0
+    jitter: float = 0.1
+    deadline_s: float | None = None
+    #: Wrap the pipeline's store in a `ResilientStore` (retries and reads
+    #: verified against their content pointers).
+    wrap_store: bool = True
+    verify_reads: bool = True
+    #: Write a manifest after each stage, so a crashed run can resume.
+    checkpoints: bool = True
+    checkpoint_prefix: str = "checkpoints/"
+    #: Restore the stages whose manifests still validate.
+    resume: bool = False
+    #: Token-bucket admission rate for scoring requests (requests/second,
+    #: sustained). ``None`` disables rate limiting.
+    rate_limit_rps: float | None = None
+    #: Burst capacity of the admission token bucket.
+    rate_limit_burst: int = 16
+    #: Cap on concurrently executing scoring requests; excess load is shed as
+    #: HTTP 429 with ``Retry-After``. ``None`` disables the cap.
+    max_in_flight: int | None = 64
+    #: ``Retry-After`` (seconds) of a request shed at the in-flight cap (the
+    #: rate limiter computes its own from the bucket's deficit).
+    shed_retry_after_s: float = 1.0
+    #: Circuit breaker over the service's store restores (startup, hot
+    #: reload): consecutive failures to trip open, seconds until a half-open
+    #: probe, and how many probes may fly at once.
+    breaker_failure_threshold: int = 5
+    breaker_reset_s: float = 30.0
+    breaker_half_open_max: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Serving contract: bind address, model key, batching and request bounds."""
 
@@ -119,6 +161,12 @@ class ServeConfig:
     slo_availability_target: float = 0.999
     slo_windows_s: tuple[float, ...] = (60.0, 3600.0)
     slo_fast_burn_threshold: float = 14.4
+    #: Content-hash score cache for repeated single-row payloads: an LRU of
+    #: this many entries keyed by the canonicalized feature vector's bytes,
+    #: emptied on every hot reload. 0 disables.
+    score_cache_size: int = 2048
+    #: Admission (rate limit, in-flight cap) and the store's circuit breaker.
+    reliability: ReliabilityConfig = dataclasses.field(default_factory=ReliabilityConfig)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,30 +221,6 @@ class RFEConfig:
 
     def __post_init__(self):
         _check_chunk_trees(self.chunk_trees)
-
-
-@dataclasses.dataclass(frozen=True)
-class ReliabilityConfig:
-    """The store's retry policy and the pipeline's stage checkpoints (the
-    fields of the reference's ``ReliabilityConfig`` that the pipeline
-    reads)."""
-
-    #: Retry policy for store I/O (`reliability.retry.RetryPolicy`).
-    max_attempts: int = 4
-    base_delay_s: float = 0.05
-    max_delay_s: float = 2.0
-    backoff_multiplier: float = 2.0
-    jitter: float = 0.1
-    deadline_s: float | None = None
-    #: Wrap the pipeline's store in a `ResilientStore` (retries and reads
-    #: verified against their content pointers).
-    wrap_store: bool = True
-    verify_reads: bool = True
-    #: Write a manifest after each stage, so a crashed run can resume.
-    checkpoints: bool = True
-    checkpoint_prefix: str = "checkpoints/"
-    #: Restore the stages whose manifests still validate.
-    resume: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

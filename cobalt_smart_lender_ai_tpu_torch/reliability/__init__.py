@@ -1,6 +1,16 @@
-"""Request-path error taxonomy and deadlines; the store's retries and the
-pipeline's stage checkpoints."""
+"""Request-path error taxonomy, deadlines, admission control and the store's
+circuit breaker; the store's retries, fault injection and the pipeline's
+stage checkpoints."""
 
+from cobalt_smart_lender_ai_tpu_torch.reliability.admission import (
+    AdmissionController,
+    TokenBucket,
+    admission_from_config,
+)
+from cobalt_smart_lender_ai_tpu_torch.reliability.breaker import (
+    CircuitBreaker,
+    breaker_from_config,
+)
 from cobalt_smart_lender_ai_tpu_torch.reliability.checkpoint import (
     MANIFEST_FORMAT,
     PipelineCheckpoint,
@@ -12,11 +22,20 @@ from cobalt_smart_lender_ai_tpu_torch.reliability.deadline import (
     start_deadline,
 )
 from cobalt_smart_lender_ai_tpu_torch.reliability.errors import (
+    CircuitOpenError,
     DeadlineExceeded,
     PayloadTooLarge,
+    ReloadFailed,
     RequestError,
+    RequestShed,
     ValidationError,
+    WorkerDead,
     error_response,
+)
+from cobalt_smart_lender_ai_tpu_torch.reliability.faults import (
+    FaultInjectingStore,
+    FaultSpec,
+    InjectedFault,
 )
 from cobalt_smart_lender_ai_tpu_torch.reliability.retry import (
     RetryPolicy,
@@ -28,16 +47,28 @@ from cobalt_smart_lender_ai_tpu_torch.reliability.stores import CorruptObjectErr
 
 __all__ = [
     "MANIFEST_FORMAT",
+    "AdmissionController",
+    "CircuitBreaker",
+    "CircuitOpenError",
     "CorruptObjectError",
     "Deadline",
     "DeadlineExceeded",
+    "FaultInjectingStore",
+    "FaultSpec",
+    "InjectedFault",
     "PayloadTooLarge",
     "PipelineCheckpoint",
+    "ReloadFailed",
     "RequestError",
+    "RequestShed",
     "ResilientStore",
     "RetryPolicy",
+    "TokenBucket",
     "ValidationError",
+    "WorkerDead",
+    "admission_from_config",
     "await_under_deadline",
+    "breaker_from_config",
     "call_with_retry",
     "config_fingerprint",
     "error_response",

@@ -3,26 +3,45 @@
 ==== ====================== ==================================================
 422  ``invalid_input``      request failed the serving schema
 413  ``payload_too_large``  bulk CSV over ``max_bulk_rows``/``max_bulk_bytes``
+429  ``shed``               admission control refused (rate / in-flight cap);
+                            always carries ``Retry-After``
+503  ``circuit_open``       a store-backed dependency is failing fast;
+                            carries ``Retry-After`` (time until half-open)
 504  ``deadline_exceeded``  cooperative cancellation hit the request deadline
+500  ``reload_failed``      hot model swap failed and was rolled back
+500  ``worker_dead``        the micro-batch worker thread died with requests
+                            queued; they are failed typed, never left hanging
 ==== ====================== ==================================================
 """
 
 from __future__ import annotations
 
+import math
+
 
 class RequestError(Exception):
-    """Base of the serving taxonomy: HTTP ``status`` + stable ``code``."""
+    """Base of the serving taxonomy: HTTP ``status`` + stable ``code``.
+
+    ``retry_after_s`` (when set) becomes a ``Retry-After`` header, so clients
+    pace their retries off the server's own estimate."""
 
     status: int = 500
     code: str = "internal"
 
-    def __init__(self, detail: str = ""):
+    def __init__(self, detail: str = "", *, retry_after_s: float | None = None):
         super().__init__(detail)
         self.detail = detail or self.code
+        self.retry_after_s = retry_after_s
 
     def body(self) -> dict:
         """JSON body: FastAPI's ``detail`` convention + the typed ``code``."""
         return {"detail": self.detail, "error": self.code}
+
+    def headers(self) -> dict[str, str]:
+        if self.retry_after_s is None:
+            return {}
+        # Whole seconds, at least 1: "Retry-After: 0" invites a busy retry loop.
+        return {"Retry-After": str(max(1, math.ceil(self.retry_after_s)))}
 
 
 class ValidationError(RequestError, ValueError):
@@ -40,6 +59,22 @@ class PayloadTooLarge(RequestError, ValueError):
     code = "payload_too_large"
 
 
+class RequestShed(RequestError):
+    """Admission control refused the request (token bucket empty or in-flight
+    cap reached) — HTTP 429 with ``Retry-After``."""
+
+    status = 429
+    code = "shed"
+
+
+class CircuitOpenError(RequestError):
+    """A store-backed dependency's circuit breaker is open: fail fast (HTTP
+    503 + ``Retry-After``) instead of tying up a worker in doomed retries."""
+
+    status = 503
+    code = "circuit_open"
+
+
 class DeadlineExceeded(RequestError):
     """The request's wall-clock budget expired at a cooperative checkpoint —
     HTTP 504."""
@@ -48,6 +83,23 @@ class DeadlineExceeded(RequestError):
     code = "deadline_exceeded"
 
 
-def error_response(exc: RequestError) -> tuple[int, dict]:
-    """The adapter-side mapping: (HTTP status, JSON body)."""
-    return exc.status, exc.body()
+class ReloadFailed(RequestError):
+    """Hot model swap failed validation and was rolled back; the previous
+    model keeps serving — typed HTTP 500."""
+
+    status = 500
+    code = "reload_failed"
+
+
+class WorkerDead(RequestError):
+    """The micro-batch worker thread exited while requests were queued: the
+    watchdog resolves every orphaned future with this typed 500 and restarts
+    the worker."""
+
+    status = 500
+    code = "worker_dead"
+
+
+def error_response(exc: RequestError) -> tuple[int, dict, dict[str, str]]:
+    """The adapter-side mapping: (HTTP status, JSON body, headers)."""
+    return exc.status, exc.body(), exc.headers()

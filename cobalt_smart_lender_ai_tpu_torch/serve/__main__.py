@@ -1,7 +1,8 @@
 """CLI: restore the model artifact and serve the scoring API on the GPU.
 
     python -m cobalt_smart_lender_ai_tpu_torch.serve --store artifacts \\
-        [--device cuda|cpu] [--port N] [--forest-precision f32|bf16|int8]
+        [--device cuda|cpu] [--port N] [--forest-precision f32|bf16|int8] \\
+        [--no-microbatch] [--score-cache-size N] [--flight-slow-ms MS]
 
 ``--device`` defaults to ``cuda``; without a CUDA device the command fails
 at startup. ``--device cpu`` runs the plain PyTorch versions of the kernels.
@@ -36,6 +37,12 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
         help="cuda (the default; the CUDA kernels) or cpu (their plain versions)",
     )
     parser.add_argument(
+        "--no-microbatch",
+        action="store_true",
+        help="dispatch each request individually instead of coalescing "
+        "concurrent requests into one device call",
+    )
+    parser.add_argument(
         "--microbatch-wait-ms",
         type=float,
         default=ServeConfig.microbatch_max_wait_ms,
@@ -46,6 +53,20 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
         type=int,
         default=ServeConfig.microbatch_max_rows,
         help="dispatch early once this many requests are queued",
+    )
+    parser.add_argument(
+        "--score-cache-size",
+        type=int,
+        default=ServeConfig.score_cache_size,
+        help="entries in the content-hash score cache for repeated "
+        "single-row payloads (0 disables)",
+    )
+    parser.add_argument(
+        "--flight-slow-ms",
+        type=float,
+        default=ServeConfig.flight_slow_threshold_ms,
+        help="requests at or over this wall time are always captured by the "
+        "flight recorder (GET /debug/slowest names the slow phase)",
     )
     parser.add_argument(
         "--forest-precision",
@@ -63,8 +84,11 @@ def build_service(args: argparse.Namespace) -> ScorerService:
         host=args.host,
         port=args.port,
         model_key=args.model_key,
+        microbatch_enabled=not args.no_microbatch,
         microbatch_max_wait_ms=args.microbatch_wait_ms,
         microbatch_max_rows=args.microbatch_max_rows,
+        score_cache_size=args.score_cache_size,
+        flight_slow_threshold_ms=args.flight_slow_ms,
         forest_precision=args.forest_precision,
     )
     return ScorerService.from_store(ObjectStore(args.store), cfg, device=args.device)

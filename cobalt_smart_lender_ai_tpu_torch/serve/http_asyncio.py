@@ -2,17 +2,24 @@
 socket to the micro-batcher's future.
 
 Routes: ``POST /predict``, ``POST /predict_bulk_csv``,
-``POST /feature_importance_bulk``, ``GET /healthz``, ``GET /readyz``, and
-the reference's observability routes: ``GET /metrics`` (Prometheus text,
+``POST /feature_importance_bulk``, ``POST /admin/reload``, ``GET /healthz``,
+``GET /readyz``, and the reference's observability routes: ``GET /metrics`` (Prometheus text,
 or OpenMetrics with exemplars on ``Accept: application/openmetrics-text``),
 ``GET /slo``, ``GET /debug/requests`` and ``/debug/slowest`` (``?limit=``,
 ``?n=``/``?k=``, 1..1000, and ``?phase=``, one of the flight recorder's
 phases; 422 otherwise), ``GET /debug/programs`` (the kernel cost table)
 and ``GET /debug/trace`` (the span ring as Perfetto JSON).
-Typed request errors (`reliability.errors`) keep their status: 422 invalid
-input, 413 payload too large, 504 deadline exceeded; the importance route
-answers 400 on empty data, and a bulk failure that is not typed is a 500
-``bulk_failed``.
+Typed request errors (`reliability.errors`) keep their status and
+headers: 422 invalid input, 413 payload too large, 429 shed (with
+``Retry-After``), 503 circuit open (with ``Retry-After``), 504 deadline
+exceeded, 500 worker dead; the importance route answers 400 on empty data,
+and a bulk failure that is not typed is a 500 ``bulk_failed``.
+
+The three scoring routes hold an admission slot (`ScorerService.admission`)
+while they score. ``POST /admin/reload`` (body ``{"model_key": ...}``,
+optional) is never gated: it swaps the model on the loop's executor, so the
+loop keeps serving, and answers 200 with the swap's result, 500
+``reload_failed`` on a rollback, or 503 while the store's circuit is open.
 
 Every request runs inside a `request_context` (a client's
 ``X-Request-ID`` is honoured, else one is minted; it is echoed on the
@@ -34,6 +41,7 @@ from http.client import responses as _REASONS
 from urllib.parse import parse_qs, urlsplit
 
 from cobalt_smart_lender_ai_tpu_torch.reliability.errors import (
+    ReloadFailed,
     RequestError,
     ValidationError,
     error_response,
@@ -67,6 +75,7 @@ _KNOWN_ROUTES = frozenset(
         "/predict",
         "/predict_bulk_csv",
         "/feature_importance_bulk",
+        "/admin/reload",
         "/healthz",
         "/readyz",
         "/metrics",
@@ -179,16 +188,17 @@ def debug_programs_payload() -> dict:
 
 class _Response:
     """What a route answers: status, body bytes and content type (or a JSON
-    object, encoded when it is written)."""
+    object, encoded when it is written), and extra headers."""
 
-    __slots__ = ("status", "obj", "data", "content_type")
+    __slots__ = ("status", "obj", "data", "content_type", "headers")
 
     def __init__(self, status: int, obj=None, data: bytes | None = None,
-                 content_type: str = "application/json"):
+                 content_type: str = "application/json", headers: dict | None = None):
         self.status = status
         self.obj = obj
         self.data = data
         self.content_type = content_type
+        self.headers = headers or {}
 
 
 class AsyncScorerServer:
@@ -368,6 +378,7 @@ class AsyncScorerServer:
         ]
         if request_id:
             lines.append(f"X-Request-ID: {request_id}")
+        lines.extend(f"{name}: {value}" for name, value in resp.headers.items())
         lines.append(f"Connection: {'keep-alive' if keep_alive else 'close'}")
         writer.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1") + data)
         await writer.drain()
@@ -380,24 +391,29 @@ class AsyncScorerServer:
                 resp = self._get(path, query, headers)
                 if resp is not None:
                     return resp
+            if method == "POST" and path == "/admin/reload":
+                return await self._reload(body)
             if method == "POST" and path == "/predict":
-                return _Response(200, await service.predict_single_async(_json_body(body)))
+                with service.admission.admit():
+                    return _Response(200, await service.predict_single_async(_json_body(body)))
             if method == "POST" and path == "/predict_bulk_csv":
-                csv_bytes = _extract_csv(body, headers.get("content-type", ""))
-                try:
-                    return _Response(200, await service.predict_bulk_csv_async(csv_bytes))
-                except RequestError:
-                    raise
-                except Exception as e:  # the reference answers 500 here
-                    return _Response(
-                        500, {"detail": f"Bulk prediction failed: {e}", "error": "bulk_failed"}
-                    )
+                with service.admission.admit():
+                    csv_bytes = _extract_csv(body, headers.get("content-type", ""))
+                    try:
+                        return _Response(200, await service.predict_bulk_csv_async(csv_bytes))
+                    except RequestError:
+                        raise
+                    except Exception as e:  # the reference answers 500 here
+                        return _Response(
+                            500, {"detail": f"Bulk prediction failed: {e}", "error": "bulk_failed"}
+                        )
             if method == "POST" and path == "/feature_importance_bulk":
-                payload = _json_body(body)  # malformed JSON -> 422
-                try:
-                    return _Response(200, await service.feature_importance_bulk_async(payload))
-                except ValidationError as e:
-                    return _Response(400, e.body())  # empty data is a 400 on this route
+                with service.admission.admit():
+                    payload = _json_body(body)  # malformed JSON -> 422
+                    try:
+                        return _Response(200, await service.feature_importance_bulk_async(payload))
+                    except ValidationError as e:
+                        return _Response(400, e.body())  # empty data is a 400 on this route
             if method not in ("GET", "POST"):
                 return _Response(
                     501,
@@ -405,9 +421,27 @@ class AsyncScorerServer:
                 )
             return _Response(404, {"detail": "Not Found"})
         except RequestError as e:
-            return _Response(*error_response(e))
+            status, obj, extra = error_response(e)
+            return _Response(status, obj, headers=extra)
         except Exception as e:
             return _Response(500, {"detail": f"Internal server error: {e}", "error": "internal"})
+
+    async def _reload(self, body: bytes) -> _Response:
+        """``POST /admin/reload``: the swap runs on the default executor (it
+        restores, packs and warms the candidate), so the loop keeps
+        serving."""
+        payload = _json_body(body)
+        if not isinstance(payload, dict):
+            raise ValidationError("body must be a JSON object")
+        result = await asyncio.to_thread(
+            self.service.reload_from_store, model_key=payload.get("model_key")
+        )
+        if result["status"] == "ok":
+            return _Response(200, result)
+        failed = ReloadFailed(f"reload rolled back: {result['error']}")
+        return _Response(
+            500, {**failed.body(), "status": result["status"], "model_key": result["model_key"]}
+        )
 
     def _get(self, path: str, query: dict, headers: dict) -> _Response | None:
         """A GET route's response, or None when no GET route matches."""

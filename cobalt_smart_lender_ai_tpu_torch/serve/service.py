@@ -16,6 +16,16 @@ rows are scored again by the margin-only launch (``walk_kernel`` on the
 card), and each answers with ``"shap_values": null`` and ``"degraded":
 true``; only a failing margin launch fails them.
 
+Past the happy path, as the reference: the HTTP adapter gates scoring
+routes through `ScorerService.admission` (shed -> 429 + ``Retry-After``);
+store restores run under `store_breaker` (open -> 503); `reload_from_store`
+builds a candidate model off to the side (packed, warmed and smoke-scored
+on the service's device) and publishes it under the batcher's pause gate,
+or rolls back; repeated single-row payloads are answered from a
+content-hash LRU score cache with no launch, emptied on every swap; and a
+micro-batch worker that dies fails its queued requests with a typed 500
+``worker_dead`` and is restarted.
+
 Telemetry, with the reference's family names, types and labels: each
 service owns a `MetricsRegistry` (or uses the one passed as ``registry=``)
 holding the request, micro-batch and bulk families, ``cobalt_model_info``,
@@ -30,6 +40,7 @@ holds the card's work.
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import csv
 import functools
@@ -56,14 +67,21 @@ from cobalt_smart_lender_ai_tpu_torch.ops.score import (
     pack_forest,
     shap_supported,
 )
+from cobalt_smart_lender_ai_tpu_torch.reliability.admission import admission_from_config
+from cobalt_smart_lender_ai_tpu_torch.reliability.breaker import (
+    CircuitBreaker,
+    breaker_from_config,
+)
 from cobalt_smart_lender_ai_tpu_torch.reliability.deadline import (
     Deadline,
     await_under_deadline,
     start_deadline,
 )
 from cobalt_smart_lender_ai_tpu_torch.reliability.errors import (
+    CircuitOpenError,
     PayloadTooLarge,
     ValidationError,
+    WorkerDead,
 )
 from cobalt_smart_lender_ai_tpu_torch.telemetry import (
     FlightRecorder,
@@ -74,10 +92,13 @@ from cobalt_smart_lender_ai_tpu_torch.telemetry import (
     default_device_sampler,
     default_objectives,
     default_tracer,
+    get_logger,
     install_device_metrics,
     install_program_metrics,
     request_context,
 )
+
+_LOG = get_logger("cobalt.serve")
 
 __all__ = [
     "SINGLE_INPUT_FIELDS",
@@ -179,6 +200,10 @@ class _CompiledModel:
                 raise ValueError(err)
             self.shap_error = err
         self.kernel = "score_forest" if device.type == "cuda" else "plain"
+        # Score-cache keys are prefixed with the scoring identity (kernel,
+        # precision, quantization table), so a reload that changes any of
+        # them can never alias an old entry.
+        self.cache_salt = f"{self.kernel}:{self.pack.precision}:{self.pack.table_hash}|".encode()
         self.margin_fn = functools.partial(
             fused_score, self.pack, n_features=self.n_features, with_shap=False
         )
@@ -296,7 +321,10 @@ class MicroBatcher:
     launch fails is scored margin-only and answered degraded
     (`_CompiledModel.score_explained`, counted in ``degraded_batches``); a
     batch whose margin launch fails too fails its requests; the worker keeps
-    running.
+    running. A worker killed by anything else (a `BaseException`) fails the
+    batch in its hand and every queued request with a typed `WorkerDead`
+    500 and starts its replacement; `submit` also checks the worker
+    (`ensure_worker`), so no request waits on a dead one.
 
     The counters live in the service's registry (``cobalt_microbatch_*``);
     `stats()` and ``/readyz`` read the same cells. Each request's
@@ -315,6 +343,9 @@ class MicroBatcher:
         self._paused = 0
         self._closed = False
         self._scratch: np.ndarray | None = None  # worker-only padding buffer
+        # Replaces a dead worker exactly once, when the dying thread and a
+        # submitter race `ensure_worker`.
+        self._worker_lock = threading.Lock()
         #: Batches whose SHAP launch failed (written by the worker only).
         self.degraded_batches = 0
         reg = service.registry
@@ -346,10 +377,19 @@ class MicroBatcher:
             "cobalt_microbatch_max_batch_rows",
             "largest batch coalesced so far (high-water mark)",
         )
+        self._m_worker_restarts = reg.counter(
+            "cobalt_microbatch_worker_restarts_total",
+            "times the watchdog replaced a dead micro-batch worker thread",
+        )
+        self._m_worker_dead = reg.counter(
+            "cobalt_microbatch_worker_dead_total",
+            "queued requests failed with typed worker_dead 500s when the "
+            "worker thread died",
+        )
         reg.gauge(
             "cobalt_microbatch_worker_alive",
             "1 while the micro-batch worker thread is running",
-        ).set_function(lambda: float(self._thread.is_alive()))
+        ).set_function(lambda: float(self.worker_alive()))
         reg.gauge(
             "cobalt_microbatch_queue_depth",
             "requests currently waiting for a batch slot",
@@ -357,6 +397,9 @@ class MicroBatcher:
         # Queue depth as a sampled series too: when the device sampler
         # runs, GET /debug/trace draws it as a Perfetto counter track.
         default_device_sampler().add_series("microbatch_queue_depth", self.queue_depth)
+        self._start_worker()
+
+    def _start_worker(self) -> None:
         self._thread = threading.Thread(target=self._run, daemon=True, name="microbatcher")
         self._thread.start()
 
@@ -386,10 +429,12 @@ class MicroBatcher:
         request's ``queue_wait`` and ``dispatch`` seconds) or raises the
         request's error."""
         fut: Future = Future()
+        entry = (row, deadline, fut, time.monotonic(), current_request_id())
+        self.ensure_worker()  # a dead worker would strand this entry
         with self._cond:
             if self._closed:
                 raise RuntimeError("micro-batcher is closed")
-            self._queue.append((row, deadline, fut, time.monotonic(), current_request_id()))
+            self._queue.append(entry)
             self._cond.notify_all()
         return fut
 
@@ -404,6 +449,39 @@ class MicroBatcher:
     def queue_depth(self) -> int:
         with self._cond:
             return len(self._queue)
+
+    def worker_alive(self) -> bool:
+        """True while the worker thread is running (False after `close`)."""
+        return self._thread.is_alive()
+
+    def ensure_worker(self) -> bool:
+        """Watchdog: if the worker thread has died, fail every queued future
+        with a typed `WorkerDead` 500 and start a replacement. True when it
+        restarted the worker."""
+        if self._closed or self._thread.is_alive():
+            return False
+        with self._worker_lock:
+            if self._closed or self._thread.is_alive():
+                return False
+            with self._cond:
+                orphans = list(self._queue)
+                self._queue.clear()
+            self._fail_orphans(orphans, "micro-batch worker died with request queued")
+            self._m_worker_restarts.inc()
+            _LOG.error(
+                "microbatch_worker_dead",
+                orphaned=len(orphans),
+                restarted=True,
+                detected="watchdog",
+            )
+            self._start_worker()
+            return True
+
+    def _fail_orphans(self, orphans: list, detail: str) -> None:
+        for entry in orphans:
+            if not entry[2].done():
+                self._m_worker_dead.inc()
+                entry[2].set_exception(WorkerDead(detail))
 
     @contextlib.contextmanager
     def pause(self):
@@ -437,7 +515,8 @@ class MicroBatcher:
             "expired_in_queue": self.expired_in_queue,
             "degraded_batches": self.degraded_batches,
             "queued": self.queue_depth(),
-            "worker_alive": self._thread.is_alive(),
+            "worker_alive": self.worker_alive(),
+            "worker_restarts": int(self._m_worker_restarts.value),
         }
 
     def _collect(self) -> list | None:
@@ -463,17 +542,48 @@ class MicroBatcher:
             return batch
 
     def _run(self) -> None:
-        while True:
-            batch = self._collect()
-            if batch is None:
-                return
-            with self._dispatch_lock:
-                try:
-                    self._dispatch(batch)
-                except Exception as exc:  # fail this batch, keep serving
-                    for entry in batch:
-                        if not entry[2].done():
-                            entry[2].set_exception(exc)
+        batch: list = []
+        try:
+            while True:
+                batch = self._collect()
+                if batch is None:
+                    return
+                with self._dispatch_lock:
+                    try:
+                        self._dispatch(batch)
+                    except Exception as exc:  # fail this batch, keep serving
+                        for entry in batch:
+                            if not entry[2].done():
+                                entry[2].set_exception(exc)
+                batch = []
+        except BaseException as exc:
+            # Dying with `batch` in hand and the queue intact: strand no
+            # future, then let the exception end this thread.
+            self._on_worker_death(exc, batch)
+            raise
+
+    def _on_worker_death(self, exc: BaseException, batch: list) -> None:
+        """On the dying worker's own unwind: fail the in-hand batch and
+        everything queued with typed `WorkerDead` 500s, then start the
+        replacement (unless `close` stopped the worker)."""
+        with self._worker_lock:
+            with self._cond:
+                orphans = batch + self._queue
+                self._queue.clear()
+            self._fail_orphans(
+                orphans,
+                f"micro-batch worker died with request queued ({type(exc).__name__}: {exc})",
+            )
+            self._m_worker_restarts.inc()
+            _LOG.error(
+                "microbatch_worker_dead",
+                error=f"{type(exc).__name__}: {exc}",
+                orphaned=len(orphans),
+                restarted=not self._closed,
+                detected="unwind",
+            )
+            if not self._closed:
+                self._start_worker()
 
     def _dispatch(self, batch: list) -> None:
         model = self._service._model
@@ -577,9 +687,11 @@ def _type_column(cells: list[str]) -> list[Any]:
 
 
 class ScorerService:
-    """Restored model + fused scorer behind the reference API's endpoints.
-    Concurrent single-row scoring is coalesced by `batcher` (a
-    `MicroBatcher`) when ``ServeConfig.microbatch_enabled``."""
+    """Restored model + fused scorer behind the reference API's endpoints,
+    plus `admission` (the adapter gates scoring routes through it),
+    `store_breaker` (guards every store restore) and `reload_from_store`
+    (hot swap or rollback). Concurrent single-row scoring is coalesced by
+    `batcher` (a `MicroBatcher`) when ``ServeConfig.microbatch_enabled``."""
 
     def __init__(
         self,
@@ -587,17 +699,27 @@ class ScorerService:
         config: ServeConfig | None = None,
         *,
         device: torch.device | str = "cuda",
+        store: ObjectStore | None = None,
         clock: Callable[[], float] = time.monotonic,
+        breaker: CircuitBreaker | None = None,
         registry: MetricsRegistry | None = None,
     ):
         self.config = config or ServeConfig()
         self.device = resolve_device(device)
         self._clock = clock
+        self._store = store
         self._model_key = self.config.model_key
         # A fresh registry per service by default: two services in one
         # process never share counts. Pass ``registry=default_registry()``
         # to scrape them with the process-wide families on one page.
         self.registry = registry if registry is not None else MetricsRegistry()
+        rel = self.config.reliability
+        self.store_breaker = breaker or breaker_from_config(rel, clock=clock)
+        self.admission = admission_from_config(rel, clock=clock)
+        # Content-hash score cache: canonicalized row bytes -> (prob, phis,
+        # base) of a full response, LRU-bounded, emptied on every swap.
+        self._score_cache: collections.OrderedDict[bytes, tuple] = collections.OrderedDict()
+        self._score_cache_lock = threading.Lock()
         self._init_metrics()
         self.flight = FlightRecorder(
             capacity=self.config.flight_capacity,
@@ -614,6 +736,9 @@ class ScorerService:
                 fast_burn_threshold=self.config.slo_fast_burn_threshold,
             )
             self.slo.register_gauges()
+        # One reload at a time; requests read `_model` once and never take it.
+        self._swap_lock = threading.Lock()
+        self._last_reload: dict | None = None
         self._model = _CompiledModel(artifact, self.config, self.device)
         self._m_model_info.labels(
             "unversioned", "direct", "none", self._model.pack.precision, self._model.kernel
@@ -638,12 +763,94 @@ class ScorerService:
         clock: Callable[[], float] = time.monotonic,
         registry: MetricsRegistry | None = None,
     ) -> "ScorerService":
-        """Startup restore of ``config.model_key`` from ``store``. The device
-        is resolved first, so ``cuda`` without CUDA fails before any load."""
+        """Startup restore of ``config.model_key`` from ``store``, under the
+        circuit breaker; the store is kept for `reload_from_store`. The
+        device is resolved first, so ``cuda`` without CUDA fails before any
+        load."""
         cfg = config or ServeConfig()
         dev = resolve_device(device)
-        artifact = GBDTArtifact.load(store, cfg.model_key, dev)
-        return cls(artifact, cfg, device=dev, clock=clock, registry=registry)
+        brk = breaker_from_config(cfg.reliability, clock=clock)
+        artifact = brk.call(lambda: GBDTArtifact.load(store, cfg.model_key, dev))
+        return cls(
+            artifact, cfg, device=dev, store=store, clock=clock, breaker=brk, registry=registry
+        )
+
+    # -- hot model swap ---------------------------------------------------------
+
+    def _smoke_check(self, candidate: _CompiledModel) -> None:
+        """A candidate must keep the serving feature contract, and its
+        margin launch must score the all-zeros row to a probability in
+        [0, 1] (a NaN or inf leaf fails here)."""
+        current = self._model
+        if tuple(candidate.feature_names) != tuple(current.feature_names):
+            raise ValueError(
+                "feature contract changed: serving "
+                f"{len(current.feature_names)} features, candidate has "
+                f"{len(candidate.feature_names)} (first difference: "
+                f"{sorted(set(candidate.feature_names) ^ set(current.feature_names))[:4]})"
+            )
+        x = torch.zeros((1, candidate.n_features), dtype=torch.float32, device=self.device)
+        prob = float(candidate.margin_fn(x)[1][0])
+        if not (math.isfinite(prob) and 0.0 <= prob <= 1.0):
+            raise ValueError(f"smoke row scored {prob!r}, expected [0, 1]")
+
+    def reload_from_store(
+        self, store: ObjectStore | None = None, model_key: str | None = None
+    ) -> dict:
+        """Hot model swap: restore ``model_key`` (default: the key being
+        served) under the breaker, pack and warm it on this service's device,
+        smoke-check it, and publish it. On any failure the previous model
+        keeps serving and the result is ``{"status": "rolled_back", ...}``
+        (also ``/readyz``'s ``last_reload``). An open circuit raises
+        `CircuitOpenError` (503) without recording a rollback."""
+        store = store if store is not None else self._store
+        if store is None:
+            raise RuntimeError(
+                "no store bound: construct the service with from_store() or "
+                "pass store= explicitly"
+            )
+        key = model_key or self._model_key
+        with self._swap_lock:
+            try:
+                candidate = self._build_candidate(store, key)
+            except CircuitOpenError:
+                raise
+            except Exception as exc:
+                return self._record_rollback(key, exc)
+            return self._publish_candidate(candidate, key)
+
+    def _build_candidate(self, store: ObjectStore, key: str) -> _CompiledModel:
+        """Restore, pack, warm and smoke-check a candidate off to the side;
+        a launch that fails on the card raises here (rollback), never falls
+        back to the plain version."""
+        artifact = self.store_breaker.call(lambda: GBDTArtifact.load(store, key, self.device))
+        candidate = _CompiledModel(artifact, self.config, self.device)
+        self._smoke_check(candidate)
+        return candidate
+
+    def _publish_candidate(self, candidate: _CompiledModel, key: str) -> dict:
+        """Publish under the batcher's pause gate: the in-flight batch drains
+        against the old model and the next one snapshots the candidate, so
+        no batch mixes models. The score cache empties in the same step."""
+        gate = self.batcher.pause() if self.batcher is not None else contextlib.nullcontext()
+        with gate, self._score_cache_lock:
+            self._model = candidate
+            self._score_cache.clear()
+        self._model_key = key
+        self._last_reload = {"status": "ok", "model_key": key, "n_features": candidate.n_features}
+        self._m_reloads.labels(status="ok").inc()
+        _LOG.info("model_reload", **self._last_reload)
+        return self._last_reload
+
+    def _record_rollback(self, key: str, exc: Exception) -> dict:
+        self._last_reload = {
+            "status": "rolled_back",
+            "model_key": key,
+            "error": f"{type(exc).__name__}: {exc}",
+        }
+        self._m_reloads.labels(status="rolled_back").inc()
+        _LOG.warning("model_reload", **self._last_reload)
+        return self._last_reload
 
     def close(self) -> None:
         """Stop the micro-batch worker (queued requests drain first);
@@ -659,7 +866,9 @@ class ScorerService:
 
     def _init_metrics(self) -> None:
         """Register the service-level families, with the reference's names,
-        types and label names, then the kernel and device families."""
+        types and label names, then the kernel and device families. The
+        admission controller and breaker keep their own counters; their
+        families read them when scraped."""
         reg = self.registry
         self._m_latency = reg.histogram(
             "cobalt_request_latency_seconds",
@@ -681,6 +890,55 @@ class ScorerService:
             "cobalt_shap_degraded_total",
             "scorable requests answered without SHAP attributions",
         )
+        self._m_reloads = reg.counter(
+            "cobalt_model_reloads_total",
+            "hot model swap attempts by outcome (ok / rolled_back)",
+            ("status",),
+        )
+        adm = self.admission
+        reg.gauge(
+            "cobalt_admission_in_flight",
+            "scoring requests currently holding an admission slot",
+        ).set_function(lambda: adm.in_flight)
+        reg.counter(
+            "cobalt_admission_admitted_total",
+            "scoring requests admitted past both admission gates",
+        ).set_function(lambda: adm.admitted)
+        shed = reg.counter(
+            "cobalt_admission_shed_total",
+            "requests shed 429 at the door, by which gate refused them",
+            ("gate",),
+        )
+        shed.labels(gate="rate").set_function(lambda: adm.shed_rate)
+        shed.labels(gate="capacity").set_function(lambda: adm.shed_capacity)
+        brk = self.store_breaker
+        reg.gauge(
+            "cobalt_breaker_state",
+            "store circuit breaker state (0=closed, 1=half_open, 2=open)",
+        ).set_function(lambda: {"closed": 0, "half_open": 1, "open": 2}.get(brk.state, -1))
+        trans = reg.counter(
+            "cobalt_breaker_transitions_total",
+            "store circuit breaker transitions into each state",
+            ("state",),
+        )
+        for state in ("closed", "half_open", "open"):
+            trans.labels(state=state).set_function(lambda s=state: brk.transitions.count(s))
+        reg.counter(
+            "cobalt_breaker_fast_failures_total",
+            "store calls rejected while the circuit was open",
+        ).set_function(lambda: brk.fast_failures)
+        self._m_cache_hits = reg.counter(
+            "cobalt_score_cache_hits_total",
+            "single-row requests answered from the content-hash score cache",
+        )
+        self._m_cache_misses = reg.counter(
+            "cobalt_score_cache_misses_total",
+            "score-cache lookups that fell through to a device dispatch",
+        )
+        reg.gauge(
+            "cobalt_score_cache_entries",
+            "entries currently held by the content-hash score cache",
+        ).set_function(lambda: len(self._score_cache))
         self._m_bulk_rows = reg.counter(
             "cobalt_bulk_rows_total",
             "rows scored through the bulk scoring path",
@@ -763,7 +1021,8 @@ class ScorerService:
         warmed bucket scored. ``precision`` and ``quant_table`` (the pack's
         table hash, "f32" at f32) name the forest being served. A SHAP path
         the kernel cannot take is reported as degraded; probabilities still
-        serve."""
+        serve. The breaker's state, the admission and score-cache counters
+        and the last reload's outcome are reported beside them."""
         model = self._model
         payload = {
             "status": "ok",
@@ -778,6 +1037,14 @@ class ScorerService:
             "degraded": model.shap_fn is None,
             "launches": fused_score.launches,
             "degraded_direct": self.degraded_direct,
+            "breaker": self.store_breaker.state,
+            "admission": self.admission.stats(),
+            "score_cache": {
+                "size": self.config.score_cache_size,
+                "entries": len(self._score_cache),
+                "hits": int(self._m_cache_hits.value),
+                "misses": int(self._m_cache_misses.value),
+            },
             "microbatch": (
                 {"enabled": False}
                 if self.batcher is None
@@ -791,6 +1058,8 @@ class ScorerService:
         }
         if model.shap_error is not None:
             payload["shap_error"] = model.shap_error
+        if self._last_reload is not None:
+            payload["last_reload"] = self._last_reload
         return True, payload
 
     # -- /predict -----------------------------------------------------------------
@@ -812,21 +1081,69 @@ class ScorerService:
             self._m_shap_degraded.inc()
         return resp
 
-    def _finish_batched(self, row: Mapping[str, float], result: tuple) -> dict:
+    def _cache_response(
+        self, resp: dict, key: bytes | None, model: _CompiledModel | None
+    ) -> dict:
+        """Cache a full (non-degraded) response under ``key``, unless a swap
+        has published another model since ``model`` was read: checked under
+        the lock the swap publishes under, so no entry outlives its model."""
+        if key is None or resp["shap_values"] is None:
+            return resp
+        with self._score_cache_lock:
+            if model is self._model:
+                cache = self._score_cache
+                cache[key] = (resp["prob_default"], resp["shap_values"], resp["base_value"])
+                cache.move_to_end(key)
+                while len(cache) > self.config.score_cache_size:
+                    cache.popitem(last=False)
+        return resp
+
+    def _finish_batched(self, row: Mapping[str, float], result: tuple, key, model) -> dict:
         """A batcher-scored request's response; the phases measured on the
         worker are recorded here, in the request's own context."""
         for name, seconds in result[4].items():
             self._observe_phase(name, seconds)
-        return self._response(row, result)
+        return self._cache_response(self._response(row, result), key, model)
 
-    def _validate(self, payload: Mapping[str, Any], dl: Deadline | None) -> dict[str, float]:
+    def _predict_validate(
+        self, payload: Mapping[str, Any], dl: Deadline | None
+    ) -> tuple[dict[str, float], dict | None, bytes | None, _CompiledModel | None]:
+        """Validation, the first deadline checkpoint and the score-cache
+        probe: ``(row, cached response | None, cache key, model read)``.
+
+        The key is the canonicalized (1, F) float32 row's bytes behind the
+        model's salt, so payloads that validate to the same features (any
+        key order, aliases, int or float spelling) share one entry. A hit
+        launches nothing."""
         with self.phase("validate"):
             row = validate_single_input(payload)
             if dl is not None:
                 dl.check("input validated")
-        return row
+        if self.config.score_cache_size <= 0:
+            return row, None, None, None
+        model = self._model
+        key = model.cache_salt + model.rows_array([row]).tobytes()
+        with self._score_cache_lock:
+            cached = self._score_cache.get(key)
+            if cached is not None:
+                self._score_cache.move_to_end(key)
+        if cached is None:
+            self._m_cache_misses.inc()
+            return row, None, key, model
+        self._m_cache_hits.inc()
+        prob, phis_row, base = cached
+        resp = {
+            "prob_default": prob,
+            "features": list(model.feature_names),
+            "input_row": dict(row),
+            "shap_values": list(phis_row),
+            "base_value": base,
+        }
+        return row, resp, key, model
 
-    def _predict_direct(self, row: Mapping[str, float], dl: Deadline | None) -> dict:
+    def _predict_direct(
+        self, row: Mapping[str, float], dl: Deadline | None, key, cache_model
+    ) -> dict:
         """The un-coalesced path: this request's own (1, F) launch."""
         model = self._model
         with self.phase("dispatch"):
@@ -835,10 +1152,11 @@ class ScorerService:
             self.degraded_direct += 1
         if dl is not None:
             dl.check("scored")
-        return self._response(
+        resp = self._response(
             row,
             (float(probs[0]), None if phis is None else phis[0].tolist(), base, shap_error),
         )
+        return self._cache_response(resp, key, cache_model)
 
     def predict_single(
         self, payload: Mapping[str, Any], *, deadline: Deadline | None = None
@@ -848,20 +1166,23 @@ class ScorerService:
         one padded bucket launch."""
         with self._ingress_request_id():
             dl = deadline if deadline is not None else self._new_deadline()
-            row = self._validate(payload, dl)
+            row, cached, key, model = self._predict_validate(payload, dl)
+            if cached is not None:
+                return cached
             batcher = self.batcher
             fut = None
             if batcher is not None and not batcher.closed:
                 with contextlib.suppress(RuntimeError):  # closed in the gap
                     fut = batcher.submit(row, dl)
             if fut is None:
-                return self._predict_direct(row, dl)
+                return self._predict_direct(row, dl, key, model)
             if dl is None:
-                return self._finish_batched(row, fut.result())
+                return self._finish_batched(row, fut.result(), key, model)
             try:
-                return self._finish_batched(row, fut.result(timeout=max(0.0, dl.remaining())))
+                result = fut.result(timeout=max(0.0, dl.remaining()))
             except (FutureTimeout, TimeoutError):
                 raise dl.exceeded("queued for micro-batch") from None
+            return self._finish_batched(row, result, key, model)
 
     async def predict_single_async(
         self, payload: Mapping[str, Any], *, deadline: Deadline | None = None
@@ -870,16 +1191,18 @@ class ScorerService:
         batcher's future under a loop-scheduled deadline."""
         with self._ingress_request_id():
             dl = deadline if deadline is not None else self._new_deadline()
-            row = self._validate(payload, dl)
+            row, cached, key, model = self._predict_validate(payload, dl)
+            if cached is not None:
+                return cached
             batcher = self.batcher
             afut = None
             if batcher is not None and not batcher.closed:
                 with contextlib.suppress(RuntimeError):
                     afut = batcher.submit_async(row, dl)
             if afut is None:
-                return await _in_executor(self._predict_direct, row, dl)
+                return await _in_executor(self._predict_direct, row, dl, key, model)
             result = await await_under_deadline(afut, dl, "queued for micro-batch")
-            return self._finish_batched(row, result)
+            return self._finish_batched(row, result, key, model)
 
     def predict_raw(
         self, payload: Mapping[str, Any], *, deadline: Deadline | None = None
@@ -892,39 +1215,41 @@ class ScorerService:
         skew: the row gets the bits its batch row got at training time on
         this device. Unknown categories score as all-zero one-hot blocks and
         missing numerics as NaN (the GBDT's learned missing direction). A
-        service method with no HTTP route, as in the reference."""
-        dl = deadline if deadline is not None else self._new_deadline()
-        model = self._model
-        plan = model.artifact.plan
-        if plan is None:
-            raise ValidationError(
-                "raw-row scoring requires an artifact that carries its "
-                "feature plan; this model was saved without one"
-            )
-        if not isinstance(payload, Mapping):
-            raise ValidationError("body must be a JSON object")
-        with self.phase("validate"):
-            feats = transform_raw_rows(plan, [dict(payload)], device=self.device)
-            if dl is not None:
-                dl.check("raw row transformed")
-        name_pos = {n: i for i, n in enumerate(plan.tree_feature_names)}
-        unknown = [n for n in model.feature_names if n not in name_pos]
-        if unknown:
-            raise ValidationError(
-                "feature plan does not produce serving features "
-                f"{unknown[:4]}; retrain with the device pipeline"
-            )
-        idx = torch.tensor([name_pos[n] for n in model.feature_names], device=self.device)
-        x = feats.index_select(1, idx).contiguous()
-        with self.phase("dispatch"):
-            _, prob = model.margin_fn(x)
-            prob = float(prob[0])
-        row = x[0].cpu().tolist()
-        return {
-            "prob_default": prob,
-            "features": list(model.feature_names),
-            "engineered_row": dict(zip(model.feature_names, row)),
-        }
+        service method with no HTTP route, as in the reference; a request id
+        is minted when the caller brings none."""
+        with self._ingress_request_id():
+            dl = deadline if deadline is not None else self._new_deadline()
+            model = self._model
+            plan = model.artifact.plan
+            if plan is None:
+                raise ValidationError(
+                    "raw-row scoring requires an artifact that carries its "
+                    "feature plan; this model was saved without one"
+                )
+            if not isinstance(payload, Mapping):
+                raise ValidationError("body must be a JSON object")
+            with self.phase("validate"):
+                feats = transform_raw_rows(plan, [dict(payload)], device=self.device)
+                if dl is not None:
+                    dl.check("raw row transformed")
+            name_pos = {n: i for i, n in enumerate(plan.tree_feature_names)}
+            unknown = [n for n in model.feature_names if n not in name_pos]
+            if unknown:
+                raise ValidationError(
+                    "feature plan does not produce serving features "
+                    f"{unknown[:4]}; retrain with the device pipeline"
+                )
+            idx = torch.tensor([name_pos[n] for n in model.feature_names], device=self.device)
+            x = feats.index_select(1, idx).contiguous()
+            with self.phase("dispatch"):
+                _, prob = model.margin_fn(x)
+                prob = float(prob[0])
+            row = x[0].cpu().tolist()
+            return {
+                "prob_default": prob,
+                "features": list(model.feature_names),
+                "engineered_row": dict(zip(model.feature_names, row)),
+            }
 
     # -- bulk -----------------------------------------------------------------------
 

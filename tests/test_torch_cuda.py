@@ -656,3 +656,62 @@ def test_scoring_programs_count_the_launches_on_card(card_pack, fresh_programs):
     assert all(r["dispatch_seconds"] > 0 and r["flops"] > 0 for r in table.values())
     h100 = torch.cuda.get_device_name(card).startswith("NVIDIA H100")
     assert all((r["roofline_utilization"] is not None) == h100 for r in table.values())
+
+
+def _predict_payload(seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    alias = {v: k for k, v in schema.SERVING_FIELD_ALIASES.items()}
+    return {
+        alias.get(n, n): int(rng.integers(0, 2)) if n in schema.SERVING_INT_FEATURES
+        else float(np.round(rng.uniform(0, 1000), 3))
+        for n in schema.SERVING_FEATURES
+    }
+
+
+@pytest.mark.cuda
+def test_cache_hit_launches_nothing_on_card(card_pack, fresh_programs):
+    """A miss is one launch on its program; the same payload again is a hit:
+    no launch and no dispatch on any program, the miss's response bit for
+    bit."""
+    service = ScorerService.from_store(
+        ObjectStore(str(ROOT / "artifacts")), ServeConfig(), device="cuda"
+    )
+    try:
+        payload = _predict_payload(7)
+        before = fused_score.launches
+        first = service.predict_single(payload)
+        torch.cuda.synchronize()
+        launches = fused_score.launches
+        dispatches = sum(r["dispatches"] for r in fresh_programs.table())
+        assert launches == before + 1
+        second = service.predict_single(payload)
+        assert fused_score.launches == launches
+        assert sum(r["dispatches"] for r in fresh_programs.table()) == dispatches
+        assert second == first
+        assert service.ready()[1]["score_cache"]["hits"] == 1
+    finally:
+        service.close()
+
+
+@pytest.mark.cuda
+def test_reload_warms_the_candidate_on_card(card_pack, fresh_programs):
+    """A reload packs, warms and smoke-scores the candidate with the kernel:
+    every program it dispatches is of kind ``kernel``, and the launches are
+    its warm-up buckets plus the smoke row."""
+    service = ScorerService.from_store(
+        ObjectStore(str(ROOT / "artifacts")), ServeConfig(), device="cuda"
+    )
+    try:
+        fresh_programs.reset()
+        before = fused_score.launches
+        result = service.reload_from_store()
+        torch.cuda.synchronize()
+        assert result["status"] == "ok"
+        warm = service._model.warm_buckets
+        assert fused_score.launches - before == len(warm["shap"]) + len(warm["margin"]) + 1
+        table = fresh_programs.table()
+        assert table and all(r["kind"] == "kernel" for r in table)
+        assert all(r["name"].startswith("score_forest/f32/") for r in table)
+        assert sum(r["dispatches"] for r in table) == fused_score.launches - before
+    finally:
+        service.close()

@@ -203,7 +203,8 @@ def test_new_port_modules_are_checked():
             "telemetry/__init__.py", "telemetry/metrics.py", "telemetry/tracing.py",
             "telemetry/logging.py", "telemetry/traceexport.py", "telemetry/programs.py",
             "telemetry/devices.py", "telemetry/runledger.py", "telemetry/flight.py",
-            "telemetry/slo.py"} <= names
+            "telemetry/slo.py", "reliability/admission.py", "reliability/breaker.py",
+            "reliability/faults.py"} <= names
 
 
 def test_classifier_defaults_to_cuda_and_raises_without_it(no_cuda):

@@ -479,7 +479,10 @@ def test_every_port_family_is_the_references(telemetry_pair):
     for family in ("cobalt_request_latency_seconds", "cobalt_microbatch_batches_total",
                    "cobalt_bulk_dispatches_total", "cobalt_program_dispatches_total",
                    "cobalt_device_mem_bytes", "cobalt_slo_burn_rate", "cobalt_model_info",
-                   "cobalt_shap_degraded_total", "cobalt_request_phase_seconds"):
+                   "cobalt_shap_degraded_total", "cobalt_request_phase_seconds",
+                   "cobalt_admission_shed_total", "cobalt_breaker_state",
+                   "cobalt_score_cache_hits_total", "cobalt_model_reloads_total",
+                   "cobalt_microbatch_worker_restarts_total"):
         assert family in published, family
 
 
