@@ -164,7 +164,9 @@ Phases, each of which must pass:
     c. the training CLI in a subprocess at 200,000 loans with
        ``--ledger-out`` and ``--trace-out``: the ledger loads, its program
        table has the histogram programs with dispatches, event seconds
-       and the H100 roofline estimate, and the trace parses;
+       and the H100 roofline estimate and every ``ingest.*`` step of the
+       device ingest with dispatches and event seconds, and the trace
+       parses;
     d. 10,000 recorded dispatches timed on the host (µs each), and that
        times 5c's launches as a share of 5c's fit wall.
 
@@ -205,6 +207,36 @@ Phases, each of which must pass:
        reading; the store back and 0.5 s passed, the reload swaps and the
        breaker walked open -> half_open -> closed; /predict 200 throughout.
 
+13. the data layer's remaining paths (``today`` pinned; no step falls back:
+    the native reader is built with ``g++`` beside the kernels and read with
+    ``engine="native"``):
+    a. right after phase 6, 6a's 200,000-loan frame through the host path
+       (`clean_raw_frame`, `prepare_cleaned_frame`, `engineer_features` on
+       the card) against `run_device_ingest` on the card: the same
+       `CleanReport` and `FeaturePlan` (but its ``asof``; medians within
+       ``LOG_RTOL``), tree and nn columns bitwise except the log1p-derived
+       ones (within ``LOG_RTOL``), the same labels; and the host path's
+       engineering on the card against the CPU's, alike;
+    b. 6b's 2.3M-loan frame through the host path on the card, once: the
+       seconds of clean, prepare and engineer beside 6b's tokenize and card
+       ingest seconds, rows and peak card memory; its tree table held to
+       6b's as in 13a;
+    c. after phase 10b, 8b's stored cleaned, tree and nn tables read with
+       the native reader and with `csv_to_frame`: equal frames, seconds and
+       MB/s of each; 10b's restore of the tree table (through `load_frame`,
+       so the native reader) in seconds;
+    d. after phase 11, ``--pandas-ingest`` end to end: `bootstrap_synthetic`
+       writes a 200,000-loan raw table into a `DatasetRegistry`, pulled and
+       verified into a store's ``raw_key``; the training CLI in a subprocess
+       on the card (``--quick --pandas-ingest``) with histogram launches per
+       stage as 8b counts them and equal to its ledger's programs; 16 raw
+       rows through `predict_raw` on its artifact, margins bitwise
+       `fused_score_reference`'s and prob within 1e-6; then, with the
+       ``engineer`` manifest invalidated, ``--resume`` skips ``clean`` only
+       and publishes the same forest bit for bit; and 11c's (device-path)
+       ledger's ``ingest.*`` program rows, each with dispatches and
+       CUDA-event seconds above 0, listed.
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing neither, when
 CUDA is unavailable or any phase fails. ``--only-scoring`` runs phases 1-4,
@@ -218,6 +250,7 @@ full ``n_estimators``) on a new 2.3M-loan frame, and prints neither line.
 from __future__ import annotations
 
 import argparse
+import ast
 import dataclasses
 import gc
 import http.client
@@ -229,6 +262,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -241,6 +275,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from cobalt_smart_lender_ai_tpu_torch.config import (
+    DataConfig,
     GBDTConfig,
     PipelineConfig,
     ReliabilityConfig,
@@ -248,17 +283,26 @@ from cobalt_smart_lender_ai_tpu_torch.config import (
     ServeConfig,
     TuneConfig,
 )
+from cobalt_smart_lender_ai_tpu_torch import native
 from cobalt_smart_lender_ai_tpu_torch.data import schema
+from cobalt_smart_lender_ai_tpu_torch.data.bootstrap import bootstrap_synthetic
+from cobalt_smart_lender_ai_tpu_torch.data.clean import clean_raw_frame
 from cobalt_smart_lender_ai_tpu_torch.data.device_pipeline import (
     run_device_ingest,
     tokenize_raw_frame,
     transform_raw_rows,
 )
-from cobalt_smart_lender_ai_tpu_torch.data.features import drop_training_leakage
+from cobalt_smart_lender_ai_tpu_torch.data.features import (
+    FeatureFrame,
+    drop_training_leakage,
+    engineer_features,
+    prepare_cleaned_frame,
+)
 from cobalt_smart_lender_ai_tpu_torch.data.frame import RawFrame, row_dicts
 from cobalt_smart_lender_ai_tpu_torch.data.split import split_mask, train_test_split_hashed
 from cobalt_smart_lender_ai_tpu_torch.data.synthetic import synthetic_lendingclub_frame
-from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
+from cobalt_smart_lender_ai_tpu_torch.io import DatasetRegistry, GBDTArtifact, ObjectStore
+from cobalt_smart_lender_ai_tpu_torch.io.frames import csv_to_frame
 from cobalt_smart_lender_ai_tpu_torch.models import gbdt
 from cobalt_smart_lender_ai_tpu_torch.ops import _build
 from cobalt_smart_lender_ai_tpu_torch.ops.binning import compute_bin_edges, transform
@@ -1225,12 +1269,15 @@ def raw_path_phase(
     check_rows: int = RAW_CHECK_ROWS,
     device: str = "cuda",
     frame: RawFrame | None = None,
+    keep: dict | None = None,
 ) -> tuple[dict, dict, tuple]:
     """Phase 6 on ``frame`` (``raw_table(n_rows)`` if None); returns
     (summary, launches of each kernel on this path, the training split of
     all tree features after the leakage drop as ``(X, y, names)`` on the
-    host, for phase 8's histogram shapes). ``device="cpu"`` and small row
-    counts rehearse it without a card."""
+    host, for phase 8's histogram shapes). ``keep``, when given, receives
+    6b's ingest (``report``, ``plan`` and the tree table on the host) for
+    phase 13b. ``device="cpu"`` and small row counts rehearse it without a
+    card."""
     dev = torch.device(device)
     out: dict = {"card_vs_cpu": ingest_card_vs_cpu(check_rows, device)}
 
@@ -1259,6 +1306,9 @@ def raw_path_phase(
     out["tree_features"] = res.tree.n_features
     out["nn_features"] = res.nn.n_features
     out["report"] = dataclasses.asdict(res.report)
+    if keep is not None:
+        keep.update(report=res.report, plan=res.plan, tree=FeatureFrame(
+            res.tree.feature_names, res.tree.X.cpu(), res.tree.y.cpu()))
     ff = drop_training_leakage(res.tree)
     out["tree_features_after_leakage_drop"] = ff.n_features
     X_all, X_test, y_train, y_test = train_test_split_hashed(ff.X, ff.y)
@@ -1479,7 +1529,8 @@ def expected_launches(cfg: PipelineConfig, res: PipelineResult, n_features: int)
     one per tree level of every fit (RFE refits, CV jobs, the refit)."""
     rfe_cfg = cfg.rfe
     n_iters = -(-(n_features - rfe_cfg.n_select) // rfe_cfg.step)
-    return {"host_frontier": 0, "device_ingest": 0,
+    data = ("host_frontier", "device_ingest") if cfg.data.device_pipeline else ("clean", "engineer")
+    return {**dict.fromkeys(data, 0),
             "rfe": n_iters * rfe_cfg.n_estimators * rfe_cfg.max_depth,
             "search": search_launches(cfg.gbdt, cfg.tune, res.search), "eval": 0}
 
@@ -1871,6 +1922,10 @@ def quantized_phase(card: str) -> tuple[list[dict], dict]:
 BURSTS_64 = 4
 #: Rows of the training CLI's run in 11c.
 CLI_ROWS = 200_000
+#: The device ingest's programs every device-path run records (the
+#: reference's names; ``binning`` is its one-device form).
+INGEST_STEPS = {"null_stats", "row_compact", "fill", "dedupe", "vocab_census", "stats",
+                "assemble", "binning"}
 #: Recorded dispatches timed on the host in 11d.
 OVERHEAD_DISPATCHES = 10_000
 
@@ -2079,6 +2134,12 @@ def observability_cli(card: str, root: str, n_rows: int = CLI_ROWS) -> dict:
     if not hist or not all(p["dispatches"] > 0 and p["dispatch_seconds"] > 0
                            and p["roofline_utilization"] is not None for p in hist):
         raise AssertionError(f"the ledger's histogram programs: {hist}")
+    ingest = [p for p in ledger["programs"] if p["name"].startswith("ingest.")]
+    steps = {p["name"].split(".", 1)[1].split("[", 1)[0] for p in ingest}
+    if not INGEST_STEPS <= steps or not all(
+        p["kind"] == "ingest" and p["dispatches"] > 0 and p["dispatch_seconds"] > 0 for p in ingest
+    ):
+        raise AssertionError(f"the ledger's ingest programs: {ingest}")
     with open(trace_path) as fh:
         trace = json.load(fh)
     names = {e["name"] for e in trace["traceEvents"]}
@@ -2091,6 +2152,8 @@ def observability_cli(card: str, root: str, n_rows: int = CLI_ROWS) -> dict:
         "programs": [{k: p[k] for k in ("name", "dispatches", "dispatch_seconds", "bound_seconds",
                                         "roofline_utilization")} for p in hist],
         "devices": ledger["env"]["devices"],
+        "ingest_programs": [{k: p[k] for k in ("name", "dispatches", "dispatch_seconds")}
+                            for p in ingest],
     }
     print(f"observability cli (11c): {json.dumps(out)} [{card}]")
     return out
@@ -2660,6 +2723,225 @@ def _hardening(card: str, device: str) -> dict:
     return out
 
 
+# -- the data layer's remaining paths (phase 13) -----------------------------------
+
+
+def _same_engineering(a: tuple, b: tuple, what: str) -> None:
+    """Two runs of the engineering stage, each ``(report, plan, tree, nn)``:
+    the same report and plan (medians within ``LOG_RTOL`` for log1p-derived
+    columns, bitwise otherwise), tree and nn columns bitwise equal except the
+    log1p-derived ones (within ``LOG_RTOL``), the same labels."""
+    (ra, pa, ta, na), (rb, pb, tb, nb) = a, b
+    if dataclasses.asdict(ra) != dataclasses.asdict(rb):
+        raise AssertionError(f"{what}: clean reports differ: {ra} vs {rb}")
+    for f in ("numeric_names", "categorical_vocab", "label_vocab", "log_cols",
+              "tree_feature_names", "nn_feature_names", "asof"):
+        if getattr(pa, f) != getattr(pb, f):
+            raise AssertionError(f"{what}: plans differ in {f}")
+    log_cols = set(pa.log_cols)
+    for name, v in pa.medians.items():
+        w = pb.medians[name]
+        if (name in log_cols and not np.isclose(w, v, rtol=LOG_RTOL, atol=0.0)) or (
+            name not in log_cols and w != v
+        ):
+            raise AssertionError(f"{what}: median of {name}: {v} and {w}")
+    for fa, fb, kind in ((ta, tb, "tree"), (na, nb, "nn")):
+        if fa is None or fb is None:
+            continue
+        _columns_agree(fa.feature_names, fa.X.cpu(), fb.X.cpu(), log_cols, f"{what} {kind}")
+        if not torch.equal(torch.nan_to_num(fa.y.cpu(), nan=-1.0), torch.nan_to_num(fb.y.cpu(), nan=-1.0)):
+            raise AssertionError(f"{what}: labels differ")
+
+
+def host_path(frame: RawFrame, dev: torch.device) -> tuple[tuple, dict]:
+    """`clean_raw_frame` -> `prepare_cleaned_frame` -> `engineer_features`
+    on ``dev``: ``((report, plan, tree, nn), seconds of each step)``."""
+    seconds = {}
+    t0 = time.perf_counter()
+    cleaned, report = clean_raw_frame(frame)
+    seconds["clean_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prepared = prepare_cleaned_frame(cleaned, today=TODAY)
+    seconds["prepare_s"] = time.perf_counter() - t0
+    del cleaned
+    _sync(dev)
+    t0 = time.perf_counter()
+    tree, nn, plan = engineer_features(prepared, device=dev)
+    _sync(dev)
+    seconds["engineer_s"] = time.perf_counter() - t0
+    return (report, plan, tree, nn), seconds
+
+
+def host_path_card_checks(card: str, n_rows: int = RAW_CHECK_ROWS, device: str = "cuda") -> dict:
+    """Phase 13a: 6a's frame through the host path with its numerics on
+    the card, against `run_device_ingest` on the card and against the host
+    path on the CPU."""
+    dev = torch.device(device)
+    frame = synthetic_lendingclub_frame(n_rows, seed=SEED)
+    card_run, seconds = host_path(frame, dev)
+    res = run_device_ingest(tokenize_raw_frame(frame, today=TODAY), device=dev)
+    ingest = (res.report, dataclasses.replace(res.plan, asof=None), res.tree, res.nn)
+    _same_engineering(card_run, ingest, "host path against the device ingest")
+    del res, ingest
+    report, plan, _, _ = card_run
+    cpu_tree, cpu_nn, cpu_plan = engineer_features(
+        prepare_cleaned_frame(clean_raw_frame(frame)[0], today=TODAY), device="cpu")
+    _same_engineering(card_run, (report, cpu_plan, cpu_tree, cpu_nn), "host path card against cpu")
+    out = {"rows_in": frame.n_rows, "rows_out": card_run[2].n_rows,
+           "tree_features": len(plan.tree_feature_names), **seconds}
+    print(f"host path (13a): {json.dumps(out)} [{card}]")
+    return out
+
+
+def host_path_at_scale(card: str, frame: RawFrame, raw: dict, kept: dict, device: str = "cuda") -> dict:
+    """Phase 13b: 6b's frame through the host path on the card, once: each
+    step's seconds beside 6b's tokenize (``host_frontier``) and card ingest
+    (``device_ingest``) seconds, the rows and the peak card memory; the tree
+    table held to 6b's as in 13a."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    run, seconds = host_path(frame, dev)
+    report, plan, tree, _ = run
+    out = {"rows_in": frame.n_rows, "rows_out": tree.n_rows, **seconds,
+           "host_path_s": sum(seconds.values()),
+           "device_path_host_frontier_s": raw["tokenize_s"], "device_path_device_ingest_s": raw["ingest_s"]}
+    if dev.type == "cuda":
+        out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    _same_engineering((report, plan, tree, None),
+                      (kept["report"], dataclasses.replace(kept["plan"], asof=None), kept["tree"], None),
+                      "host path against 6b's ingest")
+    print(f"host path at scale (13b): {json.dumps(out)} [{card}]")
+    return out
+
+
+def _frames_equal(ref: RawFrame, got: RawFrame, what: str) -> None:
+    """The same columns, dtypes (``U`` by kind), values bit for bit and
+    missing masks."""
+    if got.columns != ref.columns or got.n_rows != ref.n_rows:
+        raise AssertionError(f"{what}: columns or rows differ")
+    for name in ref.columns:
+        a, b = ref[name], got[name]
+        if a.dtype.kind == "U":
+            same = (b.dtype.kind == "U" and np.array_equal(a, b)
+                    and np.array_equal(ref.missing(name), got.missing(name)))
+        else:
+            same = a.dtype == b.dtype and np.array_equal(a.view(np.int64), b.view(np.int64))
+        if not same:
+            raise AssertionError(f"{what}: column {name!r} differs")
+
+
+def native_reader_phase(card: str, root: str, cfg: PipelineConfig, resumed: dict) -> dict:
+    """Phase 13c: 8b's stored cleaned, tree and nn tables read with the
+    native reader and with `csv_to_frame`: equal frames, seconds and MB/s
+    of each; and 10b's restore of the tree table through `load_frame`."""
+    store = ObjectStore(root)
+    out = {}
+    for name, key in (("cleaned", cfg.data.cleaned_key), ("tree", cfg.data.tree_key),
+                      ("nn", cfg.data.nn_key)):
+        data = store.get_bytes(key)
+        t0 = time.perf_counter()
+        got = native.read_csv(data, engine="native")
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = csv_to_frame(data)
+        frames_s = time.perf_counter() - t0
+        _frames_equal(ref, got, f"{name} table")
+        mb = len(data) / 1e6
+        out[name] = {"bytes": len(data), "rows": got.n_rows, "columns": len(got.columns),
+                     "native_s": native_s, "native_mb_per_s": mb / native_s,
+                     "csv_to_frame_s": frames_s, "csv_to_frame_mb_per_s": mb / frames_s}
+        del data, got, ref
+        gc.collect()
+    out["resume_restore_s"] = resumed["read_tree_csv_s"]
+    print(f"native reader (13c): {json.dumps(out)} [{card}]")
+    return out
+
+
+def _cli(root: str, device: torch.device, *args: str) -> dict:
+    """``--quick --pandas-ingest`` through the training CLI in a subprocess
+    on ``device``: its printed summary."""
+    cmd = [sys.executable, "-m", "cobalt_smart_lender_ai_tpu_torch.pipeline", "--store", root,
+           "--quick", "--pandas-ingest", "--device", device.type, *args]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"the training CLI exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    return ast.literal_eval(proc.stdout.strip().splitlines()[-1])
+
+
+def pandas_ingest_phase(card: str, root: str, cli: dict, n_rows: int = CLI_ROWS,
+                        device: str = "cuda") -> dict:
+    """Phase 13d: ``--pandas-ingest`` end to end. `bootstrap_synthetic`
+    writes the raw table into a `DatasetRegistry`, pulled and verified into
+    the store's ``raw_key``; the CLI trains on it (histogram launches per
+    stage as 8b counts them, equal to the ledger's programs) and publishes;
+    16 raw rows through `predict_raw` held to the plain version; then with
+    the ``engineer`` manifest invalidated ``--resume`` restores the cleaned
+    table (``stages_skipped == ("clean",)``) and publishes the same forest
+    bit for bit. Lists 11c's ``ingest.*`` program rows (a device-path run)."""
+    dev = torch.device(device)
+    store = ObjectStore(root)
+    cfg = dataclasses.replace(quick_config(), data=DataConfig(device_pipeline=False))
+    key = cfg.serve.model_key
+    registry = DatasetRegistry(store)
+    out: dict = {"rows": n_rows}
+    t0 = time.perf_counter()
+    path = bootstrap_synthetic(Path(root) / "workspace", registry, n_rows=n_rows, seed=SEED)
+    out["bootstrap_s"] = time.perf_counter() - t0
+    pin = registry.pin(path.name)
+    data = registry.pull(path.name)
+    if not registry.verify(path.name) or data != path.read_bytes():
+        raise AssertionError("the pinned raw table does not verify")
+    store.put_bytes(cfg.data.raw_key, data)
+    out["pin"] = dataclasses.asdict(pin)
+
+    ledger_path = f"{root}/pandas_ingest_ledger.json"
+    t0 = time.perf_counter()
+    first = _cli(root, dev, "--ledger-out", ledger_path)
+    out["cli_s"] = time.perf_counter() - t0
+    if first["stages_run"] != ("clean", "engineer", "rfe", "search", "eval"):
+        raise AssertionError(f"the host-path run ran {first['stages_run']}")
+    ledger = load_ledger(ledger_path)
+    art = GBDTArtifact.load(store, key, "cpu")
+    n_features = len([n for n in art.plan.tree_feature_names if n not in schema.TRAIN_LEAKAGE_COLS])
+    halving = ledger.get("search_halving")
+    if halving is not None:  # JSON keyed the chunks by str(depth)
+        halving = {**halving, "chunk_trees": {int(d): c for d, c in halving["chunk_trees"].items()}}
+    search = types.SimpleNamespace(
+        cv_results_={"params": sample_candidates(cfg.tune.param_space, cfg.tune.n_iter, cfg.tune.seed),
+                     "halving": halving},
+        best_params_=first["best_params"],
+    )
+    expect = expected_launches(cfg, types.SimpleNamespace(search=search), n_features)
+    hist = sum(p["dispatches"] for p in ledger["programs"] if p["name"].startswith("gradient_histogram/"))
+    if dev.type == "cuda" and (first["hist_launches"] != expect or hist != sum(expect.values())):
+        raise AssertionError(f"histogram launches {first['hist_launches']} ({hist} in the ledger), "
+                             f"expected {expect}")
+    out.update(stage_s=first["timings"], hist_launches=first["hist_launches"],
+               test_auc=first["test_auc"], cv_auc=first["cv_auc"], best_params=first["best_params"])
+    frame = native.read_csv(data, engine="native")
+    picks = np.sort(np.random.default_rng(SEED + 13).choice(frame.n_rows, PROTOCOL_SERVE_ROWS, replace=False))
+    out["predict_raw"] = serve_payloads(store, key, row_dicts(frame, picks), dev)
+    del frame, data
+
+    PipelineCheckpoint(store, cfg.reliability.checkpoint_prefix).invalidate("engineer")
+    t0 = time.perf_counter()
+    resumed = _cli(root, dev, "--resume")
+    out["resume_s"] = time.perf_counter() - t0
+    if resumed["stages_skipped"] != ("clean",):
+        raise AssertionError(f"the resume skipped {resumed['stages_skipped']}")
+    if not same_forest(art.forest, GBDTArtifact.load(store, key, "cpu").forest):
+        raise AssertionError("the resumed run published another forest")
+    out.update(resume_stage_s=resumed["timings"], resume_hist_launches=resumed["hist_launches"],
+               stages_skipped=list(resumed["stages_skipped"]))
+    out["ingest_programs"] = cli["ingest_programs"]
+    print(f"pandas ingest (13d): {json.dumps(out)} [{card}]")
+    for p in cli["ingest_programs"]:
+        print(f"ingest program (11c's device-path ledger): {p['name']} dispatches={p['dispatches']} "
+              f"event_s={p['dispatch_seconds']:.6f} [{card}]")
+    return out
+
+
 def print_scoring_split(card: str) -> None:
     for precision in ("f32", *QUANTIZED):
         for r in scoring_split("cuda", precision):
@@ -2695,11 +2977,15 @@ def main() -> int:
     print(card)
     t0 = time.perf_counter()
     kernels_built = ["score_forest", "gradient_histogram"]
-    with ThreadPoolExecutor(max_workers=len(kernels_built)) as pool:
+    with ThreadPoolExecutor(max_workers=len(kernels_built) + 1) as pool:
+        reader = pool.submit(native._build)  # g++, beside the nvcc builds
         list(pool.map(_build.build, kernels_built))  # one nvcc each, together
+        reader.result()
     for name in kernels_built:
         _build.load(name)
-    print(f"build: {', '.join(k + '.cu' for k in kernels_built)} in "
+    if not native.native_available():
+        raise RuntimeError("the native csv reader does not load")
+    print(f"build: {', '.join(k + '.cu' for k in kernels_built)}, csv_reader.cc in "
           f"{time.perf_counter() - t0:.1f}s (in parallel)")
     for name in kernels_built:
         print(_build.build_log.get(name, f"{name}: library was already built"), file=sys.stderr)
@@ -2737,8 +3023,15 @@ def main() -> int:
     frame, generate_s = raw_table()
     print(f"raw table: {frame.n_rows} loans generated in {generate_s:.1f}s [{card}]")
     t0 = time.perf_counter()
-    raw, raw_launches, train_rows = raw_path_phase(card, frame=frame)
+    kept: dict = {}
+    raw, raw_launches, train_rows = raw_path_phase(card, frame=frame, keep=kept)
     print(f"raw_path phase: {time.perf_counter() - t0:.1f}s [{card}]")
+    # Phase 13a-b, on 6a's and 6b's frames.
+    t13 = time.perf_counter()
+    data_layer = {"host_path": host_path_card_checks(card),
+                  "host_path_at_scale": host_path_at_scale(card, frame, raw, kept)}
+    del kept
+    phase13_s = time.perf_counter() - t13
     # Phase 8 runs before phase 7: a profiler session slows later launches.
     t0 = time.perf_counter()
     check = protocol_card_vs_cpu()
@@ -2757,6 +3050,9 @@ def main() -> int:
         del train_rows
         resumed = resume_phase(card, root, quick, res, payloads)
         del res
+        t13 = time.perf_counter()  # phase 13c, on 8b's store
+        data_layer["native_reader"] = native_reader_phase(card, root, quick, resumed)
+        phase13_s += time.perf_counter() - t13
     selection_card_vs_cpu(card)
     print(f"halving and resume phase: {time.perf_counter() - t0:.1f}s [{card}]")
     t0 = time.perf_counter()
@@ -2764,6 +3060,11 @@ def main() -> int:
         observed["cli"] = observability_cli(card, root)
     observed["overhead"] = recording_overhead(card, training["fit_s"], training["hist_launches"])
     print(f"observability phase: {time.perf_counter() - t0:.1f}s [{card}]")
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pandas_ingest_") as root:
+        data_layer["pandas_ingest"] = pandas_ingest_phase(card, root, observed["cli"])
+    phase13_s += time.perf_counter() - t13
+    print(f"data layer phase (13): {phase13_s:.1f}s [{card}]")
     print_scoring_split(card)
 
     main_rec = next(r for r in records if r["bucket"] == 64)
@@ -2781,11 +3082,13 @@ def main() -> int:
             "precisions": ["f32", *QUANTIZED],
             "quantized_launches": quantized_serving["launches"],
             "hardening_launches": hardening["launches"],
+            "pandas_ingest_launches": data_layer["pandas_ingest"]["predict_raw"]["launches"],
             "max_abs_err": max(
                 [max(r.get("prob", 0.0), r.get("phis", 0.0)) for r in records + quantized_records]
                 + [raw["serve"]["prob_max_abs_err"], raw["degraded"]["prob_max_abs_err"],
                    protocol["predict_raw"]["prob_max_abs_err"],
                    resumed["predict_raw"]["prob_max_abs_err"],
+                   data_layer["pandas_ingest"]["predict_raw"]["prob_max_abs_err"],
                    quantized_serving["predict_prob"], quantized_serving["predict_phis"],
                    quantized_serving["bulk_prob"]]
             ),
@@ -2806,6 +3109,8 @@ def main() -> int:
             "halving_launches": halving["halving_launches"],
             "exhaustive_launches": halving["exhaustive_launches"],
             "resume_launches": resumed["resume_launches"] + resumed["resume_after_invalidate_launches"],
+            "pandas_ingest_launches": sum(data_layer["pandas_ingest"]["hist_launches"].values())
+            + sum(data_layer["pandas_ingest"]["resume_hist_launches"].values()),
             "max_abs_err": max(r["max_abs_err"] for r in hist_records + protocol_hist),
             "ms": hist_main["ms"],
             "plain_ms": hist_main["plain_ms"],

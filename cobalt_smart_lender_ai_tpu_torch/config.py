@@ -26,6 +26,11 @@ class DataConfig:
     null_col_threshold: float = 70.0
     #: Drop a prepared row missing more than this many live columns.
     row_null_allowance: int = 20
+    #: Clean, prepare and engineer on the device (`data.device_pipeline`);
+    #: False runs the host path (`data.clean.clean_raw_frame`,
+    #: `data.features.prepare_cleaned_frame` and `engineer_features`), as the
+    #: CLI's ``--pandas-ingest`` does.
+    device_pipeline: bool = True
 
 
 def _check_chunk_trees(ct: Any) -> None:

@@ -36,14 +36,18 @@ Telemetry, on the process-wide registry as the reference records it:
 ``cobalt_ingest_rows_total`` counts the raw rows entering the ingest, and
 ``cobalt_ingest_dispatch_seconds`` observes each device program of the
 ingest (and of `transform_raw_rows`), wall seconds ending with the device
-synchronised, so they hold the program's device work.
+synchronised, so they hold the program's device work. Each program is also
+a row of the program table (`telemetry.programs`), under the reference's
+names: ``ingest.null_stats``, ``row_compact``, ``fill``, ``dedupe``,
+``vocab_census``, ``stats``, ``assemble``, ``binning`` and ``raw_row``,
+each ``[rows=N,features=F]`` of its input, with its dispatches and their
+CUDA-event seconds on the card (wall seconds on the CPU).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import re
 import time
 from datetime import datetime
 from typing import Any, Mapping, Sequence
@@ -54,26 +58,26 @@ import torch
 from cobalt_smart_lender_ai_tpu_torch.data import schema
 from cobalt_smart_lender_ai_tpu_torch.data.clean import (
     CleanReport,
-    _number,
+    date_age_days,
+    parse_emp_length,
+    parse_frontier_strings,
     parse_percent,
     parse_term,
 )
 from cobalt_smart_lender_ai_tpu_torch.data.features import (
     FeatureFrame,
     FeaturePlan,
-    impute_with_indicators,
+    assemble_frames,
     log1p_masked,
+    nanmedians,
     one_hot_codes,
 )
 from cobalt_smart_lender_ai_tpu_torch.data.frame import RawFrame, column_names, string_column
 from cobalt_smart_lender_ai_tpu_torch.data.split import _mix_u32
 from cobalt_smart_lender_ai_tpu_torch.device import resolve_device
-from cobalt_smart_lender_ai_tpu_torch.ops.binning import (
-    BinSpec,
-    _nanquantile_column,
-    bin_edges_and_transform,
-)
+from cobalt_smart_lender_ai_tpu_torch.ops.binning import BinSpec, bin_edges_and_transform
 from cobalt_smart_lender_ai_tpu_torch.telemetry.metrics import default_registry, log_buckets
+from cobalt_smart_lender_ai_tpu_torch.telemetry.programs import program_handle
 
 __all__ = [
     "DeviceIngestResult",
@@ -97,14 +101,30 @@ _INGEST_ROWS = default_registry().counter(
 
 
 @contextlib.contextmanager
-def _dispatch(dev: torch.device):
-    """Time one device program of the ingest into
-    ``cobalt_ingest_dispatch_seconds``, ending with ``dev`` synchronised."""
+def _dispatch(dev: torch.device, step: str, X: torch.Tensor | np.ndarray):
+    """Time one device step of the ingest on ``X`` (its input matrix):
+    ``cobalt_ingest_dispatch_seconds`` observes the wall seconds ending with
+    ``dev`` synchronised, and the step's program handle
+    ``ingest.<step>[rows=N,features=F]`` (kind ``"ingest"``, the
+    reference's names) counts the dispatch with the seconds between a pair
+    of CUDA events around it on the card, or the same wall seconds on the
+    CPU."""
+    rows, features = int(X.shape[0]), int(X.shape[1])
+    prog = program_handle(
+        f"ingest.{step}[rows={rows},features={features}]", "ingest", dev,
+        rows_per_dispatch=rows, features=features,
+    )
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    pair = prog.start(stream) if stream is not None else None
     t0 = time.perf_counter()
     yield
-    if dev.type == "cuda":
+    if stream is not None:
+        prog.stop(pair, stream, rows=rows)
         torch.cuda.synchronize(dev)
-    _INGEST_DISPATCH_S.observe(time.perf_counter() - t0)
+    seconds = time.perf_counter() - t0
+    _INGEST_DISPATCH_S.observe(seconds)
+    if stream is None:
+        prog.record_dispatch(seconds, rows=rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,33 +166,6 @@ class DeviceIngestResult:
 
 
 # --- Stringy frontier (host) ----------------------------------------------------
-
-
-def _emp_length_number(s: str) -> float:
-    """The reference's emp_length transform of one string: ``"< 1 year"``
-    is 0, else the first run of digits."""
-    m = re.search(r"(\d+)", "0" if s == "< 1 year" else s)
-    return _number(m.group(1)) if m else float("nan")
-
-
-def _date_age_days(s: str, today: datetime) -> float:
-    """Days from a ``"%b-%Y"`` date (the 1st of its month) to ``today``,
-    floored; NaN if the string is not such a date."""
-    try:
-        return float((today - datetime.strptime(s, "%b-%Y")).days)
-    except ValueError:
-        return float("nan")
-
-
-def _parse_strings(name: str, uniq: np.ndarray, today: datetime) -> np.ndarray:
-    """The frontier parse of one column's distinct strings, float64."""
-    if name in schema.FRONTIER_TERM_COLS:
-        return parse_term(uniq)
-    if name in schema.FRONTIER_PERCENT_COLS:
-        return parse_percent(uniq)
-    if name in schema.FRONTIER_EMP_COLS:
-        return np.array([_emp_length_number(s) for s in uniq.tolist()], np.float64)
-    return np.array([_date_age_days(s, today) for s in uniq.tolist()], np.float64)
 
 
 _FRONTIER = frozenset(
@@ -227,7 +220,7 @@ def tokenize_raw_frame(frame: Any, *, today: datetime | None = None) -> Tokenize
         if name in _FRONTIER:
             kinds.append("numeric")
             out = np.full(n_rows, np.nan)
-            out[present] = _parse_strings(name, uniq, now)[inv]
+            out[present] = parse_frontier_strings(name, uniq, now)[inv]
             X[:, j] = out
             continue
         cats = uniq.tolist()
@@ -342,14 +335,6 @@ def _numeric_prep(
     return log1p_masked(Xn, log_mask)
 
 
-def _nanmedians(Xn: torch.Tensor) -> torch.Tensor:
-    """Per-column medians ignoring NaN, the reference's ``nanmedian``
-    rounding (the mean of the two middle values); all-NaN columns give 0."""
-    half = torch.tensor([0.5], dtype=torch.float32, device=Xn.device)
-    med = torch.cat([_nanquantile_column(Xn[:, j], half) for j in range(Xn.shape[1])])
-    return torch.where(torch.isnan(med), 0.0, med)
-
-
 # The reference pipeline's defaults: drop a column more than 70% missing,
 # drop rows missing a value in a column with fewer than 10 nulls, and drop a
 # prepared row missing more than 20 live columns; 255 quantile bins.
@@ -400,11 +385,11 @@ def run_device_ingest(
         return torch.tensor([pos[n] for n in names], dtype=torch.int64, device=dev)
 
     # Clean rule 2: drop rows missing a value in any near-complete column.
-    with _dispatch(dev):
+    with _dispatch(dev, "null_stats", X):
         counts = _null_counts(X)
     near = [n for n in live if counts[pos[n]] < _ROW_DROP_NULL_LIMIT]
     before = int(X.shape[0])
-    with _dispatch(dev):
+    with _dispatch(dev, "row_compact", X):
         X = _compact_by_nonnull(X, sel(near), len(near))  # a copy: tok.X stays
     report.n_rows_dropped_near_complete = before - int(X.shape[0])
 
@@ -412,12 +397,12 @@ def run_device_ingest(
     if "hardship_status" in live:
         cats = tok.vocab.get(pos["hardship_status"], ())
         if schema.HARDSHIP_FILL in cats:
-            with _dispatch(dev):
+            with _dispatch(dev, "fill", X):
                 _fill_cols(X, [pos["hardship_status"]], [float(cats.index(schema.HARDSHIP_FILL))])
 
     # Clean rule 4 (term / int_rate parse) happened at tokenize time.
     # Clean rule 5: missingness-threshold column drop.
-    with _dispatch(dev):
+    with _dispatch(dev, "null_stats", X):
         counts = _null_counts(X)
     n_rows = int(X.shape[0])
     too_null = [
@@ -434,13 +419,13 @@ def run_device_ingest(
 
     # Clean rule 7: missing-means-zero fills.
     zero_cols = [c for c in schema.FILL_ZERO_COLS if c in live]
-    with _dispatch(dev):
+    with _dispatch(dev, "fill", X):
         _fill_cols(X, [pos[c] for c in zero_cols], [0.0] * len(zero_cols))
 
     # Clean rule 8: keep-first dedupe over the live columns.
     before = int(X.shape[0])
     if before:
-        with _dispatch(dev):
+        with _dispatch(dev, "dedupe", X):
             X = _dedupe_keep_first(X, [pos[c] for c in live])
         report.n_duplicates_removed = before - int(X.shape[0])
     report.n_rows_out = int(X.shape[0])
@@ -449,7 +434,7 @@ def run_device_ingest(
     # Prepare: leakage/useless drop, then the row-null threshold.
     fe_drop = set(schema.FE_LEAKAGE_COLS) | set(schema.FE_USELESS_COLS)
     live = [c for c in live if c not in fe_drop]
-    with _dispatch(dev):
+    with _dispatch(dev, "row_compact", X):
         X = _compact_by_nonnull(X, sel(live), max(len(live) - row_null_allowance, 0))
 
     # Prepare renames (values already tokenized; the reference appends each
@@ -478,7 +463,7 @@ def run_device_ingest(
     nan_surv: dict[str, bool] = {}
     if cat_all:
         vmax = max(1, max(len(tok.vocab.get(pos[c], ())) for c in cat_all))
-        with _dispatch(dev):
+        with _dispatch(dev, "vocab_census", X):
             present, has_nan = _vocab_census(X, [pos[c] for c in cat_all], vmax)
         for i, c in enumerate(cat_all):
             full = tok.vocab.get(pos[c], ())
@@ -514,7 +499,6 @@ def run_device_ingest(
             torch.tensor([float(lookup.get(v, -1)) for v in full] or [-1.0],
                          dtype=torch.float32, device=dev)
         )
-    n_classes = [len(cat_vocab[c]) for c in cat_present]
 
     # Label map over the full tokenize vocabulary (unseen statuses -> NaN).
     lab_full = tok.vocab.get(label_pos, ()) if has_label else ()
@@ -524,69 +508,35 @@ def run_device_ingest(
     )
 
     log_mask = torch.from_numpy(np.isin(np.asarray(numeric_names), np.asarray(schema.LOG_COLS)))
-    with _dispatch(dev):
+    with _dispatch(dev, "stats", X):
         Xn = _numeric_prep(X, sel(numeric_names), res_tables, log_mask)
-    with _dispatch(dev):
-        nan_any = torch.isnan(Xn).any(dim=0).cpu().numpy()
-        medians = _nanmedians(Xn)
+    with _dispatch(dev, "stats", X):
+        medians = nanmedians(Xn)
         medians_np = medians.cpu().numpy()
-
-    dti_pos = numeric_names.index("dti") if "dti" in numeric_names else -1
-    inc_pos = numeric_names.index("annual_inc") if "annual_inc" in numeric_names else -1
-    need_ind = nan_any.copy()
-    if dti_pos >= 0:
-        need_ind[dti_pos] = False
-    ind_idx = np.flatnonzero(need_ind)
 
     # Feature assembly: tree (numeric | one-hots), nn (imputed | indicators
     # | no_income | dti_NA | codes), label.
-    with _dispatch(dev):
-        new_codes = []
+    with _dispatch(dev, "assemble", X):
+        new_codes = {}
         for c, table in zip(cat_present, cat_tables):
             col = X[:, pos[c]]
             nan = torch.isnan(col)
-            new_codes.append(torch.where(nan, -1.0, table[torch.where(nan, 0.0, col).long()]))
-        tree_blocks = [Xn] + [
-            one_hot_codes(code, k) for code, k in zip(new_codes, n_classes) if k > 1
-        ]
-        X_tree = torch.cat(tree_blocks, dim=1)
-        filled, indicators = impute_with_indicators(Xn, medians, torch.from_numpy(need_ind).to(dev))
-        nn_blocks = [filled]
-        if ind_idx.size:
-            nn_blocks.append(indicators[:, torch.from_numpy(ind_idx).to(dev)])
-        if inc_pos >= 0:
-            inc = Xn[:, inc_pos]
-            nn_blocks.append((torch.isnan(inc) | (inc == 0)).to(torch.float32)[:, None])
-        if dti_pos >= 0:
-            nn_blocks.append(torch.isnan(Xn[:, dti_pos]).to(torch.float32)[:, None])
-        for code, k in zip(new_codes, n_classes):
-            nn_blocks.append(torch.where(code < 0, float(k), code)[:, None])
-        X_nn = torch.cat(nn_blocks, dim=1)
+            new_codes[c] = torch.where(nan, -1.0, table[torch.where(nan, 0.0, col).long()])
+        X_tree, X_nn, tree_names, nn_names = assemble_frames(
+            Xn, numeric_names, new_codes, cat_vocab, medians
+        )
         y = None
         if has_label:
             lcol = X[:, label_pos]
             nan = torch.isnan(lcol)
             y = torch.where(nan, float("nan"), label_table[torch.where(nan, 0.0, lcol).long()])
-    del X, Xn, filled, indicators, tree_blocks, nn_blocks
+    del X, Xn, new_codes
 
     # The GBDT sketch: quantile edges and bins of the tree features.
-    with _dispatch(dev):
+    with _dispatch(dev, "binning", X_tree):
         spec, bins = bin_edges_and_transform(X_tree, n_bins=n_bins)
 
-    # Names and the replay plan.
-    tree_names = list(numeric_names)
-    for c in cat_present:
-        cats = cat_vocab[c]
-        if len(cats) > 1:
-            tree_names.extend(f"{c}_{v}" for v in cats[1:])
-    nn_names = list(numeric_names)
-    nn_names.extend(f"{numeric_names[i]}_NA" for i in ind_idx)
-    if inc_pos >= 0:
-        nn_names.append("no_income")
-    if dti_pos >= 0:
-        nn_names.append("dti_NA")
-    nn_names.extend(cat_present)
-
+    # The replay plan.
     plan = FeaturePlan(
         numeric_names=tuple(numeric_names),
         categorical_vocab=cat_vocab,
@@ -634,9 +584,9 @@ def _tokenize_raw_value(name: str, v: Any, today: datetime) -> float:
     if _scalar_missing(v):
         return 0.0 if name in schema.FILL_ZERO_COLS else float("nan")
     if name == "emp_length_num" and isinstance(v, str):
-        return _emp_length_number(v)
+        return parse_emp_length(v)
     if name == "earliest_cr_line_days" and isinstance(v, str):
-        return _date_age_days(v, today)
+        return date_age_days(v, today)
     if isinstance(v, str):
         s = v.strip()
         if name in schema.FRONTIER_TERM_COLS:
@@ -723,7 +673,7 @@ def transform_raw_rows(
                 mat[r, n_num + i] = cats.index(s) if s in cats else -1.0
     n_classes = [len(plan.categorical_vocab[c]) for c in cat_names]
     log_mask = torch.from_numpy(np.isin(np.asarray(numeric_names), np.asarray(plan.log_cols)))
-    with _dispatch(dev):
+    with _dispatch(dev, "raw_row", mat):
         out = _raw_row_features(torch.from_numpy(mat).to(dev), log_mask, n_classes, n_num)
     if out.shape[1] != len(plan.tree_feature_names):
         raise ValueError(

@@ -20,7 +20,7 @@ from typing import Any, Iterator, Mapping
 
 import numpy as np
 
-__all__ = ["RawFrame", "column_names", "row_dicts", "string_column"]
+__all__ = ["RawFrame", "as_raw_frame", "column_names", "row_dicts", "string_column"]
 
 
 class RawFrame:
@@ -120,6 +120,23 @@ def string_column(
     tokens = tuple(sorted({str(v) for v in arr[mask]}))
     values = np.where(mask, "", arr).astype(str)
     return values, mask, tokens
+
+
+def as_raw_frame(frame: Any) -> RawFrame:
+    """``frame`` (anything `string_column` reads, a pandas DataFrame among
+    them) as a `RawFrame` of numeric arrays and ``U`` columns with their
+    missing masks; a `RawFrame` of such columns comes back as it is."""
+    if isinstance(frame, RawFrame) and all(frame[n].dtype.kind in "biufU" for n in frame):
+        return frame
+    columns, missing = {}, {}
+    for name in column_names(frame):
+        s = string_column(frame, name)
+        if s is None:
+            col = frame[name]
+            columns[name] = np.asarray(col.to_numpy() if hasattr(col, "to_numpy") else col)
+        else:
+            columns[name], missing[name] = s[0], s[1]
+    return RawFrame(columns, missing)
 
 
 def row_dicts(frame: Any, rows: np.ndarray) -> list[dict[str, Any]]:

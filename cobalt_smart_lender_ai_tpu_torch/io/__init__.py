@@ -1,4 +1,4 @@
-"""Object store and model artifacts."""
+"""Object store, dataset registry and model artifacts."""
 
 from cobalt_smart_lender_ai_tpu_torch.io.artifacts import (
     GBDTArtifact,
@@ -6,9 +6,17 @@ from cobalt_smart_lender_ai_tpu_torch.io.artifacts import (
     plan_to_json,
     save_metrics,
 )
+from cobalt_smart_lender_ai_tpu_torch.io.registry import (
+    REFERENCE_RAW_PINS,
+    DatasetPin,
+    DatasetRegistry,
+)
 from cobalt_smart_lender_ai_tpu_torch.io.store import PTR_SUFFIX, ObjectStore, StoreKeyError
 
 __all__ = [
+    "REFERENCE_RAW_PINS",
+    "DatasetPin",
+    "DatasetRegistry",
     "GBDTArtifact",
     "ObjectStore",
     "PTR_SUFFIX",

@@ -15,10 +15,10 @@ dialect, so either package reads the other's tables:
 - a field holding ``,``, ``"``, ``\\n`` or ``\\r`` is quoted, with ``"``
   doubled; an empty string that is not missing is written ``""``.
 
-Read back, a column is int64 when every field is an integer and none is
-missing, float64 when every field is a number or missing (empty, or one of
-pandas' default NA tokens), and a ``U`` array with a missing mask
-otherwise. Numbers round-trip bit for bit, and so do strings and their
+Read back, a column is int64 when every field is an integer within int64
+and none is missing, float64 when every field is a number or missing
+(empty, or one of pandas' default NA tokens), and a ``U`` array with a
+missing mask otherwise. Numbers round-trip bit for bit, and so do strings and their
 missing masks: a quoted field is never missing, so ``""`` reads back as the
 empty string (pandas, and the reference's reader, read it as missing).
 
@@ -217,6 +217,8 @@ def _cells(buf: np.ndarray, starts: np.ndarray, ends: np.ndarray) -> np.ndarray:
 
 def _unquote(cells: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """(unquoted cells, which were quoted)."""
+    if cells.size == 0:
+        return cells, np.zeros(0, bool)
     quoted = cells.view(np.uint8).reshape(cells.shape[0], -1)[:, 0] == _QUOTE
     if not quoted.any():
         return cells, quoted
@@ -257,7 +259,10 @@ def _parse_column(cells: np.ndarray) -> tuple[np.ndarray, np.ndarray | None]:
         values[missing] = ""
         return values, missing
     if not missing.any() and present.size and _integers(present):
-        return present.astype(np.int64), None
+        try:
+            return present.astype(np.int64), None
+        except OverflowError:  # past int64: the column reads as floats
+            pass
     out = np.full(cells.shape[0], np.nan)
     out[~missing] = nums
     return out, None

@@ -2,8 +2,9 @@
 
 The port's copy of the reference store's contract for plain paths and
 ``file://`` URIs: the byte-blob primitives (`put_bytes`, `get_bytes`,
-`exists`, `delete`, `list`), JSON, frames as CSV (`save_frame`,
-`load_frame`: pandas-free, `io.frames`), ndarrays as ``.npy``/``.npz``, and
+`exists`, `delete`, `list`), JSON, frames as CSV (`save_frame` writes with
+`io.frames`, `load_frame` reads with the native reader, `native.read_csv`,
+or the codec where it cannot be built), ndarrays as ``.npy``/``.npz``, and
 content-addressed pointers (`write_pointer`, `verify_pointer`: md5 and size
 in ``<key>.ptr.json``, the reference's JSON byte for byte).
 """
@@ -22,7 +23,7 @@ from typing import Iterator
 import numpy as np
 
 from cobalt_smart_lender_ai_tpu_torch.data.frame import RawFrame
-from cobalt_smart_lender_ai_tpu_torch.io.frames import csv_to_frame, frame_to_csv
+from cobalt_smart_lender_ai_tpu_torch.io.frames import frame_to_csv
 
 #: Suffix of content-addressed pointer objects (`write_pointer`).
 PTR_SUFFIX = ".ptr.json"
@@ -103,8 +104,12 @@ class ObjectStore:
         self.put_bytes(key, frame_to_csv(frame))
 
     def load_frame(self, key: str) -> RawFrame:
-        """A CSV object as a `RawFrame` (`io.frames.csv_to_frame`)."""
-        return csv_to_frame(self.get_bytes(key))
+        """A CSV object as a `RawFrame`: the native reader's
+        (`native.read_csv`), which equals `io.frames.csv_to_frame`'s, or the
+        codec's where the reader cannot be built."""
+        from cobalt_smart_lender_ai_tpu_torch.native import read_csv
+
+        return read_csv(self.get_bytes(key), engine="auto")
 
     def save_array(self, key: str, arr: np.ndarray) -> None:
         buf = _io.BytesIO()

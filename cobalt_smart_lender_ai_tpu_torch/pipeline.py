@@ -25,18 +25,25 @@ read from the store's ``data.raw_key``.
 
     python -m cobalt_smart_lender_ai_tpu_torch.pipeline --store artifacts \\
         --synthetic-rows 100000 [--seed S] [--quick] [--no-halving] [--resume] \\
-        [--device cuda|cpu] [--ledger-out run.json] [--trace-out trace.json]
+        [--pandas-ingest] [--device cuda|cpu] [--ledger-out run.json] \\
+        [--trace-out trace.json]
+
+The host path (``data.device_pipeline=False``, CLI ``--pandas-ingest``)
+cleans on the host (`data.clean.clean_raw_frame`), then prepares and
+engineers (`data.features`: strings on the host, numerics on the device);
+its timings are ``clean`` and ``engineer``. The reference's path takes
+pandas; the port's runs the same rules on its `RawFrame` without it. A
+resume whose ``clean`` manifest validates under a stale ``engineer`` one
+restores the cleaned table and takes the host path from there, with no raw
+table.
 
 Telemetry, as the reference records it: the whole run is a
 ``pipeline.run`` span with a ``pipeline.<stage>`` child per stage, and
 each stage observes ``cobalt_pipeline_stage_seconds{stage}`` on the
 process-wide registry. ``--ledger-out`` writes the run ledger (stages,
-final metrics, the halving report, the stages run, the kernel cost table
-and the metrics snapshot) and ``--trace-out`` the spans as Perfetto JSON.
-
-Not ported yet: the pandas ingest path (``--pandas-ingest`` raises,
-naming ROADMAP.md A3; so a valid ``clean`` manifest under a stale
-``engineer`` one re-runs the ingest from the raw table).
+final metrics, the halving report, the stages run, the kernel and ingest
+program table and the metrics snapshot) and ``--trace-out`` the spans as
+Perfetto JSON.
 """
 
 from __future__ import annotations
@@ -53,11 +60,17 @@ import torch
 
 from cobalt_smart_lender_ai_tpu_torch.config import PipelineConfig, RFEConfig, TuneConfig
 from cobalt_smart_lender_ai_tpu_torch.data import schema
+from cobalt_smart_lender_ai_tpu_torch.data.clean import clean_raw_frame
 from cobalt_smart_lender_ai_tpu_torch.data.device_pipeline import (
     run_device_ingest,
     tokenize_raw_frame,
 )
-from cobalt_smart_lender_ai_tpu_torch.data.features import FeatureFrame, drop_training_leakage
+from cobalt_smart_lender_ai_tpu_torch.data.features import (
+    FeatureFrame,
+    drop_training_leakage,
+    engineer_features,
+    prepare_cleaned_frame,
+)
 from cobalt_smart_lender_ai_tpu_torch.data.frame import RawFrame
 from cobalt_smart_lender_ai_tpu_torch.data.split import train_test_split_hashed
 from cobalt_smart_lender_ai_tpu_torch.device import resolve_device
@@ -132,8 +145,9 @@ class PipelineResult:
     search: SearchResult
     scale_pos_weight: float
     #: Wall seconds per stage (``host_frontier``, ``device_ingest``, ``rfe``,
-    #: ``search``, ``eval``; on resume ``restore`` and ``refit``), each ending
-    #: with the device synchronised.
+    #: ``search``, ``eval``; ``clean`` and ``engineer`` on the host path; on
+    #: resume ``restore`` and ``refit``), each ending with the device
+    #: synchronised.
     timings: dict[str, float]
     #: Histogram kernel launches per stage (none on the CPU, where the plain
     #: version runs).
@@ -224,6 +238,40 @@ def _save_plots(store: ObjectStore, key: str, y_test, y_pred, est, selected) -> 
         logger.warning("plot artifacts skipped (%s)", exc)
 
 
+def _raw_table(raw, store: ObjectStore | None, cfg: PipelineConfig):
+    """The raw table given, else the store's ``data.raw_key``."""
+    if raw is not None:
+        return raw
+    if store is None:
+        raise ValueError("provide a raw frame or an object store")
+    return store.load_frame(cfg.data.raw_key)
+
+
+def _persist(
+    store: ObjectStore,
+    ckpt: PipelineCheckpoint | None,
+    stage: str,
+    fingerprint: str,
+    tables: dict[str, RawFrame],
+    written: dict[str, Any],
+    extra: dict[str, Any] | None = None,
+) -> None:
+    """Write a stage's tables as CSV under their keys (what
+    ``store.save_frame`` writes) and, with checkpoints, the stage's manifest
+    pinning them; adds the wall seconds and ``{key: size}`` to ``written``'s
+    ``"seconds"`` and ``"bytes"``."""
+    t0 = time.perf_counter()
+    sizes = written.setdefault("bytes", {})
+    for key, table in tables.items():
+        data = frame_to_csv(table)
+        store.put_bytes(key, data)
+        sizes[key] = len(data)
+        del data
+    if ckpt is not None:
+        ckpt.write(stage, fingerprint=fingerprint, outputs=list(tables), extra=extra)
+    written["seconds"] = written.get("seconds", 0.0) + time.perf_counter() - t0
+
+
 def run_pipeline(
     config: PipelineConfig | None = None,
     raw=None,
@@ -299,6 +347,7 @@ def _run_pipeline(
     skip_rfe = skip_engineer and ckpt.valid("rfe", fp_rfe)
     skip_search = skip_rfe and ckpt.valid("search", fp_search)
 
+    keep = store is not None and cfg.save_intermediate  # the intermediate tables
     t = time.monotonic()
     if skip_engineer:
         plan = plan_from_json(ckpt.load("engineer")["extra"]["plan"])
@@ -309,14 +358,10 @@ def _run_pipeline(
             tree_ff.n_rows, tree_ff.n_features, cfg.data.tree_key,
         )
         t = tick("restore", t)
-    else:
-        if raw is None:
-            if store is None:
-                raise ValueError("provide a raw frame or an object store")
-            raw = store.load_frame(cfg.data.raw_key)
+    elif cfg.data.device_pipeline and not skip_clean:
+        raw = _raw_table(raw, store, cfg)
         tok = tokenize_raw_frame(raw, today=today)
         t = tick("host_frontier", t)
-        keep = store is not None and cfg.save_intermediate
         ingest = run_device_ingest(
             tok,
             device=dev,
@@ -335,30 +380,51 @@ def _run_pipeline(
             tree_ff.n_features,
         )
         if keep:
-            t_save = time.perf_counter()
-            tables = {
-                cfg.data.cleaned_key: ingest.cleaned,
-                cfg.data.tree_key: feature_table(tree_ff),
-                cfg.data.nn_key: feature_table(ingest.nn),
-            }
-            sizes = {}
-            for key, table in tables.items():
-                data = frame_to_csv(table)  # what store.save_frame writes
-                store.put_bytes(key, data)
-                sizes[key] = len(data)
-                del data
-            if ckpt is not None:
-                ckpt.write("clean", fingerprint=fp_clean, outputs=[cfg.data.cleaned_key])
-                ckpt.write(
-                    "engineer",
-                    fingerprint=fp_engineer,
-                    outputs=[cfg.data.tree_key, cfg.data.nn_key],
-                    extra={"plan": plan_to_json(plan)},
-                )
-            intermediates = {"seconds": time.perf_counter() - t_save, "bytes": sizes}
+            _persist(store, ckpt, "clean", fp_clean,
+                     {cfg.data.cleaned_key: ingest.cleaned}, intermediates)
+            _persist(store, ckpt, "engineer", fp_engineer,
+                     {cfg.data.tree_key: feature_table(tree_ff),
+                      cfg.data.nn_key: feature_table(ingest.nn)},
+                     intermediates, extra={"plan": plan_to_json(plan)})
         del ingest
         stages_run += ["clean", "engineer"]
         t = tick("device_ingest", t)
+    else:
+        # The host path: clean on the host (or restore the cleaned table),
+        # then prepare (host) and engineer (numerics on the device).
+        if skip_clean:
+            cleaned = store.load_frame(cfg.data.cleaned_key)
+            stages_skipped.append("clean")
+            logger.info("resume: restored the cleaned table from %s", cfg.data.cleaned_key)
+        else:
+            raw = _raw_table(raw, store, cfg)
+            cleaned, report = clean_raw_frame(raw, null_col_threshold=cfg.data.null_col_threshold)
+            del raw
+            logger.info(
+                "cleaned: %d rows, dropped %d null-heavy cols, %d dupes",
+                report.n_rows_out,
+                len(report.dropped_null_columns),
+                report.n_duplicates_removed,
+            )
+            if keep:
+                _persist(store, ckpt, "clean", fp_clean, {cfg.data.cleaned_key: cleaned},
+                         intermediates)
+            stages_run.append("clean")
+            t = tick("clean", t)
+        prepared = prepare_cleaned_frame(
+            cleaned, today=today, row_null_allowance=cfg.data.row_null_allowance
+        )
+        del cleaned
+        tree_ff, nn_ff, plan = engineer_features(prepared, device=dev)
+        del prepared
+        if keep:
+            _persist(store, ckpt, "engineer", fp_engineer,
+                     {cfg.data.tree_key: feature_table(tree_ff),
+                      cfg.data.nn_key: feature_table(nn_ff)},
+                     intermediates, extra={"plan": plan_to_json(plan)})
+        del nn_ff
+        stages_run.append("engineer")
+        t = tick("engineer", t)
 
     # The hashed split is stateless: recomputed on every run, resumed or not.
     ff = drop_training_leakage(tree_ff)
@@ -522,7 +588,11 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
         "from the last good stage instead of the raw data)",
     )
     parser.add_argument(
-        "--pandas-ingest", action="store_true", help="not ported yet: raises (ROADMAP.md, A3)"
+        "--pandas-ingest",
+        action="store_true",
+        help="clean, prepare and engineer on the host path instead of the device "
+        "ingest (the reference's pandas path; here it runs without pandas, its "
+        "numerics on the device)",
     )
     parser.add_argument(
         "--ledger-out",
@@ -544,11 +614,11 @@ def main(argv: Sequence[str] | None = None) -> PipelineResult:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s [%(levelname)s] %(message)s")
     dev = resolve_device(args.device)
-    if args.pandas_ingest:
-        raise NotImplementedError("the pandas ingest path is not ported yet (ROADMAP.md, A3)")
     cfg = quick_config() if args.quick else PipelineConfig()
     if args.no_halving:
         cfg = dataclasses.replace(cfg, tune=dataclasses.replace(cfg.tune, halving_enabled=False))
+    if args.pandas_ingest:
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, device_pipeline=False))
     raw = None
     if args.synthetic_rows:
         from cobalt_smart_lender_ai_tpu_torch.data.synthetic import synthetic_lendingclub_frame
@@ -570,6 +640,7 @@ def main(argv: Sequence[str] | None = None) -> PipelineResult:
                 "synthetic_rows": int(args.synthetic_rows),
                 "seed": int(args.seed),
                 "resume": bool(args.resume),
+                "pandas_ingest": bool(args.pandas_ingest),
                 "store": args.store,
                 "device": str(dev),
             },

@@ -4,7 +4,8 @@ Every hand-written kernel entry (`ops.score.fused_score`,
 `ops.histogram.gradient_histogram_channels`) registers one
 `ProgramHandle` per shape key here under a stable, readable name
 (``score_forest/f32/64/shap``, ``gradient_histogram/F20xB255``) and
-records every launch through it: the dispatch count, the device seconds
+records every launch through it (so does each step of the device ingest,
+``ingest.<step>[rows=N,features=F]`` of kind ``"ingest"``): the dispatch count, the device seconds
 of the launch, the rows and the kernel's own count of FLOPs and bytes for
 that call's shapes. The registry derives achieved FLOP/s and a roofline
 estimate where it knows the card's peaks, and plain dispatch accounting
@@ -50,6 +51,7 @@ __all__ = [
     "launch_handle",
     "peak_bytes_estimate",
     "peak_flops_estimate",
+    "program_handle",
     "set_default_program_registry",
 ]
 
@@ -425,6 +427,24 @@ def _device_kind(device: str) -> str:
     return device
 
 
+def program_handle(name: str, kind: str, device, **meta: Any) -> ProgramHandle:
+    """Get-or-create the program ``name`` of ``kind`` that runs on
+    ``device`` (a ``torch.device``); its table row carries the device, the
+    device's kind and ``meta``."""
+    reg = default_program_registry()
+    prog = reg._programs.get(name)
+    if prog is not None:
+        return prog
+    dev = str(device)
+    if device.type == "cuda" and device.index is None:
+        import torch
+
+        dev = f"cuda:{torch.cuda.current_device()}"
+    return reg.register(
+        name, kind=kind, meta={"device": dev, "device_kind": _device_kind(dev), **meta}
+    )
+
+
 def launch_handle(
     entry: str, key: str, device, build_seconds: Callable[[], float], **meta: Any
 ) -> ProgramHandle:
@@ -436,20 +456,7 @@ def launch_handle(
     0). ``meta`` joins the handle's table row."""
     cuda = device.type == "cuda"
     name = f"{entry}/{key}" if cuda else f"{entry}_plain/{key}"
-    reg = default_program_registry()
-    prog = reg._programs.get(name)
-    if prog is not None:
-        return prog
-    dev = str(device)
-    if cuda and device.index is None:
-        import torch
-
-        dev = f"cuda:{torch.cuda.current_device()}"
-    prog = reg.register(
-        name,
-        kind="kernel" if cuda else "plain",
-        meta={"entry": entry, "device": dev, "device_kind": _device_kind(dev), **meta},
-    )
+    prog = program_handle(name, "kernel" if cuda else "plain", device, entry=entry, **meta)
     if cuda and prog.compiles == 0:
         prog.record_compile(build_seconds())
     return prog

@@ -26,7 +26,9 @@ a small fit on the card bit-identical twice over; non-finite g, h or w
 give the plain version's NaN or infinity in the bins they reach, and the
 other bins their exact sums. Of the raw path: the device ingest on the card
 equals the CPU's (bitwise outside the log1p columns, which are within
-3e-7), and `predict_raw` on the card reproduces each raw row's ingested row
+3e-7), so does the host path (clean and prepare on the host, engineer on
+the card) against the device ingest on the card and against its own
+engineering on the CPU, and `predict_raw` on the card reproduces each raw row's ingested row
 bit for bit and scores it as the margin-only launch does. Of the training
 protocol: RFE eliminates the CPU's features, and each CV job's AUC is
 within 1e-4 of the CPU's; RFECV selects the CPU's features with every
@@ -54,11 +56,13 @@ import torch
 from cobalt_smart_lender_ai_tpu_torch.config import GBDTConfig, RFEConfig, ServeConfig, TuneConfig
 from cobalt_smart_lender_ai_tpu_torch.convert import forest_from_numpy
 from cobalt_smart_lender_ai_tpu_torch.data import schema
+from cobalt_smart_lender_ai_tpu_torch.data.clean import clean_raw_frame
 from cobalt_smart_lender_ai_tpu_torch.data.device_pipeline import (
     run_device_ingest,
     tokenize_raw_frame,
     transform_raw_rows,
 )
+from cobalt_smart_lender_ai_tpu_torch.data.features import engineer_features, prepare_cleaned_frame
 from cobalt_smart_lender_ai_tpu_torch.data.frame import row_dicts
 from cobalt_smart_lender_ai_tpu_torch.data.synthetic import synthetic_lendingclub_frame
 from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
@@ -476,6 +480,57 @@ def test_device_ingest_on_card_matches_cpu(raw_ingests):
             assert (ok | nan[:, j]).all(), name
     exact = [j for j, n in enumerate(cpu.tree.feature_names) if n not in log_cols]
     assert torch.equal(card.bins.cpu()[:, exact], cpu.bins[:, exact])
+
+
+def _assert_same_engineering(a, b) -> None:
+    """``(report, plan, tree, nn)`` twice: the same report and plan (medians
+    within LOG_RTOL in the log1p columns), the columns bitwise outside the
+    log1p columns and within LOG_RTOL in them, the same labels."""
+    (ra, pa, ta, na), (rb, pb, tb, nb) = a, b
+    assert dataclasses.asdict(ra) == dataclasses.asdict(rb)
+    assert dataclasses.replace(pa, medians={}) == dataclasses.replace(pb, medians={})
+    log_cols = set(pa.log_cols)
+    for k, v in pa.medians.items():
+        assert np.isclose(pb.medians[k], v, rtol=LOG_RTOL, atol=0) if k in log_cols \
+            else pb.medians[k] == v, k
+    for x, y in ((ta, tb), (na, nb)):
+        assert x.feature_names == y.feature_names
+        A, B = x.X.cpu().numpy(), y.X.cpu().numpy()
+        nan = np.isnan(A) & np.isnan(B)
+        for j, name in enumerate(x.feature_names):
+            ok = np.isclose(A[:, j], B[:, j], rtol=LOG_RTOL, atol=0) if name in log_cols \
+                else A[:, j] == B[:, j]
+            assert (ok | nan[:, j]).all(), name
+        assert torch.equal(x.y.cpu().nan_to_num(-1.0), y.y.cpu().nan_to_num(-1.0))
+
+
+@pytest.fixture(scope="module")
+def host_path_runs(raw_ingests):
+    """The raw table of `raw_ingests` through the host path: cleaned and
+    prepared on the host, engineered on the card and on the CPU."""
+    frame, _, _ = raw_ingests
+    cleaned, report = clean_raw_frame(frame)
+    prepared = prepare_cleaned_frame(cleaned, today=TODAY)
+    card = engineer_features(prepared, device="cuda")
+    cpu = engineer_features(prepared, device="cpu")
+    return report, card, cpu
+
+
+@pytest.mark.cuda
+def test_host_path_on_card_matches_the_device_ingest(raw_ingests, host_path_runs):
+    _, ingest, _ = raw_ingests
+    report, (tree, nn, plan), _ = host_path_runs
+    assert tree.X.is_cuda and nn.X.is_cuda
+    _assert_same_engineering(
+        (report, plan, tree, nn),
+        (ingest.report, dataclasses.replace(ingest.plan, asof=None), ingest.tree, ingest.nn),
+    )
+
+
+@pytest.mark.cuda
+def test_host_path_engineering_on_card_matches_cpu(host_path_runs):
+    report, (tree, nn, plan), (cpu_tree, cpu_nn, cpu_plan) = host_path_runs
+    _assert_same_engineering((report, plan, tree, nn), (report, cpu_plan, cpu_tree, cpu_nn))
 
 
 @pytest.mark.cuda

@@ -22,6 +22,7 @@ thousand rows, with ``today`` pinned. Held to the reference:
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from datetime import datetime
 
@@ -37,7 +38,7 @@ from cobalt_smart_lender_ai_tpu.data.synthetic import (
     synthetic_lendingclub_frame as jax_synthetic,
 )
 from cobalt_smart_lender_ai_tpu.ops import metrics as jax_metrics
-from cobalt_smart_lender_ai_tpu_torch.data import schema, split
+from cobalt_smart_lender_ai_tpu_torch.data import device_pipeline, schema, split
 from cobalt_smart_lender_ai_tpu_torch.data.device_pipeline import (
     run_device_ingest,
     tokenize_raw_frame,
@@ -50,6 +51,10 @@ from cobalt_smart_lender_ai_tpu_torch.ops.binning import (
     bin_edges_and_transform,
     compute_bin_edges,
     transform,
+)
+from cobalt_smart_lender_ai_tpu_torch.telemetry.programs import (
+    ProgramRegistry,
+    set_default_program_registry,
 )
 
 TODAY = datetime(2026, 8, 1)
@@ -273,6 +278,29 @@ def test_ingest_leaves_the_tokenized_matrix_alone(port_frame):
     before = tok.X.copy()
     run_device_ingest(tok, device="cpu")
     assert np.array_equal(tok.X, before, equal_nan=True)
+
+
+def test_each_ingest_step_is_a_program_row(port_frame):
+    """Each step of the ingest lands on its ``ingest.<step>`` program (the
+    reference's names) once per dispatch, and
+    ``cobalt_ingest_dispatch_seconds`` observes each dispatch once: twelve
+    per ingest, two of them the stats step's (numeric prep, then medians)."""
+    tok = tokenize_raw_frame(port_frame, today=TODAY)
+    reg = ProgramRegistry()
+    prev = set_default_program_registry(reg)
+    observed = device_pipeline._INGEST_DISPATCH_S.count
+    try:
+        run_device_ingest(tok, device="cpu")
+    finally:
+        set_default_program_registry(prev)
+    rows = reg.table(kind="ingest")
+    steps = collections.Counter()
+    for r in rows:
+        assert r["name"].startswith("ingest.") and r["dispatch_seconds"] > 0, r
+        steps[r["name"][len("ingest."):].split("[", 1)[0]] += r["dispatches"]
+    assert steps == {"null_stats": 2, "row_compact": 2, "fill": 2, "dedupe": 1,
+                     "vocab_census": 1, "stats": 2, "assemble": 1, "binning": 1}
+    assert device_pipeline._INGEST_DISPATCH_S.count - observed == 12
 
 
 def _same_cell(a, b) -> bool:

@@ -38,11 +38,18 @@ step, a 2 x 2 search of 40 trees):
   RFE's configuration alone reruns ``rfe`` and ``search`` and nothing
   upstream; ``resume=False`` recomputes every stage;
 - with the raw table saved at ``data.raw_key``, ``raw=None`` trains the
-  model that the table itself trains.
+  model that the table itself trains;
+- a stale ``engineer`` manifest under a valid ``clean`` one: the cleaned
+  table is restored and engineered on the host path (``stages_skipped ==
+  ("clean",)``), with no raw table, to the same forest.
+
+The host path (``--pandas-ingest``) against the JAX CLI's: the same
+selection, candidates and best params, AUCs within 0.005.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 from datetime import datetime
@@ -394,3 +401,62 @@ def test_raw_table_from_the_store(finished, small_raw, tmp_path):
     res = _run(store)
     assert res.selected_features == full.selected_features
     assert _same_forest(res, full) and res.test_auc == full.test_auc
+
+
+# -- the host path (--pandas-ingest) and the resume from a cleaned table ----------
+
+
+def test_pandas_ingest_cli_matches_jax(monkeypatch):
+    """``--pandas-ingest --device cpu`` at 3,000 loans with ``--quick``
+    against the JAX CLI's ``--pandas-ingest`` run of the same table (its
+    ``run_pipeline`` on a one-device mesh): the host path's stages, the
+    same selected features and candidates, the same best params where the
+    reference's best and second-best mean CV AUC differ by more than
+    ``AUC_TOL``, and both AUCs within ``AUC_TOL``."""
+    argv = ["--synthetic-rows", "3000", "--quick", "--pandas-ingest"]
+    res = pipeline.main([*argv, "--device", "cpu"])
+    one = make_mesh(MeshConfig(dp=1, hp=1), devices=jax.devices()[:1])
+    run = jax_pipeline.run_pipeline
+    monkeypatch.setattr(jax_pipeline, "run_pipeline", lambda cfg, **kw: run(cfg, mesh=one, **kw))
+    jres = jax_pipeline.main(argv)
+    assert list(res.timings) == list(jres.timings) == ["clean", "engineer", "rfe", "search", "eval"]
+    assert res.stages_run == jres.stages_run
+    assert res.artifact.plan.asof is None and res.artifact.plan.tree_feature_names == jres.artifact.plan.tree_feature_names
+    assert len(res.selected_features) == 20 and res.selected_features == jres.selected_features
+    assert res.search.cv_results_["params"] == jres.search.cv_results_["params"]
+    means = np.sort(np.asarray(jres.search.cv_results_["mean_test_score"]))[::-1]
+    if means[0] - means[1] > AUC_TOL:
+        assert res.best_params == jres.best_params
+    assert abs(res.test_auc - jres.test_auc) <= AUC_TOL
+    assert abs(res.cv_auc - jres.cv_auc) <= AUC_TOL
+
+
+@pytest.mark.parametrize("device_pipeline", [True, False], ids=["device-ingest-store", "host-path-store"])
+def test_resume_engineers_the_cleaned_table_under_a_stale_engineer_manifest(
+    finished, small_raw, tmp_path, device_pipeline
+):
+    """A valid ``clean`` manifest under a stale ``engineer`` one: the resume
+    restores the cleaned table (no raw table given or stored), prepares and
+    engineers it on the host path and reruns everything downstream, as the
+    reference does; the forest is the uninterrupted run's. Either data path
+    wrote the store (the device ingest's cleaned table holds its parsed
+    columns), and both train the same model."""
+    full, _ = finished
+    cfg = _resume_config()
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, device_pipeline=device_pipeline))
+    store = ObjectStore(str(tmp_path))
+    first = pipeline.run_pipeline(cfg, raw=small_raw, store=store, device="cpu", today=TODAY)
+    assert list(first.timings)[:2] == (
+        ["host_frontier", "device_ingest"] if device_pipeline else ["clean", "engineer"]
+    )
+    assert _same_forest(first, full)
+    ckpt = PipelineCheckpoint(store)
+    ckpt.invalidate("engineer")
+    assert not store.exists(cfg.data.raw_key)
+    res = pipeline.run_pipeline(cfg, store=store, resume=True, device="cpu", today=TODAY)
+    assert res.stages_skipped == ("clean",)
+    assert res.stages_run == ("engineer", "rfe", "search", "eval")
+    assert list(res.timings) == ["engineer", "rfe", "search", "eval"]
+    assert res.selected_features == first.selected_features
+    assert _same_forest(res, first) and res.test_auc == first.test_auc
+    assert ckpt.valid("engineer", pipeline.stage_fingerprints(cfg)["engineer"])

@@ -9,12 +9,14 @@
   CPU: with CUDA unavailable, the default-device service constructors,
   `GBDTClassifier`, `split_mask`, `GBDTArtifact.load`/``from_bytes``,
   `rfe_select`, `randomized_search`, `run_pipeline` and the serving and
-  training CLIs raise instead of running on the CPU, and ``chip_smoke.py``
+  training CLIs, and the host path's `engineer_features`, raise instead of
+  running on the CPU, and ``chip_smoke.py``
   exits non-zero without printing a result.
 - The training CLI (``python -m cobalt_smart_lender_ai_tpu_torch.pipeline``)
   runs the quick protocol on the CPU when asked, and publishes the artifact,
   its features and ``metrics.json``; ``--resume`` on its store restores
-  every stage up to the search and refits.
+  every stage up to the search and refits; ``--pandas-ingest`` takes the
+  host path.
 """
 
 from __future__ import annotations
@@ -31,7 +33,9 @@ import pytest
 import torch
 
 from cobalt_smart_lender_ai_tpu_torch import pipeline
-from cobalt_smart_lender_ai_tpu_torch.config import PipelineConfig, RFEConfig, TuneConfig
+from cobalt_smart_lender_ai_tpu_torch.config import DataConfig, PipelineConfig, RFEConfig, TuneConfig
+from cobalt_smart_lender_ai_tpu_torch.data.clean import clean_raw_frame
+from cobalt_smart_lender_ai_tpu_torch.data.features import engineer_features, prepare_cleaned_frame
 from cobalt_smart_lender_ai_tpu_torch.data.split import split_mask
 from cobalt_smart_lender_ai_tpu_torch.data.synthetic import synthetic_lendingclub_frame
 from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
@@ -103,6 +107,11 @@ def test_importing_the_training_protocol_leaves_jax_and_pandas_unloaded():
     assert _loaded_after_import(modules) == "[]"
 
 
+def test_importing_the_reader_registry_and_bootstrap_leaves_jax_and_pandas_unloaded():
+    modules = ("native", "io.registry", "data.bootstrap", "data.clean", "data.features", "data")
+    assert _loaded_after_import(modules) == "[]"
+
+
 def test_importing_the_telemetry_leaves_jax_and_pandas_unloaded():
     modules = ("telemetry", "telemetry.metrics", "telemetry.tracing", "telemetry.logging",
                "telemetry.traceexport", "telemetry.programs", "telemetry.devices",
@@ -145,6 +154,14 @@ def test_training_protocol_defaults_to_cuda_and_raises_without_it(no_cuda):
         randomized_search(X, y, tune=TuneConfig(n_iter=1, cv_folds=2))
     with pytest.raises(RuntimeError, match="cuda"):
         pipeline.run_pipeline(PipelineConfig(), raw=synthetic_lendingclub_frame(50, seed=1))
+    host = PipelineConfig(data=DataConfig(device_pipeline=False))
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeline.run_pipeline(host, raw=synthetic_lendingclub_frame(50, seed=1))
+    prepared = prepare_cleaned_frame(clean_raw_frame(synthetic_lendingclub_frame(50, seed=1))[0])
+    with pytest.raises(RuntimeError, match="cuda"):
+        engineer_features(prepared)
+    tree, _, _ = engineer_features(prepared, device="cpu")
+    assert tree.X.device == torch.device("cpu")
     assert pipeline.parse_args([]).device == "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         pipeline.main(["--synthetic-rows", "50", "--quick"])
@@ -177,16 +194,30 @@ def test_training_cli_runs_the_quick_protocol_on_the_cpu_when_asked(tmp_path):
     assert resumed.test_auc == pytest.approx(summary["test_auc"], abs=1e-4)
 
 
-def test_training_cli_rejects_what_is_not_ported(tmp_path):
-    """What is left unported raises: the pandas ingest path, naming A3. The
-    cases that raised as not ported run as the reference's do: no raw table
-    and no store is the reference's ``ValueError``, and ``--resume`` on a
-    store without manifests reads the raw table from the store's
-    ``raw_key`` (absent here, so a ``FileNotFoundError`` naming it)."""
+def test_training_cli_rejects_what_is_not_ported(tmp_path, monkeypatch):
+    """The cases that raised as not ported run as the reference's do: no raw
+    table and no store is the reference's ``ValueError``; ``--pandas-ingest``
+    takes the host path (``data.device_pipeline=False``), whose stages are
+    ``clean`` and ``engineer``, and needs a raw table as the device ingest
+    does; ``--resume`` on a store without manifests reads the raw table from
+    the store's ``raw_key`` (absent here, so a ``FileNotFoundError`` naming
+    it)."""
     with pytest.raises(ValueError, match="provide a raw frame or an object store"):
         pipeline.main(["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A3"):
-        pipeline.main(["--device", "cpu", "--synthetic-rows", "50", "--pandas-ingest"])
+    with pytest.raises(ValueError, match="provide a raw frame or an object store"):
+        pipeline.main(["--device", "cpu", "--pandas-ingest"])
+    seen = {}
+
+    def host_path_run(cfg, **kw):
+        seen["device_pipeline"] = cfg.data.device_pipeline
+        raise RuntimeError("stop before training")
+
+    with monkeypatch.context() as m:
+        m.setattr(pipeline, "run_pipeline", host_path_run)
+        with pytest.raises(RuntimeError, match="stop before training"):
+            pipeline.main(["--device", "cpu", "--synthetic-rows", "50", "--pandas-ingest"])
+    assert seen == {"device_pipeline": False}
+    assert pipeline.parse_args(["--pandas-ingest"]).pandas_ingest
     with pytest.raises(FileNotFoundError, match="raw.csv"):
         pipeline.main(["--device", "cpu", "--store", str(tmp_path), "--resume", "--quick"])
     assert pipeline.parse_args(["--resume", "--no-halving"]).resume
@@ -204,7 +235,20 @@ def test_new_port_modules_are_checked():
             "telemetry/logging.py", "telemetry/traceexport.py", "telemetry/programs.py",
             "telemetry/devices.py", "telemetry/runledger.py", "telemetry/flight.py",
             "telemetry/slo.py", "reliability/admission.py", "reliability/breaker.py",
-            "reliability/faults.py"} <= names
+            "reliability/faults.py", "native/__init__.py", "io/registry.py",
+            "data/bootstrap.py"} <= names
+
+
+def test_no_port_module_imports_pandas():
+    """The card's machine has no pandas: no port file names it in an import,
+    and the native reader's C++ source includes only the standard library."""
+    for path in PORT_FILES:
+        mods = _imported_modules(path)
+        assert not [m for m in mods if m.split(".")[0] == "pandas"], path.name
+    source = (PORT / "native" / "csv_reader.cc").read_text()
+    includes = [line.split()[1] for line in source.splitlines() if line.startswith("#include")]
+    assert includes and all(inc.startswith("<") for inc in includes), includes
+    assert "cobalt_smart_lender_ai_tpu." not in source and "Python.h" not in source
 
 
 def test_classifier_defaults_to_cuda_and_raises_without_it(no_cuda):
