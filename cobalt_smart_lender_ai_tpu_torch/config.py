@@ -156,6 +156,13 @@ class ServeConfig:
     flight_capacity: int = 256
     flight_slow_threshold_ms: float = 100.0
     flight_top_k: int = 32
+    #: Event journal (telemetry.events, served at ``GET /events``): bounded
+    #: ring of typed control-plane events (reloads, breaker trips, canary
+    #: promotions, rejections and rollbacks) with causal links.
+    #: ``events_ship_interval_s`` only matters when a durable store is
+    #: attached; <= 0 disables shipping.
+    events_capacity: int = 512
+    events_ship_interval_s: float = 30.0
     #: SLO engine (telemetry.slo, served at ``GET /slo`` and as
     #: ``cobalt_slo_*`` gauges). Latency thresholds are snapped down to the
     #: nearest histogram bucket bound at evaluation (reported per
@@ -166,6 +173,42 @@ class ServeConfig:
     slo_availability_target: float = 0.999
     slo_windows_s: tuple[float, ...] = (60.0, 3600.0)
     slo_fast_burn_threshold: float = 14.4
+    #: Continuous-training loop (io.model_registry + serve.canary). Opt-in:
+    #: a store without a model registry has nothing to canary. When
+    #: enabled, `ScorerService.from_store` serves the registry's ``latest``
+    #: channel for ``model_name``, loads any published ``canary`` beside
+    #: the champion, and shadow-scores a slice of single-row traffic
+    #: through it (the canary's result is never returned to the caller).
+    canary_enabled: bool = False
+    model_name: str = "gbdt"
+    registry_prefix: str = "registry"
+    #: Fraction of validated single-row requests shadow-scored through the
+    #: canary (deterministic stride sampling, no RNG on the request path).
+    canary_sample_rate: float = 1.0
+    #: The gate judges the most recent ``canary_window`` shadowed requests
+    #: and needs ``canary_min_samples`` of them.
+    canary_window: int = 2048
+    canary_min_samples: int = 50
+    #: Promotion gate thresholds: rank correlation of canary vs champion
+    #: scores (labels do not exist at serve time; a label-shuffled
+    #: candidate scores ~0), mean absolute score delta, mean shadow over
+    #: mean champion dispatch seconds, and canary failures over sampled
+    #: requests.
+    canary_min_score_corr: float = 0.5
+    canary_max_score_delta: float = 0.25
+    canary_max_latency_ratio: float = 5.0
+    canary_max_error_ratio: float = 0.05
+    #: After a promotion, an SLO fast burn within this many seconds demotes
+    #: ``latest`` back to ``previous``.
+    promotion_guard_window_s: float = 300.0
+    #: Drift (telemetry.drift, ``GET /drift``): per-feature PSI of the live
+    #: shadow-tap sketch against the training snapshot in the registry
+    #: provenance; over ``drift_psi_alert`` on any feature (with at least
+    #: ``drift_min_samples`` live rows) raises the alarm and fires the
+    #: canary controller's ``on_drift`` hook once.
+    drift_bins: int = 10
+    drift_psi_alert: float = 0.25
+    drift_min_samples: int = 100
     #: Content-hash score cache for repeated single-row payloads: an LRU of
     #: this many entries keyed by the canonicalized feature vector's bytes,
     #: emptied on every hot reload. 0 disables.

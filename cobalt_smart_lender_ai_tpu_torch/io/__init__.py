@@ -1,10 +1,15 @@
-"""Object store, dataset registry and model artifacts."""
+"""Object store, dataset and model registries, and model artifacts."""
 
 from cobalt_smart_lender_ai_tpu_torch.io.artifacts import (
     GBDTArtifact,
     plan_from_json,
     plan_to_json,
     save_metrics,
+)
+from cobalt_smart_lender_ai_tpu_torch.io.model_registry import (
+    CHANNELS,
+    ModelRegistry,
+    ModelVersion,
 )
 from cobalt_smart_lender_ai_tpu_torch.io.registry import (
     REFERENCE_RAW_PINS,
@@ -14,10 +19,13 @@ from cobalt_smart_lender_ai_tpu_torch.io.registry import (
 from cobalt_smart_lender_ai_tpu_torch.io.store import PTR_SUFFIX, ObjectStore, StoreKeyError
 
 __all__ = [
+    "CHANNELS",
     "REFERENCE_RAW_PINS",
     "DatasetPin",
     "DatasetRegistry",
     "GBDTArtifact",
+    "ModelRegistry",
+    "ModelVersion",
     "ObjectStore",
     "PTR_SUFFIX",
     "StoreKeyError",

@@ -25,9 +25,11 @@ from cobalt_smart_lender_ai_tpu_torch.reliability.errors import (
     CircuitOpenError,
     DeadlineExceeded,
     PayloadTooLarge,
+    PromotionRejected,
     ReloadFailed,
     RequestError,
     RequestShed,
+    RollbackFailed,
     ValidationError,
     WorkerDead,
     error_response,
@@ -58,11 +60,13 @@ __all__ = [
     "InjectedFault",
     "PayloadTooLarge",
     "PipelineCheckpoint",
+    "PromotionRejected",
     "ReloadFailed",
     "RequestError",
     "RequestShed",
     "ResilientStore",
     "RetryPolicy",
+    "RollbackFailed",
     "TokenBucket",
     "ValidationError",
     "WorkerDead",

@@ -11,6 +11,9 @@
 500  ``reload_failed``      hot model swap failed and was rolled back
 500  ``worker_dead``        the micro-batch worker thread died with requests
                             queued; they are failed typed, never left hanging
+409  ``promotion_rejected`` the canary promotion gate said no (or there is no
+                            canary); the body carries the gate's ``report``
+409  ``rollback_failed``    no ``previous`` version to roll back to
 ==== ====================== ==================================================
 """
 
@@ -98,6 +101,31 @@ class WorkerDead(RequestError):
 
     status = 500
     code = "worker_dead"
+
+
+class PromotionRejected(RequestError):
+    """The canary promotion gate said no (or there is no canary to promote)
+    — HTTP 409. Carries the gate's structured ``report`` (sample counts,
+    per-check verdicts, machine-readable reasons) in the body."""
+
+    status = 409
+    code = "promotion_rejected"
+
+    def __init__(self, detail: str = "", *, report: dict | None = None):
+        super().__init__(detail)
+        self.report = report or {}
+
+    def body(self) -> dict:
+        return {**super().body(), "report": self.report}
+
+
+class RollbackFailed(RequestError):
+    """A rollback was asked for but there is no ``previous`` channel to
+    restore (or the canary loop is not enabled) — HTTP 409: the serving
+    model is untouched and still healthy."""
+
+    status = 409
+    code = "rollback_failed"
 
 
 def error_response(exc: RequestError) -> tuple[int, dict, dict[str, str]]:

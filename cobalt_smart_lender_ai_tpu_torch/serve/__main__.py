@@ -2,12 +2,15 @@
 
     python -m cobalt_smart_lender_ai_tpu_torch.serve --store artifacts \\
         [--device cuda|cpu] [--port N] [--forest-precision f32|bf16|int8] \\
-        [--no-microbatch] [--score-cache-size N] [--flight-slow-ms MS]
+        [--no-microbatch] [--score-cache-size N] [--flight-slow-ms MS] \\
+        [--canary [--model-name gbdt] [--canary-sample-rate R]]
 
 ``--device`` defaults to ``cuda``; without a CUDA device the command fails
 at startup. ``--device cpu`` runs the plain PyTorch versions of the kernels.
 A bf16 or int8 forest is gated at startup against the committed tolerances
-and refused outside them.
+and refused outside them. ``--canary`` serves the model registry's
+``latest`` channel and shadow-scores any published canary on the same
+device (``POST /admin/promote``, ``/admin/rollback``, ``GET /drift``).
 """
 
 from __future__ import annotations
@@ -69,6 +72,24 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
         "flight recorder (GET /debug/slowest names the slow phase)",
     )
     parser.add_argument(
+        "--canary",
+        action="store_true",
+        help="enable the continuous-training loop: serve the model "
+        "registry's 'latest' channel, shadow-score any published canary, "
+        "expose /admin/promote, /admin/rollback and /drift",
+    )
+    parser.add_argument(
+        "--model-name",
+        default=ServeConfig.model_name,
+        help="registry model name whose channels the canary loop follows",
+    )
+    parser.add_argument(
+        "--canary-sample-rate",
+        type=float,
+        default=ServeConfig.canary_sample_rate,
+        help="fraction of scoring traffic shadow-scored against the canary",
+    )
+    parser.add_argument(
         "--forest-precision",
         choices=("f32", "bf16", "int8"),
         default=ServeConfig.forest_precision,
@@ -90,6 +111,9 @@ def build_service(args: argparse.Namespace) -> ScorerService:
         score_cache_size=args.score_cache_size,
         flight_slow_threshold_ms=args.flight_slow_ms,
         forest_precision=args.forest_precision,
+        canary_enabled=args.canary,
+        model_name=args.model_name,
+        canary_sample_rate=args.canary_sample_rate,
     )
     return ScorerService.from_store(ObjectStore(args.store), cfg, device=args.device)
 
@@ -99,11 +123,18 @@ def main(argv: Sequence[str] | None = None) -> None:
     service = build_service(args)
     _, ready = service.ready()
     print(
-        f"[INFO] model restored from {args.store}/{args.model_key}: "
+        f"[INFO] model restored from {args.store}/{ready['model_key']}: "
         f"{ready['n_features']} features on {ready['device']} "
         f"(kernel {ready['kernel']}, forest precision {ready['precision']}, "
         f"quant table {ready['quant_table']})"
     )
+    if service.config.canary_enabled:
+        info = service.model_info
+        print(
+            f"[INFO] continuous training on: serving {args.model_name}/{info['version']} "
+            f"({info['channel']}); canary shadow rate {args.canary_sample_rate:g}; "
+            "POST /admin/promote, /admin/rollback; GET /drift"
+        )
     from cobalt_smart_lender_ai_tpu_torch.serve.http_asyncio import serve_forever
 
     print(f"[INFO] serving (asyncio) on {args.host}:{args.port}")

@@ -2,24 +2,34 @@
 socket to the micro-batcher's future.
 
 Routes: ``POST /predict``, ``POST /predict_bulk_csv``,
-``POST /feature_importance_bulk``, ``POST /admin/reload``, ``GET /healthz``,
-``GET /readyz``, and the reference's observability routes: ``GET /metrics`` (Prometheus text,
-or OpenMetrics with exemplars on ``Accept: application/openmetrics-text``),
-``GET /slo``, ``GET /debug/requests`` and ``/debug/slowest`` (``?limit=``,
-``?n=``/``?k=``, 1..1000, and ``?phase=``, one of the flight recorder's
-phases; 422 otherwise), ``GET /debug/programs`` (the kernel cost table)
-and ``GET /debug/trace`` (the span ring as Perfetto JSON).
+``POST /feature_importance_bulk``, ``POST /admin/reload``,
+``POST /admin/promote`` (body ``{"force": bool}``) and
+``POST /admin/rollback`` (body ``{"reason": str}``), ``GET /healthz``,
+``GET /readyz``, and the reference's observability routes: ``GET /metrics``
+(Prometheus text, or OpenMetrics with exemplars on ``Accept:
+application/openmetrics-text``), ``GET /slo``, ``GET /drift`` (per-feature
+PSI against the training snapshot), ``GET /events`` (the control-plane
+journal: ``?component=`` and ``?kind=`` from its taxonomy, ``?since=`` a
+finite timestamp, ``?limit=`` 1..1000; 422 otherwise),
+``GET /debug/requests`` and ``/debug/slowest`` (``?limit=``, ``?n=``/``?k=``,
+1..1000, and ``?phase=``, one of the flight recorder's phases; 422
+otherwise), ``GET /debug/programs`` (the kernel cost table) and
+``GET /debug/trace`` (the span ring as Perfetto JSON).
 Typed request errors (`reliability.errors`) keep their status and
 headers: 422 invalid input, 413 payload too large, 429 shed (with
 ``Retry-After``), 503 circuit open (with ``Retry-After``), 504 deadline
-exceeded, 500 worker dead; the importance route answers 400 on empty data,
-and a bulk failure that is not typed is a 500 ``bulk_failed``.
+exceeded, 500 worker dead, 409 promotion rejected (with the gate's
+``report``) or rollback failed; the importance route answers 400 on empty
+data, and a bulk failure that is not typed is a 500 ``bulk_failed``.
 
 The three scoring routes hold an admission slot (`ScorerService.admission`)
 while they score. ``POST /admin/reload`` (body ``{"model_key": ...}``,
 optional) is never gated: it swaps the model on the loop's executor, so the
 loop keeps serving, and answers 200 with the swap's result, 500
 ``reload_failed`` on a rollback, or 503 while the store's circuit is open.
+The promote and rollback routes are ungated too and run on the executor.
+When the server starts, the service's journal is attached to its store and
+ships its segments (`ScorerService.start_history`).
 
 Every request runs inside a `request_context` (a client's
 ``X-Request-ID`` is honoured, else one is minted; it is echoed on the
@@ -36,8 +46,10 @@ import contextlib
 import email.parser
 import email.policy
 import json
+import math
 import threading
 from http.client import responses as _REASONS
+from typing import Any
 from urllib.parse import parse_qs, urlsplit
 
 from cobalt_smart_lender_ai_tpu_torch.reliability.errors import (
@@ -59,6 +71,7 @@ from cobalt_smart_lender_ai_tpu_torch.telemetry import (
     render_chrome_trace,
     request_context,
 )
+from cobalt_smart_lender_ai_tpu_torch.telemetry.events import EVENT_KINDS
 from cobalt_smart_lender_ai_tpu_torch.telemetry.flight import PHASES
 
 __all__ = ["AsyncScorerServer", "make_async_server", "serve_forever"]
@@ -76,10 +89,14 @@ _KNOWN_ROUTES = frozenset(
         "/predict_bulk_csv",
         "/feature_importance_bulk",
         "/admin/reload",
+        "/admin/promote",
+        "/admin/rollback",
         "/healthz",
         "/readyz",
         "/metrics",
         "/slo",
+        "/drift",
+        "/events",
         "/debug/requests",
         "/debug/slowest",
         "/debug/trace",
@@ -180,6 +197,54 @@ def _query_limit(query: dict, legacy: str, default: int) -> int:
     return validate_debug_limit(value, name)
 
 
+def validate_events_params(
+    component: str | None,
+    kind: str | None,
+    since: str | None,
+    limit: str | None,
+) -> tuple[str | None, str | None, float | None, int | None]:
+    """``GET /events`` query validation: ``component`` and ``kind`` from the
+    `EVENT_KINDS` taxonomy (``kind`` scoped to the component when both are
+    given), ``since`` a finite wall timestamp in seconds, ``limit`` the
+    debug routes' bound; anything else is the typed 422."""
+    if component is not None and component not in EVENT_KINDS:
+        raise ValidationError(f"query param 'component' must be one of {sorted(EVENT_KINDS)}")
+    if kind is not None:
+        scope = (
+            EVENT_KINDS[component]
+            if component is not None
+            else tuple(k for ks in EVENT_KINDS.values() for k in ks)
+        )
+        if kind not in scope:
+            raise ValidationError(f"query param 'kind' must be one of {sorted(set(scope))}")
+    since_t: float | None = None
+    if since is not None:
+        try:
+            since_t = float(since)
+        except ValueError:
+            raise ValidationError("query param 'since' must be a timestamp in seconds") from None
+        if not math.isfinite(since_t):
+            raise ValidationError("query param 'since' must be a finite timestamp in seconds")
+    limit_n: int | None = None
+    if limit is not None:
+        try:
+            limit_n = int(limit)
+        except ValueError:
+            raise ValidationError("query param 'limit' must be an integer") from None
+        validate_debug_limit(limit_n)
+    return component, kind, since_t, limit_n
+
+
+def events_payload(
+    owner: Any, component: str | None, kind: str | None, since: str | None, limit: str | None
+) -> dict:
+    """``GET /events``: the owner's filtered journal snapshot, its count and
+    the journal's own health (`EventJournal.stats`)."""
+    component, kind, since_t, limit_n = validate_events_params(component, kind, since, limit)
+    events = owner.events(component=component, kind=kind, since=since_t, limit=limit_n)
+    return {"events": events, "count": len(events), "stats": owner.journal.stats()}
+
+
 def debug_programs_payload() -> dict:
     """``GET /debug/programs``: the kernel cost table and its totals."""
     reg = default_program_registry()
@@ -223,6 +288,8 @@ class AsyncScorerServer:
             self._serve_connection, self._host, self._port
         )
         self._bound_port = self._server.sockets[0].getsockname()[1]
+        # Journal shipping is a serving concern: it starts with the socket.
+        self.service.start_history()
         return self
 
     def start(self) -> "AsyncScorerServer":
@@ -393,6 +460,16 @@ class AsyncScorerServer:
                     return resp
             if method == "POST" and path == "/admin/reload":
                 return await self._reload(body)
+            if method == "POST" and path == "/admin/promote":
+                payload = _json_body(body)
+                force = isinstance(payload, dict) and bool(payload.get("force", False))
+                return _Response(200, await asyncio.to_thread(service.promote_canary, force=force))
+            if method == "POST" and path == "/admin/rollback":
+                payload = _json_body(body)
+                reason = (
+                    str(payload.get("reason", "manual")) if isinstance(payload, dict) else "manual"
+                )
+                return _Response(200, await asyncio.to_thread(service.rollback_model, reason=reason))
             if method == "POST" and path == "/predict":
                 with service.admission.admit():
                     return _Response(200, await service.predict_single_async(_json_body(body)))
@@ -462,6 +539,18 @@ class AsyncScorerServer:
             if service.slo is None:
                 return _Response(404, {"detail": "SLO engine disabled", "error": "slo_disabled"})
             return _Response(200, service.slo.evaluate(force=True))
+        if path == "/drift":
+            return _Response(200, service.drift_report())
+        if path == "/events":
+            if getattr(service, "journal", None) is None:
+                return _Response(404, {"detail": "events disabled", "error": "events_disabled"})
+            return _Response(
+                200,
+                events_payload(
+                    service,
+                    *(query.get(name, [None])[-1] for name in ("component", "kind", "since", "limit")),
+                ),
+            )
         if path == "/debug/requests":
             n = _query_limit(query, "n", 50)
             phase = validate_debug_phase(query.get("phase", [None])[-1])

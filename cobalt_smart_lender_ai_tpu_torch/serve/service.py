@@ -35,6 +35,17 @@ cells. Each request's phases (``validate``, ``queue_wait``, ``dispatch``,
 ``serialize``) feed ``cobalt_request_phase_seconds`` and the flight
 recorder; a ``dispatch`` phase ends when the scores are on the host, so it
 holds the card's work.
+
+The control plane, as the reference's: every reload publish and rollback,
+every breaker transition and every canary promotion, rejection and
+rollback is one typed event in the service's `EventJournal` (``GET
+/events``), and a log line written inside an event's context carries its
+``event_id``. With ``ServeConfig.canary_enabled`` the service serves the
+model registry's ``latest`` channel and shadow-scores single-row traffic
+through the ``canary`` channel's model (`serve.canary`): each shadow row is
+one margin-only launch at bucket 1 on the worker of the canary controller,
+never part of the caller's response. Responses then carry
+``model_version``.
 """
 
 from __future__ import annotations
@@ -80,10 +91,13 @@ from cobalt_smart_lender_ai_tpu_torch.reliability.deadline import (
 from cobalt_smart_lender_ai_tpu_torch.reliability.errors import (
     CircuitOpenError,
     PayloadTooLarge,
+    PromotionRejected,
+    RollbackFailed,
     ValidationError,
     WorkerDead,
 )
 from cobalt_smart_lender_ai_tpu_torch.telemetry import (
+    EventJournal,
     FlightRecorder,
     MetricsRegistry,
     SLOEngine,
@@ -92,6 +106,7 @@ from cobalt_smart_lender_ai_tpu_torch.telemetry import (
     default_device_sampler,
     default_objectives,
     default_tracer,
+    event_context,
     get_logger,
     install_device_metrics,
     install_program_metrics,
@@ -686,6 +701,31 @@ def _type_column(cells: list[str]) -> list[Any]:
         return [math.nan if c in _NA_CELLS else c for c in cells]
 
 
+def _registry_store(store: ObjectStore, cfg: ServeConfig) -> ObjectStore:
+    """The store handle registry and channel operations go through: wrapped
+    in `ResilientStore` (retries and verified ``.ptr.json`` reads) per the
+    reliability config, as `pipeline.run_pipeline` wraps its store."""
+    from cobalt_smart_lender_ai_tpu_torch.reliability import ResilientStore, policy_from_config
+
+    rel = cfg.reliability
+    if not rel.wrap_store or isinstance(store, ResilientStore):
+        return store
+    return ResilientStore(store, policy_from_config(rel), verify_reads=rel.verify_reads)
+
+
+def _resolve_latest_channel(store: ObjectStore, cfg: ServeConfig) -> str | None:
+    """Best-effort ``latest``-channel lookup at startup: a store without a
+    model registry resolves to None and ``model_key`` is served."""
+    from cobalt_smart_lender_ai_tpu_torch.io.model_registry import ModelRegistry
+
+    try:
+        return ModelRegistry(_registry_store(store, cfg), prefix=cfg.registry_prefix).resolve(
+            cfg.model_name, "latest"
+        )
+    except Exception:
+        return None
+
+
 class ScorerService:
     """Restored model + fused scorer behind the reference API's endpoints,
     plus `admission` (the adapter gates scoring routes through it),
@@ -726,6 +766,15 @@ class ScorerService:
             slow_threshold_s=self.config.flight_slow_threshold_ms / 1000.0,
             top_k=self.config.flight_top_k,
         )
+        # The control-plane journal (GET /events): every reload, breaker and
+        # canary action this service takes. Durable shipping is attached by
+        # the HTTP server (`start_history`) when a store is bound.
+        self.journal = EventJournal(
+            capacity=self.config.events_capacity,
+            ship_interval_s=self.config.events_ship_interval_s,
+            registry=self.registry,
+        )
+        self.store_breaker.on_transition = self._journal_breaker_transition
         self.slo: SLOEngine | None = None
         if self.config.slo_enabled:
             self.slo = SLOEngine(
@@ -739,10 +788,15 @@ class ScorerService:
         # One reload at a time; requests read `_model` once and never take it.
         self._swap_lock = threading.Lock()
         self._last_reload: dict | None = None
+        # The continuous-training loop (serve.canary), attached by
+        # `enable_canary`; None keeps the service as it is without one.
+        self.canary = None
+        self._model_identity: dict | None = None
         self._model = _CompiledModel(artifact, self.config, self.device)
-        self._m_model_info.labels(
+        self._model_info_labels = (
             "unversioned", "direct", "none", self._model.pack.precision, self._model.kernel
-        ).set(1.0)
+        )
+        self._m_model_info.labels(*self._model_info_labels).set(1.0)
         #: Direct-path requests whose SHAP launch failed at run time.
         self.degraded_direct = 0
         self.batcher: MicroBatcher | None = None
@@ -762,18 +816,32 @@ class ScorerService:
         device: torch.device | str = "cuda",
         clock: Callable[[], float] = time.monotonic,
         registry: MetricsRegistry | None = None,
+        enable_canary: bool | None = None,
     ) -> "ScorerService":
         """Startup restore of ``config.model_key`` from ``store``, under the
         circuit breaker; the store is kept for `reload_from_store`. The
         device is resolved first, so ``cuda`` without CUDA fails before any
-        load."""
+        load.
+
+        With ``canary_enabled`` the model registry's ``latest`` channel (when
+        one exists for ``model_name``) overrides ``model_key``, and any
+        published ``canary`` is loaded beside the champion for shadow
+        scoring. ``enable_canary=False`` keeps the channel resolution but
+        attaches no controller."""
         cfg = config or ServeConfig()
         dev = resolve_device(device)
         brk = breaker_from_config(cfg.reliability, clock=clock)
-        artifact = brk.call(lambda: GBDTArtifact.load(store, cfg.model_key, dev))
-        return cls(
+        key = cfg.model_key
+        if cfg.canary_enabled:
+            key = _resolve_latest_channel(store, cfg) or key
+        artifact = brk.call(lambda: GBDTArtifact.load(store, key, dev))
+        svc = cls(
             artifact, cfg, device=dev, store=store, clock=clock, breaker=brk, registry=registry
         )
+        svc._model_key = key
+        if cfg.canary_enabled and enable_canary is not False:
+            svc.enable_canary()
+        return svc
 
     # -- hot model swap ---------------------------------------------------------
 
@@ -839,7 +907,9 @@ class ScorerService:
         self._model_key = key
         self._last_reload = {"status": "ok", "model_key": key, "n_features": candidate.n_features}
         self._m_reloads.labels(status="ok").inc()
-        _LOG.info("model_reload", **self._last_reload)
+        eid = self.journal.emit("reload", "publish", model=key, payload=dict(self._last_reload))
+        with event_context(eid):
+            _LOG.info("model_reload", **self._last_reload)
         return self._last_reload
 
     def _record_rollback(self, key: str, exc: Exception) -> dict:
@@ -849,14 +919,150 @@ class ScorerService:
             "error": f"{type(exc).__name__}: {exc}",
         }
         self._m_reloads.labels(status="rolled_back").inc()
-        _LOG.warning("model_reload", **self._last_reload)
+        eid = self.journal.emit(
+            "reload",
+            "rollback",
+            model=key,
+            payload=dict(self._last_reload),
+            cause={"error": self._last_reload["error"]},
+        )
+        with event_context(eid):
+            _LOG.warning("model_reload", **self._last_reload)
         return self._last_reload
 
     def close(self) -> None:
-        """Stop the micro-batch worker (queued requests drain first);
-        requests arriving afterwards score on their own launch."""
+        """Stop the canary's worker and the micro-batch worker (queued
+        requests drain first; requests arriving afterwards score on their
+        own launch), then the journal, which ships its tail when a store is
+        attached."""
+        if self.canary is not None:
+            self.canary.close()
         if self.batcher is not None:
             self.batcher.close()
+        self.journal.stop()
+
+    # -- the control-plane journal ----------------------------------------------
+
+    def start_history(self) -> None:
+        """Attach the bound store to the journal and start shipping
+        (idempotent). The HTTP server calls it when its socket opens:
+        only a served process ships its control-plane record."""
+        if self._store is not None:
+            if self.journal._store is None:
+                self.journal.attach_store(self._store)
+            self.journal.start()
+
+    def _journal_breaker_transition(self, old: str, new: str) -> None:
+        """Breaker state flips -> journal events. Called inside the
+        breaker's lock; the journal takes only its own lock and calls
+        nothing back."""
+        kind = {"closed": "close", "half_open": "half_open", "open": "open"}
+        brk = self.store_breaker
+        self.journal.emit(
+            "breaker",
+            kind.get(new, "open"),
+            payload={"breaker": brk.name, "from": old, "to": new},
+            cause={
+                "consecutive_failures": brk.consecutive_failures,
+                "opened_count": brk.opened_count,
+            },
+        )
+
+    def events(
+        self,
+        *,
+        component: str | None = None,
+        kind: str | None = None,
+        since: float | None = None,
+        limit: int | None = None,
+    ) -> list[dict]:
+        """Filtered journal snapshot: the ``GET /events`` body."""
+        return self.journal.events(component=component, kind=kind, since=since, limit=limit)
+
+    # -- the continuous-training loop (serve.canary) ----------------------------
+
+    @property
+    def model_info(self) -> dict:
+        """Identity of the serving model: `/readyz`'s ``model`` block and
+        the ``model_version`` of scoring responses."""
+        if self._model_identity is not None:
+            return self._model_identity
+        return {"version": "unversioned", "channel": "direct", "provenance_md5": None}
+
+    def set_model_info(self, *, version: str, channel: str, provenance_md5: str | None) -> None:
+        """Move the ``cobalt_model_info`` gauge to a new identity; the old
+        label combination drops to 0, so joins never see two live models."""
+        self._model_identity = {
+            "version": version,
+            "channel": channel,
+            "provenance_md5": provenance_md5,
+        }
+        new_labels = (
+            version,
+            channel,
+            provenance_md5 or "none",
+            self._model.pack.precision,
+            self._model.kernel,
+        )
+        self._m_model_info.labels(*self._model_info_labels).set(0.0)
+        self._m_model_info.labels(*new_labels).set(1.0)
+        self._model_info_labels = new_labels
+
+    def enable_canary(self, on_drift=None) -> "ScorerService":
+        """Attach the continuous-training controller (idempotent): stamp the
+        serving model's identity from the registry's ``latest`` channel and
+        load any published ``canary`` for shadow scoring. A store without a
+        registry has nothing to canary yet; that is no error."""
+        if self.canary is not None:
+            return self
+        if self._store is None:
+            raise RuntimeError(
+                "no store bound: construct the service with from_store() or "
+                "pass store= explicitly"
+            )
+        from cobalt_smart_lender_ai_tpu_torch.serve.canary import CanaryController
+
+        self.canary = CanaryController(
+            self,
+            _registry_store(self._store, self.config),
+            config=self.config,
+            clock=self._clock,
+            on_drift=on_drift,
+        )
+        try:
+            self.canary.sync_identity()
+            self.canary.refresh()
+        except Exception as exc:
+            _LOG.warning("canary_enable_degraded", error=str(exc))
+        return self
+
+    def promote_canary(self, *, force: bool = False) -> dict:
+        """``POST /admin/promote``: the gate, the swap, the channel flip."""
+        if self.canary is None:
+            raise PromotionRejected(
+                "canary evaluation is not enabled on this service",
+                report={"eligible": False, "reasons": ["canary_not_enabled"]},
+            )
+        return self.canary.promote(force=force)
+
+    def rollback_model(self, *, reason: str = "manual") -> dict:
+        """``POST /admin/rollback``: demote ``latest`` back to ``previous``."""
+        if self.canary is None:
+            raise RollbackFailed("canary evaluation is not enabled on this service")
+        return self.canary.rollback(reason=reason, trigger="manual")
+
+    def drift_report(self) -> dict:
+        """``GET /drift``: per-feature PSI against the training snapshot."""
+        if self.canary is None:
+            return {"status": "disabled"}
+        return self.canary.drift_report()
+
+    def _canary_tap(self, row: Mapping[str, float], prob: float, latency_s: float | None) -> None:
+        """Hand a scored row to the canary's shadow queue (O(1), never
+        raises). The reference's brownout rung 1 skips the tap under load;
+        the port has no brownout ladder yet."""
+        if self.canary is not None:
+            self.canary.tap(row, prob, latency_s)
 
     @property
     def feature_names(self) -> list[str]:
@@ -976,6 +1182,9 @@ class ScorerService:
         )
         if status >= 400:
             self._m_errors.labels(route=route, code=code or "error").inc()
+        # The post-promotion guard: O(1) when no guard window is open.
+        if self.canary is not None:
+            self.canary.maybe_auto_rollback()
 
     def _observe_phase(self, name: str, duration_s: float) -> None:
         """One phase's seconds into the phase histogram and the flight
@@ -1058,8 +1267,13 @@ class ScorerService:
         }
         if model.shap_error is not None:
             payload["shap_error"] = model.shap_error
+        payload["events"] = self.journal.stats()
         if self._last_reload is not None:
             payload["last_reload"] = self._last_reload
+        payload["model"] = self.model_info
+        if self.canary is not None:
+            self.canary.maybe_auto_rollback()
+            payload["canary"] = self.canary.status()
         return True, payload
 
     # -- /predict -----------------------------------------------------------------
@@ -1079,6 +1293,8 @@ class ScorerService:
             resp["base_value"] = None
             resp["degraded"] = True
             self._m_shap_degraded.inc()
+        if self._model_identity is not None:
+            resp["model_version"] = self._model_identity["version"]
         return resp
 
     def _cache_response(
@@ -1103,7 +1319,9 @@ class ScorerService:
         worker are recorded here, in the request's own context."""
         for name, seconds in result[4].items():
             self._observe_phase(name, seconds)
-        return self._cache_response(self._response(row, result), key, model)
+        resp = self._cache_response(self._response(row, result), key, model)
+        self._canary_tap(row, result[0], result[4].get("dispatch"))
+        return resp
 
     def _predict_validate(
         self, payload: Mapping[str, Any], dl: Deadline | None
@@ -1139,6 +1357,11 @@ class ScorerService:
             "shap_values": list(phis_row),
             "base_value": base,
         }
+        if self._model_identity is not None:
+            resp["model_version"] = self._model_identity["version"]
+        # The canary has no cache: a hit still shadow-scores, so the window
+        # keeps filling under cache-friendly load.
+        self._canary_tap(row, prob, None)
         return row, resp, key, model
 
     def _predict_direct(
@@ -1146,7 +1369,7 @@ class ScorerService:
     ) -> dict:
         """The un-coalesced path: this request's own (1, F) launch."""
         model = self._model
-        with self.phase("dispatch"):
+        with self.phase("dispatch") as dispatch_sp:
             probs, phis, base, shap_error = model.score_explained(model.rows_array([row]))
         if phis is None and model.shap_fn is not None:
             self.degraded_direct += 1
@@ -1156,7 +1379,9 @@ class ScorerService:
             row,
             (float(probs[0]), None if phis is None else phis[0].tolist(), base, shap_error),
         )
-        return self._cache_response(resp, key, cache_model)
+        resp = self._cache_response(resp, key, cache_model)
+        self._canary_tap(row, resp["prob_default"], dispatch_sp.duration_s)
+        return resp
 
     def predict_single(
         self, payload: Mapping[str, Any], *, deadline: Deadline | None = None
@@ -1245,11 +1470,14 @@ class ScorerService:
                 _, prob = model.margin_fn(x)
                 prob = float(prob[0])
             row = x[0].cpu().tolist()
-            return {
+            resp = {
                 "prob_default": prob,
                 "features": list(model.feature_names),
                 "engineered_row": dict(zip(model.feature_names, row)),
             }
+            if self._model_identity is not None:
+                resp["model_version"] = self._model_identity["version"]
+            return resp
 
     # -- bulk -----------------------------------------------------------------------
 

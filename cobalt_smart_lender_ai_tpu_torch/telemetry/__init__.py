@@ -24,6 +24,11 @@ the module is ported, with no dependency beyond torch.
   feeding Perfetto counter tracks.
 - `telemetry.runledger` — one JSON `RunLedger` per run, in the reference's
   schema (its ``tools/obs_report.py`` renders and diffs it).
+- `telemetry.events` — the control-plane `EventJournal` (``GET /events``,
+  ``cobalt_events_*``): typed, causally linked reload, breaker and canary
+  events, shipped as md5-pinned segments and read back by `load_events`.
+- `telemetry.drift` — per-feature `FeatureSketch` histograms and their
+  population stability index (``GET /drift``, ``cobalt_drift_*``).
 """
 
 from __future__ import annotations
@@ -34,6 +39,18 @@ from cobalt_smart_lender_ai_tpu_torch.telemetry.devices import (
     device_info,
     host_rss_bytes,
     install_device_metrics,
+)
+from cobalt_smart_lender_ai_tpu_torch.telemetry.drift import (
+    FeatureSketch,
+    psi,
+)
+from cobalt_smart_lender_ai_tpu_torch.telemetry.events import (
+    EVENT_KINDS,
+    EventJournal,
+    current_event_id,
+    event_context,
+    load_events,
+    merge_events,
 )
 from cobalt_smart_lender_ai_tpu_torch.telemetry.flight import (
     META_ROUTES,
@@ -91,6 +108,7 @@ from cobalt_smart_lender_ai_tpu_torch.telemetry.tracing import (
 )
 
 __all__ = [
+    "EVENT_KINDS",
     "EXPOSITION_CONTENT_TYPE",
     "LATENCY_BUCKETS_S",
     "META_ROUTES",
@@ -98,6 +116,8 @@ __all__ = [
     "TRACE_CONTENT_TYPE",
     "Counter",
     "DeviceSampler",
+    "EventJournal",
+    "FeatureSketch",
     "FlightRecorder",
     "Gauge",
     "Histogram",
@@ -113,6 +133,7 @@ __all__ = [
     "add_phase",
     "chrome_trace",
     "collect_phases",
+    "current_event_id",
     "current_request_id",
     "current_trace_ids",
     "default_device_sampler",
@@ -121,14 +142,18 @@ __all__ = [
     "default_registry",
     "default_tracer",
     "device_info",
+    "event_context",
     "get_logger",
     "host_rss_bytes",
     "install_device_metrics",
     "install_program_metrics",
+    "load_events",
     "load_ledger",
     "log_buckets",
+    "merge_events",
     "new_request_id",
     "parse_exposition",
+    "psi",
     "record_span",
     "render",
     "render_chrome_trace",

@@ -127,6 +127,17 @@ class StructuredLogger:
             ids = current_trace_ids()
             if ids is not None:
                 record["trace_id"], record["span_id"] = ids
+        # Same for the control-plane event id: a line written while an
+        # `event_context` is open in this thread carries the journal's join
+        # key, so logs, flight records, traces and the journal share one id.
+        if "event_id" not in fields:
+            from cobalt_smart_lender_ai_tpu_torch.telemetry.events import (
+                current_event_id,
+            )
+
+            eid = current_event_id()
+            if eid is not None:
+                record["event_id"] = eid
         record.update(fields)
         self._logger.log(
             level, json.dumps(record, default=_json_default, sort_keys=False)

@@ -54,13 +54,18 @@ def chrome_trace(
     *,
     limit: int | None = None,
     counters: Mapping[str, Sequence[tuple[float, float]]] | None = None,
+    journal: Any | None = None,
+    journal_limit: int | None = 512,
 ) -> dict[str, Any]:
     """JSON-able Chrome Trace Event document for the tracer's span ring.
 
     ``counters`` maps series name -> [(t_monotonic_s, value), ...]; None
     pulls whatever `telemetry.devices.default_device_sampler` has sampled
     (empty unless something started/ticked it — exporting never spawns a
-    thread)."""
+    thread). ``journal`` (an `telemetry.events.EventJournal`) adds its
+    control-plane events as **instant events** (``"ph": "i"``, process
+    scope) on the same monotonic origin — a reload or a promotion appears
+    as a pin on the request-span timeline."""
     spans = (tracer or default_tracer()).export(limit=limit)
     if counters is None:
         from cobalt_smart_lender_ai_tpu_torch.telemetry.devices import (
@@ -119,6 +124,30 @@ def chrome_trace(
                 }
             )
             counter_count += 1
+    journal_count = 0
+    if journal is not None:
+        for ev in journal.events(limit=journal_limit):
+            args = {
+                "event_id": ev["event_id"],
+                "cause_id": ev.get("cause_id"),
+                "replica": ev.get("replica"),
+                "model": ev.get("model"),
+                "trace_id": ev.get("trace_id"),
+            }
+            args.update(ev.get("payload") or {})
+            events.append(
+                {
+                    "name": f"{ev['component']}.{ev['kind']}",
+                    "cat": "event",
+                    "ph": "i",
+                    "s": "p",
+                    "ts": round(float(ev["t_mono"]) * 1e6, 3),
+                    "pid": pid,
+                    "tid": 0,
+                    "args": args,
+                }
+            )
+            journal_count += 1
     return {
         "traceEvents": events,
         "displayTimeUnit": "ms",
@@ -126,6 +155,7 @@ def chrome_trace(
             "source": "cobalt_smart_lender_ai_tpu_torch.telemetry",
             "span_count": sum(1 for e in events if e.get("ph") == "X"),
             "counter_event_count": counter_count,
+            "journal_event_count": journal_count,
         },
     }
 
@@ -135,9 +165,10 @@ def render_chrome_trace(
     *,
     limit: int | None = None,
     counters: Mapping[str, Sequence[tuple[float, float]]] | None = None,
+    journal: Any | None = None,
 ) -> str:
     """`chrome_trace` serialized — what ``GET /debug/trace`` sends and
     the training CLI's ``--trace-out`` writes."""
     return json.dumps(
-        chrome_trace(tracer, limit=limit, counters=counters)
+        chrome_trace(tracer, limit=limit, counters=counters, journal=journal)
     )

@@ -40,7 +40,11 @@ float sums) and the CPU's winner, its histogram launches one per level of
 every tree its jobs boosted in whole chunks. Of the program accounting:
 recording launches makes no device synchronisation and waits on an event
 only beyond the pool's bound, and every launch lands on its program with
-CUDA-event seconds.
+CUDA-event seconds. Of the continuous-training loop: a shadow row of the
+canary is exactly one margin-only ``score_forest`` launch at bucket 1, its
+probability the host sigmoid of the kernel's margin, which equals the plain
+version's bit for bit; and a promotion's reload launches only the kernel
+(its warm-up buckets and the smoke row).
 """
 
 from __future__ import annotations
@@ -65,7 +69,7 @@ from cobalt_smart_lender_ai_tpu_torch.data.device_pipeline import (
 from cobalt_smart_lender_ai_tpu_torch.data.features import engineer_features, prepare_cleaned_frame
 from cobalt_smart_lender_ai_tpu_torch.data.frame import row_dicts
 from cobalt_smart_lender_ai_tpu_torch.data.synthetic import synthetic_lendingclub_frame
-from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
+from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ModelRegistry, ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models.gbdt import GBDTClassifier, GBDTHyperparams
 from cobalt_smart_lender_ai_tpu_torch.ops.binning import compute_bin_edges, transform
 from cobalt_smart_lender_ai_tpu_torch.ops.histogram import (
@@ -767,6 +771,81 @@ def test_reload_warms_the_candidate_on_card(card_pack, fresh_programs):
         table = fresh_programs.table()
         assert table and all(r["kind"] == "kernel" for r in table)
         assert all(r["name"].startswith("score_forest/f32/") for r in table)
+        assert sum(r["dispatches"] for r in table) == fused_score.launches - before
+    finally:
+        service.close()
+
+
+def _canary_lake(root: Path) -> ObjectStore:
+    """A registry holding the committed model as v1 in ``latest`` and its
+    first 150 trees as v2 in ``canary``."""
+    store = ObjectStore(str(root))
+    art = GBDTArtifact.load(ObjectStore(str(ROOT / "artifacts")), "models/gbdt/model_tree", "cpu")
+    reg = ModelRegistry(store)
+    reg.publish("gbdt", art)
+    reg.promote("gbdt")
+    cut = dataclasses.replace(art.forest, **{
+        f.name: getattr(art.forest, f.name)[:150]
+        for f in dataclasses.fields(art.forest) if f.name != "depth"
+    })
+    reg.publish("gbdt", dataclasses.replace(art, forest=cut))
+    return store
+
+
+@pytest.mark.cuda
+def test_shadow_row_is_one_margin_launch_on_card(card_pack, fresh_programs, tmp_path):
+    store = _canary_lake(tmp_path / "lake")
+    service = ScorerService.from_store(
+        store, ServeConfig(canary_enabled=True, microbatch_enabled=False, score_cache_size=0),
+        device="cuda",
+    )
+    try:
+        canary = service.canary
+        assert canary.status()["loaded"] and service.model_info["version"] == "v1"
+        model = canary._canary_model
+        assert model.kernel == "score_forest" and model.device.type == "cuda"
+        seen = []
+        margin_fn = model.margin_fn
+        model.margin_fn = lambda X: seen.append(X.clone()) or margin_fn(X)
+        torch.cuda.synchronize()
+        fresh_programs.reset()
+        before = fused_score.launches
+        payload = _predict_payload(11)
+        resp = service.predict_single(payload)
+        assert canary.flush()
+        torch.cuda.synchronize()
+        assert resp["model_version"] == "v1"
+        assert fused_score.launches - before == 2  # the champion's SHAP call, the shadow's
+        table = {r["name"]: r for r in fresh_programs.table()}
+        assert table["score_forest/f32/1/margin"]["dispatches"] == 1
+        assert table["score_forest/f32/1/shap"]["dispatches"] == 1
+        assert all(r["kind"] == "kernel" for r in table.values())
+        (X,) = seen
+        margin, _ = fused_score_reference(model.pack, X, n_features=X.shape[1], with_shap=False)
+        champ, shadow = list(canary._window)[0][:2]
+        assert champ == resp["prob_default"]
+        assert shadow == float(1.0 / (1.0 + np.exp(-float(margin[0]))))
+    finally:
+        service.close()
+
+
+@pytest.mark.cuda
+def test_promotion_reload_launches_only_kernels_on_card(card_pack, fresh_programs, tmp_path):
+    store = _canary_lake(tmp_path / "lake")
+    service = ScorerService.from_store(store, ServeConfig(canary_enabled=True), device="cuda")
+    try:
+        torch.cuda.synchronize()
+        fresh_programs.reset()
+        before = fused_score.launches
+        result = service.promote_canary(force=True)
+        torch.cuda.synchronize()
+        assert result["status"] == "promoted" and result["promoted_version"] == 2
+        assert service.model_info["version"] == "v2" and service._model.pack.n_trees == 150
+        warm = service._model.warm_buckets
+        assert fused_score.launches - before == len(warm["shap"]) + len(warm["margin"]) + 1
+        table = fresh_programs.table()
+        assert table and all(r["kind"] == "kernel" and r["name"].startswith("score_forest/f32/")
+                             for r in table)
         assert sum(r["dispatches"] for r in table) == fused_score.launches - before
     finally:
         service.close()

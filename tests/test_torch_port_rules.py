@@ -6,7 +6,8 @@
   its training protocol or its telemetry in a fresh interpreter leaves
   ``jax`` and ``pandas`` unloaded.
 - Its entry points run on the CUDA device unless the caller asks for the
-  CPU: with CUDA unavailable, the default-device service constructors,
+  CPU: with CUDA unavailable, the default-device service constructors
+  (``--canary`` serving included), the retrain CLI,
   `GBDTClassifier`, `split_mask`, `GBDTArtifact.load`/``from_bytes``,
   `rfe_select`, `randomized_search`, `run_pipeline` and the serving and
   training CLIs, and the host path's `engineer_features`, raise instead of
@@ -109,6 +110,12 @@ def test_importing_the_training_protocol_leaves_jax_and_pandas_unloaded():
 
 def test_importing_the_reader_registry_and_bootstrap_leaves_jax_and_pandas_unloaded():
     modules = ("native", "io.registry", "data.bootstrap", "data.clean", "data.features", "data")
+    assert _loaded_after_import(modules) == "[]"
+
+
+def test_importing_the_training_loop_leaves_jax_and_pandas_unloaded():
+    modules = ("telemetry.events", "telemetry.drift", "io.model_registry", "serve.canary",
+               "tools", "tools.retrain", "tools.registry_gc")
     assert _loaded_after_import(modules) == "[]"
 
 
@@ -236,7 +243,9 @@ def test_new_port_modules_are_checked():
             "telemetry/devices.py", "telemetry/runledger.py", "telemetry/flight.py",
             "telemetry/slo.py", "reliability/admission.py", "reliability/breaker.py",
             "reliability/faults.py", "native/__init__.py", "io/registry.py",
-            "data/bootstrap.py"} <= names
+            "data/bootstrap.py", "telemetry/events.py", "telemetry/drift.py",
+            "io/model_registry.py", "serve/canary.py", "tools/__init__.py",
+            "tools/retrain.py", "tools/registry_gc.py"} <= names
 
 
 def test_no_port_module_imports_pandas():
@@ -272,6 +281,29 @@ def test_cli_defaults_to_cuda_and_raises_without_it(no_cuda):
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         cli.build_service(args)
+
+
+def test_canary_serving_defaults_to_cuda_and_raises_without_it(no_cuda):
+    args = cli.parse_args(["--store", str(ROOT / "artifacts"), "--canary"])
+    assert args.device == "cuda" and args.canary
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.build_service(args)
+
+
+def test_cli_canary_flags_reach_the_serve_config():
+    args = cli.parse_args(["--store", str(ROOT / "artifacts"), "--device", "cpu", "--canary",
+                           "--model-name", "gbdt_b", "--canary-sample-rate", "0.25"])
+    svc = cli.build_service(args)
+    try:
+        cfg = svc.config
+        assert (cfg.canary_enabled, cfg.model_name, cfg.canary_sample_rate) == (True, "gbdt_b", 0.25)
+        # a store without a model registry serves its model key, canary idle
+        assert svc.canary is not None and not svc.canary.status()["loaded"]
+        assert svc.model_info["version"] == "unversioned"
+    finally:
+        svc.close()
+    plain = cli.parse_args(["--store", str(ROOT / "artifacts")])
+    assert not plain.canary and plain.model_name == "gbdt" and plain.canary_sample_rate == 1.0
 
 
 def test_cli_builds_a_cpu_service_when_asked():

@@ -439,6 +439,10 @@ def telemetry_pair():
         JaxStore(COMMITTED), JaxServeConfig(prewarm_all_buckets=False, score_cache_size=0)
     )
     port_svc = ScorerService.from_store(ObjectStore(COMMITTED), ServeConfig(), device="cpu")
+    # The continuous-training loop attached to both (the committed store has
+    # no model registry, so no canary loads): its families join the scrape.
+    jax_svc.enable_canary()
+    port_svc.enable_canary()
     servers = {"jax": jax_make_async_server(jax_svc, "127.0.0.1", 0),
                "port": make_async_server(port_svc, "127.0.0.1", 0)}
     try:
@@ -482,7 +486,14 @@ def test_every_port_family_is_the_references(telemetry_pair):
                    "cobalt_shap_degraded_total", "cobalt_request_phase_seconds",
                    "cobalt_admission_shed_total", "cobalt_breaker_state",
                    "cobalt_score_cache_hits_total", "cobalt_model_reloads_total",
-                   "cobalt_microbatch_worker_restarts_total"):
+                   "cobalt_microbatch_worker_restarts_total",
+                   "cobalt_events_total", "cobalt_events_dropped_total", "cobalt_events_ring_depth",
+                   "cobalt_canary_shadow_total", "cobalt_canary_shadow_dropped_total",
+                   "cobalt_canary_errors_total", "cobalt_canary_score_delta",
+                   "cobalt_canary_latency_seconds", "cobalt_canary_promotions_total",
+                   "cobalt_canary_rollbacks_total", "cobalt_canary_loaded",
+                   "cobalt_canary_window_size", "cobalt_drift_max_psi", "cobalt_drift_alarm",
+                   "cobalt_drift_psi"):
         assert family in published, family
 
 

@@ -13,9 +13,10 @@ The same operations, made from a seed with numpy, go into both modules:
   after-the-fact, unfinished) and counter series: their `chrome_trace`
   documents are equal apart from the fields the reference takes from the
   process or its package — each event's ``pid`` and ``tid``, the thread
-  names, and ``otherData.source`` (the package's name) — and the
-  reference's ``otherData.journal_event_count``, its event journal's
-  instant events, which the port does not have yet (0 here);
+  names, and ``otherData.source`` (the package's name); each package's
+  event journal, fed the same emits on the same clock, adds the same
+  instant events (their ``event_id``s ranked, as each package mints its
+  own) and the same ``otherData.journal_event_count``;
 - `request_context` honours a client's id and mints one where there is
   none, and `StructuredLogger` writes the reference's JSON line, with the
   trace and span ids of the span in scope.
@@ -30,10 +31,12 @@ import time
 import numpy as np
 import pytest
 
+import cobalt_smart_lender_ai_tpu.telemetry.events as jax_events
 import cobalt_smart_lender_ai_tpu.telemetry.logging as jax_logging
 import cobalt_smart_lender_ai_tpu.telemetry.metrics as jax_metrics
 import cobalt_smart_lender_ai_tpu.telemetry.traceexport as jax_traceexport
 import cobalt_smart_lender_ai_tpu.telemetry.tracing as jax_tracing
+import cobalt_smart_lender_ai_tpu_torch.telemetry.events as port_events
 import cobalt_smart_lender_ai_tpu_torch.telemetry.logging as port_logging
 import cobalt_smart_lender_ai_tpu_torch.telemetry.metrics as port_metrics
 import cobalt_smart_lender_ai_tpu_torch.telemetry.traceexport as port_traceexport
@@ -169,8 +172,27 @@ def _normalized(doc: dict) -> dict:
         if ev.get("name") == "thread_name":
             ev["args"].pop("name")
     doc["otherData"].pop("source")
-    assert doc["otherData"].pop("journal_event_count", 0) == 0
+    instants = [ev for ev in doc["traceEvents"] if ev.get("cat") == "event"]
+    rank = {eid: i for i, eid in enumerate(sorted(ev["args"]["event_id"] for ev in instants))}
+    for ev in instants:
+        ev["args"]["event_id"] = rank[ev["args"]["event_id"]]
+        if ev["args"]["cause_id"] is not None:
+            ev["args"]["cause_id"] = rank[ev["args"]["cause_id"]]
     return doc
+
+
+def _drive_journal(events, clock: FakeClock, seed: int):
+    """A journal on ``clock`` with a seeded handful of reload, breaker and
+    canary events, one caused by another."""
+    rng = np.random.default_rng(seed)
+    journal = events.EventJournal(capacity=64, clock=clock, mono=clock)
+    first = journal.emit("reload", "publish", model="models/gbdt/v2", payload={"status": "ok"})
+    for i in range(int(rng.integers(2, 6))):
+        clock.advance(float(rng.uniform(0.001, 0.5)))
+        journal.emit("breaker", ("open", "half_open", "close")[i % 3], cause_id=first,
+                     payload={"n": i})
+    journal.emit("canary", "reject", model="v3", payload={"reasons": ["score_delta"]})
+    return journal
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -180,19 +202,23 @@ def test_chrome_trace_equals_the_references(seed):
         "microbatch_queue_depth": [(100.0 + i * 0.25, float(i % 5)) for i in range(12)],
         "host_rss_bytes": [(100.1, 2.5e8), (100.6, 2.6e8)],
     }
-    for tracing, traceexport, kw in (
-        (jax_tracing, jax_traceexport, {"jax_annotations": False}),
-        (port_tracing, port_traceexport, {}),
+    for tracing, traceexport, events, kw in (
+        (jax_tracing, jax_traceexport, jax_events, {"jax_annotations": False}),
+        (port_tracing, port_traceexport, port_events, {}),
     ):
         clock = FakeClock()
         tracer = tracing.Tracer(clock=clock, **kw)
         _drive_tracer(tracer, clock, seed)
-        docs.append(traceexport.chrome_trace(tracer, counters=series))
+        journal = _drive_journal(events, clock, seed)
+        docs.append(traceexport.chrome_trace(tracer, counters=series, journal=journal))
     jax_doc, port_doc = docs
     assert port_doc["otherData"]["source"] == "cobalt_smart_lender_ai_tpu_torch.telemetry"
     assert _normalized(port_doc) == _normalized(jax_doc)
     assert port_doc["otherData"]["span_count"] > 0
     assert port_doc["otherData"]["counter_event_count"] == 14
+    count = port_doc["otherData"]["journal_event_count"]
+    assert count == jax_doc["otherData"]["journal_event_count"]
+    assert count == sum(1 for ev in port_doc["traceEvents"] if ev.get("cat") == "event") >= 4
 
 
 def test_record_span_parents_under_the_open_span():
