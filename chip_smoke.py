@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --only-scoring   # phases 1-4 and 9, then the scoring split
     python3 chip_smoke.py --only-lifecycle # build, then phase 14
+    python3 chip_smoke.py --only-fleet     # build, then phase 15
     python3 chip_smoke.py --full-protocol  # build, then phase 8b at the defaults
 
 Phases, each of which must pass:
@@ -289,13 +290,52 @@ Phases, each of which must pass:
        counts the caching allocator's blocks, and a cached block reused
        unsplit counts more than was asked for.
 
+15. the serving fleet, after phase 14: `ReplicaSet.from_store` with 4
+    replicas of the committed model (300 trees, depth 7, F=20, f32) on the
+    one card behind the HTTP server, served from a temporary registry's
+    ``latest`` with the forest's first half as ``canary`` (every /predict
+    shadowed), a 2 s request deadline, the supervisor ticked by hand;
+    ``score_forest``'s launches counted from 0 just before it:
+    a. ``/readyz`` shows 4 replicas on ``cuda:0``, each on the kernel; 256
+       /predict in bursts of 16 and two 4096-row bulk CSVs: the routed
+       counts sum to the requests and every replica gets some, the programs'
+       dispatches equal the launches and the warm-ups, micro-batches, bulk
+       chunks and shadow rows, every launch's margins bitwise the plain
+       version's on the CPU;
+    b. replica 1's worker killed before its launch (`ChaosPlan.kill_worker`):
+       a burst answers 200 throughout, at least one row hedged, the worker
+       restarted;
+    c. an error storm on replica 2: bursts of 32 until its EWMA quarantines
+       it, then a tick drains, rebuilds on the card, smoke-checks, swaps and
+       readmits it; its margins bitwise the old replica's; ``/events``
+       holds healthy -> degraded -> quarantined -> restarting -> rebuild ->
+       swap -> healthy, each chained to its cause;
+    d. replica 3 hung before its launch: its callers answer a typed 504
+       inside the deadline (the others 200), the queue-age watchdog (or the
+       probes) quarantine it and the next tick heals it;
+    e. ``POST /admin/quarantine`` of three replicas, the fourth refused 422,
+       a bad index 422, the one /predict routed to the routable one, a tick
+       heals no manual quarantine, ``/admin/readmit`` of the three, again
+       422;
+    f. the brownout ladder to rungs 1, 2, 4 and 5: no shadow rows from rung
+       1 on, ``degraded: true`` with null SHAP and only margin-only programs
+       at rungs 2 and 4, bulk 429 with ``Retry-After`` at 4, everything 429
+       at 5; released, full answers and shadows again; the ten steps in the
+       journal;
+    every /predict answer typed, each 200 the plain version's (prob within
+    1e-6, SHAP of 15a-b within 1e-5);
+    g. ``requested_bytes`` equal once the fleet is built, after each heal
+       (the old replica closed), and back to its start after ``close``;
+       ``cobalt_device_mem_bytes`` within the largest served model's
+       allocator blocks.
+
 The script's seconds in all come on a line before ``{"kernels": [...]}``,
 which is the line before the last; the last is ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing neither, when
 CUDA is unavailable or any phase fails. ``--only-scoring`` runs phases 1-4,
 9 and 7 (the short loop for work on ``csrc/score_forest.cu``) and prints
-neither line; ``--only-lifecycle`` builds and runs phase 14, and prints
-neither. ``--full-protocol`` builds, then runs phase 8b with the
+neither line; ``--only-lifecycle`` builds and runs phase 14, and
+``--only-fleet`` phase 15, and print neither. ``--full-protocol`` builds, then runs phase 8b with the
 reference's default `RFEConfig` (104 -> 20 features at step 1, 84 refits of
 50 trees) and `TuneConfig` (20 candidates x 3 folds, every candidate to its
 full ``n_estimators``) on a new 2.3M-loan frame, and prints neither line.
@@ -323,6 +363,7 @@ import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 import torch
@@ -394,12 +435,15 @@ from cobalt_smart_lender_ai_tpu_torch.pipeline import (
     stage_fingerprints,
 )
 from cobalt_smart_lender_ai_tpu_torch.reliability import (
+    ChaosPlan,
     FaultInjectingStore,
     FaultSpec,
     PipelineCheckpoint,
 )
 from cobalt_smart_lender_ai_tpu_torch.serve.http_asyncio import make_async_server
+from cobalt_smart_lender_ai_tpu_torch.serve.replicas import ReplicaSet
 from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService
+from cobalt_smart_lender_ai_tpu_torch.serve.supervisor import HEALTHY, QUARANTINED
 from cobalt_smart_lender_ai_tpu_torch.telemetry import (
     chrome_trace,
     default_program_registry,
@@ -2278,10 +2322,11 @@ def _call(url: str, body: bytes | None = None, request_id: str | None = None) ->
         return e.code, dict(e.headers), json.loads(e.read())
 
 
-def _burst(port: int, bodies: list[bytes]) -> list[tuple]:
+def _burst(port: int, bodies: list[bytes], timed: bool = False) -> list[tuple]:
     """POST every body to /predict at once: one connection each, opened
     first, then every request sent past one barrier. ``(status, headers,
-    JSON body)`` per body, in order."""
+    JSON body)`` per body, in order; with ``timed`` also each request's
+    wall seconds."""
     conns = [http.client.HTTPConnection("127.0.0.1", port, timeout=120) for _ in bodies]
     for c in conns:
         c.connect()
@@ -2289,9 +2334,11 @@ def _burst(port: int, bodies: list[bytes]) -> list[tuple]:
 
     def send(i: int) -> tuple:
         barrier.wait()
+        t0 = time.perf_counter()
         conns[i].request("POST", "/predict", bodies[i], {"Content-Type": "application/json"})
         r = conns[i].getresponse()
-        return r.status, dict(r.getheaders()), json.loads(r.read())
+        out = (r.status, dict(r.getheaders()), json.loads(r.read()))
+        return (*out, time.perf_counter() - t0) if timed else out
 
     try:
         with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
@@ -2490,9 +2537,31 @@ def _model_bytes(model) -> int:
     return total
 
 
+def _model_block_bytes(model) -> int:
+    """Bytes of the caching allocator's blocks that hold one served model's
+    tensors (its pack and its forest): what ``cobalt_device_mem_bytes``
+    counts for it, a block being at least the bytes asked for."""
+    ptrs = set()
+    for obj in (model.pack, model.artifact.forest):
+        for f in dataclasses.fields(obj):
+            t = getattr(obj, f.name)
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                ptrs.add(t.data_ptr())
+    blocks = {}
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated" and any(addr <= p < addr + b["size"] for p in ptrs):
+                blocks[addr] = b["size"]
+            addr += b["size"]
+    return sum(blocks.values())
+
+
 def _live_bytes(base: str) -> float:
     """``cobalt_device_mem_bytes`` of the card, scraped once the card is
-    idle."""
+    idle and the garbage collected (the services of earlier phases are
+    freed when the collector breaks their cycles, not when they close)."""
+    gc.collect()
     torch.cuda.synchronize()
     return _label_samples(_scrape(base), "cobalt_device_mem_bytes", "device")["cuda:0"]
 
@@ -3396,6 +3465,417 @@ def _lifecycle(card: str, inner: ObjectStore, logs: _LogLines, device: str) -> d
     return out
 
 
+#: Phase 15: the serving fleet. Four replicas of the committed model on the
+#: one card behind the HTTP server, its registry's ``latest`` channel served
+#: and a canary (the same forest cut to its first half) shadowing.
+FLEET_REPLICAS = 4
+FLEET_REQUESTS = 256
+FLEET_BURST = 16
+FLEET_BULK_ROWS = 4096
+FLEET_BULKS = 2
+FLEET_STORM_BURST = 32
+FLEET_STORM_BURSTS = 20
+FLEET_DEADLINE_S = 2.0
+FLEET_CONFIG = dict(
+    replicas=FLEET_REPLICAS,
+    brownout_max_level=5,
+    canary_enabled=True,
+    request_deadline_s=FLEET_DEADLINE_S,
+    score_cache_size=0,  # every request reaches a replica
+    # The loop starts with the server but never ticks on its own: the phase
+    # ticks by hand, so each drill's supervision is one known pass.
+    supervisor_probe_interval_s=3600.0,
+    supervisor_probe_deadline_s=0.5,
+    supervisor_probe_failures=2,
+    supervisor_queue_age_limit_s=1.0,
+    supervisor_drain_timeout_s=1.0,
+    replica_close_timeout_s=2.0,
+)
+
+
+def _cut(art: GBDTArtifact, trees: int) -> GBDTArtifact:
+    forest = art.forest
+    return dataclasses.replace(art, forest=dataclasses.replace(forest, **{
+        f.name: getattr(forest, f.name)[:trees] for f in dataclasses.fields(forest) if f.name != "depth"
+    }))
+
+
+def fleet_store(root: str, trees: int | None = None) -> tuple[ObjectStore, GBDTArtifact]:
+    """A temporary store whose model registry serves the committed model
+    (cut to its first ``trees`` for a CPU rehearsal) as ``latest`` and its
+    first half as ``canary``."""
+    store = ObjectStore(root)
+    art = GBDTArtifact.load(ObjectStore(str(STORE)), MODEL_KEY, "cpu")
+    if trees is not None:
+        art = _cut(art, trees)
+    registry = ModelRegistry(store)
+    registry.publish("gbdt", art, channel="latest")
+    registry.publish("gbdt", _cut(art, max(1, art.forest.n_trees // 2)), channel="canary")
+    return store, art
+
+
+def _bulk_call(base: str, csv_bytes: bytes) -> tuple:
+    req = urllib.request.Request(base + "/predict_bulk_csv", data=csv_bytes,
+                                 headers={"Content-Type": "text/csv"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, dict(resp.headers), json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def _untyped(status: int, body: dict) -> bool:
+    """An error answer without a typed code, or a 500 other than the
+    watchdog's ``worker_dead``."""
+    return status >= 400 and ("error" not in body or (status == 500 and body["error"] != "worker_dead"))
+
+
+def _record_margins(model, records: list) -> Callable[[], None]:
+    """Wrap a replica model's two scoring callables to keep each launch's
+    rows and margins (the worker threads append; the GIL orders them).
+    Returns the function that puts the originals back."""
+    real = {attr: getattr(model, attr) for attr in ("shap_fn", "margin_fn")}
+    for attr, fn in real.items():
+        if fn is None:
+            continue
+
+        def call(X, fn=fn):
+            out = fn(X)
+            records.append((X.clone(), out[0].clone()))
+            return out
+
+        setattr(model, attr, call)
+
+    def restore() -> None:
+        for attr, fn in real.items():
+            setattr(model, attr, fn)
+
+    return restore
+
+
+def _join_threads(prefix: str, timeout: float = 30.0) -> None:
+    for t in threading.enumerate():
+        if t.name.startswith(prefix):
+            t.join(timeout=timeout)
+
+
+def fleet_phase(card: str, device: str = "cuda", trees: int | None = None) -> dict:
+    """Phase 15: the serving fleet on the card, counted from 0 just before
+    it. ``trees`` cuts the model for a CPU rehearsal."""
+    fused_score.launches = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as root:
+        out = _fleet(card, root, device, trees)
+    out["launches"] = fused_score.launches
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"fleet (15): {json.dumps(out)} [{card}]")
+    return out
+
+
+def _fleet(card: str, root: str, device: str, trees: int | None) -> dict:
+    out: dict = {}
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    entry = "score_forest/" if cuda else "score_forest_plain/"
+    store, art = fleet_store(root, trees)
+    F = len(art.feature_names)
+    cpu_pack = pack_forest(art.forest, F)
+
+    def requested() -> int | None:
+        gc.collect()
+        # empty before the process's first allocation on the card
+        return torch.cuda.memory_stats(dev).get("requested_bytes.all.current", 0) if cuda else None
+
+    mem0 = requested()
+    programs0 = program_counts(entry)
+    t1 = time.perf_counter()
+    fleet = ReplicaSet.from_store(store, ServeConfig(**FLEET_CONFIG), device=device)
+    out["build_s"] = time.perf_counter() - t1
+    server = make_async_server(fleet, "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{server.port}"
+    records: list = []
+    answers: list = []  # (payload, status, body) of every /predict answered
+    plans: list = []
+    try:
+        can = fleet.canary
+        warm = sum(len(r._model.warm_buckets["shap"]) + len(r._model.warm_buckets["margin"])
+                   for r in fleet.replicas)
+        warm += len(can._canary_model.warm_buckets["shap"]) + len(can._canary_model.warm_buckets["margin"])
+        if cuda and fused_score.launches != warm:
+            raise AssertionError(f"15a: {fused_score.launches} startup launches, {warm} warm-up buckets")
+        out["warmup_launches"] = warm
+        mem1 = (_live_bytes(base), requested()) if cuda else (None, None)
+
+        # 15a: four replicas on the one card, then traffic.
+        status, _, ready = _call(base + "/readyz")
+        devices = ready["replica_devices"]
+        if (status != 200 or ready["replicas"] != FLEET_REPLICAS or len(set(devices)) != 1
+                or (cuda and devices[0] != "cuda:0") or not fleet.supervisor.running
+                or any(p["kernel"] != ("score_forest" if cuda else "plain") for p in ready["per_replica"])):
+            raise AssertionError(f"15a: /readyz {status} {devices} {ready['supervisor']}")
+        restores = [_record_margins(r._model, records) for r in fleet.replicas]
+        batches0 = sum(r.batcher.batches for r in fleet.replicas)
+        shadow0 = int(can._m_shadow.value)
+        launches0 = fused_score.launches
+        programs1 = program_counts(entry)
+        payloads = request_rows(FLEET_REQUESTS, SEED + 500)
+        t1 = time.perf_counter()
+        for start in range(0, FLEET_REQUESTS, FLEET_BURST):
+            chunk = payloads[start : start + FLEET_BURST]
+            for p, (s, _, body) in zip(chunk, _burst(server.port, [json.dumps(p).encode() for p in chunk])):
+                answers.append((p, s, body))
+        out["predict_s"] = time.perf_counter() - t1
+        Xb = seeded_rows(fleet.replicas[0]._model.pack, FLEET_BULK_ROWS, SEED + 501)
+        lines = [",".join(f'"{n}"' for n in fleet.feature_names)]
+        lines += [",".join("" if np.isnan(v) else repr(float(v)) for v in r) for r in Xb]
+        bulk_csv = "\n".join(lines).encode()
+        bulks = []
+        t1 = time.perf_counter()
+        for _ in range(FLEET_BULKS):
+            bulks.append(_bulk_call(base, bulk_csv))
+        out["bulk_s"] = time.perf_counter() - t1
+        if not can.flush(timeout_s=60.0):
+            raise AssertionError("15a: the canary's shadow queue did not drain")
+        _sync(dev)
+        routed = [int(fleet._m_routed.labels(replica=str(i)).value) for i in range(FLEET_REPLICAS)]
+        batches = sum(r.batcher.batches for r in fleet.replicas) - batches0
+        shadowed = int(can._m_shadow.value) - shadow0
+        dispatched = sum(n for n, _ in program_delta(programs1, program_counts(entry)).values())
+        launched = fused_score.launches - launches0
+        chunks = FLEET_BULKS * -(-FLEET_BULK_ROWS // fleet.config.max_batch_rows)
+        if (sum(routed) != FLEET_REQUESTS + FLEET_BULKS or min(routed) == 0
+                or any(s != 200 for s, _, _ in bulks) or any(s != 200 for _, s, _ in answers)
+                or dispatched != batches + chunks + shadowed
+                or (cuda and launched != dispatched) or shadowed != FLEET_REQUESTS):
+            raise AssertionError(f"15a: routed {routed}, {batches} micro-batches, {chunks} bulk chunks, "
+                                 f"{shadowed} shadows, {dispatched} dispatches, {launched} launches")
+        out["traffic"] = {"routed": routed, "microbatches": batches, "bulk_chunks": chunks,
+                          "shadows": shadowed, "launches": launched, "dispatches": dispatched}
+        # every margin bitwise the plain version's on the CPU
+        for X, margin in records:
+            ref = fused_score_reference(cpu_pack, X.cpu(), n_features=F, with_shap=False)[0]
+            if not torch.equal(margin.cpu(), ref):
+                raise AssertionError(f"15a: a launch of {X.shape[0]} rows differs from the plain margins")
+        out["margin_launches_checked"] = len(records)
+        del X, margin
+        for restore in restores:
+            restore()
+        del restores, restore
+        bulk_ref = fused_score_reference(cpu_pack, torch.from_numpy(Xb), n_features=F, with_shap=False)[1]
+        bulk_err = max(float((torch.tensor([r["prob_default"] for r in b["predictions"]])
+                              - bulk_ref).abs().max()) for _, _, b in bulks)
+        records.clear()
+
+        # 15b: replica 1's worker killed; the hedge rescues its rows.
+        plan = ChaosPlan(seed=SEED, registry=fleet.registry).inject(fleet)
+        plans.append(plan)
+        plan.kill_worker(replica=1)
+        restarts0 = fleet.replicas[1].batcher.stats()["worker_restarts"]
+        chunk = request_rows(FLEET_BURST, SEED + 502)
+        got = _burst(server.port, [json.dumps(p).encode() for p in chunk])
+        answers += [(p, s, body) for p, (s, _, body) in zip(chunk, got)]
+        hedged = int(fleet._m_hedges.labels(outcome="rescued").value)
+        stats = fleet.replicas[1].batcher.stats()
+        if (plan.events["kill"] != 1 or hedged < 1 or stats["worker_restarts"] != restarts0 + 1
+                or not stats["worker_alive"] or any(s != 200 for s, _, _ in got)):
+            raise AssertionError(f"15b: {plan.events}, {hedged} hedges, {stats}, "
+                                 f"{[s for s, _, _ in got]}")
+        plan.release()
+        out["kill"] = {"hedges": hedged, "worker_restarts": stats["worker_restarts"]}
+
+        # 15c: an error storm on replica 2, quarantined by its EWMA, healed.
+        Xc = torch.from_numpy(seeded_rows(cpu_pack, 64, SEED + 503)).to(dev)
+        old = fleet.replicas[2]
+        old_margin = old._model.margin_fn(Xc)[0].clone()
+        plan = ChaosPlan(seed=SEED + 1, registry=fleet.registry).inject(fleet)
+        plans.append(plan)
+        plan.error_storm(replica=2, rate=1.0)
+        storm = 0
+        while fleet.replica_health[2].state != QUARANTINED and storm < FLEET_STORM_BURSTS:
+            chunk = request_rows(FLEET_STORM_BURST, SEED + 600 + storm)
+            got = _burst(server.port, [json.dumps(p).encode() for p in chunk])
+            answers += [(p, s, body) for p, (s, _, body) in zip(chunk, got)]
+            storm += 1
+        if fleet.replica_health[2].state != QUARANTINED or any(s != 200 for _, s, _ in answers):
+            raise AssertionError(f"15c: after {storm} bursts replica 2 is {fleet.replica_health[2].state}")
+        t1 = time.perf_counter()
+        summary = fleet.supervisor.tick()
+        out["heal_tick_s"] = time.perf_counter() - t1
+        plan.release()
+        new = fleet.replicas[2]
+        new_margin = new._model.margin_fn(Xc)[0]
+        if summary["healed"] != 1 or new is old or not torch.equal(new_margin, old_margin):
+            raise AssertionError(f"15c: tick {summary}, rebuilt {new is not old}, margins equal "
+                                 f"{torch.equal(new_margin, old_margin)}")
+        del old, new, old_margin, new_margin, Xc
+        summary = fleet.supervisor.tick()
+        # (a replica whose killed batch failed several rows in 15b may still
+        # be degraded: routable, its EWMA decaying with its successes)
+        if (summary["probed"] != FLEET_REPLICAS or fleet.replica_health[2].state != HEALTHY
+                or not all(h.routable for h in fleet.replica_health)):
+            raise AssertionError(f"15c: after the heal {summary}, {[h.state for h in fleet.replica_health]}")
+        _join_threads("replica-reaper-")
+        mem2 = (_live_bytes(base), requested()) if cuda else (None, None)
+        status, _, body = _call(base + "/events?component=supervisor")
+        evs = [e for e in body["events"] if e["replica"] == 2]
+        walk = [(e["kind"], e["payload"].get("to")) for e in evs]
+        want = [("transition", "degraded"), ("transition", "quarantined"), ("transition", "restarting"),
+                ("rebuild", None), ("swap", None), ("transition", "healthy")]
+        chained = (evs[2]["cause_id"] == evs[1]["event_id"] == evs[3]["cause_id"]
+                   and evs[4]["cause_id"] == evs[3]["event_id"] and evs[5]["cause_id"] == evs[4]["event_id"]
+                   and evs[1]["cause"]["error_ewma"] >= fleet.config.supervisor_quarantine_ewma
+                   and evs[3]["payload"]["outcome"] == "ok") if walk == want else False
+        if status != 200 or walk != want or not chained:
+            raise AssertionError(f"15c: /events {walk}, causes chained {chained}")
+        out["storm"] = {"bursts": storm, "errors": plan.events["error"],
+                        "hedges": int(fleet._m_hedges.labels(outcome="rescued").value),
+                        "heal_s": fleet.supervisor._m_heal_s.labels(replica="2").value}
+
+        # 15d: replica 3 hangs before its launch; the watchdog quarantines it.
+        plan = ChaosPlan(seed=SEED + 2, registry=fleet.registry).inject(fleet)
+        plans.append(plan)
+        plan.hang_dispatch(replica=3, hang_s=60.0)
+        chunk = request_rows(FLEET_BURST, SEED + 504)
+        got = _burst(server.port, [json.dumps(p).encode() for p in chunk], timed=True)
+        answers += [(p, s, body) for p, (s, _, body, _) in zip(chunk, got)]
+        late = [sec for s, _, body, sec in got if s == 504 and sec > FLEET_DEADLINE_S + 1.0]
+        typed = all(s == 200 or (s == 504 and body.get("error") == "deadline_exceeded")
+                    for s, _, body, _ in got)
+        ticks = []
+        while fleet.replica_health[3].state != QUARANTINED and len(ticks) < 4:
+            ticks.append(fleet.supervisor.tick())
+            if fleet.replica_health[3].state != QUARANTINED:
+                time.sleep(fleet.config.supervisor_queue_age_limit_s)
+        reason = fleet.replica_health[3].reason or ""
+        if (plan.events["hang"] != 1 or not typed or late or fleet.replica_health[3].state != QUARANTINED
+                or not reason.startswith(("queue head stalled", "2 consecutive smoke probes"))):
+            raise AssertionError(f"15d: answers {[s for s, _, _, _ in got]}, late {late}, ticks {ticks}, "
+                                 f"replica 3 {fleet.replica_health[3].state} ({reason})")
+        healed = fleet.supervisor.tick()
+        plan.release()  # the wedged worker wakes; its rows expired, it launches nothing
+        _join_threads("replica-reaper-")
+        if (healed["healed"] != 1 or fleet.replica_health[3].state != HEALTHY
+                or not all(h.routable for h in fleet.replica_health)):
+            raise AssertionError(f"15d: heal tick {healed}")
+        mem3 = (_live_bytes(base), requested()) if cuda else (None, None)
+        out["hang"] = {"answers": sorted({s for s, _, _, _ in got}), "504": sum(s == 504 for s, _, _, _ in got),
+                       "max_504_s": max([sec for s, _, _, sec in got if s == 504], default=0.0),
+                       "ticks_to_quarantine": len(ticks), "reason": reason,
+                       "heal_s": fleet.supervisor._m_heal_s.labels(replica="3").value}
+
+        # 15e: the admin plane over HTTP.
+        admin = [_call(base + "/admin/quarantine", json.dumps({"replica": i, "reason": "drill"}).encode())
+                 for i in range(FLEET_REPLICAS)]
+        admin.append(_call(base + "/admin/quarantine", json.dumps({"replica": 99}).encode()))
+        routed0 = [int(fleet._m_routed.labels(replica=str(i)).value) for i in range(FLEET_REPLICAS)]
+        lone = request_rows(1, SEED + 505)[0]
+        lone_status, _, body = _call(base + "/predict", json.dumps(lone).encode())
+        answers.append((lone, lone_status, body))
+        routed1 = [int(fleet._m_routed.labels(replica=str(i)).value) for i in range(FLEET_REPLICAS)]
+        manual_tick = fleet.supervisor.tick()
+        admin += [_call(base + "/admin/readmit", json.dumps({"replica": i}).encode()) for i in range(3)]
+        admin.append(_call(base + "/admin/readmit", json.dumps({"replica": 0}).encode()))
+        codes = [(s, b.get("error")) for s, _, b in admin]
+        if (codes != [(200, None)] * 3 + [(422, "invalid_input")] * 2 + [(200, None)] * 3
+                + [(422, "invalid_input")] or "last routable" not in admin[3][2]["detail"]
+                or [b - a for a, b in zip(routed0, routed1)] != [0, 0, 0, 1] or lone_status != 200
+                or manual_tick["healed"] != 0):
+            raise AssertionError(f"15e: {codes}, routed {routed0} -> {routed1}, tick {manual_tick}")
+        out["admin"] = codes
+
+        # 15f: the brownout ladder, rung by rung, then released.
+        ladder = {}
+        for level in range(1, 6):
+            fleet.brownout.engage("chip_smoke drill")
+            if level == 3:
+                continue
+            shadow0 = int(can._m_shadow.value)
+            programs1 = program_counts(entry)
+            chunk = request_rows(FLEET_BURST, SEED + 510 + level)
+            got = _burst(server.port, [json.dumps(p).encode() for p in chunk])
+            answers += [(p, s, body) for p, (s, _, body) in zip(chunk, got)]
+            bulk = _bulk_call(base, bulk_csv) if level >= 4 else (None, {}, {})
+            can.flush(timeout_s=60.0)
+            moved = sorted(program_delta(programs1, program_counts(entry)))
+            statuses = sorted({s for s, _, _ in got})
+            degraded = all(b.get("degraded") is True and b.get("shap_values") is None for s, _, b in got
+                           if s == 200)
+            ladder[level] = {"statuses": statuses, "shadows": int(can._m_shadow.value) - shadow0,
+                             "programs": moved, "bulk": bulk[0], "retry_after": bulk[1].get("Retry-After")}
+            ok = ladder[level]["shadows"] == 0
+            if level in (2, 4):
+                ok = ok and statuses == [200] and degraded and all(m.endswith("/margin") for m in moved)
+            if level == 4:
+                ok = ok and bulk[0] == 429 and bulk[2].get("error") == "shed" and bulk[1].get("Retry-After")
+            if level == 5:
+                ok = ok and statuses == [429] and bulk[0] == 429 and not moved
+                ok = ok and all(h.get("Retry-After") for _, h, _ in got)
+            if level == 1:
+                ok = ok and statuses == [200] and all(b["shap_values"] is not None for _, _, b in got)
+            if not ok:
+                raise AssertionError(f"15f: rung {level}: {ladder[level]}")
+        while fleet.brownout.release("chip_smoke drill"):
+            pass
+        shadow0 = int(can._m_shadow.value)
+        chunk = request_rows(FLEET_BURST, SEED + 520)
+        got = _burst(server.port, [json.dumps(p).encode() for p in chunk])
+        answers += [(p, s, body) for p, (s, _, body) in zip(chunk, got)]
+        can.flush(timeout_s=60.0)
+        steps = [(e["payload"]["direction"], e["payload"]["level"])
+                 for e in _call(base + "/events?component=autoscaler")[2]["events"]]
+        full = all(s == 200 and b["shap_values"] is not None and "degraded" not in b for s, _, b in got)
+        if (not full or int(can._m_shadow.value) - shadow0 != FLEET_BURST
+                or steps != [("engage", i) for i in range(1, 6)] + [("release", i) for i in range(4, -1, -1)]):
+            raise AssertionError(f"15f: after the release full {full}, steps {steps}")
+        out["brownout"] = ladder
+
+        # Every answer: typed, and each 200 the plain version's on the CPU.
+        untyped = sum(_untyped(s, b) for _, s, b in answers)
+        served = [(p, b) for p, s, b in answers if s == 200]
+        Xr = torch.tensor([[float(p[k]) for k in _request_keys()] for p, _ in served], dtype=torch.float32)
+        ref_prob = fused_score_reference(cpu_pack, Xr, n_features=F, with_shap=False)[1]
+        got_prob = torch.tensor([b["prob_default"] for _, b in served])
+        full_rows = [i for i, (_, b) in enumerate(served) if b["shap_values"] is not None]
+        shap_rows = full_rows[: FLEET_REQUESTS + FLEET_BURST]
+        _, _, ref_phis, _ = fused_score_reference(cpu_pack, Xr[shap_rows], n_features=F)
+        got_phis = torch.tensor([served[i][1]["shap_values"] for i in shap_rows])
+        errors = {"prob": float((got_prob - ref_prob).abs().max()),
+                  "phis": float((got_phis - ref_phis).abs().max()), "bulk_prob": bulk_err}
+        if untyped or max(errors["prob"], errors["bulk_prob"]) > TOL_PROB or errors["phis"] > TOL_PHIS:
+            raise AssertionError(f"15: {untyped} untyped errors, {errors}")
+        out["answers"] = {"requests": len(answers), "served": len(served), "untyped": untyped,
+                          "shap_checked": len(shap_rows)}
+        out["errors"] = errors
+        dispatched = sum(n for n, _ in program_delta(programs0, program_counts(entry)).values())
+        if cuda and dispatched != fused_score.launches:
+            raise AssertionError(f"15: {fused_score.launches} launches, {dispatched} program dispatches")
+        out["dispatches"] = dispatched
+        blocks = [_model_block_bytes(r._model) for r in fleet.replicas] if cuda else [0]
+        out["model_block_bytes"] = blocks
+        slack = max(blocks)
+    finally:
+        for plan in plans:
+            plan.release()
+        server.close()
+        t1 = time.perf_counter()
+        fleet.close()
+        out["close_s"] = time.perf_counter() - t1
+    del fleet, server, can, records, answers, served, plans
+    _join_threads("replica-")
+    mem4 = requested()
+    out["requested_bytes"] = {"before": mem0, "built": mem1[1], "after_storm_heal": mem2[1],
+                              "after_hang_heal": mem3[1], "closed": mem4}
+    out["device_mem_bytes"] = {"built": mem1[0], "after_storm_heal": mem2[0], "after_hang_heal": mem3[0]}
+    # The bytes asked for are exact; the gauge counts the allocator's blocks
+    # (a cached block reused unsplit counts more than was asked for), held
+    # within one served model's blocks, as 12c and 14g hold it.
+    if cuda and (not (mem1[1] == mem2[1] == mem3[1]) or mem4 != mem0
+                 or max(abs(v - mem1[0]) for v in (mem2[0], mem3[0])) > slack):
+        raise AssertionError(f"15g: requested bytes {out['requested_bytes']}, cobalt_device_mem_bytes "
+                             f"{out['device_mem_bytes']} (slack {slack})")
+    return out
+
+
 def print_scoring_split(card: str) -> None:
     for precision in ("f32", *QUANTIZED):
         for r in scoring_split("cuda", precision):
@@ -3417,6 +3897,11 @@ def main() -> int:
         "--only-lifecycle",
         action="store_true",
         help="build, then run phase 14 (the continuous-training loop) only; print no ok line",
+    )
+    mode.add_argument(
+        "--only-fleet",
+        action="store_true",
+        help="build, then run phase 15 (the serving fleet) only; print no ok line",
     )
     mode.add_argument(
         "--full-protocol",
@@ -3452,6 +3937,10 @@ def main() -> int:
     if args.only_lifecycle:
         lifecycle_phase(card)
         print(f"chip_smoke --only-lifecycle: {time.perf_counter() - t_start:.1f}s [{card}]")
+        return 0
+    if args.only_fleet:
+        fleet_phase(card)
+        print(f"chip_smoke --only-fleet: {time.perf_counter() - t_start:.1f}s [{card}]")
         return 0
 
     if args.full_protocol:
@@ -3531,6 +4020,8 @@ def main() -> int:
     print(f"data layer phase (13): {phase13_s:.1f}s [{card}]")
     lifecycle = lifecycle_phase(card)
     print(f"lifecycle phase (14): {lifecycle['phase_s']:.1f}s [{card}]")
+    fleet = fleet_phase(card)
+    print(f"fleet phase (15): {fleet['phase_s']:.1f}s, {fleet['launches']} launches [{card}]")
     print_scoring_split(card)
 
     main_rec = next(r for r in records if r["bucket"] == 64)
@@ -3550,8 +4041,10 @@ def main() -> int:
             "hardening_launches": hardening["launches"],
             "pandas_ingest_launches": data_layer["pandas_ingest"]["predict_raw"]["launches"],
             "lifecycle_launches": lifecycle["launches"]["score_forest"],
+            "fleet_launches": fleet["launches"],
             "max_abs_err": max(
                 [max(r.get("prob", 0.0), r.get("phis", 0.0)) for r in records + quantized_records]
+                + list(fleet["errors"].values())
                 + [lifecycle["shadow"]["prob_max_abs_err"], lifecycle["shadow"]["margin_max_abs_err"],
                    raw["serve"]["prob_max_abs_err"], raw["degraded"]["prob_max_abs_err"],
                    protocol["predict_raw"]["prob_max_abs_err"],

@@ -213,6 +213,46 @@ class ServeConfig:
     #: this many entries keyed by the canonicalized feature vector's bytes,
     #: emptied on every hot reload. 0 disables.
     score_cache_size: int = 2048
+    #: Shared-nothing `ScorerService` replicas behind the least-loaded router
+    #: (`serve.replicas.ReplicaSet`): each owns its pack, micro-batcher and
+    #: registry. 1 = the plain single-service path.
+    replicas: int = 1
+    #: Place replica i on ``cuda:(i % cards)`` when the host has several
+    #: cards; on one card (or the CPU) every replica shares the device.
+    replica_devices: bool = True
+    #: Fleet supervision (`serve.supervisor`): a per-replica error-rate EWMA
+    #: walks healthy -> degraded -> quarantined; a quarantined replica is
+    #: drained, rebuilt from the served artifact (warmed and smoke-checked as
+    #: a reload candidate) and readmitted. The probe loop starts with the
+    #: HTTP server.
+    supervisor_enabled: bool = True
+    #: Probe-loop cadence and each smoke probe's wall-clock budget (the
+    #: zeros row through the replica's own batcher).
+    supervisor_probe_interval_s: float = 1.0
+    supervisor_probe_deadline_s: float = 2.0
+    #: Consecutive failed probes before a replica is quarantined.
+    supervisor_probe_failures: int = 2
+    #: EWMA smoothing and state thresholds over replica-internal failures
+    #: (typed 422/429/504 never count). With alpha 0.2, 2 failures in a row
+    #: degrade and 5 quarantine.
+    supervisor_ewma_alpha: float = 0.2
+    supervisor_degraded_ewma: float = 0.3
+    supervisor_quarantine_ewma: float = 0.6
+    supervisor_recover_ewma: float = 0.1
+    #: Queue-age watchdog: a queue head older than this means a wedged worker.
+    supervisor_queue_age_limit_s: float = 5.0
+    #: Bounded wait for a quarantined replica's in-flight requests.
+    supervisor_drain_timeout_s: float = 5.0
+    #: Hedged failover: a single row that fails replica-internally is retried
+    #: once on another replica inside the caller's deadline.
+    hedge_enabled: bool = True
+    #: `ReplicaSet.close` closes the replicas together, bounded by this.
+    replica_close_timeout_s: float = 5.0
+    #: Brownout ladder (`serve.autoscaler.BrownoutLadder`): drop canary taps
+    #: -> serve without SHAP -> widen coalescing -> shed bulk -> shed all.
+    #: ``brownout_max_level`` caps how far it may go (2 never sheds).
+    brownout_enabled: bool = True
+    brownout_max_level: int = 3
     #: Admission (rate limit, in-flight cap) and the store's circuit breaker.
     reliability: ReliabilityConfig = dataclasses.field(default_factory=ReliabilityConfig)
 

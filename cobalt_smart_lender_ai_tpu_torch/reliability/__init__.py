@@ -1,6 +1,6 @@
 """Request-path error taxonomy, deadlines, admission control and the store's
-circuit breaker; the store's retries, fault injection and the pipeline's
-stage checkpoints."""
+circuit breaker; the store's retries, fault injection, the fleet's chaos
+harness and the pipeline's stage checkpoints."""
 
 from cobalt_smart_lender_ai_tpu_torch.reliability.admission import (
     AdmissionController,
@@ -10,6 +10,12 @@ from cobalt_smart_lender_ai_tpu_torch.reliability.admission import (
 from cobalt_smart_lender_ai_tpu_torch.reliability.breaker import (
     CircuitBreaker,
     breaker_from_config,
+)
+from cobalt_smart_lender_ai_tpu_torch.reliability.chaos import (
+    ChaosError,
+    ChaosPlan,
+    ChaosSpec,
+    WorkerKilled,
 )
 from cobalt_smart_lender_ai_tpu_torch.reliability.checkpoint import (
     MANIFEST_FORMAT,
@@ -50,6 +56,9 @@ from cobalt_smart_lender_ai_tpu_torch.reliability.stores import CorruptObjectErr
 __all__ = [
     "MANIFEST_FORMAT",
     "AdmissionController",
+    "ChaosError",
+    "ChaosPlan",
+    "ChaosSpec",
     "CircuitBreaker",
     "CircuitOpenError",
     "CorruptObjectError",
@@ -70,6 +79,7 @@ __all__ = [
     "TokenBucket",
     "ValidationError",
     "WorkerDead",
+    "WorkerKilled",
     "admission_from_config",
     "await_under_deadline",
     "breaker_from_config",

@@ -3,7 +3,8 @@
     python -m cobalt_smart_lender_ai_tpu_torch.serve --store artifacts \\
         [--device cuda|cpu] [--port N] [--forest-precision f32|bf16|int8] \\
         [--no-microbatch] [--score-cache-size N] [--flight-slow-ms MS] \\
-        [--canary [--model-name gbdt] [--canary-sample-rate R]]
+        [--canary [--model-name gbdt] [--canary-sample-rate R]] \\
+        [--replicas N [--no-replica-devices]]
 
 ``--device`` defaults to ``cuda``; without a CUDA device the command fails
 at startup. ``--device cpu`` runs the plain PyTorch versions of the kernels.
@@ -11,6 +12,11 @@ A bf16 or int8 forest is gated at startup against the committed tolerances
 and refused outside them. ``--canary`` serves the model registry's
 ``latest`` channel and shadow-scores any published canary on the same
 device (``POST /admin/promote``, ``/admin/rollback``, ``GET /drift``).
+``--replicas N`` (N >= 2) serves N replicas behind the least-loaded router
+with the supervisor's healing loop and hedged failover
+(``POST /admin/quarantine``, ``/admin/readmit``); on one card every replica
+shares it, on several replica i takes card ``i % cards`` unless
+``--no-replica-devices``.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Sequence
 
 from cobalt_smart_lender_ai_tpu_torch.config import ServeConfig
 from cobalt_smart_lender_ai_tpu_torch.io import ObjectStore
+from cobalt_smart_lender_ai_tpu_torch.serve.replicas import ReplicaSet
 from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService
 
 
@@ -56,6 +63,19 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
         type=int,
         default=ServeConfig.microbatch_max_rows,
         help="dispatch early once this many requests are queued",
+    )
+    parser.add_argument(
+        "--replicas",
+        type=int,
+        default=ServeConfig.replicas,
+        help="shared-nothing serving replicas behind the least-loaded router "
+        "(on one card they share it)",
+    )
+    parser.add_argument(
+        "--no-replica-devices",
+        action="store_true",
+        help="do not place replicas on cards round-robin; every replica on "
+        "the default card",
     )
     parser.add_argument(
         "--score-cache-size",
@@ -99,8 +119,9 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def build_service(args: argparse.Namespace) -> ScorerService:
-    """The service the CLI serves, restored from ``args.store``."""
+def build_service(args: argparse.Namespace) -> ScorerService | ReplicaSet:
+    """The service the CLI serves, restored from ``args.store``: a plain
+    `ScorerService` at ``--replicas 1``, else a `ReplicaSet`."""
     cfg = ServeConfig(
         host=args.host,
         port=args.port,
@@ -114,14 +135,22 @@ def build_service(args: argparse.Namespace) -> ScorerService:
         canary_enabled=args.canary,
         model_name=args.model_name,
         canary_sample_rate=args.canary_sample_rate,
+        replicas=args.replicas,
+        replica_devices=not args.no_replica_devices,
     )
-    return ScorerService.from_store(ObjectStore(args.store), cfg, device=args.device)
+    return ReplicaSet.from_store(ObjectStore(args.store), cfg, device=args.device)
 
 
 def main(argv: Sequence[str] | None = None) -> None:
     args = parse_args(argv)
     service = build_service(args)
     _, ready = service.ready()
+    if isinstance(service, ReplicaSet):
+        print(
+            f"[INFO] {len(service.replicas)} replicas behind the least-loaded router; "
+            f"devices: {ready['replica_devices']}"
+        )
+        ready = ready["per_replica"][0]
     print(
         f"[INFO] model restored from {args.store}/{ready['model_key']}: "
         f"{ready['n_features']} features on {ready['device']} "

@@ -4,7 +4,9 @@ socket to the micro-batcher's future.
 Routes: ``POST /predict``, ``POST /predict_bulk_csv``,
 ``POST /feature_importance_bulk``, ``POST /admin/reload``,
 ``POST /admin/promote`` (body ``{"force": bool}``) and
-``POST /admin/rollback`` (body ``{"reason": str}``), ``GET /healthz``,
+``POST /admin/rollback`` (body ``{"reason": str}``), the fleet's
+``POST /admin/quarantine`` (body ``{"replica": i, "reason": str}``),
+``/admin/readmit`` (``{"replica": i}``) and ``/admin/autoscaler``, ``GET /healthz``,
 ``GET /readyz``, and the reference's observability routes: ``GET /metrics``
 (Prometheus text, or OpenMetrics with exemplars on ``Accept:
 application/openmetrics-text``), ``GET /slo``, ``GET /drift`` (per-feature
@@ -27,9 +29,11 @@ while they score. ``POST /admin/reload`` (body ``{"model_key": ...}``,
 optional) is never gated: it swaps the model on the loop's executor, so the
 loop keeps serving, and answers 200 with the swap's result, 500
 ``reload_failed`` on a rollback, or 503 while the store's circuit is open.
-The promote and rollback routes are ungated too and run on the executor.
-When the server starts, the service's journal is attached to its store and
-ships its segments (`ScorerService.start_history`).
+The promote and rollback routes are ungated too and run on the executor, as
+do the fleet's admin routes, which answer a typed 422 on a service that is
+not a `serve.replicas.ReplicaSet`. When the server starts, the service's
+journal is attached to its store and ships its segments
+(`ScorerService.start_history`), and a fleet's supervisor starts its loop.
 
 Every request runs inside a `request_context` (a client's
 ``X-Request-ID`` is honoured, else one is minted; it is echoed on the
@@ -91,6 +95,9 @@ _KNOWN_ROUTES = frozenset(
         "/admin/reload",
         "/admin/promote",
         "/admin/rollback",
+        "/admin/quarantine",
+        "/admin/readmit",
+        "/admin/autoscaler",
         "/healthz",
         "/readyz",
         "/metrics",
@@ -103,6 +110,9 @@ _KNOWN_ROUTES = frozenset(
         "/debug/programs",
     }
 )
+
+#: The fleet's admin routes (`serve.replicas.ReplicaSet` only).
+_FLEET_ADMIN = ("/admin/quarantine", "/admin/readmit", "/admin/autoscaler")
 
 #: Request-line and header-line ceiling: a hostile peer must not buffer
 #: unbounded bytes into the loop.
@@ -288,8 +298,12 @@ class AsyncScorerServer:
             self._serve_connection, self._host, self._port
         )
         self._bound_port = self._server.sockets[0].getsockname()[1]
-        # Journal shipping is a serving concern: it starts with the socket.
+        # Journal shipping and fleet supervision are serving concerns: they
+        # start with the socket.
         self.service.start_history()
+        start_supervisor = getattr(self.service, "start_supervisor", None)
+        if start_supervisor is not None:
+            start_supervisor()
         return self
 
     def start(self) -> "AsyncScorerServer":
@@ -470,6 +484,8 @@ class AsyncScorerServer:
                     str(payload.get("reason", "manual")) if isinstance(payload, dict) else "manual"
                 )
                 return _Response(200, await asyncio.to_thread(service.rollback_model, reason=reason))
+            if method == "POST" and path in _FLEET_ADMIN:
+                return await self._fleet_admin(path, body)
             if method == "POST" and path == "/predict":
                 with service.admission.admit():
                     return _Response(200, await service.predict_single_async(_json_body(body)))
@@ -502,6 +518,29 @@ class AsyncScorerServer:
             return _Response(status, obj, headers=extra)
         except Exception as e:
             return _Response(500, {"detail": f"Internal server error: {e}", "error": "internal"})
+
+    async def _fleet_admin(self, path: str, body: bytes) -> _Response:
+        """The fleet's admin plane on the executor: quarantine or readmit a
+        replica, or the autoscaler's steering. Ungated: an operator must be
+        able to pull a sick replica while the data plane sheds."""
+        payload = _json_body(body)
+        if not isinstance(payload, dict):
+            raise ValidationError("body must be a JSON object")
+        method, args, kwargs = {
+            "/admin/quarantine": (
+                "quarantine_replica",
+                (payload.get("replica"),),
+                {"reason": str(payload.get("reason", "manual quarantine"))},
+            ),
+            "/admin/readmit": ("readmit_replica", (payload.get("replica"),), {}),
+            "/admin/autoscaler": ("autoscaler_admin", (payload,), {}),
+        }[path]
+        fn = getattr(self.service, method, None)
+        if fn is None:
+            raise ValidationError(
+                f"service is not a replicated fleet; {path} requires replicas >= 2"
+            )
+        return _Response(200, await asyncio.to_thread(fn, *args, **kwargs))
 
     async def _reload(self, body: bytes) -> _Response:
         """``POST /admin/reload``: the swap runs on the default executor (it

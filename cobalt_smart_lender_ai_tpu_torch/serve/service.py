@@ -46,6 +46,12 @@ through the ``canary`` channel's model (`serve.canary`): each shadow row is
 one margin-only launch at bucket 1 on the worker of the canary controller,
 never part of the caller's response. Responses then carry
 ``model_version``.
+
+Behind a `serve.replicas.ReplicaSet` the service is one replica: it reads
+the fleet's brownout ladder (`serve.autoscaler`; rung 1 skips the canary
+tap, rung 2 launches margin-only and answers ``degraded: true``), and its
+micro-batcher runs a chaos checkpoint (`reliability.chaos`) before each
+batch's launch when a plan is injected.
 """
 
 from __future__ import annotations
@@ -116,6 +122,7 @@ from cobalt_smart_lender_ai_tpu_torch.telemetry import (
 _LOG = get_logger("cobalt.serve")
 
 __all__ = [
+    "BROWNOUT_SHAP_SHED",
     "SINGLE_INPUT_FIELDS",
     "MicroBatcher",
     "ScorerService",
@@ -142,6 +149,11 @@ _WARM_BULK_ROWS = 256
 
 #: Rows-per-batch histogram bounds: 1 .. 1024.
 _BATCH_ROW_BUCKETS = tuple(float(1 << i) for i in range(11))
+
+#: The SHAP-degrade reason when the brownout ladder's rung 2 sheds SHAP under
+#: load: transient by construction, never recorded as the model's
+#: ``shap_error``.
+BROWNOUT_SHAP_SHED = "brownout: SHAP shed under load"
 
 #: Cells pandas' CSV reader reads as missing by default; the bulk route keeps
 #: its response shape without depending on pandas.
@@ -358,6 +370,9 @@ class MicroBatcher:
         self._paused = 0
         self._closed = False
         self._scratch: np.ndarray | None = None  # worker-only padding buffer
+        # The chaos checkpoint (`reliability.chaos.ChaosPlan.inject` sets it);
+        # None in production, read once per loop iteration.
+        self._chaos = None
         # Replaces a dead worker exactly once, when the dying thread and a
         # submitter race `ensure_worker`.
         self._worker_lock = threading.Lock()
@@ -465,6 +480,15 @@ class MicroBatcher:
         with self._cond:
             return len(self._queue)
 
+    def oldest_queued_age(self) -> float:
+        """Seconds the queue head has waited (0.0 when empty): the
+        supervisor's queue-age watchdog. A live worker takes the head within
+        one coalescing window, so an old head means a wedged worker."""
+        with self._cond:
+            if not self._queue:
+                return 0.0
+            return max(0.0, time.monotonic() - self._queue[0][3])
+
     def worker_alive(self) -> bool:
         """True while the worker thread is running (False after `close`)."""
         return self._thread.is_alive()
@@ -563,8 +587,14 @@ class MicroBatcher:
                 batch = self._collect()
                 if batch is None:
                     return
+                chaos = self._chaos
                 with self._dispatch_lock:
                     try:
+                        if chaos is not None:
+                            # `ChaosError` fails this batch as any dispatch
+                            # error does; `WorkerKilled` (a BaseException)
+                            # ends the thread. Both before the launch.
+                            chaos.on_dispatch()
                         self._dispatch(batch)
                     except Exception as exc:  # fail this batch, keep serving
                         for entry in batch:
@@ -632,10 +662,15 @@ class MicroBatcher:
             buf = scratch[:bucket]
             buf[:n] = model.rows_array([e[0] for e in live])
             buf[n:] = 0.0
+            shed = self._service._shed_shap()
             with tracer.span("serve.dispatch", rows=n, bucket=bucket) as d_sp:
-                probs, phis, base, shap_error = model.score_explained(buf)
+                if shed:  # brownout rung 2: the margin-only launch
+                    probs, phis, base = model.score(buf, with_shap=False)
+                    shap_error = BROWNOUT_SHAP_SHED
+                else:
+                    probs, phis, base, shap_error = model.score_explained(buf)
         dispatch_s = d_sp.duration_s or 0.0
-        if phis is None and model.shap_fn is not None:
+        if phis is None and model.shap_fn is not None and not shed:
             self.degraded_batches += 1
         self._m_batches.inc()
         self._m_rows.inc(n)
@@ -791,6 +826,9 @@ class ScorerService:
         # The continuous-training loop (serve.canary), attached by
         # `enable_canary`; None keeps the service as it is without one.
         self.canary = None
+        # The brownout ladder (`serve.autoscaler`): a `ReplicaSet` gives each
+        # replica the fleet's; a bare service keeps None and no rung applies.
+        self.brownout = None
         self._model_identity: dict | None = None
         self._model = _CompiledModel(artifact, self.config, self.device)
         self._model_info_labels = (
@@ -1059,14 +1097,29 @@ class ScorerService:
 
     def _canary_tap(self, row: Mapping[str, float], prob: float, latency_s: float | None) -> None:
         """Hand a scored row to the canary's shadow queue (O(1), never
-        raises). The reference's brownout rung 1 skips the tap under load;
-        the port has no brownout ladder yet."""
-        if self.canary is not None:
-            self.canary.tap(row, prob, latency_s)
+        raises). Brownout rung 1 skips the tap: advisory bookkeeping is the
+        first thing shed under load."""
+        if self.canary is None:
+            return
+        bo = self.brownout
+        if bo is not None and bo.level >= 1:
+            return
+        self.canary.tap(row, prob, latency_s)
+
+    def _shed_shap(self) -> bool:
+        """Brownout rung 2 with ``degrade_shap``: score margin-only and
+        answer degraded."""
+        bo = self.brownout
+        return bo is not None and bo.level >= 2 and self.config.degrade_shap
 
     @property
     def feature_names(self) -> list[str]:
         return self._model.feature_names
+
+    @property
+    def artifact(self) -> GBDTArtifact:
+        """The served model's artifact."""
+        return self._model.artifact
 
     # -- telemetry --------------------------------------------------------------
 
@@ -1369,9 +1422,14 @@ class ScorerService:
     ) -> dict:
         """The un-coalesced path: this request's own (1, F) launch."""
         model = self._model
+        shed = self._shed_shap()
         with self.phase("dispatch") as dispatch_sp:
-            probs, phis, base, shap_error = model.score_explained(model.rows_array([row]))
-        if phis is None and model.shap_fn is not None:
+            if shed:  # brownout rung 2: the margin-only launch
+                probs, phis, base = model.score(model.rows_array([row]), with_shap=False)
+                shap_error = BROWNOUT_SHAP_SHED
+            else:
+                probs, phis, base, shap_error = model.score_explained(model.rows_array([row]))
+        if phis is None and model.shap_fn is not None and not shed:
             self.degraded_direct += 1
         if dl is not None:
             dl.check("scored")

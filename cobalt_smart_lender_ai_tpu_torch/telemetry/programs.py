@@ -40,6 +40,7 @@ from __future__ import annotations
 import collections
 import functools
 import threading
+import weakref
 from typing import Any, Callable, Mapping
 
 __all__ = [
@@ -245,9 +246,11 @@ class ProgramRegistry:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._programs: dict[str, ProgramHandle] = {}
-        # Metrics registries the table is published on; every new program
-        # is wired into each of them.
-        self._sinks: list[Any] = []
+        # (weakref to a metrics registry, replica label, device filter) the
+        # table is published on; every new program is wired into each. Weak:
+        # a dropped service's registry must not outlive it (a fleet rebuilds
+        # replicas, and a registry's callbacks hold its service).
+        self._sinks: list[tuple] = []
 
     def register(
         self,
@@ -267,10 +270,16 @@ class ProgramRegistry:
                 return prog
             prog = ProgramHandle(name, kind, dict(meta or {}))
             self._programs[name] = prog
-            sinks = list(self._sinks)
-        for reg in sinks:
-            _wire(reg, prog)
+            sinks = self._live_sinks_locked()
+        for reg, replica, device in sinks:
+            _wire(reg, prog, replica, device)
         return prog
+
+    def _live_sinks_locked(self) -> list[tuple]:
+        """The sinks whose registries are alive, dropping the others."""
+        live = [(ref(), replica, device) for ref, replica, device in self._sinks]
+        self._sinks = [s for s, (reg, _, _) in zip(self._sinks, live) if reg is not None]
+        return [row for row in live if row[0] is not None]
 
     def table(self, *, kind: str | None = None) -> list[dict[str, Any]]:
         """All program rows, most dispatch-expensive first — the payload of
@@ -301,25 +310,36 @@ class ProgramRegistry:
 
     # -- metric publication ---------------------------------------------------
 
-    def publish(self, metrics_registry: Any) -> None:
+    def publish(
+        self, metrics_registry: Any, *, replica: str | None = None, device: str | None = None
+    ) -> None:
         """Export the table as ``cobalt_program_*`` families on
-        ``metrics_registry`` via collect-time callbacks. Idempotent: a
-        registry published again is wired once."""
+        ``metrics_registry`` via collect-time callbacks. ``replica`` adds a
+        ``replica`` label and ``device`` keeps only the programs whose
+        ``device`` is it (a fleet with a replica per card publishes each
+        replica's own rows). Idempotent per (registry, replica)."""
         with self._lock:
-            if not any(s is metrics_registry for s in self._sinks):
-                self._sinks.append(metrics_registry)
+            self._live_sinks_locked()
+            self._sinks = [
+                s for s in self._sinks if not (s[0]() is metrics_registry and s[1] == replica)
+            ]
+            self._sinks.append((weakref.ref(metrics_registry), replica, device))
             progs = list(self._programs.values())
         for prog in progs:
-            _wire(metrics_registry, prog)
+            _wire(metrics_registry, prog, replica, device)
 
 
-def _wire(reg: Any, prog: ProgramHandle) -> None:
+def _wire(reg: Any, prog: ProgramHandle, replica: str | None = None, device: str | None = None) -> None:
     """One program's children of the ``cobalt_program_*`` families, with
-    the reference's names, types and ``program`` label."""
-    labelnames = ("program",)
+    the reference's names, types and labels."""
+    if device is not None and prog.meta.get("device") != device:
+        return
+    labelnames = ("program",) if replica is None else ("program", "replica")
 
     def child(family):
-        return family.labels(program=prog.name)
+        if replica is None:
+            return family.labels(program=prog.name)
+        return family.labels(program=prog.name, replica=replica)
 
     child(
         reg.counter(

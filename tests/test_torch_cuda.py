@@ -44,12 +44,19 @@ CUDA-event seconds. Of the continuous-training loop: a shadow row of the
 canary is exactly one margin-only ``score_forest`` launch at bucket 1, its
 probability the host sigmoid of the kernel's margin, which equals the plain
 version's bit for bit; and a promotion's reload launches only the kernel
-(its warm-up buckets and the smoke row).
+(its warm-up buckets and the smoke row). Of the serving fleet: four
+replicas on the one card launch only the kernel, from their worker threads
+at once, each launch on its program (dispatches equal launches, equal the
+micro-batches, bulk chunks and warm-ups); a replica the supervisor rebuilds
+scores the old one's margins bit for bit and the old one's bytes come back;
+and at brownout rung 2 single rows launch only margin-only programs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
+import threading
 from datetime import datetime
 from pathlib import Path
 
@@ -87,6 +94,7 @@ from cobalt_smart_lender_ai_tpu_torch.parallel.tune import (
     randomized_search,
     stratified_kfold_masks,
 )
+from cobalt_smart_lender_ai_tpu_torch.serve.replicas import ReplicaSet
 from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService
 from cobalt_smart_lender_ai_tpu_torch.telemetry.programs import (
     EVENT_POOL,
@@ -849,3 +857,101 @@ def test_promotion_reload_launches_only_kernels_on_card(card_pack, fresh_program
         assert sum(r["dispatches"] for r in table) == fused_score.launches - before
     finally:
         service.close()
+
+
+def _fleet(**kw) -> ReplicaSet:
+    cfg = dict(replicas=4, score_cache_size=0, supervisor_probe_interval_s=3600.0)
+    return ReplicaSet.from_store(
+        ObjectStore(str(ROOT / "artifacts")), ServeConfig(**{**cfg, **kw}), device="cuda"
+    )
+
+
+@pytest.mark.cuda
+def test_fleet_launches_only_the_kernel_on_card(card_pack, fresh_programs):
+    """Four replicas on the one card: every launch is the kernel's, from the
+    replicas' worker threads at once, and the programs' dispatches equal the
+    launches, which equal the warm-ups, micro-batches and bulk chunks."""
+    before = fused_score.launches
+    fleet = _fleet()
+    try:
+        warm = sum(len(r._model.warm_buckets["shap"]) + len(r._model.warm_buckets["margin"])
+                   for r in fleet.replicas)
+        assert fused_score.launches - before == warm
+        assert {str(r.device) for r in fleet.replicas} == {"cuda:0"}
+        assert all(r._model.kernel == "score_forest" for r in fleet.replicas)
+        answers = []
+
+        def client(seed: int) -> None:
+            for i in range(8):
+                answers.append(fleet.predict_single(_predict_payload(seed * 100 + i)))
+
+        threads = [threading.Thread(target=client, args=(s,)) for s in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        X = _rows(card_pack[0], 5000, 3)
+        prob = fleet.predict_proba(X)
+        torch.cuda.synchronize()
+        assert len(answers) == 128 and all(a["shap_values"] is not None for a in answers)
+        ref = fused_score_reference(card_pack[1], torch.from_numpy(X), n_features=card_pack[2],
+                                    with_shap=False)[1]
+        assert float(np.abs(prob - ref.numpy()).max()) <= TOL_PROB
+        routed = [int(fleet._m_routed.labels(replica=str(i)).value) for i in range(4)]
+        assert sum(routed) == 129 and min(routed) > 0
+        batches = sum(r.batcher.batches for r in fleet.replicas)
+        launched = fused_score.launches - before
+        table = fresh_programs.table()
+        assert table and all(r["kind"] == "kernel" and r["name"].startswith("score_forest/f32/")
+                             for r in table)
+        assert sum(r["dispatches"] for r in table) == launched == warm + batches + 2
+    finally:
+        fleet.close()
+
+
+@pytest.mark.cuda
+def test_rebuilt_replica_is_bitwise_and_frees_the_old_on_card(card_pack, fresh_programs):
+    """A quarantined replica healed by the supervisor: the rebuilt one's
+    margins equal the old one's bit for bit, and once the old one is closed
+    the bytes the live tensors asked for are what they were."""
+    fleet = _fleet(replicas=2)
+    try:
+        X = torch.from_numpy(_rows(card_pack[0], 64, 5)).cuda()
+        old_margin = fleet.replicas[1]._model.margin_fn(X)[0].clone()
+        gc.collect()
+        torch.cuda.synchronize()
+        bytes_before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        fleet.quarantine_replica(1)
+        fleet.replica_health[1].manual = False  # an automatic quarantine heals
+        old = fleet.replicas[1]
+        assert fleet.supervisor.tick()["healed"] == 1
+        assert fleet.replicas[1] is not old and fleet.replicas[1]._model.kernel == "score_forest"
+        assert torch.equal(fleet.replicas[1]._model.margin_fn(X)[0], old_margin)
+        del old
+        for t in threading.enumerate():
+            if t.name.startswith("replica-reaper-"):
+                t.join(timeout=30)
+        gc.collect()
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_stats()["requested_bytes.all.current"] == bytes_before
+    finally:
+        fleet.close()
+
+
+@pytest.mark.cuda
+def test_brownout_rung_two_launches_margin_only_on_card(card_pack, fresh_programs):
+    fleet = _fleet(replicas=2, brownout_max_level=5)
+    try:
+        fleet.brownout.engage("test")
+        fleet.brownout.engage("test")
+        torch.cuda.synchronize()
+        fresh_programs.reset()
+        before = fused_score.launches
+        answers = [fleet.predict_single(_predict_payload(40 + i)) for i in range(6)]
+        torch.cuda.synchronize()
+        assert all(a["degraded"] is True and a["shap_values"] is None for a in answers)
+        table = fresh_programs.table()
+        assert table and all(r["name"].endswith("/margin") and r["kind"] == "kernel" for r in table)
+        assert sum(r["dispatches"] for r in table) == fused_score.launches - before == 6
+    finally:
+        fleet.close()

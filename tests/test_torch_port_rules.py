@@ -7,7 +7,7 @@
   ``jax`` and ``pandas`` unloaded.
 - Its entry points run on the CUDA device unless the caller asks for the
   CPU: with CUDA unavailable, the default-device service constructors
-  (``--canary`` serving included), the retrain CLI,
+  (``--canary`` and ``--replicas`` serving included), the retrain CLI,
   `GBDTClassifier`, `split_mask`, `GBDTArtifact.load`/``from_bytes``,
   `rfe_select`, `randomized_search`, `run_pipeline` and the serving and
   training CLIs, and the host path's `engineer_features`, raise instead of
@@ -43,7 +43,9 @@ from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models.gbdt import GBDTClassifier
 from cobalt_smart_lender_ai_tpu_torch.parallel.rfe import rfe_select
 from cobalt_smart_lender_ai_tpu_torch.parallel.tune import randomized_search
+from cobalt_smart_lender_ai_tpu_torch.config import ServeConfig
 from cobalt_smart_lender_ai_tpu_torch.serve import __main__ as cli
+from cobalt_smart_lender_ai_tpu_torch.serve.replicas import ReplicaSet
 from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService, resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -116,6 +118,11 @@ def test_importing_the_reader_registry_and_bootstrap_leaves_jax_and_pandas_unloa
 def test_importing_the_training_loop_leaves_jax_and_pandas_unloaded():
     modules = ("telemetry.events", "telemetry.drift", "io.model_registry", "serve.canary",
                "tools", "tools.retrain", "tools.registry_gc")
+    assert _loaded_after_import(modules) == "[]"
+
+
+def test_importing_the_fleet_leaves_jax_and_pandas_unloaded():
+    modules = ("reliability.chaos", "serve.supervisor", "serve.autoscaler", "serve.replicas")
     assert _loaded_after_import(modules) == "[]"
 
 
@@ -245,7 +252,8 @@ def test_new_port_modules_are_checked():
             "reliability/faults.py", "native/__init__.py", "io/registry.py",
             "data/bootstrap.py", "telemetry/events.py", "telemetry/drift.py",
             "io/model_registry.py", "serve/canary.py", "tools/__init__.py",
-            "tools/retrain.py", "tools/registry_gc.py"} <= names
+            "tools/retrain.py", "tools/registry_gc.py", "reliability/chaos.py",
+            "serve/supervisor.py", "serve/autoscaler.py", "serve/replicas.py"} <= names
 
 
 def test_no_port_module_imports_pandas():
@@ -304,6 +312,32 @@ def test_cli_canary_flags_reach_the_serve_config():
         svc.close()
     plain = cli.parse_args(["--store", str(ROOT / "artifacts")])
     assert not plain.canary and plain.model_name == "gbdt" and plain.canary_sample_rate == 1.0
+
+
+def test_cli_fleet_flags_reach_the_serve_config():
+    plain = cli.parse_args(["--store", str(ROOT / "artifacts")])
+    assert (plain.replicas, plain.no_replica_devices) == (1, False)
+    assert (ServeConfig.replicas, ServeConfig.replica_devices) == (1, True)
+    args = cli.parse_args(["--store", str(ROOT / "artifacts"), "--device", "cpu", "--replicas", "2",
+                           "--no-replica-devices", "--no-microbatch"])
+    fleet = cli.build_service(args)
+    try:
+        assert isinstance(fleet, ReplicaSet) and len(fleet.replicas) == 2
+        assert (fleet.config.replicas, fleet.config.replica_devices) == (2, False)
+        ready, payload = fleet.ready()
+        assert ready and payload["replica_devices"] == ["cpu", "cpu"]
+        assert all(p["kernel"] == "plain" for p in payload["per_replica"])
+    finally:
+        fleet.close()
+
+
+def test_fleet_cli_defaults_to_cuda_and_raises_without_it(no_cuda):
+    args = cli.parse_args(["--store", str(ROOT / "artifacts"), "--replicas", "2"])
+    assert args.device == "cuda" and args.replicas == 2
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.build_service(args)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ReplicaSet.from_store(ObjectStore(str(ROOT / "artifacts")), ServeConfig(replicas=4))
 
 
 def test_cli_builds_a_cpu_service_when_asked():

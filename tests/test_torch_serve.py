@@ -495,6 +495,44 @@ def test_every_port_family_is_the_references(telemetry_pair):
                    "cobalt_canary_window_size", "cobalt_drift_max_psi", "cobalt_drift_alarm",
                    "cobalt_drift_psi"):
         assert family in published, family
+    # The fleet's facade registry (two replicas, a chaos plan and a
+    # supervision pass on it) against the reference fleet's.
+    from cobalt_smart_lender_ai_tpu.reliability import ChaosPlan as JaxChaosPlan
+    from cobalt_smart_lender_ai_tpu.serve.replicas import ReplicaSet as JaxReplicaSet
+
+    from cobalt_smart_lender_ai_tpu_torch.reliability import ChaosPlan
+    from cobalt_smart_lender_ai_tpu_torch.serve.replicas import ReplicaSet
+
+    # replicas sharing one device (the test host forces eight JAX devices):
+    # one process-wide program table on both sides
+    fleet_kw = dict(replicas=2, replica_devices=False, microbatch_enabled=False, score_cache_size=0)
+    fleets = {
+        "port": ReplicaSet.from_store(ObjectStore(COMMITTED), ServeConfig(**fleet_kw), device="cpu"),
+        "jax": JaxReplicaSet.from_store(JaxStore(COMMITTED), JaxServeConfig(
+            **fleet_kw, precompile_batch_buckets=(), prewarm_all_buckets=False, history_enabled=False)),
+    }
+    try:
+        for (side, fleet), plan in zip(fleets.items(), (ChaosPlan, JaxChaosPlan)):
+            plan(registry=fleet.registry)
+            fleet.supervisor._m_heal_s.labels(replica="0").set(0.0)
+            fleet._m_hedges.labels(outcome="rescued").inc(0)
+        port_fams = {f.name: f for f in fleets["port"].registry.families()}
+        jax_fams = {f.name: f for f in fleets["jax"].registry.families()}
+        assert set(port_fams) <= set(jax_fams), sorted(set(port_fams) - set(jax_fams))
+        for name, fam in port_fams.items():
+            assert (fam.kind, tuple(fam.labelnames)) == (jax_fams[name].kind, tuple(jax_fams[name].labelnames)), name
+        fleet_text = parse_exposition(fleets["port"].registry.render())
+        for family in ("cobalt_replica_count", "cobalt_replica_routed_total", "cobalt_replica_hedges_total",
+                       "cobalt_replica_in_flight", "cobalt_replica_queue_depth", "cobalt_supervisor_state",
+                       "cobalt_supervisor_error_ewma", "cobalt_supervisor_probes_total",
+                       "cobalt_supervisor_quarantines_total", "cobalt_supervisor_rebuilds_total",
+                       "cobalt_supervisor_heal_seconds", "cobalt_supervisor_ticks_total",
+                       "cobalt_supervisor_transitions_total", "cobalt_chaos_events_total",
+                       "cobalt_brownout_level"):
+            assert family in port_fams and family in fleet_text, family
+    finally:
+        for fleet in fleets.values():
+            fleet.close()
 
 
 def _counts(registry, family: str, kind: str) -> dict:
