@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only-scoring   # phases 1-4 and 9, then the scoring split
     python3 chip_smoke.py --only-lifecycle # build, then phase 14
     python3 chip_smoke.py --only-fleet     # build, then phase 15
+    python3 chip_smoke.py --only-autoscaler # build, then phase 16
     python3 chip_smoke.py --full-protocol  # build, then phase 8b at the defaults
 
 Phases, each of which must pass:
@@ -328,14 +329,45 @@ Phases, each of which must pass:
        (the old replica closed), and back to its start after ``close``;
        ``cobalt_device_mem_bytes`` within the largest served model's
        allocator blocks.
+16. the fleet's load control: two replicas of the committed model on the
+    card behind the HTTP server (a temporary registry's ``latest``), the
+    autoscaler on with a queue-wait high mark of 1 ms, the history sampled
+    and the autoscaler ticked by hand on one held clock:
+    a. a seeded open-loop flash crowd (20 -> 400 requests/s over 6 s,
+       `reliability.TrafficGenerator`) in 0.5 s slices, a sample and a tick
+       after each: the fleet grows 2 -> 4, one replica per tick, the second
+       only past the 5 s cooldown, each new replica built on ``cuda:0``
+       with its warm-up launches and the smoke row and then routed to; the
+       first tick's retune publishes (5 ms, 256 rows), after which two
+       bursts held under the pause gate coalesce into one 128-row and one
+       256-row SHAP launch per replica; every launch's margins (the new
+       replicas' and the wide ones') bitwise the plain version's on the CPU;
+    b. an SLO engine whose p99/p99.9 objectives (0.1 ms) every round trip
+       misses: at the ceiling the ladder engages rungs 1, 2, 3, one per
+       tick; then the load clears and it releases one rung per tick, the
+       retune back to (2 ms, 64 rows), and after 3 idle ticks past the
+       scale-down cooldown the fleet retires to 2 replicas, twice;
+    c. ``GET /history`` (the catalog and the /predict p99 series),
+       ``GET /dashboard`` (the latency, QPS, queue-depth and memory panels
+       drawn), ``/readyz``'s ``autoscaler`` block, ``POST
+       /admin/autoscaler`` (pause, resume, status, force 3, force 9 422,
+       force 2) and ``/events``: every resize, retune and brownout step in
+       order, each with its cause, the scale-ups' admission rescales
+       chained to them;
+    d. every answer a 200 (no untyped error), prob within 1e-6 and SHAP
+       within 1e-5 of the plain version; no scale-up failed;
+       ``requested_bytes`` equal once built, after the retirements and
+       after the forced resize, and back to its start after ``close``; the
+       programs' dispatches equal the launches.
 
 The script's seconds in all come on a line before ``{"kernels": [...]}``,
 which is the line before the last; the last is ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing neither, when
 CUDA is unavailable or any phase fails. ``--only-scoring`` runs phases 1-4,
 9 and 7 (the short loop for work on ``csrc/score_forest.cu``) and prints
-neither line; ``--only-lifecycle`` builds and runs phase 14, and
-``--only-fleet`` phase 15, and print neither. ``--full-protocol`` builds, then runs phase 8b with the
+neither line; ``--only-lifecycle`` builds and runs phase 14,
+``--only-fleet`` phase 15 and ``--only-autoscaler`` phase 16, and print
+neither. ``--full-protocol`` builds, then runs phase 8b with the
 reference's default `RFEConfig` (104 -> 20 features at step 1, 84 refits of
 50 trees) and `TuneConfig` (20 candidates x 3 folds, every candidate to its
 full ``n_estimators``) on a new 2.3M-loan frame, and prints neither line.
@@ -345,6 +377,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -359,6 +392,7 @@ import threading
 import time
 import types
 import urllib.error
+import urllib.parse
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime
@@ -439,13 +473,18 @@ from cobalt_smart_lender_ai_tpu_torch.reliability import (
     FaultInjectingStore,
     FaultSpec,
     PipelineCheckpoint,
+    TenantPopulation,
+    TrafficGenerator,
+    shape_by_name,
 )
 from cobalt_smart_lender_ai_tpu_torch.serve.http_asyncio import make_async_server
 from cobalt_smart_lender_ai_tpu_torch.serve.replicas import ReplicaSet
 from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService
 from cobalt_smart_lender_ai_tpu_torch.serve.supervisor import HEALTHY, QUARANTINED
 from cobalt_smart_lender_ai_tpu_torch.telemetry import (
+    SLOEngine,
     chrome_trace,
+    default_objectives,
     default_program_registry,
     default_registry,
     default_tracer,
@@ -3553,6 +3592,16 @@ def _record_margins(model, records: list) -> Callable[[], None]:
     return restore
 
 
+def _requested(dev: torch.device) -> int | None:
+    """The bytes the card's live tensors asked for, once the collector ran
+    (None on the CPU); empty before the process's first allocation."""
+    gc.collect()
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize(dev)
+    return torch.cuda.memory_stats(dev).get("requested_bytes.all.current", 0)
+
+
 def _join_threads(prefix: str, timeout: float = 30.0) -> None:
     for t in threading.enumerate():
         if t.name.startswith(prefix):
@@ -3580,13 +3629,7 @@ def _fleet(card: str, root: str, device: str, trees: int | None) -> dict:
     store, art = fleet_store(root, trees)
     F = len(art.feature_names)
     cpu_pack = pack_forest(art.forest, F)
-
-    def requested() -> int | None:
-        gc.collect()
-        # empty before the process's first allocation on the card
-        return torch.cuda.memory_stats(dev).get("requested_bytes.all.current", 0) if cuda else None
-
-    mem0 = requested()
+    mem0 = _requested(dev)
     programs0 = program_counts(entry)
     t1 = time.perf_counter()
     fleet = ReplicaSet.from_store(store, ServeConfig(**FLEET_CONFIG), device=device)
@@ -3604,7 +3647,7 @@ def _fleet(card: str, root: str, device: str, trees: int | None) -> dict:
         if cuda and fused_score.launches != warm:
             raise AssertionError(f"15a: {fused_score.launches} startup launches, {warm} warm-up buckets")
         out["warmup_launches"] = warm
-        mem1 = (_live_bytes(base), requested()) if cuda else (None, None)
+        mem1 = (_live_bytes(base), _requested(dev)) if cuda else (None, None)
 
         # 15a: four replicas on the one card, then traffic.
         status, _, ready = _call(base + "/readyz")
@@ -3715,7 +3758,7 @@ def _fleet(card: str, root: str, device: str, trees: int | None) -> dict:
                 or not all(h.routable for h in fleet.replica_health)):
             raise AssertionError(f"15c: after the heal {summary}, {[h.state for h in fleet.replica_health]}")
         _join_threads("replica-reaper-")
-        mem2 = (_live_bytes(base), requested()) if cuda else (None, None)
+        mem2 = (_live_bytes(base), _requested(dev)) if cuda else (None, None)
         status, _, body = _call(base + "/events?component=supervisor")
         evs = [e for e in body["events"] if e["replica"] == 2]
         walk = [(e["kind"], e["payload"].get("to")) for e in evs]
@@ -3757,7 +3800,7 @@ def _fleet(card: str, root: str, device: str, trees: int | None) -> dict:
         if (healed["healed"] != 1 or fleet.replica_health[3].state != HEALTHY
                 or not all(h.routable for h in fleet.replica_health)):
             raise AssertionError(f"15d: heal tick {healed}")
-        mem3 = (_live_bytes(base), requested()) if cuda else (None, None)
+        mem3 = (_live_bytes(base), _requested(dev)) if cuda else (None, None)
         out["hang"] = {"answers": sorted({s for s, _, _, _ in got}), "504": sum(s == 504 for s, _, _, _ in got),
                        "max_504_s": max([sec for s, _, _, sec in got if s == 504], default=0.0),
                        "ticks_to_quarantine": len(ticks), "reason": reason,
@@ -3862,7 +3905,7 @@ def _fleet(card: str, root: str, device: str, trees: int | None) -> dict:
         out["close_s"] = time.perf_counter() - t1
     del fleet, server, can, records, answers, served, plans
     _join_threads("replica-")
-    mem4 = requested()
+    mem4 = _requested(dev)
     out["requested_bytes"] = {"before": mem0, "built": mem1[1], "after_storm_heal": mem2[1],
                               "after_hang_heal": mem3[1], "closed": mem4}
     out["device_mem_bytes"] = {"built": mem1[0], "after_storm_heal": mem2[0], "after_hang_heal": mem3[0]}
@@ -3873,6 +3916,422 @@ def _fleet(card: str, root: str, device: str, trees: int | None) -> dict:
                  or max(abs(v - mem1[0]) for v in (mem2[0], mem3[0])) > slack):
         raise AssertionError(f"15g: requested bytes {out['requested_bytes']}, cobalt_device_mem_bytes "
                              f"{out['device_mem_bytes']} (slack {slack})")
+    return out
+
+
+#: Phase 16: the fleet's load control. Two replicas of the committed model on
+#: the one card behind the HTTP server (its registry's ``latest`` channel),
+#: the autoscaler on. Its loop, the history sampler and the supervisor start
+#: with the server but never run on their own: the phase samples the history
+#: and ticks the autoscaler by hand, on one held clock that the fleet and its
+#: history share.
+AUTOSCALER_CONFIG = dict(
+    replicas=2,
+    autoscaler_enabled=True,
+    autoscaler_min_replicas=2,
+    autoscaler_max_replicas=4,
+    # the 2 ms coalescing window alone makes any burst busy
+    autoscaler_queue_wait_high_ms=1.0,
+    autoscaler_interval_s=3600.0,
+    history_interval_s=3600.0,
+    # one point per sample (the held clock steps 1 s); the finest ring spans
+    # the queue-wait window (4 x history_interval_s), so the signal reads
+    # each slice's own p95
+    history_tiers=((1.0, 14_400), (60.0, 240)),
+    supervisor_probe_interval_s=3600.0,
+    canary_enabled=True,  # serve the registry's latest channel (no canary is published)
+    score_cache_size=0,  # every request reaches a replica
+    # room for 16a's bursts under the pause gate: 256 in flight per replica
+    reliability=ReliabilityConfig(max_in_flight=256),
+    # 16a's busy signal is the queue wait alone; 16b tightens the objectives
+    slo_p99_ms=10_000.0,
+    slo_p999_ms=10_000.0,
+)
+#: 16a's open-loop schedule, fired in slices with a sample and a tick after
+#: each, from a pool of client threads.
+AUTOSCALER_TRAFFIC = dict(base_rps=20.0, peak_rps=400.0, duration_s=6.0)
+AUTOSCALER_SLICE_S = 0.5
+AUTOSCALER_CLIENTS = 64
+#: Rows per replica of 16a's two bursts under the pause gate, after the busy
+#: retune: one 128-row and one 256-row SHAP launch on each replica.
+AUTOSCALER_WIDE_ROWS = (80, 150)
+#: 16b: the /predict burst before each burning tick, and the objectives'
+#: latency (ms) every HTTP round trip misses.
+AUTOSCALER_BURN_BURST = 32
+AUTOSCALER_TIGHT_SLO_MS = 0.1
+#: The held clock's step between samples, and its jump once load clears
+#: (past the SLO engine's longest window and four history intervals).
+AUTOSCALER_STEP_S = 1.0
+AUTOSCALER_CLEAR_S = 4 * 3600.0 + 1.0
+#: The dashboard panels 16c needs with a drawn line.
+AUTOSCALER_PANELS = ("Latency quantiles (s)", "QPS (req/s)", "Queue depth", "Device / host memory (bytes)")
+
+
+def _open_loop(base: str, arrivals: list, t0: float, pool: ThreadPoolExecutor) -> list[tuple]:
+    """POST each arrival's payload to /predict at its time (``arrival.t -
+    t0`` seconds after the call) from the pool; ``(payload, status, body)``
+    each."""
+    start = time.perf_counter()
+
+    def fire(a) -> tuple:
+        delay = a.t - t0 - (time.perf_counter() - start)
+        if delay > 0:
+            time.sleep(delay)
+        status, _, body = _call(base + "/predict", json.dumps(a.payload).encode())
+        return a.payload, status, body
+
+    return list(pool.map(fire, arrivals))
+
+
+def _paused_burst(fleet: ReplicaSet, port: int, bodies: list[bytes]) -> list[tuple]:
+    """`_burst` with every replica's batcher held under its pause gate until
+    all the requests are queued, so each replica's share goes out as one
+    batch."""
+    got: list = []
+    with contextlib.ExitStack() as gates:
+        for rep in fleet.replicas:
+            gates.enter_context(rep.batcher.pause())
+        sender = threading.Thread(target=lambda: got.extend(_burst(port, bodies)), daemon=True)
+        sender.start()
+        give_up = time.monotonic() + 60.0
+        while sum(rep.batcher.queue_depth() for rep in fleet.replicas) < len(bodies):
+            if time.monotonic() > give_up or not sender.is_alive():
+                raise AssertionError("16a: the burst did not queue under the pause gate")
+            time.sleep(0.005)
+    sender.join(timeout=120)
+    return got
+
+
+def _knob_set(fleet: ReplicaSet) -> list[tuple]:
+    """Each replica's coalescing window (ms) and batch rows."""
+    return [(rep.batcher._max_wait_s * 1000.0, rep.batcher._max_rows) for rep in fleet.replicas]
+
+
+def autoscaler_phase(card: str, device: str = "cuda", trees: int | None = None) -> dict:
+    """Phase 16: the fleet's load control on the card, counted from 0 just
+    before it. ``trees`` cuts the model for a CPU rehearsal."""
+    fused_score.launches = 0
+    t0 = time.perf_counter()
+    logs = _LogLines()
+    cobalt_log = logging.getLogger("cobalt")
+    level = cobalt_log.level
+    cobalt_log.setLevel(logging.INFO)
+    cobalt_log.addHandler(logs)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_autoscaler_") as root:
+            out = _autoscaler(card, root, device, trees)
+    finally:
+        cobalt_log.removeHandler(logs)
+        cobalt_log.setLevel(level)
+    failed = [line for line in logs.lines if line.get("event") == "autoscaler_scale_up_failed"]
+    if failed:
+        raise AssertionError(f"16: scale-ups failed on the card: {failed}")
+    out["launches"] = fused_score.launches
+    out["phase_s"] = time.perf_counter() - t0
+    if device == "cuda":  # after the count: these launches only time the kernel
+        out["wide_buckets"] = wide_bucket_times(card)
+    print(f"autoscaler (16): {json.dumps(out)} [{card}]")
+    return out
+
+
+def wide_bucket_times(card: str) -> list[dict]:
+    """The 128- and 256-row SHAP buckets the busy retune makes the batcher
+    launch, on seeded rows of the committed model: kernel vs plain (margins
+    bitwise, prob, SHAP), the kernel's ms per call (CUDA events after
+    warm-up), the plain version's and the bound."""
+    art = GBDTArtifact.load(ObjectStore(str(STORE)), MODEL_KEY, "cuda")
+    F = len(art.feature_names)
+    pack = pack_forest(art.forest, F)
+    out = []
+    for rows in (128, 256):
+        X = torch.from_numpy(seeded_rows(pack, rows, SEED + 730 + rows)).cuda()
+        err = compare(fused_score(pack, X, n_features=F), fused_score_reference(pack, X, n_features=F), True)
+        ms = time_ms(lambda: fused_score(pack, X, n_features=F), reps=50)
+        plain = time_ms(lambda: fused_score_reference(pack, X, n_features=F), reps=3, warmup=1)
+        bound, by = bound_ms(pack, rows, True)
+        out.append({"bucket": rows, "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, **err})
+        print(f"kernel score_forest bucket={rows} shap=True (16, the busy retune's bucket) ms={ms:.6f} "
+              f"plain_ms={plain:.6f} bound_ms={bound:.6f} ({by}) err={err} [{card}]")
+    return out
+
+
+def _autoscaler(card: str, root: str, device: str, trees: int | None) -> dict:
+    out: dict = {}
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    entry = "score_forest/" if cuda else "score_forest_plain/"
+    kernel = "score_forest" if cuda else "plain"
+    store = ObjectStore(root)
+    art = GBDTArtifact.load(ObjectStore(str(STORE)), MODEL_KEY, "cpu")
+    if trees is not None:
+        art = _cut(art, trees)
+    ModelRegistry(store).publish("gbdt", art, channel="latest")
+    F = len(art.feature_names)
+    cpu_pack = pack_forest(art.forest, F)
+    keys = _request_keys()
+    tenants = TenantPopulation(
+        keys, [k for k, n in zip(keys, schema.SERVING_FEATURES) if n in schema.SERVING_INT_FEATURES],
+        base_rows=request_rows(16, SEED + 700), seed=0,
+    )
+    schedule = TrafficGenerator(shape_by_name("flash_crowd", 0), tenants=tenants, seed=0,
+                                mix={"single": 1.0}, **AUTOSCALER_TRAFFIC).schedule()
+    clock = _HeldClock()
+    clock.now = 1000.0  # whole seconds: cooldown arithmetic stays exact
+
+    def step(s: float = AUTOSCALER_STEP_S) -> None:
+        clock.now += s
+
+    mem0 = _requested(dev)
+    programs0 = program_counts(entry)
+    t1 = time.perf_counter()
+    fleet = ReplicaSet.from_store(store, ServeConfig(**AUTOSCALER_CONFIG), device=device, clock=clock)
+    out["build_s"] = time.perf_counter() - t1
+    # The history samples on the held clock too, so its queue-wait window
+    # and the autoscaler's cooldowns read one time.
+    fleet.history._clock = clock
+    scaler = fleet.autoscaler
+    server = make_async_server(fleet, "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{server.port}"
+    answers: list = []  # (payload, status, body) of every /predict answered
+    records: list = []  # (rows, margins) of every launch while 16a runs
+    ticks: list = []
+    try:
+        mem_built = _requested(dev)
+        if (not scaler.running or not fleet.history._thread or len(fleet.replicas) != 2
+                or any(r._model.kernel != kernel for r in fleet.replicas)):
+            raise AssertionError("16: the fleet did not start its autoscaler and history on the card")
+        restores = [_record_margins(r._model, records) for r in fleet.replicas]
+
+        def tick(phase: str) -> dict:
+            launches0 = fused_score.launches
+            n0 = len(fleet.replicas)
+            t2 = time.perf_counter()
+            summary = scaler.tick()
+            seconds = time.perf_counter() - t2
+            ticks.append((phase, summary["actions"], round(seconds, 4),
+                          summary["signals"]["queue_wait_p95_ms"], summary["signals"]["fast_burn"]))
+            if "scale_up" in summary["actions"]:
+                new = fleet.replicas[-1]
+                warm = len(new._model.warm_buckets["shap"]) + len(new._model.warm_buckets["margin"])
+                built = fused_score.launches - launches0
+                if (len(fleet.replicas) != n0 + 1 or new.device != fleet.replicas[0].device
+                        or (cuda and (new.device != torch.device("cuda", 0) or built != warm + 1))
+                        or new._model.kernel != kernel):
+                    raise AssertionError(f"{phase}: scale-up to {len(fleet.replicas)} on {new.device}, "
+                                         f"{built} launches for {warm} warm-ups and the smoke row")
+                out.setdefault("scale_up_s", []).append(seconds)
+                out.setdefault("scale_up_launches", []).append(built)
+                restores.append(_record_margins(new._model, records))
+            return summary
+
+        # 16a: the flash crowd, open loop, a sample and a tick after each slice.
+        slices = int(math.ceil(AUTOSCALER_TRAFFIC["duration_s"] / AUTOSCALER_SLICE_S))
+        wide = {}
+        fleet.history.sample_once()  # the baseline the first slice's deltas count from
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=AUTOSCALER_CLIENTS) as pool:
+            for k in range(slices):
+                lo, hi = k * AUTOSCALER_SLICE_S, (k + 1) * AUTOSCALER_SLICE_S
+                answers += _open_loop(base, [a for a in schedule if lo <= a.t < hi], lo, pool)
+                step()
+                fleet.history.sample_once()
+                tick("16a")
+                if k == 0:
+                    # the busy retune is published: bursts now coalesce past 64 rows
+                    cfg = fleet.config
+                    busy = (cfg.autoscaler_busy_wait_ms, cfg.autoscaler_busy_max_rows)
+                    if _knob_set(fleet) != [busy] * len(fleet.replicas):
+                        raise AssertionError(f"16a: retune published {_knob_set(fleet)}, ticks {ticks}")
+                    programs1 = program_counts(entry)
+                    for rows in AUTOSCALER_WIDE_ROWS:
+                        bodies = request_rows(rows * len(fleet.replicas), SEED + 710 + rows)
+                        got = _paused_burst(fleet, server.port, [json.dumps(p).encode() for p in bodies])
+                        answers += [(p, s, b) for p, (s, _, b) in zip(bodies, got)]
+                    wide = {n: d for n, (d, _) in program_delta(programs1, program_counts(entry)).items()}
+        out["flash_crowd"] = {"arrivals": len(schedule), "s": time.perf_counter() - t1}
+        want = [["scale_up", "retune:busy"]] + [[]] * 4 + [["scale_up"]] + [[]] * (slices - 6)
+        if [a for _, a, _, _, _ in ticks] != want or len(fleet.replicas) != 4:
+            raise AssertionError(f"16a: ticks {ticks}, {len(fleet.replicas)} replicas")
+        if any(qw is None or qw < fleet.config.autoscaler_queue_wait_high_ms or burn for _, _, _, qw, burn in ticks):
+            raise AssertionError(f"16a: a tick read no queue-wait busy signal, or a burn: {ticks}")
+        n_rep = 3  # the replicas the two bursts went to
+        want_wide = {f"{entry}f32/128/shap": n_rep, f"{entry}f32/256/shap": n_rep}
+        if {k: v for k, v in wide.items() if k in want_wide} != want_wide:
+            raise AssertionError(f"16a: the wide bursts dispatched {wide}")
+        out["wide_programs"] = wide
+        routed = [int(fleet._m_routed.labels(replica=str(i)).value) for i in range(4)]
+        if min(routed) == 0:
+            raise AssertionError(f"16a: routed {routed}")
+        out["routed"] = routed
+        # every launch's margins bitwise the plain version's on the CPU, the
+        # new replicas' and the 128/256-row ones included
+        for restore in restores:
+            restore()
+        del restores, restore
+        sizes = sorted({X.shape[0] for X, _ in records})
+        for X, margin in records:
+            ref = fused_score_reference(cpu_pack, X.cpu(), n_features=F, with_shap=False)[0]
+            if not torch.equal(margin.cpu(), ref):
+                raise AssertionError(f"16a: a launch of {X.shape[0]} rows differs from the plain margins")
+        if 128 not in sizes or 256 not in sizes:
+            raise AssertionError(f"16a: launches of {sizes} rows")
+        out["margin_launches_checked"] = len(records)
+        del X, margin
+        records.clear()
+
+        # 16b: objectives every round trip misses; at the ceiling the ladder
+        # engages rungs 1-3, one per tick, then releases as the load clears.
+        tight = dataclasses.replace(fleet.config, slo_p99_ms=AUTOSCALER_TIGHT_SLO_MS,
+                                    slo_p999_ms=AUTOSCALER_TIGHT_SLO_MS)
+        fleet.slo = SLOEngine(fleet.registry, default_objectives(tight), clock=clock,
+                              windows_s=tight.slo_windows_s, fast_burn_threshold=tight.slo_fast_burn_threshold)
+        n_ticks = len(ticks)
+        for rung in range(1, 4):
+            chunk = request_rows(AUTOSCALER_BURN_BURST, SEED + 720 + rung)
+            got = _burst(server.port, [json.dumps(p).encode() for p in chunk])
+            answers += [(p, s, b) for p, (s, _, b) in zip(chunk, got)]
+            # the burst before the third tick runs at rung 2: no SHAP
+            if all(b.get("degraded") is True for _, _, b in got) != (rung == 3):
+                raise AssertionError(f"16b: the burst at rung {rung - 1} answered {got[0][2]}")
+            step()
+            fleet.history.sample_once()
+            tick("16b")
+        step(AUTOSCALER_CLEAR_S)
+        fleet.history.sample_once()
+        tick("16b")
+        knobs_idle = _knob_set(fleet)
+        for _ in range(5):
+            step()
+            tick("16b")
+        step(fleet.config.autoscaler_scale_down_cooldown_s)
+        for _ in range(4):
+            step()
+            tick("16b")
+        rungs = ["brownout:no_canary", "brownout:no_shap", "brownout:wide_batch"]
+        want = ([[r] for r in rungs] + [["brownout_release:no_shap", "retune:idle"],
+                ["brownout_release:no_canary"], ["brownout_release:healthy"], [], [], ["scale_down"]]
+                + [[], [], ["scale_down"], []])
+        if [a for _, a, _, _, _ in ticks[n_ticks:]] != want or len(fleet.replicas) != 2:
+            raise AssertionError(f"16b: ticks {ticks[n_ticks:]}, {len(fleet.replicas)} replicas")
+        if knobs_idle != [(fleet.config.microbatch_max_wait_ms, fleet.config.microbatch_max_rows)] * 4:
+            raise AssertionError(f"16b: the idle retune published {knobs_idle}")
+        _join_threads("replica-retire-")
+        mem_retired = _requested(dev)
+
+        # 16c: the history, the dashboard, /readyz and the operator plane.
+        series = "cobalt_request_latency_seconds:p99|route=/predict|status=200"
+        s1, _, catalog = _call(base + "/history")
+        s2, _, hist = _call(base + "/history?series=" + urllib.parse.quote(series))
+        with urllib.request.urlopen(base + "/dashboard", timeout=60) as resp:
+            s3, ctype, html = resp.status, resp.headers.get("Content-Type", ""), resp.read().decode()
+        panels = {title: ("<polyline" in html.split(f"<h2>{title}</h2>", 1)[-1].split("</section>", 1)[0])
+                  for title in AUTOSCALER_PANELS}
+        wait_series = [n for n in catalog["series"]
+                       if n.startswith("cobalt_microbatch_coalesce_wait_seconds:p95|replica=")]
+        if (s1 != 200 or s2 != 200 or s3 != 200 or series not in catalog["series"] or len(hist["points"]) < 2
+                or not ctype.startswith("text/html") or not all(panels.values()) or len(wait_series) < 4):
+            raise AssertionError(f"16c: /history {s1} {s2} ({len(hist.get('points', []))} points), "
+                                 f"/dashboard {s3} {panels}, queue-wait series {wait_series}")
+        out["history"] = {"series": len(catalog["series"]), "p99_points": len(hist["points"]),
+                          "tiers": catalog["tiers"]}
+        if cuda:
+            # Every registry publishes the process's device gauge, and the
+            # merge sums gauges: the fleet series is (replicas + 1) x the
+            # card's bytes, as in the reference; each replica's is the gauge.
+            gauge = "cobalt_device_mem_bytes|device=cuda:0"
+            last = [fleet.history.query(gauge + sfx)["points"][-1][1]
+                    for sfx in ["", *(f"|replica={i}" for i in range(4))]]
+            if len(set(last[1:])) != 1 or last[0] != 5 * last[1]:
+                raise AssertionError(f"16c: device memory series {last}")
+            out["device_mem_series"] = {"fleet": last[0], "per_replica": last[1]}
+        status, _, ready = _call(base + "/readyz")
+        block = ready["autoscaler"]
+        if (status != 200 or not block["enabled"] or not block["running"] or block["replicas"] != 2
+                or (block["min_replicas"], block["max_replicas"]) != (2, 4) or block["brownout"]["level"] != 0):
+            raise AssertionError(f"16c: /readyz {status} {block}")
+
+        def admin(body: dict) -> tuple:
+            s, _, b = _call(base + "/admin/autoscaler", json.dumps(body).encode())
+            return s, b
+
+        plane = [admin({"action": "pause"})]
+        paused_tick = scaler.tick()
+        plane += [admin({"action": "resume"}), admin({"action": "status"})]
+        launches0 = fused_score.launches
+        plane.append(admin({"action": "force", "replicas": 3}))
+        forced_launches = fused_score.launches - launches0
+        plane += [admin({"action": "force", "replicas": 9}), admin({"action": "force", "replicas": 2})]
+        codes = [(s, b.get("status") or b.get("error")) for s, b in plane]
+        if (codes != [(200, "paused"), (200, "resumed"), (200, None), (200, "ok"), (422, "invalid_input"),
+                      (200, "ok")] or paused_tick != {"status": "paused"} or plane[3][1]["steps"] != ["up"]
+                or plane[5][1]["steps"] != ["down"] or len(fleet.replicas) != 2):
+            raise AssertionError(f"16c: /admin/autoscaler {plane}, paused tick {paused_tick}")
+        out["admin"] = codes
+        out["forced_scale_up_launches"] = forced_launches
+        _join_threads("replica-retire-")
+        mem_forced = _requested(dev)
+        status, _, body = _call(base + "/events?component=autoscaler&limit=1000")
+        evs = body["events"]
+        walk = [(e["kind"], e["payload"].get("direction") or e["payload"].get("profile"),
+                 e["payload"].get("level")) for e in evs]
+        want = ([("resize", "up", None), ("retune", "busy", None), ("resize", "up", None)]
+                + [("brownout", "engage", i) for i in (1, 2, 3)]
+                + [("brownout", "release", 2), ("retune", "idle", None), ("brownout", "release", 1),
+                   ("brownout", "release", 0), ("resize", "down", None), ("resize", "down", None),
+                   ("resize", "up", None), ("resize", "down", None)])
+        _, _, adm = _call(base + "/events?component=admission&kind=rescale&limit=1000")
+        ups = {e["event_id"] for e in evs if e["kind"] == "resize" and e["payload"]["direction"] == "up"}
+        chained = {e["cause_id"] for e in adm["events"] if e["cause"].get("trigger") == "replica_added"}
+        if (status != 200 or walk != want or not all(isinstance(e["cause"], dict) and e["cause"] for e in evs)
+                or chained != ups or not all(e["cause"]["fast_burn"] for e in evs if e["payload"].get("direction") == "engage")):
+            raise AssertionError(f"16c: /events {walk}, causes chained {chained} vs {ups}")
+        out["events"] = len(evs)
+        out["resizes"] = sum(kind == "resize" for kind, _, _ in walk)
+        ok, _ = fleet.ready()
+        if not ok:
+            raise AssertionError("16c: the fleet is not ready at the end")
+        dispatched = sum(n for n, _ in program_delta(programs0, program_counts(entry)).values())
+    finally:
+        server.close()
+        t1 = time.perf_counter()
+        fleet.close()
+        out["close_s"] = time.perf_counter() - t1
+    del fleet, scaler, server, records
+    _join_threads("replica-")
+    mem_closed = _requested(dev)
+    out["ticks"] = ticks
+    out["requested_bytes"] = {"before": mem0, "built": mem_built, "retired": mem_retired,
+                              "forced": mem_forced, "closed": mem_closed}
+    if cuda and (not mem_built == mem_retired == mem_forced or mem_closed != mem0):
+        raise AssertionError(f"16d: requested bytes {out['requested_bytes']}")
+
+    # 16d: every answer typed, each 200 the plain version's; dispatches = launches.
+    statuses = sorted({s for _, s, _ in answers})
+    untyped = sum(_untyped(s, b) for _, s, b in answers)
+    served = [(p, b) for p, s, b in answers if s == 200]
+    pack = pack_forest(art.forest.to(dev), F)
+    Xr = torch.tensor([[float(p[k]) for k in keys] for p, _ in served], dtype=torch.float32)
+    errors = {"prob": 0.0, "phis": 0.0}
+    for start in range(0, len(served), 256):
+        X = Xr[start : start + 256].to(dev)
+        _, prob, phis, _ = fused_score_reference(pack, X, n_features=F)
+        chunk = served[start : start + 256]
+        got = torch.tensor([b["prob_default"] for _, b in chunk])
+        errors["prob"] = max(errors["prob"], float((got - prob.cpu()).abs().max()))
+        rows = [i for i, (_, b) in enumerate(chunk) if b["shap_values"] is not None]
+        if rows:
+            got = torch.tensor([chunk[i][1]["shap_values"] for i in rows])
+            errors["phis"] = max(errors["phis"], float((got - phis.cpu()[rows]).abs().max()))
+    del pack, X, prob, phis
+    shap_answers = sum(b["shap_values"] is not None for _, b in served)
+    if statuses != [200] or untyped or errors["prob"] > TOL_PROB or errors["phis"] > TOL_PHIS:
+        raise AssertionError(f"16d: statuses {statuses}, {untyped} untyped, errors {errors}")
+    if cuda and dispatched != fused_score.launches:
+        raise AssertionError(f"16d: {fused_score.launches} launches, {dispatched} program dispatches")
+    out["answers"] = {"requests": len(answers), "served": len(served), "with_shap": shap_answers,
+                      "untyped": untyped}
+    out["errors"] = errors
+    out["dispatches"] = dispatched
     return out
 
 
@@ -3902,6 +4361,11 @@ def main() -> int:
         "--only-fleet",
         action="store_true",
         help="build, then run phase 15 (the serving fleet) only; print no ok line",
+    )
+    mode.add_argument(
+        "--only-autoscaler",
+        action="store_true",
+        help="build, then run phase 16 (the fleet's load control) only; print no ok line",
     )
     mode.add_argument(
         "--full-protocol",
@@ -3941,6 +4405,12 @@ def main() -> int:
     if args.only_fleet:
         fleet_phase(card)
         print(f"chip_smoke --only-fleet: {time.perf_counter() - t_start:.1f}s [{card}]")
+        return 0
+    if args.only_autoscaler:
+        autoscaler = autoscaler_phase(card)
+        print(f"autoscaler phase (16): {autoscaler['phase_s']:.1f}s, {autoscaler['launches']} launches, "
+              f"{autoscaler['resizes']} resizes [{card}]")
+        print(f"chip_smoke --only-autoscaler: {time.perf_counter() - t_start:.1f}s [{card}]")
         return 0
 
     if args.full_protocol:
@@ -4022,6 +4492,9 @@ def main() -> int:
     print(f"lifecycle phase (14): {lifecycle['phase_s']:.1f}s [{card}]")
     fleet = fleet_phase(card)
     print(f"fleet phase (15): {fleet['phase_s']:.1f}s, {fleet['launches']} launches [{card}]")
+    autoscaler = autoscaler_phase(card)
+    print(f"autoscaler phase (16): {autoscaler['phase_s']:.1f}s, {autoscaler['launches']} launches, "
+          f"{autoscaler['resizes']} resizes [{card}]")
     print_scoring_split(card)
 
     main_rec = next(r for r in records if r["bucket"] == 64)
@@ -4042,9 +4515,10 @@ def main() -> int:
             "pandas_ingest_launches": data_layer["pandas_ingest"]["predict_raw"]["launches"],
             "lifecycle_launches": lifecycle["launches"]["score_forest"],
             "fleet_launches": fleet["launches"],
+            "autoscaler_launches": autoscaler["launches"],
             "max_abs_err": max(
                 [max(r.get("prob", 0.0), r.get("phis", 0.0)) for r in records + quantized_records]
-                + list(fleet["errors"].values())
+                + list(fleet["errors"].values()) + list(autoscaler["errors"].values())
                 + [lifecycle["shadow"]["prob_max_abs_err"], lifecycle["shadow"]["margin_max_abs_err"],
                    raw["serve"]["prob_max_abs_err"], raw["degraded"]["prob_max_abs_err"],
                    protocol["predict_raw"]["prob_max_abs_err"],

@@ -163,6 +163,19 @@ class ServeConfig:
     #: attached; <= 0 disables shipping.
     events_capacity: int = 512
     events_ship_interval_s: float = 30.0
+    #: Telemetry history (telemetry.timeseries, served at ``GET /history``
+    #: and ``GET /dashboard``): a sampler scrapes the service's registry
+    #: (a fleet's: every registry, merged) every ``history_interval_s`` into
+    #: tiered downsampled rings of (bucket width s, capacity) — counter
+    #: rates, per-window histogram quantiles, gauges — all bounded memory.
+    #: Its thread starts with the HTTP server, never in bare construction.
+    history_enabled: bool = True
+    history_interval_s: float = 10.0
+    history_tiers: tuple[tuple[float, int], ...] = (
+        (10.0, 360),
+        (60.0, 720),
+        (600.0, 1008),
+    )
     #: SLO engine (telemetry.slo, served at ``GET /slo`` and as
     #: ``cobalt_slo_*`` gauges). Latency thresholds are snapped down to the
     #: nearest histogram bucket bound at evaluation (reported per
@@ -253,6 +266,39 @@ class ServeConfig:
     #: ``brownout_max_level`` caps how far it may go (2 never sheds).
     brownout_enabled: bool = True
     brownout_max_level: int = 3
+    #: The fleet's load control (`serve.autoscaler.FleetAutoscaler`): a loop
+    #: off the request path that reads SLO burn, the fleet history's
+    #: per-replica queue-wait p95, admission utilization and queue depth,
+    #: and acts: scale up (a new replica built from the served artifact,
+    #: warmed and smoke-checked), retune coalescing, step the brownout
+    #: ladder, or retire the tail replica. Opt-in; its thread starts with
+    #: the HTTP server.
+    autoscaler_enabled: bool = False
+    autoscaler_interval_s: float = 1.0
+    #: Fleet size bounds (`remove_replica` also never retires the last
+    #: routable replica).
+    autoscaler_min_replicas: int = 1
+    autoscaler_max_replicas: int = 4
+    #: Hysteresis: react fast to overload, retire slowly — no scale-up
+    #: within the scale-up cooldown of the last one; a retire needs
+    #: ``autoscaler_stable_ticks`` idle evaluations in a row and the
+    #: scale-down cooldown past both the last retire and the last scale-up.
+    autoscaler_scale_up_cooldown_s: float = 5.0
+    autoscaler_scale_down_cooldown_s: float = 15.0
+    autoscaler_stable_ticks: int = 3
+    #: Busy: SLO fast burn, queue-wait p95 at or over the high mark, or
+    #: admission utilization at or over its high fraction. Idle: every
+    #: signal at or under its low mark and nothing queued.
+    autoscaler_queue_wait_high_ms: float = 20.0
+    autoscaler_queue_wait_low_ms: float = 2.0
+    autoscaler_util_high: float = 0.75
+    autoscaler_util_low: float = 0.25
+    #: Load-dependent coalescing, published under the batcher's pause gate:
+    #: busy (or brownout rung 3) widens the window and the batch; idle
+    #: restores ``microbatch_max_wait_ms`` / ``microbatch_max_rows``.
+    autoscaler_retune_enabled: bool = True
+    autoscaler_busy_wait_ms: float = 5.0
+    autoscaler_busy_max_rows: int = 256
     #: Admission (rate limit, in-flight cap) and the store's circuit breaker.
     reliability: ReliabilityConfig = dataclasses.field(default_factory=ReliabilityConfig)
 

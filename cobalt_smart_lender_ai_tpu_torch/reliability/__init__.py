@@ -1,6 +1,7 @@
 """Request-path error taxonomy, deadlines, admission control and the store's
 circuit breaker; the store's retries, fault injection, the fleet's chaos
-harness and the pipeline's stage checkpoints."""
+harness, the synthetic open-loop traffic generator and the pipeline's stage
+checkpoints."""
 
 from cobalt_smart_lender_ai_tpu_torch.reliability.admission import (
     AdmissionController,
@@ -52,6 +53,12 @@ from cobalt_smart_lender_ai_tpu_torch.reliability.retry import (
     policy_from_config,
 )
 from cobalt_smart_lender_ai_tpu_torch.reliability.stores import CorruptObjectError, ResilientStore
+from cobalt_smart_lender_ai_tpu_torch.reliability.traffic import (
+    TenantPopulation,
+    TrafficGenerator,
+    TrafficShape,
+    shape_by_name,
+)
 
 __all__ = [
     "MANIFEST_FORMAT",
@@ -76,7 +83,10 @@ __all__ = [
     "ResilientStore",
     "RetryPolicy",
     "RollbackFailed",
+    "TenantPopulation",
     "TokenBucket",
+    "TrafficGenerator",
+    "TrafficShape",
     "ValidationError",
     "WorkerDead",
     "WorkerKilled",
@@ -88,5 +98,6 @@ __all__ = [
     "error_response",
     "is_transient_store_error",
     "policy_from_config",
+    "shape_by_name",
     "start_deadline",
 ]

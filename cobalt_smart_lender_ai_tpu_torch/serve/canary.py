@@ -614,13 +614,20 @@ class CanaryController:
         try:
             if not slo.evaluate().get("fast_burn"):
                 return None
-            return self.rollback(
-                reason=(
-                    f"slo fast burn within {guard['window_s']:g}s guard "
-                    f"window after promoting v{guard['promoted_version']}"
-                ),
-                trigger="slo_fast_burn",
-            )
+            with self._admin_lock:
+                # Two callers (the HTTP server's post-response hook and a
+                # request) can both see the burn; only the one holding the
+                # guard it read acts, or the second would flip ``latest``
+                # back to the demoted version.
+                if self._guard is not guard:
+                    return None
+                return self._rollback_locked(
+                    reason=(
+                        f"slo fast burn within {guard['window_s']:g}s guard "
+                        f"window after promoting v{guard['promoted_version']}"
+                    ),
+                    trigger="slo_fast_burn",
+                )
         except Exception as exc:
             _LOG.warning("auto_rollback_failed", error=str(exc))
             return None

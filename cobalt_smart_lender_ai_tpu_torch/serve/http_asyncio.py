@@ -15,8 +15,12 @@ journal: ``?component=`` and ``?kind=`` from its taxonomy, ``?since=`` a
 finite timestamp, ``?limit=`` 1..1000; 422 otherwise),
 ``GET /debug/requests`` and ``/debug/slowest`` (``?limit=``, ``?n=``/``?k=``,
 1..1000, and ``?phase=``, one of the flight recorder's phases; 422
-otherwise), ``GET /debug/programs`` (the kernel cost table) and
-``GET /debug/trace`` (the span ring as Perfetto JSON).
+otherwise), ``GET /debug/programs`` (the kernel cost table),
+``GET /debug/trace`` (the span ring as Perfetto JSON), ``GET /history``
+(the history's catalog, or one series' points with ``?series=``;
+``?window=`` and ``?step=`` positive seconds; 422 otherwise, and on an
+unknown series) and ``GET /dashboard`` (its HTML sparklines; 404
+``history_disabled`` without a history).
 Typed request errors (`reliability.errors`) keep their status and
 headers: 422 invalid input, 413 payload too large, 429 shed (with
 ``Retry-After``), 503 circuit open (with ``Retry-After``), 504 deadline
@@ -32,8 +36,9 @@ loop keeps serving, and answers 200 with the swap's result, 500
 The promote and rollback routes are ungated too and run on the executor, as
 do the fleet's admin routes, which answer a typed 422 on a service that is
 not a `serve.replicas.ReplicaSet`. When the server starts, the service's
-journal is attached to its store and ships its segments
-(`ScorerService.start_history`), and a fleet's supervisor starts its loop.
+history sampler starts and its journal is attached to its store and ships
+its segments (`ScorerService.start_history`), and a fleet's supervisor and
+autoscaler start their loops.
 
 Every request runs inside a `request_context` (a client's
 ``X-Request-ID`` is honoured, else one is minted; it is echoed on the
@@ -73,6 +78,7 @@ from cobalt_smart_lender_ai_tpu_torch.telemetry import (
     default_tracer,
     get_logger,
     render_chrome_trace,
+    render_dashboard,
     request_context,
 )
 from cobalt_smart_lender_ai_tpu_torch.telemetry.events import EVENT_KINDS
@@ -108,6 +114,8 @@ _KNOWN_ROUTES = frozenset(
         "/debug/slowest",
         "/debug/trace",
         "/debug/programs",
+        "/history",
+        "/dashboard",
     }
 )
 
@@ -255,6 +263,46 @@ def events_payload(
     return {"events": events, "count": len(events), "stats": owner.journal.stats()}
 
 
+def validate_history_params(window: str | None, step: str | None) -> tuple[float | None, float | None]:
+    """``GET /history`` query validation: ``window`` and ``step`` are
+    optional positive finite seconds; anything else is the typed 422."""
+
+    def _positive(raw: str | None, name: str) -> float | None:
+        if raw is None:
+            return None
+        try:
+            value = float(raw)
+        except ValueError:
+            raise ValidationError(f"query param {name!r} must be a number of seconds") from None
+        if not math.isfinite(value) or value <= 0:
+            raise ValidationError(f"query param {name!r} must be a positive number of seconds")
+        return value
+
+    return _positive(window, "window"), _positive(step, "step")
+
+
+def history_payload(history: Any, series: str | None, window: str | None, step: str | None) -> dict:
+    """``GET /history``: without ``series`` the catalog (every derived series
+    name and the tier layout); with one, its points from the tier
+    `TimeSeriesStore.query` picks. An unknown series is the typed 422."""
+    window_s, step_s = validate_history_params(window, step)
+    if not series:
+        return {"series": history.series_names(), "tiers": history.tiers()}
+    try:
+        return history.query(series, window_s=window_s, step_s=step_s)
+    except KeyError:
+        raise ValidationError(
+            f"unknown series {series!r}; GET /history without params lists every available series"
+        ) from None
+
+
+def dashboard_html(history: Any, *, window: str | None = None) -> str:
+    """``GET /dashboard``: the HTML sparkline page over the history
+    (``?window=`` narrows it, validated as /history's)."""
+    window_s, _ = validate_history_params(window, None)
+    return render_dashboard(history, window_s=window_s)
+
+
 def debug_programs_payload() -> dict:
     """``GET /debug/programs``: the kernel cost table and its totals."""
     reg = default_program_registry()
@@ -298,12 +346,13 @@ class AsyncScorerServer:
             self._serve_connection, self._host, self._port
         )
         self._bound_port = self._server.sockets[0].getsockname()[1]
-        # Journal shipping and fleet supervision are serving concerns: they
-        # start with the socket.
+        # History sampling, journal shipping, fleet supervision and load
+        # control are serving concerns: they start with the socket.
         self.service.start_history()
-        start_supervisor = getattr(self.service, "start_supervisor", None)
-        if start_supervisor is not None:
-            start_supervisor()
+        for hook in ("start_supervisor", "start_autoscaler"):
+            start = getattr(self.service, hook, None)
+            if start is not None:
+                start()
         return self
 
     def start(self) -> "AsyncScorerServer":
@@ -606,6 +655,22 @@ class AsyncScorerServer:
             phase = validate_debug_phase(query.get("phase", [None])[-1])
             return _Response(
                 200, {"slowest": service.flight.slowest(k, phase), "stats": service.flight.stats()}
+            )
+        if path in ("/history", "/dashboard"):
+            history = getattr(service, "history", None)
+            if history is None:
+                return _Response(404, {"detail": "history disabled", "error": "history_disabled"})
+            if path == "/history":
+                return _Response(
+                    200,
+                    history_payload(
+                        history, *(query.get(name, [None])[-1] for name in ("series", "window", "step"))
+                    ),
+                )
+            return _Response(
+                200,
+                data=dashboard_html(history, window=query.get("window", [None])[-1]).encode(),
+                content_type="text/html; charset=utf-8",
             )
         if path == "/debug/programs":
             return _Response(200, debug_programs_payload())

@@ -28,8 +28,14 @@ registry with the ``cobalt_replica_*``, ``cobalt_supervisor_*`` and
 with the replicas'. One canary controller shadow-scores for the fleet and
 promotes through the fleet's all-or-nothing reload.
 
-Not ported yet: the fleet's history sampler (``/history``) and the
-autoscaler; ``history`` and ``autoscaler`` are None.
+The fleet's history (``/history``, ``/dashboard``) is one sampler over the
+facade's registry and every replica's, merged (`telemetry.aggregate`):
+fleet sums beside per-replica series under a ``replica`` label. With
+``ServeConfig.autoscaler_enabled`` a `serve.autoscaler.FleetAutoscaler`
+reads it and resizes the fleet at runtime (`add_replica`,
+`remove_replica`), retunes its coalescing and walks the brownout ladder;
+``POST /admin/autoscaler`` steers it. Both threads start with the HTTP
+server.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from cobalt_smart_lender_ai_tpu_torch.reliability.errors import (
 from cobalt_smart_lender_ai_tpu_torch.serve.autoscaler import (
     LEVEL_NO_CANARY,
     BrownoutLadder,
+    FleetAutoscaler,
     brownout_gate,
 )
 from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService, _registry_store
@@ -72,6 +79,7 @@ from cobalt_smart_lender_ai_tpu_torch.telemetry import (
     FlightRecorder,
     MetricsRegistry,
     SLOEngine,
+    TimeSeriesStore,
     add_phase,
     default_objectives,
     default_program_registry,
@@ -81,6 +89,8 @@ from cobalt_smart_lender_ai_tpu_torch.telemetry import (
     install_device_metrics,
     install_program_metrics,
     merge_events,
+    merge_expositions,
+    parse_exposition,
 )
 
 __all__ = ["ReplicaSet", "resolve_replica_devices"]
@@ -170,8 +180,6 @@ class ReplicaSet:
         # through the all-or-nothing `reload_from_store`.
         self.canary = None
         self._model_identity: dict | None = None
-        self.history = None
-        self.autoscaler = None
         self._init_metrics()
         # Constructed here so the state machine may auto-quarantine (there is
         # something to heal it); its thread starts with the HTTP server.
@@ -186,6 +194,31 @@ class ReplicaSet:
                 fast_burn_threshold=config.slo_fast_burn_threshold,
             )
             self.slo.register_gauges()
+        # The fleet's history: one sampler over the facade's registry and
+        # every replica's, merged — fleet sums beside per-replica series. The
+        # replicas' own history stores stay unstarted behind the facade.
+        self.history: TimeSeriesStore | None = None
+        if config.history_enabled:
+            self.history = TimeSeriesStore(
+                scrape=self._fleet_scrape,
+                interval_s=config.history_interval_s,
+                tiers=config.history_tiers,
+            )
+        # Built last, as it reads the SLO engine, the history and admission;
+        # its thread starts with the HTTP server (`start_autoscaler`).
+        self.autoscaler: FleetAutoscaler | None = None
+        if config.autoscaler_enabled:
+            self.autoscaler = FleetAutoscaler(self, clock=clock)
+
+    def _fleet_scrape(self) -> dict:
+        """The history's scrape: the facade's registry first with no join
+        labels (its request families are already fleet-level), then each
+        replica's under ``replica=i``, kept beside the sums."""
+        regs = [self.registry] + [r.registry for r in self.replicas]
+        extra = [{}] + [{"replica": str(i)} for i in range(len(regs) - 1)]
+        return merge_expositions(
+            [parse_exposition(r.render()) for r in regs], extra_labels=extra, keep_sources=True
+        )
 
     def _new_health(self, i: int) -> ReplicaHealth:
         cfg = self.config
@@ -233,8 +266,11 @@ class ReplicaSet:
     # -- lifecycle hooks the HTTP server calls ---------------------------------------
 
     def start_history(self) -> None:
-        """Start shipping the fleet's journal to the bound store (the HTTP
-        server calls it when its socket opens)."""
+        """Start the fleet's history sampler and the journal's shipping to
+        the bound store (idempotent; the HTTP server calls it when its
+        socket opens)."""
+        if self.history is not None:
+            self.history.start()
         if self._store is not None:
             if self.journal._store is None:
                 self.journal.attach_store(self._store)
@@ -246,6 +282,13 @@ class ReplicaSet:
         the router's penalty; tests drive `FleetSupervisor.tick`."""
         if self.supervisor is not None:
             self.supervisor.start()
+
+    def start_autoscaler(self) -> None:
+        """Start the autoscaler's loop (idempotent; the HTTP server calls it
+        when its socket opens). Held-clock callers drive
+        `FleetAutoscaler.tick` instead."""
+        if self.autoscaler is not None:
+            self.autoscaler.start()
 
     def events(
         self,
@@ -788,7 +831,9 @@ class ReplicaSet:
             ),
             "admission": self.admission.stats(),
             "brownout": self.brownout.snapshot(),
-            "autoscaler": {"enabled": False},
+            "autoscaler": (
+                self.autoscaler.status() if self.autoscaler is not None else {"enabled": False}
+            ),
             "per_replica": [p for _, p in per],
             "events": self.journal.stats(),
         }
@@ -972,18 +1017,39 @@ class ReplicaSet:
         return {"status": "readmitted", "replica": i, "supervisor": h.snapshot()}
 
     def autoscaler_admin(self, payload: Mapping[str, Any] | None) -> dict:
-        """``POST /admin/autoscaler``: the port has no `FleetAutoscaler` yet,
-        so the typed 422 the reference answers on a fleet without one."""
-        raise ValidationError("autoscaler is not enabled on this fleet")
+        """``POST /admin/autoscaler``: ``{"action": "pause" | "resume" |
+        "status"}``, or ``{"action": "force", "replicas": n}`` (walks the
+        fleet to ``n`` through the same add and retire paths, past the
+        cooldowns). Typed 422 without an autoscaler or on a bad action."""
+        if self.autoscaler is None:
+            raise ValidationError(
+                "autoscaler is not enabled on this fleet (ServeConfig.autoscaler_enabled)"
+            )
+        action = (payload or {}).get("action", "status")
+        if action == "pause":
+            return self.autoscaler.pause()
+        if action == "resume":
+            return self.autoscaler.resume()
+        if action == "status":
+            return self.autoscaler.status()
+        if action == "force":
+            return self.autoscaler.force((payload or {}).get("replicas"))
+        raise ValidationError(
+            f"unknown autoscaler action {action!r}; expected pause, resume, status, or force"
+        )
 
     def close(self) -> None:
         """Shut the fleet down, the replicas closing together under
         ``replica_close_timeout_s``: one wedged replica cannot hold the
         others' shutdown. Stragglers are left to their daemon threads."""
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
         if self.supervisor is not None:
             self.supervisor.stop()
         if self.canary is not None:
             self.canary.close()
+        if self.history is not None:
+            self.history.stop()
         self.journal.stop()
         timeout = max(0.1, float(self.config.replica_close_timeout_s))
         closers = [

@@ -34,7 +34,9 @@ and SLO families; ``/readyz``'s micro-batch counters read the registry's
 cells. Each request's phases (``validate``, ``queue_wait``, ``dispatch``,
 ``serialize``) feed ``cobalt_request_phase_seconds`` and the flight
 recorder; a ``dispatch`` phase ends when the scores are on the host, so it
-holds the card's work.
+holds the card's work. The service's `history` (`telemetry.timeseries`)
+samples that registry into tiered rings for ``GET /history`` and
+``/dashboard`` once the HTTP server starts it.
 
 The control plane, as the reference's: every reload publish and rollback,
 every breaker transition and every canary promotion, rejection and
@@ -107,6 +109,7 @@ from cobalt_smart_lender_ai_tpu_torch.telemetry import (
     FlightRecorder,
     MetricsRegistry,
     SLOEngine,
+    TimeSeriesStore,
     add_phase,
     current_request_id,
     default_device_sampler,
@@ -820,6 +823,17 @@ class ScorerService:
                 fast_burn_threshold=self.config.slo_fast_burn_threshold,
             )
             self.slo.register_gauges()
+        # Telemetry history (GET /history, /dashboard): tiered rings over this
+        # service's registry. Built here so the server can serve it; its
+        # sampler thread starts with the HTTP server (`start_history`), so a
+        # bare in-process service never runs it.
+        self.history: TimeSeriesStore | None = None
+        if self.config.history_enabled:
+            self.history = TimeSeriesStore(
+                registry=self.registry,
+                interval_s=self.config.history_interval_s,
+                tiers=self.config.history_tiers,
+            )
         # One reload at a time; requests read `_model` once and never take it.
         self._swap_lock = threading.Lock()
         self._last_reload: dict | None = None
@@ -971,20 +985,25 @@ class ScorerService:
     def close(self) -> None:
         """Stop the canary's worker and the micro-batch worker (queued
         requests drain first; requests arriving afterwards score on their
-        own launch), then the journal, which ships its tail when a store is
-        attached."""
+        own launch), the history sampler, then the journal, which ships its
+        tail when a store is attached."""
         if self.canary is not None:
             self.canary.close()
         if self.batcher is not None:
             self.batcher.close()
+        if self.history is not None:
+            self.history.stop()
         self.journal.stop()
 
     # -- the control-plane journal ----------------------------------------------
 
     def start_history(self) -> None:
-        """Attach the bound store to the journal and start shipping
-        (idempotent). The HTTP server calls it when its socket opens:
-        only a served process ships its control-plane record."""
+        """Start the history sampler, attach the bound store to the journal
+        and start shipping (idempotent). The HTTP server calls it when its
+        socket opens: only a served process samples its history and ships
+        its control-plane record."""
+        if self.history is not None:
+            self.history.start()
         if self._store is not None:
             if self.journal._store is None:
                 self.journal.attach_store(self._store)

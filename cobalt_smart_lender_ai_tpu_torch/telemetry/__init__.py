@@ -29,10 +29,22 @@ the module is ported, with no dependency beyond torch.
   events, shipped as md5-pinned segments and read back by `load_events`.
 - `telemetry.drift` — per-feature `FeatureSketch` histograms and their
   population stability index (``GET /drift``, ``cobalt_drift_*``).
+- `telemetry.timeseries` — `TimeSeriesStore`: a sampler scraping any
+  registry into tiered downsampled rings (counter rates, per-window
+  histogram quantiles, gauges), with md5-pinned segments and the
+  ``GET /dashboard`` renderer (``GET /history``).
+- `telemetry.aggregate` — merge N `parse_exposition` snapshots into
+  fleet-level series (counter sums, histogram bucket merges, label joins)
+  for a `ReplicaSet`'s history.
 """
 
 from __future__ import annotations
 
+from cobalt_smart_lender_ai_tpu_torch.telemetry.aggregate import (
+    fleet_scraper,
+    merge_expositions,
+    merge_registries,
+)
 from cobalt_smart_lender_ai_tpu_torch.telemetry.devices import (
     DeviceSampler,
     default_device_sampler,
@@ -93,6 +105,11 @@ from cobalt_smart_lender_ai_tpu_torch.telemetry.slo import (
     SLOEngine,
     default_objectives,
 )
+from cobalt_smart_lender_ai_tpu_torch.telemetry.timeseries import (
+    TimeSeriesStore,
+    load_segments,
+    render_dashboard,
+)
 from cobalt_smart_lender_ai_tpu_torch.telemetry.traceexport import (
     TRACE_CONTENT_TYPE,
     chrome_trace,
@@ -129,6 +146,7 @@ __all__ = [
     "SLOEngine",
     "Span",
     "StructuredLogger",
+    "TimeSeriesStore",
     "Tracer",
     "add_phase",
     "chrome_trace",
@@ -143,20 +161,25 @@ __all__ = [
     "default_tracer",
     "device_info",
     "event_context",
+    "fleet_scraper",
     "get_logger",
     "host_rss_bytes",
     "install_device_metrics",
     "install_program_metrics",
     "load_events",
     "load_ledger",
+    "load_segments",
     "log_buckets",
     "merge_events",
+    "merge_expositions",
+    "merge_registries",
     "new_request_id",
     "parse_exposition",
     "psi",
     "record_span",
     "render",
     "render_chrome_trace",
+    "render_dashboard",
     "request_context",
     "span",
 ]

@@ -509,3 +509,42 @@ def test_routes_without_a_canary_answer_typed_409s(lake_root, tmp_path):
     assert d == (200, {"status": "disabled"})
     assert ready[1]["model"] == {"version": "unversioned", "channel": "direct", "provenance_md5": None}
     assert "canary" not in ready[1]
+
+
+def test_two_burning_callers_roll_back_once(lake_root, tmp_path):
+    """The HTTP server's post-response hook and a request can both see a
+    fast burn inside the guard window: exactly one demotes ``latest``, and
+    the other does not flip it back to the demoted version."""
+    import shutil
+    import threading
+
+    root = str(tmp_path / "lake")
+    shutil.copytree(lake_root, root)
+    inner = ObjectStore(root)
+    svc = ScorerService.from_store(inner, _loop_config(), device="cpu", clock=ManualClock())
+    try:
+        retrain_candidate(inner, seed=6, **MINI)
+        svc.canary.refresh()
+        assert svc.promote_canary(force=True)["promoted_version"] == 2
+        both = threading.Barrier(2)
+
+        def burning(*args, **kwargs):
+            both.wait(timeout=30)  # both callers past the burn check first
+            return {"fast_burn": True}
+
+        svc.slo.evaluate = burning
+        results = []
+        callers = [threading.Thread(target=lambda: results.append(svc.canary.maybe_auto_rollback()))
+                   for _ in range(2)]
+        for t in callers:
+            t.start()
+        for t in callers:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in callers)
+        assert sorted(r is None for r in results) == [False, True]
+        assert int(svc.canary._m_rollbacks.labels(trigger="slo_fast_burn").value) == 1
+        latest = ModelRegistry(inner).channel("gbdt", "latest")
+        assert latest["version"] == 1 and latest["rolled_back_from"] == 2
+        assert svc.model_info["version"] == "v1" and svc.canary._guard is None
+    finally:
+        svc.close()

@@ -49,7 +49,14 @@ replicas on the one card launch only the kernel, from their worker threads
 at once, each launch on its program (dispatches equal launches, equal the
 micro-batches, bulk chunks and warm-ups); a replica the supervisor rebuilds
 scores the old one's margins bit for bit and the old one's bytes come back;
-and at brownout rung 2 single rows launch only margin-only programs.
+and at brownout rung 2 single rows launch only margin-only programs. Of
+the fleet's load control: a scale-up on the card launches only the kernel
+(its warm-ups, the smoke row, then micro-batches) and the new replica's
+margins are the plain version's; a replica the autoscaler retires gives
+its bytes back; after the busy retune the 128- and 256-row SHAP buckets,
+never warmed, equal the plain version; and a four-replica fleet whose
+history sampler renders every registry meanwhile waits on no event but the
+pool's oldest.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import threading
+import time
 from datetime import datetime
 from pathlib import Path
 
@@ -953,5 +961,166 @@ def test_brownout_rung_two_launches_margin_only_on_card(card_pack, fresh_program
         table = fresh_programs.table()
         assert table and all(r["name"].endswith("/margin") and r["kind"] == "kernel" for r in table)
         assert sum(r["dispatches"] for r in table) == fused_score.launches - before == 6
+    finally:
+        fleet.close()
+
+
+def _busy(fleet) -> None:
+    """The autoscaler reads a fast burn, whatever the telemetry says."""
+    fleet.autoscaler._signals = lambda: {"fast_burn": True, "queue_wait_p95_ms": None, "util": 0.0,
+                                         "queue_depth": 0, "in_flight": 0, "replicas": len(fleet.replicas)}
+
+
+@pytest.mark.cuda
+def test_autoscaler_scale_up_launches_only_the_kernel_on_card(card_pack, fresh_programs):
+    """A scale-up packs, warms and smoke-checks the new replica on the fleet's
+    card: every launch is the kernel's, the dispatches equal the launches,
+    which equal its warm-ups, the smoke row and the micro-batches; the new
+    replica takes traffic and its margins are the plain version's bit for
+    bit."""
+    fleet = _fleet(replicas=2, autoscaler_enabled=True, autoscaler_max_replicas=3)
+    try:
+        torch.cuda.synchronize()
+        fresh_programs.reset()
+        before = fused_score.launches
+        batches0 = sum(r.batcher.batches for r in fleet.replicas)
+        _busy(fleet)
+        assert fleet.autoscaler.tick()["actions"] == ["scale_up", "retune:busy"]
+        new = fleet.replicas[2]
+        assert new.device == fleet.replicas[0].device == torch.device("cuda", 0)
+        assert new._model.kernel == "score_forest"
+        warm = len(new._model.warm_buckets["shap"]) + len(new._model.warm_buckets["margin"])
+        answers = [fleet.predict_single(_predict_payload(60 + i)) for i in range(12)]
+        torch.cuda.synchronize()
+        assert all(a["shap_values"] is not None for a in answers)
+        assert int(fleet._m_routed.labels(replica="2").value) > 0
+        batches = sum(r.batcher.batches for r in fleet.replicas) - batches0
+        launched = fused_score.launches - before
+        table = fresh_programs.table()
+        assert table and all(r["kind"] == "kernel" and r["name"].startswith("score_forest/f32/")
+                             for r in table)
+        assert sum(r["dispatches"] for r in table) == launched == warm + 1 + batches
+        X = torch.from_numpy(_rows(card_pack[0], 64, 13)).cuda()
+        ref = fused_score_reference(card_pack[1], X.cpu(), n_features=card_pack[2], with_shap=False)[0]
+        assert torch.equal(new._model.margin_fn(X)[0].cpu(), ref)
+    finally:
+        fleet.close()
+
+
+@pytest.mark.cuda
+def test_autoscaler_retired_replica_frees_its_bytes_on_card(card_pack):
+    """A replica added and then retired by the autoscaler: once its reaper
+    thread has closed it, the bytes the live tensors asked for are what
+    they were before the scale-up."""
+    fleet = _fleet(replicas=2, autoscaler_enabled=True)
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        bytes_before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        assert fleet.autoscaler.force(3)["steps"] == ["up"]
+        fleet.predict_proba(_rows(card_pack[0], 300, 17))
+        assert fleet.autoscaler.force(2)["steps"] == ["down"]
+        for t in threading.enumerate():
+            if t.name.startswith("replica-retire-"):
+                t.join(timeout=30)
+        gc.collect()
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_stats()["requested_bytes.all.current"] == bytes_before
+    finally:
+        fleet.close()
+
+
+@pytest.mark.cuda
+def test_retune_wide_shap_buckets_match_plain_on_card(card_pack, fresh_programs):
+    """After the busy retune (5 ms, 256 rows) queued rows coalesce into the
+    128- and 256-row SHAP buckets, which are never warmed: each is one
+    kernel launch, its margins the plain version's bit for bit, prob within
+    1e-6 and SHAP within 1e-5."""
+    fleet = _fleet(replicas=2, autoscaler_enabled=True)
+    try:
+        fleet.autoscaler._retune(busy=True, summary={"actions": []})
+        rep = fleet.replicas[0]
+        assert (rep.batcher._max_wait_s, rep.batcher._max_rows) == (0.005, 256)
+        assert max(rep._model.warm_buckets["shap"]) == 64
+        seen = []
+        shap_fn = rep._model.shap_fn
+        rep._model.shap_fn = lambda X: seen.append((X.clone(), out := shap_fn(X))) or out
+        torch.cuda.synchronize()
+        fresh_programs.reset()
+        for n in (100, 200):
+            answers = []
+            with rep.batcher.pause():
+                threads = [threading.Thread(
+                    target=lambda i=i: answers.append(rep.predict_single(_predict_payload(900 + i))))
+                    for i in range(n)]
+                for t in threads:
+                    t.start()
+                while rep.batcher.queue_depth() < n:
+                    time.sleep(0.01)
+            for t in threads:
+                t.join(timeout=60)
+            assert len(answers) == n and all(a["shap_values"] is not None for a in answers)
+        rep._model.shap_fn = shap_fn
+        torch.cuda.synchronize()
+        table = {r["name"]: r["dispatches"] for r in fresh_programs.table()}
+        assert table == {"score_forest/f32/128/shap": 1, "score_forest/f32/256/shap": 1}
+        assert [X.shape[0] for X, _ in seen] == [128, 256]
+        for X, (margin, prob, phis, base) in seen:
+            ref = fused_score_reference(card_pack[1], X.cpu(), n_features=card_pack[2])
+            assert torch.equal(margin.cpu(), ref[0])
+            assert float((prob.cpu() - ref[1]).abs().max()) <= TOL_PROB
+            assert float((phis.cpu() - ref[2]).abs().max()) <= TOL_SHAP
+    finally:
+        fleet.close()
+
+
+@pytest.mark.cuda
+def test_sampled_fleet_waits_on_no_event_but_the_pools_oldest_on_card(card_pack, fresh_programs,
+                                                                     monkeypatch):
+    """Four replicas under 16 clients while the fleet's history sampler
+    renders every registry each 20 ms (resolving the program table's event
+    pairs from its own thread): no device or stream synchronisation, and
+    event waits only beyond the pool's bound."""
+    fleet = _fleet(history_interval_s=0.02, history_tiers=((0.05, 400), (1.0, 60)))
+    try:
+        torch.cuda.synchronize()
+        fresh_programs.reset()
+        calls = {"device": 0, "stream": 0, "event": 0}
+        real = {"device": torch.cuda.synchronize, "stream": torch.cuda.Stream.synchronize,
+                "event": torch.cuda.Event.synchronize}
+
+        def count(kind):
+            def wrapped(*args, **kwargs):
+                calls[kind] += 1
+                return real[kind](*args, **kwargs)
+
+            return wrapped
+
+        monkeypatch.setattr(torch.cuda, "synchronize", count("device"))
+        monkeypatch.setattr(torch.cuda.Stream, "synchronize", count("stream"))
+        monkeypatch.setattr(torch.cuda.Event, "synchronize", count("event"))
+        before = fused_score.launches
+        fleet.start_history()
+        answers = []
+
+        def client(seed: int) -> None:
+            for i in range(8):
+                answers.append(fleet.predict_single(_predict_payload(seed * 100 + i)))
+
+        threads = [threading.Thread(target=client, args=(s,)) for s in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        fleet.history.stop()
+        launched = fused_score.launches - before
+        assert len(answers) == 128 and launched > 0
+        assert calls["device"] == calls["stream"] == 0
+        assert calls["event"] <= max(0, launched - EVENT_POOL)
+        monkeypatch.undo()
+        assert fleet.history.sample_errors == 0
+        names = fleet.history.series_names()
+        assert any(n.startswith("cobalt_program_dispatches_total:rate|program=score_forest/") for n in names)
+        assert "cobalt_replica_routed_total:rate|replica=3" in names
     finally:
         fleet.close()

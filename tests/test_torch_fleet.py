@@ -459,10 +459,10 @@ def test_admin_quarantine_and_readmit_over_http_are_the_references(store_root):
     with _pair(store_root) as (port, ref):
         got = _admin_drill(port, make_async_server)
         want = _admin_drill(ref, jax_make_server)
-        # the reference names its config field in the autoscaler's 422
+        # the autoscaler's 422 on a fleet without one, detail included
         assert got[-2][:2] == want[-2][:2] == ("/admin/autoscaler", 422)
-        assert got[-2][2]["error"] == want[-2][2]["error"] == "invalid_input"
-        assert got[:-2] + got[-1:] == want[:-2] + want[-1:]
+        assert got[-2][2] == want[-2][2] and got[-2][2]["error"] == "invalid_input"
+        assert got == want
         statuses = [g[1] for g in got if isinstance(g, tuple) and isinstance(g[0], str)]
         assert statuses == [200, 200, 200, 422, 200, 422, 422, 422, 422, 422]
         assert got[-1] == 0
@@ -758,7 +758,11 @@ def test_fleet_families_and_readyz(store_root):
         ok, ready = fleet.ready()
         assert ok and ready["replicas"] == 3 and ready["replica_devices"] == ["cpu"] * 3
         assert ready["router"]["policy"] == "least_loaded" and len(ready["per_replica"]) == 3
-        assert ready["autoscaler"] == {"enabled": False} and fleet.history is None
+        assert ready["autoscaler"] == {"enabled": False}
+        # the reference's default: a fleet history over the merged registries
+        assert type(fleet.history).__name__ == "TimeSeriesStore"
+        assert fleet.history.tiers() == [{"width_s": w, "capacity": c}
+                                         for w, c in JaxServeConfig().history_tiers]
     finally:
         fleet.close()
 

@@ -126,6 +126,12 @@ def test_importing_the_fleet_leaves_jax_and_pandas_unloaded():
     assert _loaded_after_import(modules) == "[]"
 
 
+def test_importing_the_load_control_leaves_jax_and_pandas_unloaded():
+    modules = ("telemetry.aggregate", "telemetry.timeseries", "reliability.traffic",
+               "serve.autoscaler", "serve.http_asyncio")
+    assert _loaded_after_import(modules) == "[]"
+
+
 def test_importing_the_telemetry_leaves_jax_and_pandas_unloaded():
     modules = ("telemetry", "telemetry.metrics", "telemetry.tracing", "telemetry.logging",
                "telemetry.traceexport", "telemetry.programs", "telemetry.devices",
@@ -253,7 +259,8 @@ def test_new_port_modules_are_checked():
             "data/bootstrap.py", "telemetry/events.py", "telemetry/drift.py",
             "io/model_registry.py", "serve/canary.py", "tools/__init__.py",
             "tools/retrain.py", "tools/registry_gc.py", "reliability/chaos.py",
-            "serve/supervisor.py", "serve/autoscaler.py", "serve/replicas.py"} <= names
+            "serve/supervisor.py", "serve/autoscaler.py", "serve/replicas.py",
+            "telemetry/aggregate.py", "telemetry/timeseries.py", "reliability/traffic.py"} <= names
 
 
 def test_no_port_module_imports_pandas():
