@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only-lifecycle # build, then phase 14
     python3 chip_smoke.py --only-fleet     # build, then phase 15
     python3 chip_smoke.py --only-autoscaler # build, then phase 16
+    python3 chip_smoke.py --only-challengers # phase 17 (no kernel to build)
     python3 chip_smoke.py --full-protocol  # build, then phase 8b at the defaults
 
 Phases, each of which must pass:
@@ -142,7 +143,8 @@ Phases, each of which must pass:
        results, artifact and selection bitwise 8b's; seconds to validate
        the manifests, to restore the tree CSV and of each run; 4 raw rows
        served by the resumed artifact (one launch each);
-    c. card against CPU at 50,000 loans (8a's frame): RFECV of the quick
+    c. card against CPU at 20,000 loans (cut from 8a's 50,000 for time,
+       PR 16): RFECV of the quick
        selector (``support_``, ``ranking_`` equal, scores within 1e-6) and
        a search in chunks of 12 trees whose candidates draw nothing (the
        same halving report and winner, scores within 1e-4).
@@ -225,11 +227,14 @@ Phases, each of which must pass:
        ingest seconds, rows and peak card memory; its tree table held to
        6b's as in 13a;
     c. after phase 10b, 8b's stored cleaned, tree and nn tables read with
-       the native reader (seconds and MB/s of each), the cleaned and tree
-       tables also with `csv_to_frame` (equal frames, its seconds and MB/s;
-       the nn table, numeric as the tree table is, no longer goes through
-       the codec: that read took 27-36 s); 10b's restore of the tree table
-       (through `load_frame`, so the native reader) in seconds;
+       the native reader (seconds and MB/s of each); the first eighth of
+       the cleaned and tree tables (cut at a row boundary outside quotes;
+       cut from the whole tables for time in PR 16: those codec reads took
+       109 s) read with the native reader and with `csv_to_frame` (equal
+       frames, the codec's seconds and MB/s; the nn table, numeric as the
+       tree table is, no longer goes through the codec: that read took
+       27-36 s); 10b's restore of the tree table (through `load_frame`, so
+       the native reader) in seconds;
     d. after phase 11, ``--pandas-ingest`` end to end: `bootstrap_synthetic`
        writes a 200,000-loan raw table into a `DatasetRegistry`, pulled and
        verified into a store's ``raw_key``; the training CLI in a subprocess
@@ -251,7 +256,10 @@ Phases, each of which must pass:
     a. `retrain_candidate(..., bootstrap=True)` gives v1 in ``latest``: wall
        seconds, 2,100 histogram launches (one per tree level), and the
        published ``dataset_md5`` equal to the md5 of the matrix and labels
-       the fit was given;
+       the fit was given; as the reference's default, it also trains the
+       MLP challenger and publishes it as ``gbdt_mlp`` v1 to ``canary``
+       (``report["challenger"]``), an `MLPArtifact` whose weights and
+       scaler read back onto the card bit for bit;
     b. the service serves the registry's ``latest`` (``model_version``
        ``v1``); v2 (seed + 1) published to ``canary`` and loaded (its
        warm-up launches counted), shown loaded by ``/readyz``; 256 distinct
@@ -360,6 +368,31 @@ Phases, each of which must pass:
        after the forced resize, and back to its start after ``close``; the
        programs' dispatches equal the launches.
 
+17. the challenger model families, after phase 16, on the reference's
+    model benchmark data (``tools/bench_models.py``: 262,144 loans of seed
+    13, the host cleaning path, the nn frame without the leakage block, the
+    hashed split, NaN as 0; the label-code columns split off for
+    FT-Transformer, vocabularies ``len(vocab) + 1``), each family at its
+    config's full width (MLP 128/32/16, batch 1024, 30 epochs, patience 5;
+    FT-Transformer d_token 64, 3 blocks, 8 heads, ffn x2, dropout 0.1,
+    batch 1024, 20 epochs; TabNet 4 steps of width 32, batch 4096, 30
+    epochs; logistic regression's 25 Newton steps), no kernel of the port
+    on its path (the networks are plain PyTorch, as the reference's are
+    plain XLA):
+    a. the same seed-0 weights on the card and on the CPU give logits on
+       4,096 test rows within 1e-4 (TF32 off);
+    b. 3 full-batch epochs on 2,048 rows from one state_dict (dropout 0) on
+       the card and on the CPU: losses within 1e-5 relative, parameters
+       within 1e-5 (FT's attention key bias and all of TabNet, whose
+       gradients are noise or flip with a sparsemax support, within lr per
+       update); logistic regression fitted on those rows on both, within
+       1e-4 absolute plus relative;
+    c. each family fitted on the full training rows: epochs run, fit
+       seconds, rows per second and held-out AUC, which must reach 0.90
+       (FT-Transformer at 5 epochs in the whole run, cut for time, and at
+       its 20 under ``--only-challengers``);
+    d. a second MLP fit of the same seed equals the first bit for bit.
+
 The script's seconds in all come on a line before ``{"kernels": [...]}``,
 which is the line before the last; the last is ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing neither, when
@@ -367,7 +400,8 @@ CUDA is unavailable or any phase fails. ``--only-scoring`` runs phases 1-4,
 9 and 7 (the short loop for work on ``csrc/score_forest.cu``) and prints
 neither line; ``--only-lifecycle`` builds and runs phase 14,
 ``--only-fleet`` phase 15 and ``--only-autoscaler`` phase 16, and print
-neither. ``--full-protocol`` builds, then runs phase 8b with the
+neither; ``--only-challengers`` runs phase 17 alone (it builds nothing:
+no kernel is on its path) and prints neither. ``--full-protocol`` builds, then runs phase 8b with the
 reference's default `RFEConfig` (104 -> 20 features at step 1, 84 refits of
 50 trees) and `TuneConfig` (20 candidates x 3 folds, every candidate to its
 full ``n_estimators``) on a new 2.3M-loan frame, and prints neither line.
@@ -378,6 +412,7 @@ from __future__ import annotations
 import argparse
 import ast
 import contextlib
+import copy
 import dataclasses
 import gc
 import hashlib
@@ -406,7 +441,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from cobalt_smart_lender_ai_tpu_torch.config import (
     DataConfig,
+    FTTransformerConfig,
     GBDTConfig,
+    MLPConfig,
     PipelineConfig,
     ReliabilityConfig,
     RFEConfig,
@@ -431,9 +468,29 @@ from cobalt_smart_lender_ai_tpu_torch.data.features import (
 from cobalt_smart_lender_ai_tpu_torch.data.frame import RawFrame, row_dicts
 from cobalt_smart_lender_ai_tpu_torch.data.split import split_mask, train_test_split_hashed
 from cobalt_smart_lender_ai_tpu_torch.data.synthetic import synthetic_lendingclub_frame
-from cobalt_smart_lender_ai_tpu_torch.io import DatasetRegistry, GBDTArtifact, ModelRegistry, ObjectStore
+from cobalt_smart_lender_ai_tpu_torch.io import (
+    DatasetRegistry,
+    GBDTArtifact,
+    MLPArtifact,
+    ModelRegistry,
+    ObjectStore,
+)
 from cobalt_smart_lender_ai_tpu_torch.io.frames import csv_to_frame
-from cobalt_smart_lender_ai_tpu_torch.models import gbdt
+from cobalt_smart_lender_ai_tpu_torch.models import (
+    MLP,
+    FTTransformer,
+    FTTransformerClassifier,
+    LogisticRegression,
+    MLPClassifier,
+    TabNet,
+    TabNetClassifier,
+    TabNetConfig,
+    gbdt,
+)
+from cobalt_smart_lender_ai_tpu_torch.models.ft_transformer import StandardStats
+from cobalt_smart_lender_ai_tpu_torch.models.linear import LogisticRegressionParams
+from cobalt_smart_lender_ai_tpu_torch.models.nn import MinMaxStats, seeded_generator
+from cobalt_smart_lender_ai_tpu_torch.models.train_loop import TrainSettings, fit_binary
 from cobalt_smart_lender_ai_tpu_torch.ops import _build
 from cobalt_smart_lender_ai_tpu_torch.ops.binning import compute_bin_edges, transform
 from cobalt_smart_lender_ai_tpu_torch.ops.histogram import _program as histogram_program
@@ -1834,6 +1891,8 @@ HALVING_KEYS = ("eta", "budgets", "rungs", "pruned_candidates", "survivors", "sc
 #: than the CPU's float sums, and over 48 trees the margins drift apart by
 #: ulps that reorder a few rows (2.03e-6 measured on the H100).
 TOL_RFECV_AUC = 1e-6
+#: 10c's loans: cut from 8a's 50,000 for time (its CPU side took 112 s).
+SELECTION_CHECK_ROWS = 20_000
 #: 10c's search: chunks of 12 trees, candidates that draw nothing.
 CHUNKED_TUNE = TuneConfig(
     n_iter=4, cv_folds=2, chunk_trees=12,
@@ -3001,13 +3060,29 @@ def _frames_equal(ref: RawFrame, got: RawFrame, what: str) -> None:
 #: the tree table is, so its codec read (27-36 s) checks nothing the tree
 #: table's does not; the native reader still reads and times it.
 CODEC_CHECKED = ("cleaned", "tree")
+#: 13c compares the two readers on this fraction of each checked table's
+#: bytes, cut at a row boundary (the whole tables' codec reads took 109 s).
+CODEC_CHECK_FRACTION = 1 / 8
+
+
+def csv_prefix(data: bytes, fraction: float) -> bytes:
+    """The rows of a CSV that start in its first ``fraction`` of bytes: cut
+    after a newline that no quoted field holds (an even count of ``"``
+    before it; RFC 4180 doubles a quote inside a field)."""
+    cut = data.rfind(b"\n", 0, max(1, int(len(data) * fraction)))
+    while cut > 0 and data.count(b'"', 0, cut) % 2:
+        cut = data.rfind(b"\n", 0, cut)
+    if cut <= 0:
+        raise AssertionError("no row boundary in the table's prefix")
+    return data[: cut + 1]
 
 
 def native_reader_phase(card: str, root: str, cfg: PipelineConfig, resumed: dict) -> dict:
     """Phase 13c: 8b's stored cleaned, tree and nn tables read with the
-    native reader (seconds and MB/s of each), the cleaned and tree tables
-    also with `csv_to_frame` (equal frames, its seconds and MB/s); and 10b's
-    restore of the tree table through `load_frame`."""
+    native reader (seconds and MB/s of each), the first rows of the cleaned
+    and tree tables (`CODEC_CHECK_FRACTION` of their bytes) also with
+    `csv_to_frame` (equal frames, its seconds and MB/s); and 10b's restore
+    of the tree table through `load_frame`."""
     store = ObjectStore(root)
     out = {}
     for name, key in (("cleaned", cfg.data.cleaned_key), ("tree", cfg.data.tree_key),
@@ -3020,12 +3095,14 @@ def native_reader_phase(card: str, root: str, cfg: PipelineConfig, resumed: dict
         out[name] = {"bytes": len(data), "rows": got.n_rows, "columns": len(got.columns),
                      "native_s": native_s, "native_mb_per_s": mb / native_s}
         if name in CODEC_CHECKED:
+            head = csv_prefix(data, CODEC_CHECK_FRACTION)
             t0 = time.perf_counter()
-            ref = csv_to_frame(data)
+            ref = csv_to_frame(head)
             frames_s = time.perf_counter() - t0
-            _frames_equal(ref, got, f"{name} table")
-            out[name].update(csv_to_frame_s=frames_s, csv_to_frame_mb_per_s=mb / frames_s)
-            del ref
+            _frames_equal(ref, native.read_csv(head, engine="native"), f"{name} table's first rows")
+            out[name].update(checked_rows=ref.n_rows, checked_bytes=len(head), csv_to_frame_s=frames_s,
+                             csv_to_frame_mb_per_s=len(head) / 1e6 / frames_s)
+            del ref, head
         del data, got
         gc.collect()
     out["resume_restore_s"] = resumed["read_tree_csv_s"]
@@ -3181,19 +3258,49 @@ def _fit_md5s() -> tuple[list, object]:
     return seen, real
 
 
-def _retrain(store: ObjectStore, seed: int, device: str, **kw) -> dict:
+def _retrain(store: ObjectStore, seed: int, device: str, challenger: bool = False, **kw) -> dict:
     """One `retrain_candidate` at the committed width, with its wall
     seconds, its histogram launches and the md5 of the matrix its fit saw
-    held to the published ``dataset_md5``."""
+    held to the published ``dataset_md5``. With ``challenger`` it also
+    trains the MLP challenger, as the reference's default does: published
+    as ``gbdt_mlp`` v1 to ``canary``, an `MLPArtifact` that reads back onto
+    ``device`` with the fitted weights and scaler bit for bit."""
     seen, real = _fit_md5s()
+    fitted, real_mlp_fit = [], MLPClassifier.fit
+
+    def mlp_fit(self, *args, **kwargs):
+        fitted.append(self)
+        return real_mlp_fit(self, *args, **kwargs)
+
+    MLPClassifier.fit = mlp_fit
     hist0 = gradient_histogram_channels.launches
     t0 = time.perf_counter()
     try:
         report = retrain_candidate(store, rows=LIFECYCLE_ROWS, seed=seed, n_estimators=LIFECYCLE_TREES,
-                                   max_depth=LIFECYCLE_DEPTH, train_mlp=False, device=device, **kw)
+                                   max_depth=LIFECYCLE_DEPTH, train_mlp=challenger, device=device, **kw)
     finally:
         gbdt.GBDTClassifier.fit = real
+        MLPClassifier.fit = real_mlp_fit
     report["retrain_s"] = time.perf_counter() - t0
+    if challenger:
+        registry = ModelRegistry(store)
+        ch = report.get("challenger", {})
+        record = registry.record("gbdt_mlp", 1)
+        if (len(fitted) != 1 or ch.get("model") != "gbdt_mlp" or ch.get("version") != 1
+                or registry.channel("gbdt_mlp", "canary")["version"] != 1
+                or record.kind != "MLPArtifact" or not registry.verify("gbdt_mlp", 1)):
+            raise AssertionError(f"14a: the challenger {ch}, record {record.to_json()}")
+        art = MLPArtifact.load(store, ch["key"], device)
+        mlp = fitted[0]
+        state = mlp.module.state_dict()
+        if (art.state_dict.keys() != state.keys()
+                or not all(torch.equal(art.state_dict[k], v) for k, v in state.items())
+                or not np.array_equal(art.scaler_low, mlp.scaler.low.cpu().numpy())
+                or not np.array_equal(art.scaler_range, mlp.scaler.range_.cpu().numpy())
+                or art.hidden_sizes != (32, 16) or art.metrics != {"test_auc": ch["test_auc"]}):
+            raise AssertionError("14a: the challenger's MLPArtifact does not read back bit for bit")
+        report["challenger"]["epochs_run"] = len(mlp.history["loss"])
+        report["challenger"]["round_trip"] = "bitwise"
     report["hist_launches"] = gradient_histogram_channels.launches - hist0
     if seen != [report["dataset_md5"]]:
         raise AssertionError(f"14a: dataset_md5 {report['dataset_md5']} is not the fit's matrix's {seen}")
@@ -3279,10 +3386,11 @@ def _lifecycle(card: str, inner: ObjectStore, logs: _LogLines, device: str) -> d
 
     registry = ModelRegistry(inner)
     # 14a: the first champion, bootstrapped into `latest`.
-    v1 = _retrain(inner, SEED, device, bootstrap=True)
+    v1 = _retrain(inner, SEED, device, challenger=True, bootstrap=True)
     if registry.channel("gbdt", "latest")["version"] != 1 or not registry.verify("gbdt", 1):
         raise AssertionError(f"14a: bootstrap left {registry.channel('gbdt', 'latest')}")
-    out["retrain_v1"] = {k: v1[k] for k in ("retrain_s", "hist_launches", "test_auc", "dataset_md5")}
+    out["retrain_v1"] = {k: v1[k] for k in ("retrain_s", "hist_launches", "test_auc", "dataset_md5",
+                                            "challenger")}
 
     # 14b: served from the store's `latest` channel, a good candidate shadowed.
     flaky = FaultInjectingStore(inner, faults={})
@@ -4335,6 +4443,283 @@ def _autoscaler(card: str, root: str, device: str, trees: int | None) -> dict:
     return out
 
 
+# -- the challenger model families (phase 17) -----------------------------------------
+
+#: The reference's model benchmark setup (``tools/bench_models.py``): 262,144
+#: loans (seed 13), the host cleaning path, the nn frame without the
+#: leakage block, the hashed 80/20 split, NaN as 0.
+CHALLENGER_ROWS = 262_144
+CHALLENGER_SEED = 13
+#: (a) logits card vs CPU on these test rows, the same weights.
+CHALLENGER_CHECK_ROWS = 4096
+TOL_CHALLENGER_LOGITS = 1e-4
+#: (b) full-batch epochs on these rows from one state_dict, card vs CPU,
+#: dropout 0: losses within 1e-5 relative; parameters within 1e-5 (the CPU
+#: tests' tolerance against the JAX package), but where a gradient is noise
+#: or flips, held within lr per update (Adam scales any gradient
+#: difference to a step of up to lr): FT's key bias (softmax does not
+#: depend on it, so its gradient is rounding noise) and all of TabNet (a
+#: score at a row's sparsemax threshold enters the support on one device
+#: and not on the other, which moves the attentive layer and, through the
+#: mask, the feature transformers' weights on that column).
+
+CHALLENGER_TRAIN_ROWS = 2048
+CHALLENGER_TRAIN_EPOCHS = 3
+TOL_CHALLENGER_LOSS = 1e-5
+TOL_CHALLENGER_PARAMS = 1e-5
+#: LogisticRegression has no epochs: its 25 Newton steps on the card and on
+#: the CPU are held as the CPU tests hold it to the JAX package's (1e-4
+#: absolute plus 1e-4 relative: the standardisation means of dollar columns
+#: are ~1e5, where a float32 ulp is ~0.008).
+TOL_CHALLENGER_LOGREG = 1e-4
+#: (c) a floor that catches a broken model and claims no quality.
+CHALLENGER_AUC_FLOOR = 0.90
+#: FT-Transformer's epochs in the whole run, cut from its config's 20 for
+#: time (at 20 it stopped early after 9, in 34.7 s); ``--only-challengers``
+#: runs the config's.
+CHALLENGER_FT_EPOCHS: int | None = 5
+
+
+def challenger_data(device: str = "cuda", n_rows: int = CHALLENGER_ROWS) -> dict:
+    """The nn frame of the reference's model benchmark on ``device``: train
+    and test matrices (NaN as 0), the label-code columns split off for
+    FT-Transformer with vocabulary sizes ``len(vocab) + 1`` (code
+    ``len(vocab)`` is missing)."""
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    cleaned, _ = clean_raw_frame(synthetic_lendingclub_frame(n_rows, seed=CHALLENGER_SEED))
+    _, nn, plan = engineer_features(prepare_cleaned_frame(cleaned, today=TODAY), device=dev)
+    del cleaned
+    nn = drop_training_leakage(nn)
+    Xtr, Xte, ytr, yte = train_test_split_hashed(nn.X, nn.y)
+    Xtr, Xte = torch.nan_to_num(Xtr, nan=0.0), torch.nan_to_num(Xte, nan=0.0)
+    names = list(nn.feature_names)
+    cat = [i for i, n in enumerate(names) if n in plan.categorical_vocab]
+    num = [i for i in range(len(names)) if i not in cat]
+    _sync(dev)
+    return {
+        "Xtr": Xtr, "Xte": Xte, "ytr": ytr, "yte": yte, "num": num, "cat": cat,
+        "vocab": tuple(len(plan.categorical_vocab[names[i]]) + 1 for i in cat),
+        "features": len(names), "prep_s": time.perf_counter() - t0,
+    }
+
+
+def _same_weights(family: str, data: dict, dropout: float | None = None):
+    """One neural family's module at its config's widths with its seed-0
+    initial weights, made on the CPU (``dropout`` overrides FT's)."""
+    F, num, vocab = data["features"], data["num"], data["vocab"]
+    gen = seeded_generator(0)
+    if family == "mlp":
+        cfg = MLPConfig()
+        module = MLP(F, tuple(cfg.hidden_sizes), generator=gen)
+    elif family == "ft_transformer":
+        cfg = FTTransformerConfig()
+        module = FTTransformer(len(num), vocab, d_token=cfg.d_token, n_blocks=cfg.n_blocks,
+                               n_heads=cfg.n_heads, ffn_mult=cfg.ffn_mult,
+                               dropout=cfg.dropout if dropout is None else dropout, generator=gen)
+    else:
+        cfg = TabNetConfig()
+        module = TabNet(F, cfg.n_steps, cfg.width, cfg.gamma, generator=gen)
+    return module
+
+
+def _family_inputs(family: str, X: torch.Tensor, data: dict):
+    """The module's inputs for rows ``X`` of the nn frame: min-max scaled
+    (MLP), standardised numerics and clamped codes (FT), standardised
+    (TabNet), with the training rows' statistics."""
+    Xtr = data["Xtr"]
+    if family == "mlp":
+        return MinMaxStats.fit(Xtr)(X)
+    if family == "tabnet":
+        return StandardStats.fit(Xtr)(X)
+    num, cat = data["num"], data["cat"]
+    caps = torch.tensor(data["vocab"], device=X.device) - 1
+    codes = torch.minimum(X[:, cat].long().clamp_min(0), caps)
+    return StandardStats.fit(Xtr[:, num])(X[:, num]), codes
+
+
+def _apply(family: str, module, lam: float = TabNetConfig.lambda_sparse):
+    if family == "ft_transformer":
+        return lambda b, gen: module(b[0], b[1], gen)
+    if family == "tabnet":
+        def tabnet(b, gen):
+            logit, entropy, _ = module(b)
+            return logit, lam * entropy
+
+        return tabnet
+    return lambda b, gen: module(b)
+
+
+def _to(batch, dev):
+    return tuple(t.to(dev) for t in batch) if isinstance(batch, tuple) else batch.to(dev)
+
+
+def _settings(family: str, y: torch.Tensor) -> TrainSettings:
+    """The family's training regime (as its classifier builds it: balanced
+    class weights but for TabNet) in one batch of ``y``'s rows for
+    ``CHALLENGER_TRAIN_EPOCHS`` epochs."""
+    rows, n_pos = int(y.shape[0]), float(y.sum())
+    pos_weight = 1.0 if family == "tabnet" else (rows - n_pos) / max(n_pos, 1.0)
+    if family == "mlp":
+        c = MLPConfig()
+        kw = dict(learning_rate=c.learning_rate, lr_decay_rate=c.lr_decay_rate,
+                  lr_decay_steps=c.lr_decay_steps, weight_decay=c.weight_decay, l2=c.l2)
+    elif family == "ft_transformer":
+        c = FTTransformerConfig()
+        kw = dict(learning_rate=c.learning_rate, weight_decay=c.weight_decay)
+    else:
+        kw = dict(learning_rate=TabNetConfig().learning_rate)
+    return TrainSettings(batch_size=rows, epochs=CHALLENGER_TRAIN_EPOCHS, pos_weight=pos_weight, **kw)
+
+
+def challenger_card_vs_cpu(family: str, data: dict, device: str = "cuda") -> dict:
+    """(a) and (b) of one neural family: logits of the same weights on the
+    card and the CPU; then full-batch epochs from one state_dict on each
+    (dropout 0), their losses and parameters."""
+    dev = torch.device(device)
+    out: dict = {}
+    cpu_model = _same_weights(family, data).eval()
+    card_model = copy.deepcopy(cpu_model).to(dev).eval()
+    X = data["Xte"][:CHALLENGER_CHECK_ROWS]
+    inputs = _family_inputs(family, X, data)
+    with torch.no_grad():
+        got = _apply(family, card_model)(_to(inputs, dev), None)
+        want = torch.cat([  # the CPU in chunks: attention holds (rows, heads, tokens, tokens)
+            _logits_of(_apply(family, cpu_model)(_to(_rows_of(inputs, s, s + 1024), "cpu"), None))
+            for s in range(0, X.shape[0], 1024)])
+    out["logits_max_abs_err"] = float((_logits_of(got).cpu() - want).abs().max())
+    if out["logits_max_abs_err"] > TOL_CHALLENGER_LOGITS:
+        raise AssertionError(f"17a {family}: card logits differ from the CPU's by "
+                             f"{out['logits_max_abs_err']}")
+    del got, want
+    cpu_model = _same_weights(family, data, dropout=0.0)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    n = CHALLENGER_TRAIN_ROWS
+    rows = _family_inputs(family, data["Xtr"][:n], data)
+    y = data["ytr"][:n]
+    settings = _settings(family, y)
+    hist = {}
+    for where, model in (("cpu", cpu_model), ("card", card_model)):
+        d = dev if where == "card" else torch.device("cpu")
+        hist[where] = fit_binary(model, _to(rows, d), y.to(d), settings, apply_fn=_apply(family, model))
+    losses = np.array(hist["card"]["loss"]), np.array(hist["cpu"]["loss"])
+    out["loss_max_rel_err"] = float(np.max(np.abs(losses[0] - losses[1]) / np.abs(losses[1])))
+    errs = {}
+    cpu_state = cpu_model.state_dict()
+    for key, value in card_model.state_dict().items():
+        errs[key] = float((value.cpu() - cpu_state[key]).abs().max())
+    attentive = [k for k in errs if _attentive(family, k)]
+    out["params_max_abs_err"] = max((v for k, v in errs.items() if k not in attentive), default=None)
+    out["attentive_max_abs_err"] = max((errs[k] for k in attentive), default=None)
+    out["largest_param_errs"] = dict(sorted(errs.items(), key=lambda kv: -kv[1])[:4])
+    attentive_tol = settings.learning_rate * CHALLENGER_TRAIN_EPOCHS
+    if (len(losses[0]) != CHALLENGER_TRAIN_EPOCHS or out["loss_max_rel_err"] > TOL_CHALLENGER_LOSS
+            or (out["params_max_abs_err"] or 0.0) > TOL_CHALLENGER_PARAMS
+            or any(errs[k] > attentive_tol for k in attentive)):
+        raise AssertionError(f"17b {family}: card vs CPU training {out}, losses {losses}")
+    return out
+
+
+def _attentive(family: str, key: str) -> bool:
+    """The parameters held within lr per update: FT's attention key bias,
+    and every TabNet parameter (a support flip in an attentive transformer
+    changes the masked inputs of the feature transformers too)."""
+    if family == "ft_transformer":
+        return key.endswith("attn.key.bias")
+    return family == "tabnet"
+
+
+def _logits_of(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+def _rows_of(batch, start: int, stop: int):
+    return tuple(t[start:stop] for t in batch) if isinstance(batch, tuple) else batch[start:stop]
+
+
+def _fit_record(family: str, model, fit_s: float, train_rows: int, data: dict, logits, card: str) -> dict:
+    auc = float(roc_auc(data["yte"], logits))
+    epochs = len(model.history["loss"]) if getattr(model, "history", None) else None
+    out = {"fit_s": fit_s, "epochs_run": epochs, "train_rows": train_rows, "test_auc": auc,
+           "rows_per_s": None if epochs is None else epochs * train_rows / fit_s}
+    print(f"challenger {family} fit (17c): {json.dumps(out)} [{card}]", flush=True)
+    if not auc >= CHALLENGER_AUC_FLOOR:
+        raise AssertionError(f"17c {family}: held-out AUC {auc} under {CHALLENGER_AUC_FLOOR}")
+    return out
+
+
+def challenger_phase(card: str, device: str = "cuda", n_rows: int = CHALLENGER_ROWS,
+                     ft_epochs: int | None = None) -> dict:
+    """Phase 17: the MLP, FT-Transformer, TabNet and logistic regression at
+    their full widths on the reference's model benchmark data: (a) logits
+    card vs CPU on the same weights, (b) card vs CPU training, (c) the fit
+    on the full training rows (epochs, seconds, rows per second, held-out
+    AUC at least 0.90), (d) two MLP fits of one seed bitwise equal."""
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    data = challenger_data(device, n_rows)
+    out: dict = {"rows": n_rows, "features": data["features"], "train_rows": int(data["Xtr"].shape[0]),
+                 "test_rows": int(data["Xte"].shape[0]), "vocab": list(data["vocab"]),
+                 "prep_s": data["prep_s"]}
+    Xtr, ytr, Xte = data["Xtr"], data["ytr"], data["Xte"]
+    num, cat = data["num"], data["cat"]
+    n_fit = int(Xtr.shape[0] - int(split_mask(int(Xtr.shape[0]), 0.1, 0, dev).sum()))
+
+    def timed(fn):
+        _sync(dev)
+        t0 = time.perf_counter()
+        result = fn()
+        _sync(dev)
+        return result, time.perf_counter() - t0
+
+    for family in ("mlp", "ft_transformer", "tabnet"):
+        out[family] = challenger_card_vs_cpu(family, data, device)
+        print(f"challenger {family} card vs cpu (17a-b): {json.dumps(out[family])} [{card}]", flush=True)
+    mlp, fit_s = timed(lambda: MLPClassifier(MLPConfig(), device=dev).fit(Xtr, ytr))
+    out["mlp"]["fit"] = _fit_record("mlp", mlp, fit_s, n_fit, data, mlp.predict_logits(Xte), card)
+    again, fit_s = timed(lambda: MLPClassifier(MLPConfig(), device=dev).fit(Xtr, ytr))
+    same = again.history == mlp.history and all(
+        torch.equal(a, b) for a, b in zip(mlp.module.state_dict().values(),
+                                          again.module.state_dict().values()))
+    out["mlp"]["second_fit_s"] = fit_s
+    out["mlp"]["bitwise_reproducible"] = same
+    if not same:
+        raise AssertionError("17d: two MLP fits of one seed on the card differ")
+    del mlp, again
+    ft_cfg = FTTransformerConfig() if ft_epochs is None else FTTransformerConfig(epochs=ft_epochs)
+    if ft_cfg.epochs != FTTransformerConfig.epochs:
+        out["cut"] = {"ft_transformer_epochs": [ft_cfg.epochs, FTTransformerConfig.epochs]}
+        print(f"challenger ft_transformer: {ft_cfg.epochs} epochs, cut from {FTTransformerConfig.epochs} "
+              f"for time (--only-challengers runs {FTTransformerConfig.epochs}) [{card}]", flush=True)
+    ft, fit_s = timed(lambda: FTTransformerClassifier(data["vocab"], ft_cfg, device=dev).fit(
+        Xtr[:, num], Xtr[:, cat], ytr))
+    out["ft_transformer"]["fit"] = _fit_record(
+        "ft_transformer", ft, fit_s, n_fit, data, ft.predict_logits(Xte[:, num], Xte[:, cat]), card)
+    out["ft_transformer"]["fit"]["epochs"] = ft_cfg.epochs
+    del ft
+    tab, fit_s = timed(lambda: TabNetClassifier(TabNetConfig(), device=dev).fit(Xtr, ytr))
+    out["tabnet"]["fit"] = _fit_record("tabnet", tab, fit_s, int(Xtr.shape[0]), data, tab.predict_logits(Xte), card)
+    del tab
+    lr, fit_s = timed(lambda: LogisticRegression(device=dev).fit(Xtr, ytr))
+    cpu_lr = LogisticRegression(device="cpu")
+    cpu_lr.params = LogisticRegressionParams(**{k: v.cpu() for k, v in lr.params.state_dict().items()})
+    X = Xte[:CHALLENGER_CHECK_ROWS]
+    logits_err = float((lr.decision_function(X).cpu() - cpu_lr.decision_function(X.cpu())).abs().max())
+    n = CHALLENGER_TRAIN_ROWS
+    small_card = LogisticRegression(device=dev).fit(Xtr[:n], ytr[:n])
+    small_cpu = LogisticRegression(device="cpu").fit(Xtr[:n].cpu(), ytr[:n].cpu())
+    fit_err = max(float(((a.cpu() - b).abs() / (1.0 + b.abs())).max()) for a, b in zip(
+        small_card.params.state_dict().values(), small_cpu.params.state_dict().values()))
+    out["logistic"] = {"logits_max_abs_err": logits_err, "params_max_err": fit_err}
+    if logits_err > TOL_CHALLENGER_LOGITS or fit_err > TOL_CHALLENGER_LOGREG:
+        raise AssertionError(f"17a/b logistic: card vs CPU {out['logistic']}")
+    out["logistic"]["fit"] = _fit_record("logistic", lr, fit_s, int(Xtr.shape[0]), data,
+                                         lr.decision_function(Xte), card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"challengers (17): {json.dumps(out)} [{card}]")
+    return out
+
+
 def print_scoring_split(card: str) -> None:
     for precision in ("f32", *QUANTIZED):
         for r in scoring_split("cuda", precision):
@@ -4368,6 +4753,12 @@ def main() -> int:
         help="build, then run phase 16 (the fleet's load control) only; print no ok line",
     )
     mode.add_argument(
+        "--only-challengers",
+        action="store_true",
+        help="run phase 17 (the challenger model families) only, FT-Transformer at its "
+        "config's epochs; print no ok line",
+    )
+    mode.add_argument(
         "--full-protocol",
         action="store_true",
         help="build, then run phase 8b with the reference's default RFE (104 -> 20 "
@@ -4384,6 +4775,10 @@ def main() -> int:
     card = card_line()
     print(card)
     t_start = t0 = time.perf_counter()
+    if args.only_challengers:
+        challenger_phase(card)
+        print(f"chip_smoke --only-challengers: {time.perf_counter() - t_start:.1f}s [{card}]")
+        return 0
     kernels_built = ["score_forest", "gradient_histogram"]
     with ThreadPoolExecutor(max_workers=len(kernels_built) + 1) as pool:
         reader = pool.submit(native._build)  # g++, beside the nvcc builds
@@ -4476,7 +4871,7 @@ def main() -> int:
         t13 = time.perf_counter()  # phase 13c, on 8b's store
         data_layer["native_reader"] = native_reader_phase(card, root, quick, resumed)
         phase13_s += time.perf_counter() - t13
-    selection_card_vs_cpu(card)
+    selection_card_vs_cpu(card, n_rows=SELECTION_CHECK_ROWS)
     print(f"halving and resume phase: {time.perf_counter() - t0:.1f}s [{card}]")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
@@ -4495,6 +4890,7 @@ def main() -> int:
     autoscaler = autoscaler_phase(card)
     print(f"autoscaler phase (16): {autoscaler['phase_s']:.1f}s, {autoscaler['launches']} launches, "
           f"{autoscaler['resizes']} resizes [{card}]")
+    challengers = challenger_phase(card, ft_epochs=CHALLENGER_FT_EPOCHS)
     print_scoring_split(card)
 
     main_rec = next(r for r in records if r["bucket"] == 64)
@@ -4555,7 +4951,8 @@ def main() -> int:
             "library_ms": hist_main["library_ms"],
         },
     ]
-    print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all [{card}]")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all, phase 17 (challengers) "
+          f"{challengers['phase_s']:.1f}s of it [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

@@ -1,5 +1,6 @@
-"""Configuration: the GBDT hyperparameters (`GBDTConfig`), the training
-protocol's (`DataConfig`, `RFEConfig`, `TuneConfig`, `ReliabilityConfig`,
+"""Configuration: the GBDT hyperparameters (`GBDTConfig`), the challengers'
+(`MLPConfig`, `FTTransformerConfig`), the training protocol's
+(`DataConfig`, `RFEConfig`, `TuneConfig`, `ReliabilityConfig`,
 `PipelineConfig`) and the subset of the reference `ServeConfig` that the
 port's scoring service reads. Each keeps the reference's field names and
 defaults for the fields the port reads."""
@@ -71,6 +72,51 @@ class GBDTConfig:
 
     def replace(self, **kw: Any) -> "GBDTConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class MLPConfig:
+    """The MLP challenger: the reference's Keras Sequential 128/32/16/1
+    network (`notebooks/04_model_training.ipynb` cell 39)."""
+
+    hidden_sizes: Sequence[int] = (128, 32, 16)
+    l2: float = 1e-4
+    learning_rate: float = 1e-3
+    lr_decay_rate: float = 0.9
+    lr_decay_steps: int = 1000
+    weight_decay: float = 1e-4
+    batch_size: int = 1024
+    epochs: int = 30
+    early_stop_patience: int = 5
+    early_stop_metric: str = "val_auc"
+    #: None balances the classes (``n_neg / n_pos``).
+    positive_class_weight: float | None = None
+    #: Epochs between two host reads of the loss history (the results are
+    #: the same for any value).
+    epochs_per_dispatch: int = 8
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class FTTransformerConfig:
+    """FT-Transformer on numeric and label-coded categorical columns."""
+
+    d_token: int = 64
+    n_blocks: int = 3
+    n_heads: int = 8
+    ffn_mult: int = 2
+    dropout: float = 0.1
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-5
+    batch_size: int = 1024
+    epochs: int = 20
+    #: Rows per validation and scoring chunk: attention holds a (rows,
+    #: heads, tokens, tokens) tensor.
+    eval_batch_rows: int = 16384
+    #: Epochs between two host reads of the loss history (the results are
+    #: the same for any value).
+    epochs_per_dispatch: int = 2
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -365,6 +411,8 @@ class PipelineConfig:
     save_intermediate: bool = True
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     gbdt: GBDTConfig = dataclasses.field(default_factory=GBDTConfig)
+    mlp: MLPConfig = dataclasses.field(default_factory=MLPConfig)
+    ft: FTTransformerConfig = dataclasses.field(default_factory=FTTransformerConfig)
     tune: TuneConfig = dataclasses.field(default_factory=TuneConfig)
     rfe: RFEConfig = dataclasses.field(default_factory=RFEConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)

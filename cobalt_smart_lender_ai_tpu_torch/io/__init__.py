@@ -2,6 +2,7 @@
 
 from cobalt_smart_lender_ai_tpu_torch.io.artifacts import (
     GBDTArtifact,
+    MLPArtifact,
     plan_from_json,
     plan_to_json,
     save_metrics,
@@ -24,6 +25,7 @@ __all__ = [
     "DatasetPin",
     "DatasetRegistry",
     "GBDTArtifact",
+    "MLPArtifact",
     "ModelRegistry",
     "ModelVersion",
     "ObjectStore",

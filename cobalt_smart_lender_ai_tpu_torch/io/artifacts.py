@@ -1,12 +1,21 @@
-"""GBDT model artifact: a self-describing ``.npz`` (arrays + a JSON header).
+"""Model artifacts: self-describing ``.npz`` files (arrays + a JSON header).
 
-Reads and writes the reference package's format (its ``GBDTArtifact``):
-a JSON header (``kind``, ``format_version``, ``library_version``, ``depth``,
-``feature_names``, ``plan``, ``config``, ``metrics``) and eight arrays (the
-forest's seven fields and ``bin_edges``), plus a ``<key>.features.json``
-sidecar with the feature order. The feature plan (`FeaturePlan`) is written
-and read by `plan_to_json` / `plan_from_json`, the reference's format, and a
-training run's ``metrics.json`` by `save_metrics`.
+Both read and write the reference package's formats:
+
+- `GBDTArtifact`: a JSON header (``kind`` "gbdt", ``format_version``,
+  ``library_version``, ``depth``, ``feature_names``, ``plan``, ``config``,
+  ``metrics``) and eight arrays (the forest's seven fields and
+  ``bin_edges``), plus a ``<key>.features.json`` sidecar with the feature
+  order;
+- `MLPArtifact`: a JSON header (``kind`` "mlp", ``feature_names``,
+  ``hidden_sizes``, ``config``, ``metrics``), the MLP's parameters as flax's
+  msgpack bytes (``params_msgpack``: ``params`` -> ``Dense_i`` -> ``kernel``
+  ``(in, out)`` and ``bias``; `io.flax_msgpack`) and the min-max scaler
+  (``scaler_low``, ``scaler_range``).
+
+The feature plan (`FeaturePlan`) is written and read by `plan_to_json` /
+`plan_from_json`, the reference's format, and a training run's
+``metrics.json`` by `save_metrics`.
 """
 
 from __future__ import annotations
@@ -20,9 +29,15 @@ import numpy as np
 import torch
 
 from cobalt_smart_lender_ai_tpu_torch import __version__
-from cobalt_smart_lender_ai_tpu_torch.convert import forest_from_numpy, forest_to_numpy
+from cobalt_smart_lender_ai_tpu_torch.convert import (
+    flax_params_to_state_dict,
+    forest_from_numpy,
+    forest_to_numpy,
+    state_dict_to_flax_params,
+)
 from cobalt_smart_lender_ai_tpu_torch.data.features import FeaturePlan
 from cobalt_smart_lender_ai_tpu_torch.device import resolve_device
+from cobalt_smart_lender_ai_tpu_torch.io.flax_msgpack import pack_tree, unpack_tree
 from cobalt_smart_lender_ai_tpu_torch.io.store import ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models.gbdt import Forest
 
@@ -61,6 +76,29 @@ def plan_from_json(d: Mapping[str, Any]) -> FeaturePlan:
     )
 
 
+def _pack(arrays: Mapping[str, np.ndarray], header: dict) -> bytes:
+    buf = _io.BytesIO()
+    np.savez_compressed(
+        buf,
+        __header__=np.frombuffer(json.dumps(header, sort_keys=True).encode(), dtype=np.uint8),
+        **arrays,
+    )
+    return buf.getvalue()
+
+
+def _unpack(data: bytes, kind: str) -> tuple[dict[str, np.ndarray], dict]:
+    z = np.load(_io.BytesIO(data), allow_pickle=False)
+    header = json.loads(bytes(z["__header__"]).decode())
+    if header.get("kind") != kind:
+        raise ValueError(f"artifact kind {header.get('kind')!r}, expected {kind!r}")
+    if header.get("format_version", 0) > FORMAT_VERSION:
+        raise ValueError(
+            f"artifact format v{header['format_version']} is newer than this "
+            f"library understands (v{FORMAT_VERSION})"
+        )
+    return {k: z[k] for k in z.files if k != "__header__"}, header
+
+
 @dataclasses.dataclass
 class GBDTArtifact:
     """Everything serving needs to score and explain feature rows."""
@@ -88,15 +126,7 @@ class GBDTArtifact:
         }
         arrays = forest_to_numpy(self.forest)
         arrays["bin_edges"] = np.ascontiguousarray(self.bin_edges, dtype=np.float32)
-        buf = _io.BytesIO()
-        np.savez_compressed(
-            buf,
-            __header__=np.frombuffer(
-                json.dumps(header, sort_keys=True).encode(), dtype=np.uint8
-            ),
-            **arrays,
-        )
-        return buf.getvalue()
+        return _pack(arrays, header)
 
     def save(self, store: ObjectStore, key: str) -> None:
         """Write ``<key>.npz`` and the ``<key>.features.json`` sidecar."""
@@ -110,16 +140,7 @@ class GBDTArtifact:
         """The artifact with its forest on ``device`` (``cuda`` unless the
         caller asks for ``cpu``)."""
         dev = resolve_device(device)
-        z = np.load(_io.BytesIO(data), allow_pickle=False)
-        header = json.loads(bytes(z["__header__"]).decode())
-        if header.get("kind") != "gbdt":
-            raise ValueError(f"artifact kind {header.get('kind')!r}, expected 'gbdt'")
-        if header.get("format_version", 0) > FORMAT_VERSION:
-            raise ValueError(
-                f"artifact format v{header['format_version']} is newer than this "
-                f"library understands (v{FORMAT_VERSION})"
-            )
-        arrays = {k: z[k] for k in z.files if k != "__header__"}
+        arrays, header = _unpack(data, "gbdt")
         return cls(
             forest=forest_from_numpy(arrays, int(header["depth"]), dev),
             feature_names=tuple(header["feature_names"]),
@@ -133,6 +154,66 @@ class GBDTArtifact:
     def load(
         cls, store: ObjectStore, key: str, device: torch.device | str = "cuda"
     ) -> "GBDTArtifact":
+        return cls.from_bytes(store.get_bytes(key + ".npz"), device)
+
+
+@dataclasses.dataclass
+class MLPArtifact:
+    """The MLP challenger and its scaler: the reference's ``.keras`` file
+    and scaler pickle (`04_model_training.ipynb` cell 44). ``state_dict`` is
+    the port's `models.nn.MLP`'s."""
+
+    state_dict: Mapping[str, torch.Tensor]
+    scaler_low: np.ndarray
+    scaler_range: np.ndarray
+    feature_names: tuple[str, ...]
+    hidden_sizes: tuple[int, ...]
+    config: dict = dataclasses.field(default_factory=dict)
+    metrics: dict = dataclasses.field(default_factory=dict)
+
+    def to_bytes(self) -> bytes:
+        """The ``.npz`` bytes, in the reference's layout."""
+        header = {
+            "kind": "mlp",
+            "format_version": FORMAT_VERSION,
+            "library_version": __version__,
+            "feature_names": list(self.feature_names),
+            "hidden_sizes": list(self.hidden_sizes),
+            "config": self.config,
+            "metrics": self.metrics,
+        }
+        params = pack_tree(state_dict_to_flax_params("mlp", self.state_dict))
+        arrays = {
+            "params_msgpack": np.frombuffer(params, dtype=np.uint8),
+            "scaler_low": np.asarray(self.scaler_low),
+            "scaler_range": np.asarray(self.scaler_range),
+        }
+        return _pack(arrays, header)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, device: torch.device | str = "cuda") -> "MLPArtifact":
+        """The artifact with its parameters on ``device`` (``cuda`` unless
+        the caller asks for ``cpu``)."""
+        dev = resolve_device(device)
+        arrays, header = _unpack(data, "mlp")
+        params = unpack_tree(bytes(arrays["params_msgpack"]))
+        return cls(
+            state_dict=flax_params_to_state_dict("mlp", params, dev),
+            scaler_low=arrays["scaler_low"],
+            scaler_range=arrays["scaler_range"],
+            feature_names=tuple(header["feature_names"]),
+            hidden_sizes=tuple(header["hidden_sizes"]),
+            config=header.get("config", {}),
+            metrics=header.get("metrics", {}),
+        )
+
+    def save(self, store: ObjectStore, key: str) -> None:
+        store.put_bytes(key + ".npz", self.to_bytes())
+
+    @classmethod
+    def load(
+        cls, store: ObjectStore, key: str, device: torch.device | str = "cuda"
+    ) -> "MLPArtifact":
         return cls.from_bytes(store.get_bytes(key + ".npz"), device)
 
 

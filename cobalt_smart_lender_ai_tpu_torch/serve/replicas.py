@@ -4,11 +4,14 @@ service-shaped facade.
 The reference's ``serve/replicas.py``. `ReplicaSet` holds
 ``ServeConfig.replicas`` full services, each with its own pack, scratch,
 micro-batcher and metrics registry. On one card every replica sits on it
-and launches the scoring kernel from its own worker thread onto the card's
-default stream; with several cards and ``replica_devices``, replica i goes
-to ``cuda:(i % cards)``. Nothing crosses a replica boundary but the
-artifact the replicas packed from, so one stalled replica never convoys the
-others.
+and launches the scoring kernel from its own worker thread onto its own
+CUDA stream (`ScorerService.stream`: its warm-ups, batches, direct calls,
+the supervisor's rebuilds and the autoscaler's scale-ups each build and
+launch on the new replica's stream), so a program's CUDA-event pair spans
+that replica's launch, not whatever the others queued; with several cards
+and ``replica_devices``, replica i goes to ``cuda:(i % cards)``. Nothing
+crosses a replica boundary but the artifact the replicas packed from, so
+one stalled replica never convoys the others.
 
 Routing is least-loaded: each request picks the routable replica with the
 least ``in_flight + queue depth + 16 x error EWMA``, round-robin among ties,

@@ -49,6 +49,13 @@ one margin-only launch at bucket 1 on the worker of the canary controller,
 never part of the caller's response. Responses then carry
 ``model_version``.
 
+On the card each service owns a CUDA stream (`ScorerService.stream`): its
+warm-ups, micro-batches, direct and raw-row launches, bulk chunks, smoke
+checks and reload candidates all launch on it, and their results reach the
+host from it. So a fleet's replicas never queue behind one another's
+launches on the default stream, and each launch's CUDA-event pair (its
+program's seconds) spans its own stream's work only.
+
 Behind a `serve.replicas.ReplicaSet` the service is one replica: it reads
 the fleet's brownout ladder (`serve.autoscaler`; rung 1 skips the canary
 tap, rung 2 launches margin-only and answers ``degraded: true``), and its
@@ -206,15 +213,47 @@ class _CompiledModel:
     quantized pack's and its f32 reference's). Construction then launches
     every micro-batch bucket (with SHAP) and one bulk bucket (without) once
     on an all-zeros batch: the kernel is built and checked at startup, and
-    a model whose smoke scores are not finite never serves."""
+    a model whose smoke scores are not finite never serves.
 
-    def __init__(self, artifact: GBDTArtifact, config: ServeConfig, device: torch.device):
+    With a ``stream`` (a card service's own), the pack is built, warmed and
+    scored on it: `on_stream` makes it current."""
+
+    def __init__(
+        self,
+        artifact: GBDTArtifact,
+        config: ServeConfig,
+        device: torch.device,
+        stream: torch.cuda.Stream | None = None,
+    ):
         self.artifact = artifact
         self.config = config
         self.device = device
+        self.stream = stream
         self.feature_names = list(artifact.feature_names)
         self.n_features = len(self.feature_names)
         self._feature_index = {n: i for i, n in enumerate(self.feature_names)}
+        caller = torch.cuda.current_stream(device) if stream is not None else None
+        if stream is not None:
+            # The artifact's forest was uploaded on the caller's stream (a
+            # restore, or a fleet's shared artifact): this stream reads it
+            # only after that upload.
+            stream.wait_stream(caller)
+        with self.on_stream():
+            self._build(artifact, config, device)
+        if stream is not None:
+            # Only the build reads the artifact's tensors on this stream (the
+            # kernel reads the pack, made here): the caller's stream, whose
+            # pool holds the artifact's blocks, waits for those reads, so
+            # the allocator cannot hand the blocks out early. Unlike
+            # `record_stream`, this leaves no pending free behind, so the
+            # allocator's counts drop as soon as the artifact is released.
+            caller.wait_stream(stream)
+
+    def on_stream(self):
+        """The model's stream made current (a no-op without one)."""
+        return torch.cuda.stream(self.stream)
+
+    def _build(self, artifact: GBDTArtifact, config: ServeConfig, device: torch.device) -> None:
         forest = artifact.forest.to(device)
         depth = forest.depth
         if not fused_supported(depth):
@@ -278,13 +317,16 @@ class _CompiledModel:
         self, batch: np.ndarray, with_shap: bool
     ) -> tuple[np.ndarray, np.ndarray | None, float | None]:
         """ONE kernel launch over a padded (bucket, F) batch ->
-        ``(prob, phis | None, base | None)`` as host arrays."""
-        X = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(self.device)
-        if with_shap:
-            _, prob, phis, base = self.shap_fn(X)
-            return prob.cpu().numpy(), phis.cpu().numpy(), float(base)
-        _, prob = self.margin_fn(X)
-        return prob.cpu().numpy(), None, None
+        ``(prob, phis | None, base | None)`` as host arrays. The upload,
+        the launch and the copies back run on the model's stream, so the
+        host reads only what that launch wrote."""
+        with self.on_stream():
+            X = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(self.device)
+            if with_shap:
+                _, prob, phis, base = self.shap_fn(X)
+                return prob.cpu().numpy(), phis.cpu().numpy(), float(base)
+            _, prob = self.margin_fn(X)
+            return prob.cpu().numpy(), None, None
 
     def score_explained(
         self, batch: np.ndarray
@@ -844,7 +886,9 @@ class ScorerService:
         # replica the fleet's; a bare service keeps None and no rung applies.
         self.brownout = None
         self._model_identity: dict | None = None
-        self._model = _CompiledModel(artifact, self.config, self.device)
+        #: The stream every launch of this service goes on (the card only).
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._model = _CompiledModel(artifact, self.config, self.device, self.stream)
         self._model_info_labels = (
             "unversioned", "direct", "none", self._model.pack.precision, self._model.kernel
         )
@@ -909,8 +953,9 @@ class ScorerService:
                 f"{len(candidate.feature_names)} (first difference: "
                 f"{sorted(set(candidate.feature_names) ^ set(current.feature_names))[:4]})"
             )
-        x = torch.zeros((1, candidate.n_features), dtype=torch.float32, device=self.device)
-        prob = float(candidate.margin_fn(x)[1][0])
+        with candidate.on_stream():
+            x = torch.zeros((1, candidate.n_features), dtype=torch.float32, device=self.device)
+            prob = float(candidate.margin_fn(x)[1][0])
         if not (math.isfinite(prob) and 0.0 <= prob <= 1.0):
             raise ValueError(f"smoke row scored {prob!r}, expected [0, 1]")
 
@@ -944,7 +989,7 @@ class ScorerService:
         a launch that fails on the card raises here (rollback), never falls
         back to the plain version."""
         artifact = self.store_breaker.call(lambda: GBDTArtifact.load(store, key, self.device))
-        candidate = _CompiledModel(artifact, self.config, self.device)
+        candidate = _CompiledModel(artifact, self.config, self.device, self.stream)
         self._smoke_check(candidate)
         return candidate
 
@@ -1530,23 +1575,24 @@ class ScorerService:
                 )
             if not isinstance(payload, Mapping):
                 raise ValidationError("body must be a JSON object")
-            with self.phase("validate"):
-                feats = transform_raw_rows(plan, [dict(payload)], device=self.device)
-                if dl is not None:
-                    dl.check("raw row transformed")
-            name_pos = {n: i for i, n in enumerate(plan.tree_feature_names)}
-            unknown = [n for n in model.feature_names if n not in name_pos]
-            if unknown:
-                raise ValidationError(
-                    "feature plan does not produce serving features "
-                    f"{unknown[:4]}; retrain with the device pipeline"
-                )
-            idx = torch.tensor([name_pos[n] for n in model.feature_names], device=self.device)
-            x = feats.index_select(1, idx).contiguous()
-            with self.phase("dispatch"):
-                _, prob = model.margin_fn(x)
-                prob = float(prob[0])
-            row = x[0].cpu().tolist()
+            with model.on_stream():
+                with self.phase("validate"):
+                    feats = transform_raw_rows(plan, [dict(payload)], device=self.device)
+                    if dl is not None:
+                        dl.check("raw row transformed")
+                name_pos = {n: i for i, n in enumerate(plan.tree_feature_names)}
+                unknown = [n for n in model.feature_names if n not in name_pos]
+                if unknown:
+                    raise ValidationError(
+                        "feature plan does not produce serving features "
+                        f"{unknown[:4]}; retrain with the device pipeline"
+                    )
+                idx = torch.tensor([name_pos[n] for n in model.feature_names], device=self.device)
+                x = feats.index_select(1, idx).contiguous()
+                with self.phase("dispatch"):
+                    _, prob = model.margin_fn(x)
+                    prob = float(prob[0])
+                row = x[0].cpu().tolist()
             resp = {
                 "prob_default": prob,
                 "features": list(model.feature_names),

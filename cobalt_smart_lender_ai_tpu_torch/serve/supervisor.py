@@ -314,8 +314,10 @@ class FleetSupervisor:
                     prob = batcher.submit(row, dl).result(timeout=budget)[0]
                 else:
                     model = rep._model
-                    x = torch.zeros((1, model.n_features), dtype=torch.float32, device=model.device)
-                    margin = float(model.margin_fn(x)[0][0])
+                    with model.on_stream():
+                        x = torch.zeros((1, model.n_features), dtype=torch.float32,
+                                        device=model.device)
+                        margin = float(model.margin_fn(x)[0][0])
                     prob = float(1.0 / (1.0 + np.exp(-margin)))
             if not (math.isfinite(prob) and 0.0 <= prob <= 1.0):
                 raise RuntimeError(f"probe scored non-probability {prob!r}")

@@ -8,7 +8,9 @@ and `rank_correlation`, NaN cases included. The promotion gate fed the same
 the same ``reasons``.
 
 Then the loop on CPU services at a small size (3,000 loans, 20 trees of
-depth 3, retrained by the port's `tools.retrain`), over HTTP, on a manual
+depth 3, retrained by the port's `tools.retrain`; the bootstrap generation
+also publishes the MLP challenger ``gbdt_mlp`` to ``canary`` as an
+`MLPArtifact`, as the reference's default does), over HTTP, on a manual
 clock, with ``flush()`` and never a wall-clock wait: bootstrap to
 ``latest``, a canary shadow-scored (each shadow probability is the host
 sigmoid of the JAX package's margin for that row on the canary's forest,
@@ -254,8 +256,16 @@ def traffic_rows(fresh_rows) -> list[dict]:
 @pytest.fixture(scope="module")
 def lake_root(tmp_path_factory) -> str:
     root = tmp_path_factory.mktemp("torch_canary") / "lake"
-    report = retrain_candidate(ObjectStore(str(root)), seed=5, bootstrap=True, **MINI)
+    # The bootstrap generation trains the MLP challenger, as the reference's
+    # default does (its tests/test_canary.py seeds its lake the same way).
+    report = retrain_candidate(ObjectStore(str(root)), seed=5, bootstrap=True,
+                               **dict(MINI, train_mlp=True, mlp_epochs=2))
     assert report["bootstrapped"] and report["channel"] == "latest" and report["version"] == 1
+    reg = ModelRegistry(ObjectStore(str(root)))
+    assert reg.channel("gbdt", "latest")["version"] == 1 and reg.channel("gbdt", "canary") is None
+    assert report["challenger"]["model"] == "gbdt_mlp"
+    assert reg.channel("gbdt_mlp", "canary")["version"] == 1
+    assert reg.record("gbdt_mlp", 1).kind == "MLPArtifact"
     return str(root)
 
 

@@ -56,7 +56,14 @@ margins are the plain version's; a replica the autoscaler retires gives
 its bytes back; after the busy retune the 128- and 256-row SHAP buckets,
 never warmed, equal the plain version; and a four-replica fleet whose
 history sampler renders every registry meanwhile waits on no event but the
-pool's oldest.
+pool's oldest. Of the per-replica streams: each card replica launches on
+its own CUDA stream, and while replica 1 floods the card replica 0's
+launch reads at most twice its idle seconds on its program, every launch's
+margins those of the rows launched alone. Of the challengers: the MLP,
+FT-Transformer and TabNet with one set of weights give the CPU's logits on
+the card (1e-4), and 3 full-batch epochs from them the CPU's losses (1e-5
+relative) and weights (1e-4; the attentive layers, FT's key bias and
+TabNet's attn.*, within lr per update).
 """
 
 from __future__ import annotations
@@ -1124,3 +1131,155 @@ def test_sampled_fleet_waits_on_no_event_but_the_pools_oldest_on_card(card_pack,
         assert "cobalt_replica_routed_total:rate|replica=3" in names
     finally:
         fleet.close()
+
+
+def _program_seconds(reg: ProgramRegistry, name: str) -> tuple[int, float]:
+    row = next((r for r in reg.table() if r["name"] == name), None)
+    return (0, 0.0) if row is None else (row["dispatches"], row["dispatch_seconds"])
+
+
+@pytest.mark.cuda
+def test_replicas_launch_on_their_own_streams_on_card(card_pack, fresh_programs):
+    """Each card replica launches on its own CUDA stream (neither the other's
+    nor the default one). While replica 1 floods the card with 1024-row
+    launches from two threads, replica 0's single 64-row SHAP launch reads
+    on its program at most 2x its seconds per launch on the idle card (the
+    median of 5 such single launches), not the flood's; every launch's
+    margins equal, bit for bit, those of the same rows launched alone."""
+    fleet = _fleet(replicas=2)
+    try:
+        replicas = fleet.replicas
+        streams = [r.stream.cuda_stream for r in replicas]
+        assert len({*streams, torch.cuda.default_stream().cuda_stream}) == 3
+        seen: list[list] = [[], []]
+
+        def recording(i, fn):
+            def wrapped(X):
+                out = fn(X)
+                seen[i].append((torch.cuda.current_stream().cuda_stream, X.shape[0], out[0].clone()))
+                return out
+            return wrapped
+
+        for i, r in enumerate(replicas):
+            r._model.margin_fn = recording(i, r._model.margin_fn)
+            r._model.shap_fn = recording(i, r._model.shap_fn)
+        pack, _, F = card_pack
+        Xa, Xf = _rows(pack, 64, 21), _rows(pack, 1024, 22)
+        alone = {n: fused_score(pack, torch.from_numpy(X).cuda(), n_features=F, with_shap=False)[0].cpu()
+                 for n, X in ((64, Xa), (1024, Xf))}
+        for _ in range(3):
+            replicas[0]._model.score(Xa, with_shap=True)  # warm
+        torch.cuda.synchronize()
+        fresh_programs.reset()
+        name = "score_forest/f32/64/shap"
+        for _ in range(20):
+            replicas[0]._model.score(Xa, with_shap=True)
+        n_idle, s_idle = _program_seconds(fresh_programs, name)
+        assert n_idle == 20
+        idle = s_idle / n_idle
+        stop = threading.Event()
+        flood_calls = [0, 0]
+
+        def flood(j: int) -> None:
+            while not stop.is_set():
+                replicas[1]._model.score(Xf, with_shap=False)
+                flood_calls[j] += 1
+
+        under_flood = []
+        threads = [threading.Thread(target=flood, args=(j,)) for j in range(2)]
+        for t in threads:
+            t.start()
+        try:
+            for _ in range(5):
+                time.sleep(0.1)
+                before = _program_seconds(fresh_programs, name)
+                replicas[0]._model.score(Xa, with_shap=True)
+                after = _program_seconds(fresh_programs, name)
+                assert after[0] - before[0] == 1
+                under_flood.append(after[1] - before[1])
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=60)
+        torch.cuda.synchronize()
+        flood_n, flood_s = _program_seconds(fresh_programs, "score_forest/f32/1024/margin")
+        assert min(flood_calls) > 0 and flood_n == sum(flood_calls)
+        median = float(np.median(under_flood))
+        print(f"replica 0 64-row SHAP: idle {idle * 1e3:.6f} ms, under the flood "
+              f"{[round(t * 1e3, 6) for t in under_flood]} ms; a flood launch "
+              f"{flood_s / flood_n * 1e3:.6f} ms x {flood_n}")
+        assert median <= 2.0 * idle, (
+            f"replica 0's 64-row SHAP launch read {median * 1e3:.4f} ms under the flood "
+            f"({[round(s * 1e3, 4) for s in under_flood]}), {idle * 1e3:.4f} ms idle; "
+            f"a flood launch {flood_s / flood_n * 1e3:.4f} ms")
+        for i in range(2):
+            assert seen[i] and {s for s, _, _ in seen[i]} == {streams[i]}
+            for _, n, margin in seen[i]:
+                assert torch.equal(margin.cpu(), alone[n])
+        assert [n for _, n, _ in seen[0]] == [64] * 28
+        assert [n for _, n, _ in seen[1]] == [1024] * sum(flood_calls)
+    finally:
+        fleet.close()
+
+
+def _challengers(F: int, vocab: tuple[int, ...]) -> dict:
+    from cobalt_smart_lender_ai_tpu_torch.models.ft_transformer import FTTransformer
+    from cobalt_smart_lender_ai_tpu_torch.models.nn import MLP, seeded_generator
+    from cobalt_smart_lender_ai_tpu_torch.models.tabnet import TabNet
+
+    return {
+        "mlp": MLP(F, (32, 16), generator=seeded_generator(1)),
+        "ft_transformer": FTTransformer(F, vocab, d_token=16, n_blocks=2, n_heads=4, dropout=0.0,
+                                        generator=seeded_generator(2)),
+        "tabnet": TabNet(F, n_steps=3, width=8, generator=seeded_generator(3)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["mlp", "ft_transformer", "tabnet"])
+def test_challenger_matches_the_cpu_on_card(card, family):
+    """A challenger with one set of weights gives the CPU's logits on the
+    card (within 1e-4), and 3 epochs of full-batch training from them give
+    the CPU's losses (within 1e-5 relative) and weights (within 1e-4, the
+    attentive layers within lr per update)."""
+    import copy
+
+    from cobalt_smart_lender_ai_tpu_torch.models.train_loop import TrainSettings, fit_binary
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    F, vocab, N = 12, (5, 7), 512
+    Xn = rng.normal(size=(N, F)).astype(np.float32)
+    Xc = np.stack([rng.integers(0, v, N) for v in vocab], axis=1)
+    y = (Xn[:, 0] + 0.5 * rng.normal(size=N) > 0).astype(np.float32)
+    cpu_model = _challengers(F, vocab)[family]
+    card_model = copy.deepcopy(cpu_model).to(card)
+
+    def batch(dev):
+        xn = torch.from_numpy(Xn).to(dev)
+        return (xn, torch.from_numpy(Xc).to(dev)) if family == "ft_transformer" else xn
+
+    def apply(model):
+        if family == "ft_transformer":
+            return lambda b, gen: model(*b, gen)
+        if family == "tabnet":
+            return lambda b, gen: (lambda o: (o[0], 1e-3 * o[1]))(model(b))
+        return lambda b, gen: model(b)
+
+    with torch.no_grad():
+        got = apply(card_model)(batch(card), None)
+        want = apply(cpu_model)(batch("cpu"), None)
+    got, want = (g[0] if isinstance(g, tuple) else g for g in (got, want))
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    settings = TrainSettings(batch_size=N, epochs=3, learning_rate=1e-2, l2=1e-4)
+    hist = {}
+    for dev, model in (("cpu", cpu_model), (card, card_model)):
+        hist[str(dev)] = fit_binary(model, batch(dev), torch.from_numpy(y).to(dev), settings,
+                                    apply_fn=apply(model))
+    np.testing.assert_allclose(hist[str(card)]["loss"], hist["cpu"]["loss"], rtol=1e-5)
+    for (k, a), b in zip(card_model.state_dict().items(), cpu_model.state_dict().values()):
+        # The attentive layers' near-zero or support-flipping gradients
+        # (FT's key bias, TabNet's attn.*) become Adam steps of up to lr.
+        attentive = k.endswith("attn.key.bias") or (family == "tabnet" and k.startswith("attn."))
+        tol = settings.learning_rate * 3 if attentive else 1e-4
+        assert float((a.cpu() - b).abs().max()) <= tol, k

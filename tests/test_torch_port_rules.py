@@ -1,13 +1,15 @@
 """Rules the PyTorch port keeps.
 
-- The port package and ``chip_smoke.py`` import neither JAX nor anything of
-  the JAX package (``cobalt_smart_lender_ai_tpu``), nor pandas (the card's
-  machine has none); importing the port's serving stack, its data layer,
-  its training protocol or its telemetry in a fresh interpreter leaves
-  ``jax`` and ``pandas`` unloaded.
+- The port package and ``chip_smoke.py`` import neither JAX (nor flax or
+  optax) nor anything of the JAX package (``cobalt_smart_lender_ai_tpu``),
+  nor pandas or msgpack (the card's machine has neither); importing the
+  port's serving stack, its data layer, its training protocol, its
+  telemetry or its challenger models in a fresh interpreter leaves
+  ``jax``, ``flax``, ``msgpack`` and ``pandas`` unloaded.
 - Its entry points run on the CUDA device unless the caller asks for the
   CPU: with CUDA unavailable, the default-device service constructors
-  (``--canary`` and ``--replicas`` serving included), the retrain CLI,
+  (``--canary`` and ``--replicas`` serving included), the retrain CLI, the
+  challenger models and `MLPArtifact.from_bytes`,
   `GBDTClassifier`, `split_mask`, `GBDTArtifact.load`/``from_bytes``,
   `rfe_select`, `randomized_search`, `run_pipeline` and the serving and
   training CLIs, and the host path's `engineer_features`, raise instead of
@@ -65,7 +67,7 @@ def _imported_modules(path: Path) -> set[str]:
 
 def _forbidden(mod: str) -> bool:
     top = mod.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "optax", "cobalt_smart_lender_ai_tpu", "pandas")
+    return top in ("jax", "jaxlib", "flax", "optax", "msgpack", "cobalt_smart_lender_ai_tpu", "pandas")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -84,7 +86,7 @@ def _loaded_after_import(modules: tuple[str, ...]) -> str:
         "import sys\n"
         + "".join(f"import cobalt_smart_lender_ai_tpu_torch.{m}\n" for m in modules)
         + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'cobalt_smart_lender_ai_tpu', 'pandas'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'cobalt_smart_lender_ai_tpu', 'pandas'))\n"
         "print(bad)\n"
     )
     out = subprocess.run(
@@ -132,6 +134,12 @@ def test_importing_the_load_control_leaves_jax_and_pandas_unloaded():
     assert _loaded_after_import(modules) == "[]"
 
 
+def test_importing_the_challengers_leaves_jax_msgpack_and_pandas_unloaded():
+    modules = ("models", "models.train_loop", "models.nn", "models.linear", "models.ft_transformer",
+               "models.tabnet", "io.flax_msgpack", "debug", "convert", "tools.retrain")
+    assert _loaded_after_import(modules) == "[]"
+
+
 def test_importing_the_telemetry_leaves_jax_and_pandas_unloaded():
     modules = ("telemetry", "telemetry.metrics", "telemetry.tracing", "telemetry.logging",
                "telemetry.traceexport", "telemetry.programs", "telemetry.devices",
@@ -162,6 +170,24 @@ def test_default_device_raises_without_cuda(no_cuda):
         GBDTArtifact.from_bytes(store.get_bytes("models/gbdt/model_tree.npz"))
     art = GBDTArtifact.load(store, "models/gbdt/model_tree", device="cpu")
     assert art.forest.device == torch.device("cpu")
+
+
+def test_challengers_default_to_cuda_and_raise_without_it(no_cuda):
+    from cobalt_smart_lender_ai_tpu_torch.io import MLPArtifact
+    from cobalt_smart_lender_ai_tpu_torch.models import (
+        FTTransformerClassifier,
+        LogisticRegression,
+        MLPClassifier,
+        TabNetClassifier,
+    )
+
+    for make in (MLPClassifier, LogisticRegression, TabNetClassifier,
+                 lambda: FTTransformerClassifier((3,))):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    with pytest.raises(RuntimeError, match="cuda"):
+        MLPArtifact.from_bytes(b"")
+    assert MLPClassifier(device="cpu").device == torch.device("cpu")
 
 
 def test_training_protocol_defaults_to_cuda_and_raises_without_it(no_cuda):

@@ -13,8 +13,12 @@ match within ``LOG_RTOL`` too. The forests are held as
 every training row in the same leaf of every tree, gains and leaf values
 within rtol 1e-5 plus 1e-5 of the forest's largest |value|, margins within
 1e-5. ``--degrade`` shuffles the labels with the reference's permutation.
-``train_mlp=True`` (the reference's default) raises, naming ROADMAP A7, and
-the CLI defaults to ``cuda`` and raises without it.
+By default (``train_mlp=True``, as the reference's) a retrain also trains
+the MLP challenger and publishes it as ``gbdt_mlp`` to ``canary``: the same
+report keys and registry record as the reference's, an `MLPArtifact` the
+JAX package reads, scoring as the port's MLP does; the CLI does so too,
+and ``--no-mlp`` skips it. The CLI defaults to ``cuda`` and raises without
+it.
 """
 
 from __future__ import annotations
@@ -159,12 +163,65 @@ def test_forest_is_held_as_fits_are(retrains):
                                gbdt.predict_margin(jforest, Xt).numpy(), rtol=0, atol=1e-5)
 
 
-def test_mlp_challenger_is_not_ported_yet(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        retrain.retrain_candidate(ObjectStore(str(tmp_path)), rows=100, device="cpu")
-    assert not list(ObjectStore(str(tmp_path)).list(""))  # nothing trained or written
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        retrain.main(["--store", str(tmp_path), "--device", "cpu", "--rows", "100"])
+MINI_MLP = dict(rows=1200, n_estimators=8, max_depth=3, mlp_epochs=2, bootstrap=True)
+
+
+def test_default_retrain_publishes_the_mlp_challenger(tmp_path):
+    """As the reference's ``tests/test_canary.py`` checks it: the challenger
+    under its own name in ``canary`` with kind `MLPArtifact`, beside the
+    champion bootstrapped into ``latest``; the report and the record as the
+    reference's."""
+    from cobalt_smart_lender_ai_tpu.io import MLPArtifact as JaxMLPArtifact
+    from cobalt_smart_lender_ai_tpu.models.nn import MLP as JaxMLP
+    from cobalt_smart_lender_ai_tpu_torch.io import MLPArtifact
+    from cobalt_smart_lender_ai_tpu_torch.models.nn import MLP, MinMaxStats
+
+    port = retrain.retrain_candidate(ObjectStore(str(tmp_path / "port")), seed=5, device="cpu", **MINI_MLP)
+    ref = jax_retrain_candidate(JaxStore(str(tmp_path / "jax")), seed=5, **MINI_MLP)
+    assert port.keys() == ref.keys() and port["challenger"].keys() == ref["challenger"].keys()
+    for key in ("model", "version", "key"):
+        assert port["challenger"][key] == ref["challenger"][key] == {
+            "model": "gbdt_mlp", "version": 1, "key": "models/gbdt_mlp/v1"}[key]
+    assert 0.5 < port["challenger"]["test_auc"] <= 1.0
+    assert port["bootstrapped"] and port["channel"] == "latest"
+    reg = ModelRegistry(ObjectStore(str(tmp_path / "port")))
+    jreg = JaxRegistry(JaxStore(str(tmp_path / "jax")))
+    assert reg.channel("gbdt", "latest")["version"] == 1 and reg.channel("gbdt", "canary") is None
+    assert reg.channel("gbdt_mlp", "canary")["version"] == 1
+    assert reg.channel("gbdt_mlp", "latest") is None
+    record, jrecord = reg.record("gbdt_mlp", 1), jreg.record("gbdt_mlp", 1)
+    assert record.kind == jrecord.kind == "MLPArtifact" and reg.verify("gbdt_mlp", 1)
+    assert record.to_json().keys() == jrecord.to_json().keys()
+    assert record.provenance == reg.record("gbdt", 1).provenance  # the champion's data
+    assert record.metrics == {"test_auc": port["challenger"]["test_auc"]}
+    art = MLPArtifact.load(ObjectStore(str(tmp_path / "port")), record.key, device="cpu")
+    assert art.hidden_sizes == (32, 16) and art.feature_names == tuple(schema.SERVING_FEATURES)
+    assert art.config == {"learning_rate": 0.01, "epochs": 2, "seed": 5}
+    # The reference reads it, and scores as the port's MLP on the same rows.
+    jart = JaxMLPArtifact.from_bytes(ObjectStore(str(tmp_path / "port")).get_bytes(record.key + ".npz"))
+    X, _ = _port_matrix(1200, seed=5)
+    module = MLP(len(schema.SERVING_FEATURES), (32, 16))
+    module.load_state_dict(art.state_dict)
+    Xs = MinMaxStats(torch.from_numpy(art.scaler_low), torch.from_numpy(art.scaler_range))(
+        torch.from_numpy(X))
+    with torch.no_grad():
+        want = module(Xs).numpy()
+    got = np.asarray(JaxMLP(hidden=(32, 16)).apply(jart.params, Xs.numpy()))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_cli_trains_the_challenger_unless_no_mlp(tmp_path, capsys):
+    args = ["--store", str(tmp_path), "--rows", "1200", "--n-estimators", "4", "--max-depth", "2",
+            "--device", "cpu"]
+    first = retrain.main(args + ["--bootstrap"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == first
+    assert first["challenger"]["model"] == "gbdt_mlp" and first["challenger"]["version"] == 1
+    second = retrain.main(args + ["--seed", "18", "--no-mlp"])
+    assert "challenger" not in second and second["version"] == 2
+    reg = ModelRegistry(ObjectStore(str(tmp_path)))
+    assert reg.channel("gbdt_mlp", "canary")["version"] == 1  # --no-mlp published none
+    assert reg.record("gbdt_mlp", 1).kind == "MLPArtifact"
+    assert retrain.parse_args([]).no_mlp is False
 
 
 def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
