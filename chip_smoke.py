@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only-fleet     # build, then phase 15
     python3 chip_smoke.py --only-autoscaler # build, then phase 16
     python3 chip_smoke.py --only-challengers # phase 17 (no kernel to build)
+    python3 chip_smoke.py --only-portfolio # build, then phase 18 and the full book
     python3 chip_smoke.py --full-protocol  # build, then phase 8b at the defaults
 
 Phases, each of which must pass:
@@ -19,7 +20,8 @@ Phases, each of which must pass:
    depth-7 model, at the /predict buckets 1, 8, 64 with SHAP and the bulk
    buckets 256, 4096 without: margins bitwise equal (to the plain version
    on the card and on the CPU, and across two calls), prob within 1e-6,
-   phis within 1e-5, ``base + sum(phis)`` within 1e-4 of the margin; then
+   phis within 1e-5 (and bitwise across two calls), ``base + sum(phis)``
+   within 1e-4 of the margin; then
    each bucket's time per call (CUDA events, after warm-up), the plain
    version's time and the least time the card could take (``bound_ms``);
 4. serving: the port's `ScorerService` on ``cuda`` behind its HTTP server
@@ -393,6 +395,44 @@ Phases, each of which must pass:
        its 20 under ``--only-challengers``);
     d. a second MLP fit of the same seed equals the first bit for bit.
 
+18. the offline portfolio stress path (`scenario`), after phase 17, at the
+    committed model's full width (300 trees of depth 7, F=20, f32): a
+    synthetic book of 262,144 loans (seed 29, ``tools.score_portfolio``'s
+    default) through the host cleaning path (``today`` pinned) to the 20
+    serving features, written as a CSV object and read back with
+    `load_portfolio`; the committed model published to a temporary
+    registry's ``latest`` with a `FeatureSketch` of the book's features as
+    its ``feature_sketch``; the README's grid (``installment`` +25/+50/+100
+    x ``loan_amnt`` x0.9, so 4 passes over the book) in chunks of 2,048
+    rows, each one SHAP launch of ``score_forest`` at the 2048-row bucket:
+    a. the uninterrupted sweep: ``python -m
+       cobalt_smart_lender_ai_tpu_torch.tools.score_portfolio`` on the card
+       over the whole book with ``--ledger-out``, then the port's
+       ``tools.obs_report --min-attribution 0.8`` on the ledger (exit 0);
+       the ledger's ``score_forest/f32/2048/shap`` dispatches (the tool's
+       launches) = its ``cobalt_portfolio_dispatches_total{kind="shap"}``
+       = 4 x chunks, finite scores; seconds, rows per second, the
+       attribution ratio and the report's blocks;
+    b. `PortfolioScorer.from_registry` in this process, the same sweep
+       killed after 37 chunks (``fail_after_chunks``) and resumed: each
+       run's launches = the engine's dispatches = the program's; every
+       chunk's ``scores``, ``phi_sum``, ``base`` and ``n`` equal the
+       tool's run's bit for bit; the seconds inside the checkpoint's
+       ``advance``;
+    c. two 2048-row chunks of the book and ``ScorerService.shap_bulk``'s
+       two 4096-row chunks against the plain version on the card (margins
+       bitwise, phis within 1e-5, additivity within 1e-4; shap_bulk's phis
+       within 1e-5), each SHAP launch's margins equal to the margin-only
+       launch's bit for bit; the 2048- and 4096-row SHAP times per launch
+       (CUDA events) against their bounds, and the plain call's ms;
+    d. (the launches of 18b, counted from 0 before it, are the
+       ``kernels`` line's ``portfolio_launches``, the tool's its
+       ``portfolio_tool_launches``, shap_bulk's 2 its
+       ``shap_bulk_launches``);
+    e. under ``--only-portfolio`` only, the sweep again on a book of
+       2,300,000 loans: its seconds, rows per second and the seconds inside
+       ``advance``.
+
 The script's seconds in all come on a line before ``{"kernels": [...]}``,
 which is the line before the last; the last is ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing neither, when
@@ -401,7 +441,8 @@ CUDA is unavailable or any phase fails. ``--only-scoring`` runs phases 1-4,
 neither line; ``--only-lifecycle`` builds and runs phase 14,
 ``--only-fleet`` phase 15 and ``--only-autoscaler`` phase 16, and print
 neither; ``--only-challengers`` runs phase 17 alone (it builds nothing:
-no kernel is on its path) and prints neither. ``--full-protocol`` builds, then runs phase 8b with the
+no kernel is on its path) and prints neither; ``--only-portfolio`` builds,
+then runs phase 18 and its full-book sweep (18e), and prints neither. ``--full-protocol`` builds, then runs phase 8b with the
 reference's default `RFEConfig` (104 -> 20 features at step 1, 84 refits of
 50 trees) and `TuneConfig` (20 candidates x 3 folds, every candidate to its
 full ``n_estimators``) on a new 2.3M-loan frame, and prints neither line.
@@ -417,6 +458,7 @@ import dataclasses
 import gc
 import hashlib
 import http.client
+import io
 import json
 import logging
 import math
@@ -534,11 +576,18 @@ from cobalt_smart_lender_ai_tpu_torch.reliability import (
     TrafficGenerator,
     shape_by_name,
 )
+from cobalt_smart_lender_ai_tpu_torch.scenario import (
+    PortfolioInterrupted,
+    PortfolioScorer,
+    ScenarioGrid,
+    load_portfolio,
+)
 from cobalt_smart_lender_ai_tpu_torch.serve.http_asyncio import make_async_server
 from cobalt_smart_lender_ai_tpu_torch.serve.replicas import ReplicaSet
 from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService
 from cobalt_smart_lender_ai_tpu_torch.serve.supervisor import HEALTHY, QUARANTINED
 from cobalt_smart_lender_ai_tpu_torch.telemetry import (
+    FeatureSketch,
     SLOEngine,
     chrome_trace,
     default_objectives,
@@ -555,7 +604,9 @@ from cobalt_smart_lender_ai_tpu_torch.telemetry.programs import (
     peak_bytes_estimate,
     peak_flops_estimate,
 )
+from cobalt_smart_lender_ai_tpu_torch.tools import obs_report
 from cobalt_smart_lender_ai_tpu_torch.tools.retrain import retrain_candidate
+from cobalt_smart_lender_ai_tpu_torch.tools.score_portfolio import build_synthetic_portfolio
 
 ROOT = Path(__file__).resolve().parent
 STORE = ROOT / "artifacts"
@@ -678,6 +729,8 @@ def kernel_phase(device: str = "cuda", precision: str = "f32") -> list[dict]:
         again = fused_score(pack, X, n_features=F, with_shap=with_shap)
         if not torch.equal(out[0], again[0]):
             raise AssertionError(f"bucket {bucket}: two calls give other margins")
+        if with_shap and not torch.equal(out[2], again[2]):
+            raise AssertionError(f"bucket {bucket}: two calls give other phis")
         # The margins are also the CPU plain version's, bit for bit.
         cpu_margin = fused_score_reference(
             cpu_pack, torch.from_numpy(Xn), n_features=F, with_shap=False
@@ -4720,6 +4773,327 @@ def challenger_phase(card: str, device: str = "cuda", n_rows: int = CHALLENGER_R
     return out
 
 
+PORTFOLIO_LOANS = 262_144
+PORTFOLIO_SEED = 29
+#: ``--only-portfolio``'s full book: the sweep again at the raw table's scale.
+PORTFOLIO_FULL_LOANS = 2_300_000
+PORTFOLIO_KEY = "portfolios/book.csv"
+PORTFOLIO_CHUNK = 2048
+#: The README's stress example: rate shocks on ``installment`` times a
+#: ``loan_amnt`` haircut; with the baseline, 4 passes over the book.
+PORTFOLIO_GRID = {"name": "readme", "axes": [
+    {"feature": "installment", "op": "add", "values": [25.0, 50.0, 100.0]},
+    {"feature": "loan_amnt", "op": "mul", "values": [0.9]}]}
+PORTFOLIO_KILL_AFTER = 37
+#: Rows of the two ``shap_bulk`` chunks at its 4096-row bucket.
+PORTFOLIO_BULK_ROWS = 2 * 4096
+PORTFOLIO_MIN_ATTRIBUTION = 0.8
+
+
+def _chunk_arrays(store: ObjectStore, run_id: str) -> dict[str, dict]:
+    prefix = f"scenario_runs/{run_id}/chunks/"
+    return {k[len(prefix):]: store.load_arrays(k) for k in sorted(store.list(prefix)) if k.endswith(".npz")}
+
+
+def _portfolio_counts(dev: torch.device) -> tuple[int, float, float, dict]:
+    """Kernel launches, the engine's SHAP dispatches and their seconds, and
+    the scoring programs' (dispatches, seconds)."""
+    reg = default_registry()
+    fam = reg.counter("cobalt_portfolio_dispatches_total", "", ("kind",))
+    seconds = reg.histogram("cobalt_portfolio_dispatch_seconds", "", ("kind",))
+    return (fused_score.launches, fam.labels("shap").value, seconds.labels("shap").sum,
+            program_counts(_score_programs(dev)))
+
+
+def _score_programs(dev: torch.device) -> str:
+    """The scoring programs' name prefix: the kernel's on the card, the
+    plain version's on the CPU (which counts no launch)."""
+    return "score_forest/" if dev.type == "cuda" else "score_forest_plain/"
+
+
+def _timed_advance(scorer: PortfolioScorer) -> list[float]:
+    """Wrap the scorer's checkpoint ``advance`` to collect its seconds."""
+    seconds: list[float] = []
+    advance = scorer._ckpt.advance
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return advance(*args, **kwargs)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    scorer._ckpt.advance = timed
+    return seconds
+
+
+def _bucket_vs_plain(pack, X: np.ndarray) -> tuple[dict, tuple]:
+    """One SHAP launch over ``X`` (a full bucket) against the plain version
+    on the card (margins bitwise, phis within ``TOL_PHIS``, additivity), its
+    margins against the margin-only launch's bit for bit; the errors and
+    the plain call's ms (one call, synchronised), and the plain output."""
+    F = pack.n_features
+    Xd = torch.from_numpy(np.ascontiguousarray(X)).to(pack.device)
+    out = fused_score(pack, Xd, n_features=F, with_shap=True)
+    margin_only = fused_score(pack, Xd, n_features=F, with_shap=False)[0]
+    _sync(pack.device)
+    t0 = time.perf_counter()
+    plain = fused_score_reference(pack, Xd, n_features=F, with_shap=True)
+    _sync(pack.device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = compare(out, plain, True)
+    if not torch.equal(out[0], margin_only):
+        raise AssertionError(f"18c: the {X.shape[0]}-row SHAP launch's margins differ from the "
+                             "margin-only launch's")
+    return {**err, "plain_ms": plain_ms}, plain
+
+
+def portfolio_sweep(store: ObjectStore, X: np.ndarray, run_id: str, dev: torch.device, **run) -> dict:
+    """One `PortfolioScorer.from_registry` sweep of ``X`` under the README
+    grid on ``dev``: its report, seconds, launches, dispatches and
+    programs, and the seconds inside the checkpoint's ``advance``."""
+    grid = ScenarioGrid.from_json(PORTFOLIO_GRID)
+    scorer = PortfolioScorer.from_registry(store, chunk_rows=PORTFOLIO_CHUNK, device=dev)
+    advance_s = _timed_advance(scorer)
+    launches0, disp0, disp_s0, progs0 = _portfolio_counts(dev)
+    t0 = time.perf_counter()
+    try:
+        report = scorer.run(X, grid, run_id=run_id, **run)
+    except PortfolioInterrupted as exc:
+        report = {"interrupted": exc.items_done}
+    _sync(dev)
+    wall_s = time.perf_counter() - t0
+    launches1, disp1, disp_s1, progs1 = _portfolio_counts(dev)
+    bucket = f"{_score_programs(dev)}f32/{PORTFOLIO_CHUNK}/shap"
+    programs = program_delta(progs0, progs1)
+    # The sweep's seconds: the chunks' dispatches (upload, launch, copies
+    # back; the kernel's CUDA-event seconds inside them), the checkpoint's
+    # advance, and the rest (the scenario's copy, the npz write, the reduce).
+    out = {"report": report, "wall_s": wall_s, "launches": launches1 - launches0,
+           "dispatches": int(disp1 - disp0), "programs": programs,
+           "dispatch_s": disp_s1 - disp_s0, "kernel_s": programs.get(bucket, (0, 0.0))[1],
+           "advance_s": sum(advance_s), "advances": len(advance_s),
+           "last_advance_s": advance_s[-1] if advance_s else None}
+    if dev.type != "cuda":
+        out["launches"] = out["dispatches"]  # the plain version launches nothing
+    if not (out["launches"] == out["dispatches"] == out["programs"].get(bucket, (0,))[0]
+            and set(out["programs"]) == {bucket}):
+        raise AssertionError(f"18 {run_id}: launches {out['launches']}, dispatches "
+                             f"{out['dispatches']}, programs {out['programs']}")
+    return out
+
+
+def _ledger_value(doc: dict, family: str, kind: str) -> float:
+    """A counter's value (a histogram's sum) at ``kind`` in a run ledger."""
+    for sample in doc["metrics"].get(family, {}).get("samples", []):
+        if sample["labels"].get("kind") == kind:
+            return sample.get("value", sample.get("sum"))
+    return 0.0
+
+
+def portfolio_tool(root: str, n_chunks: int, ledger: str, dev: torch.device) -> dict:
+    """18a: ``tools.score_portfolio`` through ``python -m`` on ``dev``, the
+    uninterrupted sweep of the whole book under the README grid with
+    ``--ledger-out``, then the port's ``tools.obs_report --min-attribution
+    0.8`` on its ledger. Its launches are the ledger's program dispatches
+    (the subprocess's own count), which must equal the engine's dispatches
+    and the chunks."""
+    grid = Path(root) / "grid.json"
+    grid.write_text(json.dumps(PORTFOLIO_GRID))
+    cmd = [sys.executable, "-m", "cobalt_smart_lender_ai_tpu_torch.tools.score_portfolio",
+           "--store", root, "--portfolio", PORTFOLIO_KEY, "--scenarios", str(grid),
+           "--run-id", "whole", "--ledger-out", ledger, "--device", dev.type]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    tool_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"18a: score_portfolio exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    # The report's command line, in this process (a second interpreter would
+    # add its start-up to the phase and test nothing more).
+    stdout, stderr = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+        rc = obs_report.main([ledger, "--min-attribution", str(PORTFOLIO_MIN_ATTRIBUTION)])
+    doc = load_ledger(ledger)
+    attribution = doc["dispatch_attribution"]
+    if rc != 0 or "## Dispatch attribution" not in stdout.getvalue():
+        raise AssertionError(f"18a: obs_report exited {rc} on the ledger "
+                             f"{attribution}:\n{stderr.getvalue()[-2000:]}")
+    programs = {p["name"]: p["dispatches"] for p in doc["programs"]}
+    chunks = summary["chunks_scored"]
+    dispatches = _ledger_value(doc, "cobalt_portfolio_dispatches_total", "shap")
+    if not (programs == {f"{_score_programs(dev)}f32/{PORTFOLIO_CHUNK}/shap": chunks}
+            and chunks == dispatches == 4 * n_chunks):
+        raise AssertionError(f"18a: the ledger's programs {programs}, {dispatches} dispatches, "
+                             f"{chunks} chunks scored of {4 * n_chunks}")
+    programs_s = {p["name"]: p["dispatch_seconds"] for p in doc["programs"]}
+    return {"tool_s": tool_s, "summary": summary, "attribution": attribution,
+            "stages": doc["stages"], "launches": chunks,
+            "dispatch_s": _ledger_value(doc, "cobalt_portfolio_dispatch_seconds", "shap"),
+            "kernel_s": sum(programs_s.values())}
+
+
+def portfolio_phase(card: str, device: str = "cuda", n_loans: int = PORTFOLIO_LOANS,
+                    full_loans: int | None = None, trees: int | None = None) -> dict:
+    """Phase 18: the offline portfolio stress path on the card (see the
+    module docstring). On ``device="cpu"``, a rehearsal (``n_loans`` and
+    the model's ``trees`` cut), the same checks but the launch counts and
+    the times."""
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    out: dict = {"loans": n_loans}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_portfolio_") as root:
+        store = ObjectStore(root)
+        t0 = time.perf_counter()
+        out["rows"] = build_synthetic_portfolio(store, PORTFOLIO_KEY, n_loans, PORTFOLIO_SEED, dev,
+                                                today=TODAY)
+        X, meta = load_portfolio(store, PORTFOLIO_KEY, schema.SERVING_FEATURES)
+        if X.shape != (out["rows"], len(schema.SERVING_FEATURES)):
+            raise AssertionError(f"18: the book reads back as {X.shape}")
+        sketch = FeatureSketch.from_data(X, schema.SERVING_FEATURES, bins=10)
+        art = GBDTArtifact.load(ObjectStore(str(STORE)), MODEL_KEY, dev)
+        if trees is not None:
+            art = _cut(art, trees)
+        mv = ModelRegistry(store).publish("gbdt", art, channel="latest", provenance={
+            "dataset": f"synthetic_lendingclub_frame(rows={n_loans}, seed={PORTFOLIO_SEED})",
+            "feature_sketch": sketch.to_json()})
+        out["book_s"] = time.perf_counter() - t0
+        steps = out["steps_s"] = {"book": out["book_s"]}
+        print(f"portfolio book (18): {n_loans} loans -> {out['rows']} rows after cleaning in "
+              f"{out['book_s']:.1f}s [{card}]", flush=True)
+        # (a) the uninterrupted sweep: the tool through python -m, and
+        # obs_report's attribution gate on its ledger.
+        n_chunks = math.ceil(out["rows"] / PORTFOLIO_CHUNK)
+        t0 = time.perf_counter()
+        tool = out["tool"] = portfolio_tool(root, n_chunks, str(Path(root) / "ledger.json"), dev)
+        report = store.get_json(tool["summary"]["report_key"])
+        if report["n_chunks"] != n_chunks or report["resume"]["chunks_scored"] != 4 * n_chunks:
+            raise AssertionError(f"18a: {report['resume']} for {n_chunks} chunks x 4")
+        if not all(np.isfinite(store.load_array(k)).all() for k in report["keys"]["scores"].values()):
+            raise AssertionError("18a: non-finite scores")
+        out["sweep"] = {"tool_s": tool["tool_s"], "launches": tool["launches"],
+                        "dispatch_s": tool["dispatch_s"], "kernel_s": tool["kernel_s"],
+                        "attribution": tool["attribution"]["ratio"], "stages": tool["stages"],
+                        "rows_per_s": report["telemetry"]["rows_per_second"]}
+        out["report"] = {
+            "n_chunks": n_chunks, "padded_rows": report["padded_rows"],
+            "baseline_mean_pd": report["baseline"]["mean_pd"], "band_counts": report["baseline"]["band_counts"],
+            "scenarios": [{"id": b["id"], "mean_pd": b["mean_pd"], "downgraded": b["migration"]["downgraded"],
+                           "ood": b["drift"]["ood_features"], "top": b["shap_top"][0]["feature"]}
+                          for b in report["scenarios"]]}
+        print(f"portfolio sweep (18a, the tool): {json.dumps(out['sweep'])} {json.dumps(out['report'])} "
+              f"[{card}]", flush=True)
+        steps["sweep"] = time.perf_counter() - t0
+        # (b) killed after 37 chunks and resumed in this process, the
+        # launches counted from 0: every chunk bitwise the tool's run's.
+        t0 = time.perf_counter()
+        fused_score.launches = 0
+        killed = portfolio_sweep(store, X, "kill", dev, fail_after_chunks=PORTFOLIO_KILL_AFTER)
+        resumed = portfolio_sweep(store, X, "kill", dev, resume=True)
+        if (killed["report"] != {"interrupted": PORTFOLIO_KILL_AFTER}
+                or resumed["report"]["resume"]["chunks_resumed"] != PORTFOLIO_KILL_AFTER
+                or killed["launches"] + resumed["launches"] != 4 * n_chunks):
+            raise AssertionError(f"18b: killed {killed['report']}, resumed {resumed['report']['resume']}")
+        a, b = _chunk_arrays(store, "whole"), _chunk_arrays(store, "kill")
+        if list(a) != list(b) or len(a) != 4 * n_chunks:
+            raise AssertionError("18b: the resumed run's chunks are not the whole run's")
+        for key in a:
+            for name in ("scores", "phi_sum", "base", "n"):
+                if not np.array_equal(a[key][name], b[key][name]):
+                    raise AssertionError(f"18b: {key} {name} differs after the resume")
+        swept = killed["launches"] + resumed["launches"]
+        # The wrapper's count read after 18b (the plain version counts none).
+        out["launches"] = fused_score.launches if dev.type == "cuda" else swept
+        if out["launches"] != swept:
+            raise AssertionError(f"18b: {out['launches']} launches, the sweeps' {swept}")
+        out["resume"] = {"killed_launches": killed["launches"], "resumed_launches": resumed["launches"],
+                         "wall_s": killed["wall_s"] + resumed["wall_s"],
+                         "dispatch_s": killed["dispatch_s"] + resumed["dispatch_s"],
+                         "kernel_s": killed["kernel_s"] + resumed["kernel_s"],
+                         "advance_s": killed["advance_s"] + resumed["advance_s"],
+                         "last_advance_s": resumed["last_advance_s"], "bitwise": True}
+        print(f"portfolio kill and resume (18b): {json.dumps(out['resume'])} [{card}]", flush=True)
+        steps["kill_resume"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # (c) two chunks of each bucket against the plain version, on the card.
+        scorer_pack = pack_forest(art.forest, len(schema.SERVING_FEATURES))
+        n = PORTFOLIO_CHUNK
+        checks = [_bucket_vs_plain(scorer_pack, X[i * n:(i + 1) * n])[0] for i in (0, n_chunks - 2)]
+        service = ScorerService.from_store(store, ServeConfig(model_key=mv.key, microbatch_enabled=False),
+                                           device=dev)
+        try:
+            rows = X[:PORTFOLIO_BULK_ROWS]
+            prefix = _score_programs(dev)
+            launches0, progs0 = fused_score.launches, program_counts(prefix)
+            phis, base = service.shap_bulk(rows)
+            _sync(dev)
+            bulk_programs = program_delta(progs0, program_counts(prefix))
+            bulk_dispatches = bulk_programs.get(f"{prefix}f32/4096/shap", (0,))[0]
+            out["shap_bulk_launches"] = fused_score.launches - launches0 if dev.type == "cuda" else bulk_dispatches
+            if out["shap_bulk_launches"] != 2 or bulk_dispatches != 2:
+                raise AssertionError(f"18c: shap_bulk made {out['shap_bulk_launches']} launches {bulk_programs}")
+            pack = service._model.pack
+            bulk_checks = []
+            for lo in (0, 4096):
+                rec, ref = _bucket_vs_plain(pack, rows[lo:lo + 4096])
+                bulk_checks.append(rec)
+                err = float(np.abs(phis[lo:lo + 4096] - ref[2].cpu().numpy()).max())
+                if err > TOL_PHIS or abs(base - float(ref[3])) > TOL_PHIS:
+                    raise AssertionError(f"18c: shap_bulk's phis differ from the plain version's by {err}")
+                bulk_checks[-1]["shap_bulk_phis"] = err
+        finally:
+            service.close()
+        out["buckets"] = {}
+        for bucket, recs in ((2048, checks), (4096, bulk_checks)):
+            Xb = torch.from_numpy(np.ascontiguousarray(X[:bucket])).to(dev)
+            ms = None
+            if dev.type == "cuda":
+                ms = time_ms(lambda: fused_score(scorer_pack, Xb, n_features=Xb.shape[1], with_shap=True), 10)
+            bound, by = bound_ms(scorer_pack, bucket, True)
+            out["buckets"][bucket] = {
+                "ms": ms, "bound_ms": bound, "bound_by": by, "ms_over_bound": ms and ms / bound,
+                "plain_ms": min(r["plain_ms"] for r in recs),
+                "phis": max(r["phis"] for r in recs), "prob": max(r["prob"] for r in recs),
+                "additivity": max(r["additivity"] for r in recs)}
+            print(f"kernel score_forest bucket={bucket} shap=True (18c, portfolio) "
+                  f"{json.dumps(out['buckets'][bucket])} [{card}]", flush=True)
+        steps["checks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if full_loans:
+            out["full_book"] = portfolio_full_book(card, full_loans, dev)
+    steps["rest"] = time.perf_counter() - t0  # 18e and removing the store
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"portfolio steps (18, s): {json.dumps(steps)} [{card}]", flush=True)
+    return out
+
+
+def portfolio_full_book(card: str, n_loans: int, dev: torch.device) -> dict:
+    """``--only-portfolio``'s sweep at the raw table's scale: the book, the
+    README grid, its seconds, rows per second and the seconds inside the
+    checkpoint's ``advance`` (the manifest is rewritten whole after every
+    chunk)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_portfolio_full_") as root:
+        store = ObjectStore(root)
+        t0 = time.perf_counter()
+        rows = build_synthetic_portfolio(store, PORTFOLIO_KEY, n_loans, PORTFOLIO_SEED, dev, today=TODAY)
+        X, _ = load_portfolio(store, PORTFOLIO_KEY, schema.SERVING_FEATURES)
+        art = GBDTArtifact.load(ObjectStore(str(STORE)), MODEL_KEY, dev)
+        ModelRegistry(store).publish("gbdt", art, channel="latest", provenance={
+            "feature_sketch": FeatureSketch.from_data(X, schema.SERVING_FEATURES, bins=10).to_json()})
+        book_s = time.perf_counter() - t0
+        sweep = portfolio_sweep(store, X, "full", dev)
+        report = sweep["report"]
+        manifest = store.get_bytes("checkpoints/portfolio/full.json")
+        out = {"loans": n_loans, "rows": rows, "book_s": book_s, "n_chunks": report["n_chunks"],
+               "launches": sweep["launches"], "wall_s": sweep["wall_s"],
+               "rows_per_s": 4 * rows / sweep["wall_s"], "dispatch_s": sweep["dispatch_s"],
+               "kernel_s": sweep["kernel_s"], "advance_s": sweep["advance_s"],
+               "advances": sweep["advances"], "last_advance_s": sweep["last_advance_s"],
+               "manifest_bytes": len(manifest), "stages": report["stages"]}
+    print(f"portfolio full book (18e): {json.dumps(out)} [{card}]", flush=True)
+    return out
+
+
 def print_scoring_split(card: str) -> None:
     for precision in ("f32", *QUANTIZED):
         for r in scoring_split("cuda", precision):
@@ -4757,6 +5131,12 @@ def main() -> int:
         action="store_true",
         help="run phase 17 (the challenger model families) only, FT-Transformer at its "
         "config's epochs; print no ok line",
+    )
+    mode.add_argument(
+        "--only-portfolio",
+        action="store_true",
+        help="build, then run phase 18 (the portfolio stress path) and its sweep of the full "
+        "book (2.3M loans); print no ok line",
     )
     mode.add_argument(
         "--full-protocol",
@@ -4806,6 +5186,13 @@ def main() -> int:
         print(f"autoscaler phase (16): {autoscaler['phase_s']:.1f}s, {autoscaler['launches']} launches, "
               f"{autoscaler['resizes']} resizes [{card}]")
         print(f"chip_smoke --only-autoscaler: {time.perf_counter() - t_start:.1f}s [{card}]")
+        return 0
+
+    if args.only_portfolio:
+        portfolio = portfolio_phase(card, full_loans=PORTFOLIO_FULL_LOANS)
+        print(f"portfolio phase (18): {portfolio['phase_s']:.1f}s, {portfolio['launches']} launches "
+              f"[{card}]")
+        print(f"chip_smoke --only-portfolio: {time.perf_counter() - t_start:.1f}s [{card}]")
         return 0
 
     if args.full_protocol:
@@ -4891,6 +5278,10 @@ def main() -> int:
     print(f"autoscaler phase (16): {autoscaler['phase_s']:.1f}s, {autoscaler['launches']} launches, "
           f"{autoscaler['resizes']} resizes [{card}]")
     challengers = challenger_phase(card, ft_epochs=CHALLENGER_FT_EPOCHS)
+    portfolio = portfolio_phase(card)
+    print(f"portfolio phase (18): {portfolio['phase_s']:.1f}s, {portfolio['launches']} launches, "
+          f"{portfolio['rows']} rows x 4 passes at {portfolio['sweep']['rows_per_s']:.0f} rows/s "
+          f"[{card}]")
     print_scoring_split(card)
 
     main_rec = next(r for r in records if r["bucket"] == 64)
@@ -4912,9 +5303,15 @@ def main() -> int:
             "lifecycle_launches": lifecycle["launches"]["score_forest"],
             "fleet_launches": fleet["launches"],
             "autoscaler_launches": autoscaler["launches"],
+            "portfolio_launches": portfolio["launches"],
+            "portfolio_tool_launches": portfolio["tool"]["launches"],
+            "shap_bulk_launches": portfolio["shap_bulk_launches"],
+            "portfolio_ms": {str(b): r["ms"] for b, r in portfolio["buckets"].items()},
+            "portfolio_bound_ms": {str(b): r["bound_ms"] for b, r in portfolio["buckets"].items()},
             "max_abs_err": max(
                 [max(r.get("prob", 0.0), r.get("phis", 0.0)) for r in records + quantized_records]
                 + list(fleet["errors"].values()) + list(autoscaler["errors"].values())
+                + [max(r["prob"], r["phis"]) for r in portfolio["buckets"].values()]
                 + [lifecycle["shadow"]["prob_max_abs_err"], lifecycle["shadow"]["margin_max_abs_err"],
                    raw["serve"]["prob_max_abs_err"], raw["degraded"]["prob_max_abs_err"],
                    protocol["predict_raw"]["prob_max_abs_err"],
@@ -4952,7 +5349,8 @@ def main() -> int:
         },
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all, phase 17 (challengers) "
-          f"{challengers['phase_s']:.1f}s of it [{card}]")
+          f"{challengers['phase_s']:.1f}s and phase 18 (portfolio) {portfolio['phase_s']:.1f}s "
+          f"of it [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

@@ -32,15 +32,21 @@
 //   thread per (row, leaf) keeps its prefix / suffix coefficients in
 //   registers (the depth is a template parameter, so every loop unrolls),
 //   contracts them with the bilinear form Wt held in constant memory, and
-//   adds its contributions into a shared (rows, F) f32 accumulator of this
-//   tree. The 32 lanes of a warp are consecutive leaves of one row, so at
-//   the top levels they all share a path node, and shared atomics on its
-//   feature would serialise: lanes that share the node first sum their
-//   contributions with warp shuffles, and one of them adds the sum with a
-//   shared atomic (d >= 5). The tree's sums are then folded into the
-//   block's (rows, F) f64 totals in tree order: phis reach |8| on the
-//   serving model, where 300 f32 adds into one running total lose up to
-//   ~3e-5. The block writes its totals to phi_part[group] (f64).
+//   adds its contributions into the block's shared (rows, F) totals. The
+//   32 lanes of a warp are consecutive leaves of one row, so at the top
+//   levels they all share a path node, and shared atomics on its feature
+//   would serialise: lanes that share the node first sum their
+//   contributions with warp shuffles (a fixed tree of adds), and one of
+//   them adds the sum with a shared atomic (d >= 5). The totals are fixed
+//   point, int64 in units of 2^-40 (each addend rounded once to that grid;
+//   ops/score.py::shap_fits refuses a forest whose phis could reach 2^22,
+//   half the range): integer atomics give the same sum
+//   in any order, so the phis are the same bits from launch to launch,
+//   which a resumed portfolio sweep needs (f32 atomics from several warps
+//   added in arrival order, and two launches' phis differed in the last
+//   bits), and nothing is lost to a long running f32 sum (phis reach |8|
+//   on the serving model). The block writes its totals to phi_part[group]
+//   (f64).
 //
 // The grid spreads the trees over blocks, so no block may sum a margin: a
 // sum of per-group partial margins would add in another order than the
@@ -49,8 +55,9 @@
 // finalize kernel sums them per row in tree order starting at 0.0f, with
 // plain f32 adds: the same sequence of adds as the reference's `lax.scan`,
 // so margins are bit-identical to it. The sigmoid is 1 / (1 + expf(-m)). The
-// finalize sums each row's phi_part in group order and casts to f32 once;
-// only the shared atomics inside one tree add in no fixed order.
+// finalize sums each row's phi_part in group order and casts to f32 once.
+// Every sum is in a fixed order or in integers: margins and phis are the
+// same bits on every launch.
 //
 // Precisions. A forest is stored at f32, bf16 or int8 (ops/score.py::
 // pack_forest, as the reference packs it): thresholds and leaf values in
@@ -306,12 +313,20 @@ static __device__ __forceinline__ void dequantize_tree(
 // Shared-memory layout of shap_kernel, in bytes (ops/score.py mirrors it in
 // `shap_smem_bytes` for its shape guard): two trees (double-buffered, each
 // the f32 image and at bf16 and int8 the raw stored values), the (rows, F)
-// f64 totals, the row tile, this tree's (rows, F) f32 sums and the tile's
-// node decisions.
+// int64 fixed-point totals, the row tile and the tile's node decisions.
 static size_t shap_smem_bytes(int depth, int n_features, int rows, int precision) {
   const size_t RF = (size_t)rows * n_features;
   const int tree_words = tree_layout(depth, PREC_F32).words + raw_words(depth, precision);
-  return 8 * (size_t)tree_words + 16 * RF + (size_t)rows * ((1 << depth) - 1);
+  return 8 * (size_t)tree_words + 12 * RF + (size_t)rows * ((1 << depth) - 1);
+}
+
+// The SHAP totals are int64 in units of 2^-40: an addend is rounded to the
+// grid once, then added exactly.
+#define PHI_FIXED_SCALE 0x1p40f
+#define PHI_FIXED_UNIT 0x1p-40
+
+static __device__ __forceinline__ void add_phi(unsigned long long* dst, float v) {
+  atomicAdd(dst, (unsigned long long)__float2ll_rn(v * PHI_FIXED_SCALE));
 }
 
 // Up to depth 7 the compiler is held to four blocks an SM (64 registers a
@@ -337,10 +352,10 @@ __global__ void __launch_bounds__(MAX_SHAP_THREADS, D <= 7 ? 4 : 1)
 
   extern __shared__ __align__(16) unsigned char smem[];
   int* s_tab = reinterpret_cast<int*>(smem);                          // 2 trees
-  double* s_phi = reinterpret_cast<double*>(s_tab + 2 * tree_words);  // R*F, group
+  unsigned long long* s_phi =
+      reinterpret_cast<unsigned long long*>(s_tab + 2 * tree_words);  // R*F, group
   float* s_x = reinterpret_cast<float*>(s_phi + R * nf);              // R*F
-  float* s_tphi = s_x + R * nf;                                       // R*F, tree
-  unsigned char* s_gl = reinterpret_cast<unsigned char*>(s_tphi + R * nf);  // R*I
+  unsigned char* s_gl = reinterpret_cast<unsigned char*>(s_x + R * nf);  // R*I
 
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -352,14 +367,13 @@ __global__ void __launch_bounds__(MAX_SHAP_THREADS, D <= 7 ? 4 : 1)
   stage_tree(s_tab, tables + (size_t)t0 * q.words, lay, q, precision);
   for (int k = tid; k < R * nf; k += nt) {
     s_x[k] = (k / nf) < rows ? x[(size_t)row0 * nf + k] : 0.0f;
-    s_phi[k] = 0.0;
-    s_tphi[k] = 0.0f;
+    s_phi[k] = 0ull;
   }
 
   for (int i = 0; i < n_local; ++i) {
     int* tab = s_tab + (i & 1) * tree_words;
     // The other buffer held tree i-1, which every thread is done with (the
-    // barrier before the last fold): fetch tree i+1 into it, then wait for
+    // barrier that ended tree i-1): fetch tree i+1 into it, then wait for
     // tree i only.
     if (i + 1 < n_local) {
       stage_tree(s_tab + ((i + 1) & 1) * tree_words,
@@ -441,7 +455,7 @@ __global__ void __launch_bounds__(MAX_SHAP_THREADS, D <= 7 ? 4 : 1)
 #pragma unroll
       for (int c = 1; c <= D; ++c) P[c] = 0.0f;
       const float lv = s_leaf[l];
-      float* phi_r = s_tphi + r * nf;
+      unsigned long long* phi_r = s_phi + r * nf;
 #pragma unroll
       for (int j = 0; j < D; ++j) {
         float psi = 0.0f;
@@ -462,25 +476,21 @@ __global__ void __launch_bounds__(MAX_SHAP_THREADS, D <= 7 ? 4 : 1)
 #pragma unroll
           for (int o = 1; o < 32; o <<= 1)
             if (o < run) v += __shfl_xor_sync(0xffffffffu, v, o);
-          if ((l & (run - 1)) == 0 && v != 0.0f) atomicAdd(phi_r + s_pf[l * D + j], v);
+          if ((l & (run - 1)) == 0 && v != 0.0f) add_phi(phi_r + s_pf[l * D + j], v);
         } else {
-          if (contrib != 0.0f) atomicAdd(phi_r + s_pf[l * D + j], contrib);
+          if (contrib != 0.0f) add_phi(phi_r + s_pf[l * D + j], contrib);
         }
 #pragma unroll
         for (int c = D; c > 0; --c) P[c] = rp[j] * P[c] + z[j] * P[c - 1];
         P[0] = rp[j] * P[0];
       }
     }
-    // Fold this tree's attributions into the group's totals, in tree order.
+    // Every thread is done with tree i (its record and node decisions).
     __syncthreads();
-    for (int k = tid; k < rows * nf; k += nt) {
-      s_phi[k] += (double)s_tphi[k];
-      s_tphi[k] = 0.0f;
-    }
   }
-  // Each thread writes the totals it folded itself: no barrier needed.
+  // The last barrier also ordered every atomic before these reads.
   double* out = phi_part + ((size_t)blockIdx.y * n_rows + row0) * nf;
-  for (int k = tid; k < rows * nf; k += nt) out[k] = s_phi[k];
+  for (int k = tid; k < rows * nf; k += nt) out[k] = (double)(long long)s_phi[k] * PHI_FIXED_UNIT;
 }
 
 // ---- finalize: per row, trees (and groups) in order --------------------------
@@ -632,6 +642,33 @@ int score_forest_set_wt(int device, const float* wt_all) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaMemcpyToSymbol(c_wt, wt_all, sizeof(c_wt));
+}
+
+// Load every kernel of the library on `device` now: a lazily loaded module
+// loads a kernel at its first launch, which would then hold that load.
+int score_forest_prepare(int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+#define LOAD(kernel)                                                           \
+  err = cudaFuncGetAttributes(&attr, kernel);                                  \
+  if (err != cudaSuccess) return (int)err;
+  LOAD(walk_kernel<PREC_F32>)
+  LOAD(walk_kernel<PREC_BF16>)
+  LOAD(walk_kernel<PREC_INT8>)
+  LOAD(shap_kernel<1>)
+  LOAD(shap_kernel<2>)
+  LOAD(shap_kernel<3>)
+  LOAD(shap_kernel<4>)
+  LOAD(shap_kernel<5>)
+  LOAD(shap_kernel<6>)
+  LOAD(shap_kernel<7>)
+  LOAD(shap_kernel<8>)
+  LOAD(shap_kernel<9>)
+  LOAD(shap_kernel<10>)
+  LOAD(score_finalize_kernel)
+#undef LOAD
+  return 0;
 }
 
 const char* score_forest_error_string(int err) {

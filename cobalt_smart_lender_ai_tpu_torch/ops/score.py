@@ -65,6 +65,7 @@ __all__ = [
     "probe_rows",
     "quantization_report",
     "score_cost",
+    "shap_fits",
     "shap_flops",
     "shap_smem_bytes",
     "shap_supported",
@@ -148,6 +149,9 @@ class ForestPack:
     thr_affine: torch.Tensor  # (2, F) float32: thr_scale over thr_zero, for the kernel
     depth: int
     n_features: int
+    #: max |leaf| of the f32 leaves (NaN if one is NaN), read by `shap_fits`
+    #: without a copy from the device.
+    leaf_peak: float
     precision: str = "f32"
     #: md5 of the quantized tensors and tables, as the reference computes
     #: it; the string "f32" for an f32 pack.
@@ -322,7 +326,9 @@ def pack_forest(
     table_hash = q.pop("table_hash")
     q["all_left"] = torch.isposinf(thr32)
     # Dequantized on the host too, so a pack scores alike on every device.
-    thr, leaf = (t.to(device) for t in dequantize(precision, feature_h, **q))
+    thr, leaf = dequantize(precision, feature_h, **q)
+    leaf_peak = float(leaf.abs().max()) if leaf.numel() else 0.0
+    thr, leaf = thr.to(device), leaf.to(device)
     stored = {k: v.to(device) for k, v in q.items()}
     pf, slot, r_play, ratio = leaf_tables(feature, forest.cover, forest.depth)
     parts = dict(
@@ -342,6 +348,7 @@ def pack_forest(
         thr_affine=torch.cat([stored["thr_scale"], stored["thr_zero"]]).contiguous(),
         depth=int(forest.depth),
         n_features=int(n_features),
+        leaf_peak=leaf_peak,
         precision=precision,
         table_hash=table_hash,
     )
@@ -472,15 +479,15 @@ def shap_smem_bytes(depth: int, n_features: int, rows: int, precision: str = "f3
     """Dynamic shared memory of one SHAP block (``score_forest.cu`` computes
     the same sum for its launch): two trees (double-buffered), each an image
     of its f32 record and, for a bf16 or int8 pack, its stored thresholds,
-    leaves, ``all_left`` bytes and leaf affine beside it; the (rows, F) f64
-    totals of the block's tree group, the row tile, this tree's (rows, F)
-    f32 sums, and the tile's node decisions."""
+    leaves, ``all_left`` bytes and leaf affine beside it; the (rows, F)
+    int64 fixed-point totals of the block's tree group, the row tile, and
+    the tile's node decisions."""
     raw = 0
     if precision != "f32":
         q = tree_table_layout(depth, precision)[0]
         raw = sum(_round_up(q[k][1], 4) for k in ("thr_q", "leaf_q", "all_left", "leaf_affine"))
     image = tree_table_layout(depth)[1]
-    return 8 * (image + raw) + 16 * rows * n_features + rows * (2**depth - 1)
+    return 8 * (image + raw) + 12 * rows * n_features + rows * (2**depth - 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -563,6 +570,23 @@ def shap_supported(depth: int, n_features: int, precision: str = "f32") -> bool:
     return fused_supported(depth) and (
         shap_smem_bytes(depth, n_features, MAX_ROWS_PER_BLOCK, precision) <= SMEM_LIMIT
     )
+
+
+#: The SHAP kernel's totals are int64 in units of 2^-40, so they hold
+#: magnitudes under 2^23; `shap_fits` keeps a forest's phis under half that.
+SHAP_FIXED_LIMIT = 2.0**22
+
+
+def shap_fits(pack: ForestPack) -> bool:
+    """Whether the SHAP kernel's fixed-point totals hold this forest's phis.
+
+    One tree's phi for a feature, and every partial sum of its addends, is
+    at most 2 max|leaf| in magnitude (the Shapley weights sum to 1, and the
+    leaf probabilities of two coalitions differ by at most 2 in total), so a
+    block's totals stay under 2 max|leaf| T. A forest whose bound reaches
+    `SHAP_FIXED_LIMIT`, or with a non-finite leaf, would wrap or saturate
+    them into finite garbage; it is refused."""
+    return 2.0 * pack.leaf_peak * pack.n_trees < SHAP_FIXED_LIMIT  # False at NaN
 
 
 def fused_score_reference(
@@ -675,13 +699,24 @@ def _library(device_index: int) -> ctypes.CDLL:
                         )
             lib.score_forest_set_wt.argtypes = [i, p]
             lib.score_forest_set_wt.restype = i
+            lib.score_forest_prepare.argtypes = [i]
+            lib.score_forest_prepare.restype = i
             lib.score_forest_error_string.argtypes = [i]
             lib.score_forest_error_string.restype = ctypes.c_char_p
             wt = wt_table()
             err = lib.score_forest_set_wt(device_index, wt.ctypes.data)
             _check(lib, err, "uploading the Shapley table")
+            _check(lib, lib.score_forest_prepare(device_index), "loading the kernels")
             _WT_DEVICES.add(device_index)
     return lib
+
+
+def prepare_kernel(device: torch.device) -> None:
+    """Build (at first use) and load the kernel library for a CUDA
+    ``device``, load its kernels and upload its Shapley table, so that no
+    launch of a caller holds the build or a load; a no-op on the CPU."""
+    if device.type == "cuda":
+        _library(device.index if device.index is not None else torch.cuda.current_device())
 
 
 def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -738,6 +773,12 @@ def fused_score(
         raise ValueError(
             f"score_forest's SHAP path does not take depth {pack.depth} with "
             f"{n_features} features: its shared memory would not fit"
+        )
+    if with_shap and not shap_fits(pack):
+        raise ValueError(
+            "score_forest's SHAP path does not take this forest: a non-finite "
+            f"leaf, or 2 max|leaf| x {pack.n_trees} trees reaches "
+            f"{SHAP_FIXED_LIMIT:g}, the range of its fixed-point totals"
         )
     # The outputs are views of one allocation, and so are the two scratches.
     out = torch.empty(N * (2 + (n_features if with_shap else 0)), dtype=torch.float32, device=X.device)

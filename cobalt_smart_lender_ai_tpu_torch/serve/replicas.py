@@ -763,6 +763,10 @@ class ReplicaSet:
         with self._routed() as (_i, rep):
             return rep.predict_proba(X, deadline=deadline)
 
+    def shap_bulk(self, X: np.ndarray, deadline=None):
+        with self._routed() as (_i, rep):
+            return rep.shap_bulk(X, deadline=deadline)
+
     # -- observability hooks the HTTP server calls ------------------------------------
 
     def observe_request(

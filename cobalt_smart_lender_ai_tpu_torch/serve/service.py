@@ -7,7 +7,9 @@ methods returning JSON-shaped dicts; `serve.http_asyncio` is the HTTP shell.
 Every scoring call is ONE launch of the fused scoring kernel
 (`ops.score.fused_score`): concurrent ``/predict`` callers are coalesced by
 the `MicroBatcher` into a power-of-two row bucket scored with SHAP, and
-``/predict_bulk_csv`` chunks its rows into buckets scored without. On
+``/predict_bulk_csv`` chunks its rows into buckets scored without;
+`ScorerService.shap_bulk`, the offline batch-explain entry point, chunks
+them the same way into buckets scored with SHAP. On
 ``device="cuda"`` the kernel runs or the request fails; only an explicit
 ``device="cpu"`` runs the plain PyTorch versions.
 
@@ -91,6 +93,7 @@ from cobalt_smart_lender_ai_tpu_torch.ops.score import (
     fused_score,
     fused_supported,
     pack_forest,
+    shap_fits,
     shap_supported,
 )
 from cobalt_smart_lender_ai_tpu_torch.reliability.admission import admission_from_config
@@ -260,11 +263,15 @@ class _CompiledModel:
             raise ValueError(f"the scoring kernel does not take depth {depth}")
         self.pack = pack_forest(forest, self.n_features, config.forest_precision, check=True)
         self.shap_error: str | None = None
+        err = None
         if not shap_supported(depth, self.n_features, self.pack.precision):
             err = (
                 f"the SHAP kernel does not take depth {depth} with "
                 f"{self.n_features} features"
             )
+        elif not shap_fits(self.pack):
+            err = "the SHAP kernel's fixed-point totals do not hold this forest's phis"
+        if err is not None:
             if not config.degrade_shap:
                 raise ValueError(err)
             self.shap_error = err
@@ -344,22 +351,13 @@ class _CompiledModel:
             error = f"{type(exc).__name__}: {exc}"
         return self.score(batch, with_shap=False)[0], None, None, error
 
-    def predict_proba(
-        self,
-        X: np.ndarray,
-        deadline: Deadline | None = None,
-        observe: Callable[[int, float], None] | None = None,
-    ) -> np.ndarray:
-        """P(default) for an (N, F) float array: chunks of ``max_batch_rows``
-        rows, each zero-padded to its power-of-two bucket and scored by one
-        margin-only launch. The deadline is checked before each chunk;
-        ``observe(rows, seconds)`` gets each chunk's rows and seconds, the
-        scores on the host."""
-        X = np.asarray(X, dtype=np.float32)
+    def _bulk_chunks(self, X: np.ndarray, deadline: Deadline | None):
+        """The bulk path's chunking: yield ``(start, n, chunk)`` for chunks
+        of ``max_batch_rows`` rows, the last zero-padded to its power-of-two
+        bucket, with the deadline (when given) checked before each chunk,
+        the cooperative cancellation point between launches."""
         N = X.shape[0]
-        out = np.empty((N,), dtype=np.float32)
         step = self.config.max_batch_rows
-        scratch: np.ndarray | None = None
         for start in range(0, N, step):
             if deadline is not None:
                 deadline.check(f"bulk scoring, row {start}/{N}")
@@ -367,17 +365,49 @@ class _CompiledModel:
             n = chunk.shape[0]
             bucket = self.bucket_of(n)
             if n < bucket:
-                if scratch is None:
-                    scratch = np.zeros((bucket, X.shape[1]), np.float32)
-                padded = scratch[:bucket]
-                padded[:n] = chunk
-                padded[n:] = 0.0
-                chunk = padded
+                chunk = np.concatenate([chunk, np.zeros((bucket - n, X.shape[1]), np.float32)])
+            yield start, n, chunk
+
+    def predict_proba(
+        self,
+        X: np.ndarray,
+        deadline: Deadline | None = None,
+        observe: Callable[[int, float], None] | None = None,
+    ) -> np.ndarray:
+        """P(default) for an (N, F) float array: one margin-only launch per
+        `_bulk_chunks` chunk. ``observe(rows, seconds)`` gets each chunk's
+        rows and seconds, the scores on the host."""
+        X = np.asarray(X, dtype=np.float32)
+        out = np.empty((X.shape[0],), dtype=np.float32)
+        for start, n, chunk in self._bulk_chunks(X, deadline):
             t0 = time.perf_counter()
             out[start : start + n] = self.score(chunk, with_shap=False)[0][:n]
             if observe is not None:
                 observe(n, time.perf_counter() - t0)
         return out
+
+    def shap_bulk(
+        self,
+        X: np.ndarray,
+        deadline: Deadline | None = None,
+        observe: Callable[[int, float], None] | None = None,
+    ) -> tuple[np.ndarray, float] | None:
+        """Bulk SHAP: ``((N, F) contributions, base_value)``, or None while
+        SHAP is degraded (no partial attributions). One SHAP launch per
+        `_bulk_chunks` chunk through `score`, on the model's stream;
+        ``observe`` as in `predict_proba`."""
+        if self.shap_fn is None:
+            return None
+        X = np.asarray(X, dtype=np.float32)
+        phis = np.empty((X.shape[0], self.n_features), dtype=np.float32)
+        base = 0.0
+        for start, n, chunk in self._bulk_chunks(X, deadline):
+            t0 = time.perf_counter()
+            _, chunk_phis, base = self.score(chunk, with_shap=True)
+            phis[start : start + n] = chunk_phis[:n]
+            if observe is not None:
+                observe(n, time.perf_counter() - t0)
+        return phis, base
 
 
 class MicroBatcher:
@@ -1610,6 +1640,16 @@ class ScorerService:
         X = np.asarray(X, dtype=np.float32)
         with default_tracer().span("serve.bulk_score", rows=int(X.shape[0])):
             return self._model.predict_proba(X, deadline, self._observe_bulk_dispatch)
+
+    def shap_bulk(
+        self, X: np.ndarray, deadline: Deadline | None = None
+    ) -> tuple[np.ndarray, float] | None:
+        """Bulk SHAP contributions ``((N, F) phis, base)``, or None while
+        SHAP is degraded: the offline batch-explain entry point. Each
+        chunk's launch feeds the ``cobalt_bulk_*`` families."""
+        X = np.asarray(X, dtype=np.float32)
+        with default_tracer().span("serve.bulk_shap", rows=int(X.shape[0])):
+            return self._model.shap_bulk(X, deadline, self._observe_bulk_dispatch)
 
     def predict_bulk_csv(self, csv_bytes: bytes, *, deadline: Deadline | None = None) -> dict:
         """``POST /predict_bulk_csv``: CSV in, records with an appended

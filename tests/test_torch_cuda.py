@@ -10,8 +10,10 @@ Tolerances of ``score_forest``: margins bit-identical (both sum the landed
 leaf values one f32 add per tree, in tree order; the kernel's finalize pass
 does so after its walk spread the trees over blocks), also across two calls;
 prob within 1e-6 (two sigmoid implementations); phis within 1e-5 (the
-kernel adds a tree's contributions with atomics in no fixed order), and
-``base + sum(phis)`` within 1e-4 of the margin. The cases cover what the
+kernel adds a tree's contributions in another order than the plain
+version, in int64 fixed point), and ``base + sum(phis)`` within 1e-4 of
+the margin; and the phis of repeated launches are the same bits (a
+resumed portfolio sweep needs them to be). The cases cover what the
 grid of (row tile x tree group) can get wrong: forests whose last tree
 group is not full, depths 1 to 10, ragged row tiles, an all-NaN row and a
 zero-padded bucket. The bf16 and int8 packs are held to the same
@@ -63,7 +65,13 @@ margins those of the rows launched alone. Of the challengers: the MLP,
 FT-Transformer and TabNet with one set of weights give the CPU's logits on
 the card (1e-4), and 3 full-batch epochs from them the CPU's losses (1e-5
 relative) and weights (1e-4; the attentive layers, FT's key bias and
-TabNet's attn.*, within lr per update).
+TabNet's attn.*, within lr per update). Of the portfolio stress path: the
+2048- and 4096-row SHAP launches (a portfolio chunk, a ``shap_bulk``
+chunk) equal the plain version as above, and their margins the margin-only
+launch's bit for bit; a sweep on the card is one SHAP launch per chunk,
+its scores the CPU engine's bit for bit, and killed and resumed it gives
+every chunk's arrays bit for bit; ``shap_bulk`` on the card is one SHAP
+launch per chunk, its phis the plain version's within 1e-5.
 """
 
 from __future__ import annotations
@@ -1283,3 +1291,120 @@ def test_challenger_matches_the_cpu_on_card(card, family):
         attentive = k.endswith("attn.key.bias") or (family == "tabnet" and k.startswith("attn."))
         tol = settings.learning_rate * 3 if attentive else 1e-4
         assert float((a.cpu() - b).abs().max()) <= tol, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", *QUANTIZED])
+@pytest.mark.parametrize("rows", [1, 64, 2048])
+def test_shap_phis_are_the_same_bits_on_every_launch_on_card(card_pack, card_quantized_packs,
+                                                              rows, precision):
+    """Five SHAP launches over the same rows give the same phis bit for bit
+    (a tree's contributions are summed in integers, so the order in which
+    the warps' atomics land does not matter)."""
+    pack, _, F = card_pack
+    if precision != "f32":
+        pack = card_quantized_packs[precision][0]
+    X = torch.from_numpy(_rows(pack, rows, seed=rows + 7)).cuda()
+    first = fused_score(pack, X, n_features=F, with_shap=True)
+    for _ in range(4):
+        again = fused_score(pack, X, n_features=F, with_shap=True)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[2], first[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [2048, 4096])
+def test_portfolio_shap_buckets_match_plain_on_card(card_pack, rows):
+    """The portfolio's 2048-row and bulk SHAP's 4096-row SHAP launches: the
+    plain version's margins bit for bit (on the card and on the CPU), prob
+    within 1e-6, phis within 1e-5, additivity within 1e-4; and the SHAP
+    launch's margins equal the margin-only launch's bit for bit (the engine
+    takes its scores from the SHAP launch's margins)."""
+    pack, cpu_pack, F = card_pack
+    Xn = _rows(pack, rows, seed=rows + 1)
+    _assert_kernel_matches_plain(pack, cpu_pack, Xn, with_shap=True)
+    X = torch.from_numpy(Xn).cuda()
+    shap_margin = fused_score(pack, X, n_features=F, with_shap=True)[0]
+    assert torch.equal(shap_margin, fused_score(pack, X, n_features=F, with_shap=False)[0])
+
+
+@pytest.mark.cuda
+def test_portfolio_sweep_on_card_is_one_shap_launch_per_chunk(card_pack, fresh_programs, tmp_path):
+    """A sweep of the committed model on the card: one SHAP launch per
+    chunk on ``score_forest/f32/2048/shap``, scores bitwise the CPU engine's
+    margin-only sweep (the same margins, the same host sigmoid), each
+    chunk's ``phi_sum`` within 1e-5 per row of the plain version's on the
+    card; killed after 2 chunks and resumed, every chunk's arrays the
+    uninterrupted run's bit for bit."""
+    from cobalt_smart_lender_ai_tpu_torch.scenario import (
+        PortfolioInterrupted,
+        PortfolioScorer,
+        ScenarioGrid,
+        feature_delta,
+    )
+
+    pack, _, _ = card_pack
+    store = ObjectStore(str(tmp_path))
+    art = GBDTArtifact.load(ObjectStore(str(ROOT / "artifacts")), "models/gbdt/model_tree", "cuda")
+    X = _rows(pack, 5000, seed=29)
+    grid = ScenarioGrid([feature_delta("installment", [25.0, 100.0])])
+
+    def chunks(report):
+        prefix = f"scenario_runs/{report['run_id']}/chunks/"
+        return {k[len(prefix):]: store.load_arrays(k) for k in sorted(store.list(prefix))
+                if k.endswith(".npz")}
+
+    before = fused_score.launches
+    card = PortfolioScorer(art, store, device="cuda").run(X, grid, run_id="card")
+    torch.cuda.synchronize()
+    assert fused_score.launches - before == 3 * 3
+    table = {r["name"]: r["dispatches"] for r in fresh_programs.table()}
+    assert table == {"score_forest/f32/2048/shap": 9}
+    cpu_art = GBDTArtifact.load(ObjectStore(str(ROOT / "artifacts")), "models/gbdt/model_tree", "cpu")
+    cpu = PortfolioScorer(cpu_art, store, device="cpu", compute_shap=False).run(X, grid, run_id="cpu")
+    got, want = chunks(card), chunks(cpu)
+    assert list(got) == list(want)
+    for key in got:
+        assert np.array_equal(got[key]["scores"], want[key]["scores"]), key
+    for si, scenario in enumerate([None, *grid.expand()]):
+        for ci in range(3):
+            rows = X[ci * 2048:(ci + 1) * 2048]
+            rows = rows if scenario is None else scenario.apply(rows, art.feature_names)
+            phis = fused_score_reference(pack, torch.from_numpy(rows).cuda(), n_features=pack.n_features)[2]
+            want_sum = phis.double().sum(0).cpu().numpy()
+            assert np.abs(got[f"s{si:03d}_c{ci:05d}.npz"]["phi_sum"] - want_sum).max() <= TOL_SHAP * len(rows)
+    with pytest.raises(PortfolioInterrupted):
+        PortfolioScorer(art, store, device="cuda").run(X, grid, run_id="kill", fail_after_chunks=2)
+    resumed = PortfolioScorer(art, store, device="cuda").run(X, grid, run_id="kill", resume=True)
+    assert resumed["resume"]["chunks_resumed"] == 2
+    again = chunks(resumed)
+    for key in got:
+        for name in ("scores", "phi_sum", "base"):
+            assert np.array_equal(got[key][name], again[key][name]), (key, name)
+
+
+@pytest.mark.cuda
+def test_shap_bulk_on_card_matches_plain(card_pack, fresh_programs):
+    """`ScorerService.shap_bulk` on the card: one SHAP launch per chunk (a
+    4096-row bucket and the tail's 1024), each chunk's phis within 1e-5 of
+    the plain version's on the same card rows."""
+    pack, _, F = card_pack
+    service = ScorerService.from_store(
+        ObjectStore(str(ROOT / "artifacts")), ServeConfig(microbatch_enabled=False), device="cuda")
+    try:
+        X = _rows(pack, 5000, seed=31)
+        torch.cuda.synchronize()
+        fresh_programs.reset()
+        before = fused_score.launches
+        phis, base = service.shap_bulk(X)
+        torch.cuda.synchronize()
+        assert fused_score.launches - before == 2
+        table = {r["name"]: r["dispatches"] for r in fresh_programs.table()}
+        assert table == {"score_forest/f32/4096/shap": 1, "score_forest/f32/1024/shap": 1}
+        model_pack = service._model.pack
+        for lo, hi in ((0, 4096), (4096, 5000)):
+            ref = fused_score_reference(model_pack, torch.from_numpy(X[lo:hi]).cuda(), n_features=F)
+            assert float(np.abs(phis[lo:hi] - ref[2].cpu().numpy()).max()) <= TOL_SHAP
+            assert abs(base - float(ref[3])) <= TOL_SHAP
+    finally:
+        service.close()

@@ -4,12 +4,14 @@
   optax) nor anything of the JAX package (``cobalt_smart_lender_ai_tpu``),
   nor pandas or msgpack (the card's machine has neither); importing the
   port's serving stack, its data layer, its training protocol, its
-  telemetry or its challenger models in a fresh interpreter leaves
+  telemetry, its challenger models or its portfolio path in a fresh
+  interpreter leaves
   ``jax``, ``flax``, ``msgpack`` and ``pandas`` unloaded.
 - Its entry points run on the CUDA device unless the caller asks for the
   CPU: with CUDA unavailable, the default-device service constructors
   (``--canary`` and ``--replicas`` serving included), the retrain CLI, the
-  challenger models and `MLPArtifact.from_bytes`,
+  challenger models and `MLPArtifact.from_bytes`, the portfolio scorer
+  (`PortfolioScorer`, ``from_registry`` and ``tools.score_portfolio``),
   `GBDTClassifier`, `split_mask`, `GBDTArtifact.load`/``from_bytes``,
   `rfe_select`, `randomized_search`, `run_pipeline` and the serving and
   training CLIs, and the host path's `engineer_features`, raise instead of
@@ -138,6 +140,28 @@ def test_importing_the_challengers_leaves_jax_msgpack_and_pandas_unloaded():
     modules = ("models", "models.train_loop", "models.nn", "models.linear", "models.ft_transformer",
                "models.tabnet", "io.flax_msgpack", "debug", "convert", "tools.retrain")
     assert _loaded_after_import(modules) == "[]"
+
+
+def test_importing_the_portfolio_path_leaves_jax_and_pandas_unloaded():
+    modules = ("scenario", "scenario.grid", "scenario.report", "scenario.engine",
+               "tools.score_portfolio", "tools.obs_report", "serve.service", "serve.replicas")
+    assert _loaded_after_import(modules) == "[]"
+
+
+def test_portfolio_scoring_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
+    from cobalt_smart_lender_ai_tpu_torch.scenario import PortfolioScorer
+    from cobalt_smart_lender_ai_tpu_torch.tools import score_portfolio
+
+    store = ObjectStore(str(ROOT / "artifacts"))
+    art = GBDTArtifact.load(store, "models/gbdt/model_tree", device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        PortfolioScorer(art, ObjectStore(str(tmp_path)))
+    with pytest.raises(RuntimeError, match="cuda"):
+        PortfolioScorer.from_registry(ObjectStore(str(tmp_path)))
+    assert score_portfolio.parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        score_portfolio.main(["--store", str(ROOT / "artifacts"), "--model-key", "models/gbdt/model_tree"])
+    assert PortfolioScorer(art, ObjectStore(str(tmp_path)), device="cpu").kernel == "plain"
 
 
 def test_importing_the_telemetry_leaves_jax_and_pandas_unloaded():
@@ -286,7 +310,9 @@ def test_new_port_modules_are_checked():
             "io/model_registry.py", "serve/canary.py", "tools/__init__.py",
             "tools/retrain.py", "tools/registry_gc.py", "reliability/chaos.py",
             "serve/supervisor.py", "serve/autoscaler.py", "serve/replicas.py",
-            "telemetry/aggregate.py", "telemetry/timeseries.py", "reliability/traffic.py"} <= names
+            "telemetry/aggregate.py", "telemetry/timeseries.py", "reliability/traffic.py",
+            "scenario/__init__.py", "scenario/grid.py", "scenario/report.py", "scenario/engine.py",
+            "tools/score_portfolio.py", "tools/obs_report.py"} <= names
 
 
 def test_no_port_module_imports_pandas():

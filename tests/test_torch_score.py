@@ -22,6 +22,7 @@ own tests run it. The CUDA kernel itself is held to the plain version in
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import jax
@@ -54,6 +55,8 @@ from cobalt_smart_lender_ai_tpu_torch.ops.score import (
     fused_supported,
     launch_plan,
     pack_forest,
+    SHAP_FIXED_LIMIT,
+    shap_fits,
     shap_smem_bytes,
     shap_supported,
     tree_table_layout,
@@ -293,6 +296,28 @@ def test_shape_guards():
     assert not shap_supported(MAX_DEPTH + 1, 20)
     # The serving tile fits easily: well under the 48 KB static limit.
     assert shap_smem_bytes(7, 20, 1) < 48 * 1024
+
+
+def test_shap_fits_refuses_forests_outside_the_fixed_point_range(committed):
+    """The SHAP kernel sums phis as int64 in units of 2^-40: a forest whose
+    phis could reach `SHAP_FIXED_LIMIT`, or with a non-finite leaf, is
+    refused rather than wrapped into finite garbage."""
+    _, forest, F = committed
+    assert shap_fits(pack_forest(forest, F))
+    peak = float(forest.leaf_value.abs().max())
+    T = forest.leaf_value.shape[0]
+    edge = SHAP_FIXED_LIMIT / (2.0 * peak * T)  # scales 2 max|leaf| T to the limit
+
+    def scaled(factor: float, nan: bool = False):
+        leaf = forest.leaf_value * factor
+        if nan:
+            leaf = leaf.clone()
+            leaf[0, 0] = float("nan")
+        return pack_forest(dataclasses.replace(forest, leaf_value=leaf), F)
+
+    assert shap_fits(scaled(edge * 0.99))
+    assert not shap_fits(scaled(edge * 1.01))
+    assert not shap_fits(scaled(1.0, nan=True))
 
 
 @pytest.mark.parametrize("with_shap", [True, False], ids=["shap", "margin"])

@@ -27,6 +27,7 @@ same bad limits and phases with the same 422 bodies; ``/debug/*`` and
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import threading
 import urllib.error
@@ -46,11 +47,12 @@ from cobalt_smart_lender_ai_tpu.models.gbdt import GBDTClassifier
 from cobalt_smart_lender_ai_tpu.serve.service import ScorerService as JaxScorerService
 from cobalt_smart_lender_ai_tpu_torch.config import ServeConfig
 from cobalt_smart_lender_ai_tpu_torch.data import schema
-from cobalt_smart_lender_ai_tpu_torch.io import ObjectStore
+from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models.gbdt import predict_margin
 from cobalt_smart_lender_ai_tpu_torch.reliability import Deadline, DeadlineExceeded
 from cobalt_smart_lender_ai_tpu_torch.serve.http_asyncio import make_async_server
-from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService
+from cobalt_smart_lender_ai_tpu_torch.ops.score import SHAP_FIXED_LIMIT
+from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService, _CompiledModel
 
 TOL_PROB = 1e-6
 TOL_SHAP = 1e-5
@@ -375,6 +377,23 @@ def test_failing_margin_launch_still_fails(store_root, monkeypatch, microbatch):
         server.close()
         svc.close()
     assert status == 500
+
+
+def test_forest_outside_the_shap_range_degrades(store_root):
+    """A forest whose phis would overflow the SHAP kernel's fixed-point
+    totals serves probabilities with SHAP degraded, or is refused when
+    degrading is off."""
+    art = GBDTArtifact.load(ObjectStore(store_root), KEY, "cpu")
+    leaf = art.forest.leaf_value
+    factor = SHAP_FIXED_LIMIT / (2.0 * float(leaf.abs().max()) * leaf.shape[0])
+    big = dataclasses.replace(
+        art, forest=dataclasses.replace(art.forest, leaf_value=leaf * (2.0 * factor))
+    )
+    model = _CompiledModel(big, ServeConfig(), torch.device("cpu"))
+    assert model.shap_fn is None and "fixed-point" in model.shap_error
+    with pytest.raises(ValueError, match="fixed-point"):
+        _CompiledModel(big, ServeConfig(degrade_shap=False), torch.device("cpu"))
+    assert _CompiledModel(art, ServeConfig(), torch.device("cpu")).shap_error is None
 
 
 def _canonical(payload: dict) -> dict:
