@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only-autoscaler # build, then phase 16
     python3 chip_smoke.py --only-challengers # phase 17 (no kernel to build)
     python3 chip_smoke.py --only-portfolio # build, then phase 18 and the full book
+    python3 chip_smoke.py --only-search    # build, then 5b's joint launches and the bucket's jobs
     python3 chip_smoke.py --full-protocol  # build, then phase 8b at the defaults
 
 Phases, each of which must pass:
@@ -41,7 +42,18 @@ Phases, each of which must pass:
       and h of each node within 1e-5 of that node's largest |value| in the
       channel, two launches bit-equal, and at level 6 subtracted the rows in
       a random order bit-equal; active rows, kernel, plain, library (three
-      ``torch.bincount``) and bound times per shape;
+      ``torch.bincount``) and bound times per shape; then the search's job
+      axis at the protocol's largest bucket: the 15 (candidate, fold) jobs
+      of the reference-default search's depth-9, 100-tree bucket (5
+      candidates x 3 folds, each fold at weight 0) on the same rows, the
+      first tree's joint launches (``gradient_histogram_jobs``) at level 0
+      direct, levels 4 and 8 sibling-subtracted and level 8 direct, each
+      bit-equal to 15 single launches and to itself twice, its cover
+      bit-equal to the plain version and g and h of each (job, node) within
+      1e-5 of its largest |value|; active (job, row) pairs, the joint
+      launch's, the 15 single launches', plain, library (one weighted
+      ``torch.bincount`` per channel over (job, node, feature, bin) keys) and
+      bound times per shape;
    c. ``GBDTClassifier.fit`` through the kernel (the main path): wall time,
       one launch per tree level, held-out AUC; a second fit of the level
       loop on the same bins, with CUDA events around each histogram launch,
@@ -101,8 +113,10 @@ Phases, each of which must pass:
       nn tables written as CSV and a manifest per stage (the seconds and
       bytes of the tables are printed), the halving report (rungs, chunk,
       survivors), seconds and histogram launches of each stage (each
-      launch count as the stage's fits make them: one per tree level, a
-      halving job's trees in whole chunks up to its last rung), the
+      launch count as the stage's fits make them: one per tree level of a
+      fit, of an RFE refit, and of a search bucket's jobs together, which
+      boost in whole chunks up to the last rung of its candidate boosted
+      furthest), the
       selected features, every candidate's mean CV AUC, the best params, CV
       and held-out AUC and peak card memory; ``metrics.json`` with the
       reference's keys, the artifact reloaded bit for bit, and 16 raw rows
@@ -136,8 +150,10 @@ Phases, each of which must pass:
        split scores bitwise the exhaustive run's, the halving run bitwise
        8b's search, its chunk and rungs those the cost model and ladder
        give at this row count (26 and 75/150/300 at ~1.8M rows); wall
-       seconds and launches of both, and the histogram's device ms per
-       level over the first chunk of a rung's job (CUDA events);
+       seconds, launches (one per tree level of a bucket's jobs together)
+       and joint launches of both, and the histogram's device ms per
+       level over the first chunk of the winner's bucket, its jobs in one
+       joint launch a level (CUDA events);
     b. `run_pipeline(raw=None, resume=True)` on 8b's store: ``clean``,
        ``engineer``, ``rfe`` and ``search`` restored, the refit's forest
        and held-out AUC bitwise 8b's; then, after
@@ -446,6 +462,15 @@ then runs phase 18 and its full-book sweep (18e), and prints neither. ``--full-p
 reference's default `RFEConfig` (104 -> 20 features at step 1, 84 refits of
 50 trees) and `TuneConfig` (20 candidates x 3 folds, every candidate to its
 full ``n_estimators``) on a new 2.3M-loan frame, and prints neither line.
+``--only-search`` builds, then runs 5b's joint launches and the search
+bucket's check (the short loop for work on the job axis), and prints
+neither: the reference-default (9, 100) bucket's 15 jobs on phase 5's
+1.84M training rows, boosted for `SEARCH_CHUNKS` chunks of
+`SEARCH_CHUNK_TREES` trees (cut from 100 for time) with their margins
+carried, once jointly (one `fit_binned_jobs` call a chunk: one launch per
+tree level for all 15) and once job by job (`fit_binned_resumable`: one
+launch per tree level per job); each job's margins and forest chunks
+bitwise equal; the seconds and launches of both.
 """
 
 from __future__ import annotations
@@ -538,6 +563,8 @@ from cobalt_smart_lender_ai_tpu_torch.ops.binning import compute_bin_edges, tran
 from cobalt_smart_lender_ai_tpu_torch.ops.histogram import _program as histogram_program
 from cobalt_smart_lender_ai_tpu_torch.ops.histogram import (
     gradient_histogram_channels,
+    gradient_histogram_jobs,
+    gradient_histogram_jobs_reference,
     gradient_histogram_reference,
     histogram_cost,
 )
@@ -1242,17 +1269,19 @@ def histogram_line(r: dict, card: str) -> str:
 
 
 class TimedHistogram:
-    """The kernel's wrapper with CUDA events around each call, to sum the
-    device time inside the histogram launches of a fit."""
+    """A histogram op (the kernel's wrapper, one fit's or the joint one)
+    with CUDA events around each call, to sum the device time inside the
+    histogram launches of a fit."""
 
-    def __init__(self):
+    def __init__(self, op=gradient_histogram_channels):
+        self.op = op
         self.events: list[tuple[torch.cuda.Event, torch.cuda.Event]] = []
 
     def __call__(self, *args, **kw):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = gradient_histogram_channels(*args, **kw)
+        out = self.op(*args, **kw)
         end.record()
         self.events.append((start, end))
         return out
@@ -1355,6 +1384,243 @@ def same_tree(a: gbdt.Forest, b: gbdt.Forest, t: int, bins: torch.Tensor) -> dic
     return out
 
 
+# -- the search's job axis (5b's joint launches, --only-search) ------------------
+
+#: The reference-default search's bucket of depth 9 and 100 trees: 5
+#: candidates (of `TuneConfig`'s 20 draws, seed 22) x 3 folds, 15 jobs, the
+#: protocol's largest.
+JOBS_BUCKET = (9, 100)
+#: Levels of the bucket's first tree whose joint launches 5b checks (level 0
+#: direct, then sibling-subtracted), and the level checked direct too.
+JOBS_LEVELS, JOBS_DIRECT_LEVEL = (0, 4, 8), 8
+#: --only-search: chunks boosted, and trees a chunk (cut from the bucket's
+#: 100 trees for time).
+SEARCH_CHUNKS, SEARCH_CHUNK_TREES = 4, 5
+
+
+def bucket_jobs(y: torch.Tensor, base: GBDTConfig, tune: TuneConfig | None = None) -> dict:
+    """The (candidate, fold) jobs of the reference-default search's
+    `JOBS_BUCKET` over rows labelled ``y``, as `randomized_search` makes
+    them: each job's hyperparameters, seed (``fold_in(seed, cand * K +
+    fold)``) and training weight (its fold at 0)."""
+    tune = tune or TuneConfig()
+    cands = sample_candidates(tune.param_space, tune.n_iter, tune.seed)
+    cfgs = [base.replace(**c) for c in cands]
+    idxs = next(b for b in search_buckets(cands, base)
+                if (cfgs[b[0]].max_depth, cfgs[b[0]].n_estimators) == JOBS_BUCKET)
+    K = tune.cv_folds
+    val = torch.from_numpy(stratified_kfold_masks(y.cpu().numpy(), K, tune.seed)).to(y.device)
+    jobs = [(c, k) for c in idxs for k in range(K)]
+    return {
+        "candidates": idxs,
+        "hps": [gbdt.GBDTHyperparams.from_config(cfgs[c]) for c, _ in jobs],
+        "seeds": [gbdt.fold_in(tune.seed, c * K + k) for c, k in jobs],
+        "weights": (1.0 - val.float()[[k for _, k in jobs]]).contiguous(),
+        "depth": JOBS_BUCKET[0],
+    }
+
+
+def first_tree_job_calls(bins, y, jobs: dict, n_bins: int) -> list[dict]:
+    """The joint histogram calls of the bucket's first tree at
+    `JOBS_LEVELS` (sibling-subtracted, the search's path) and at
+    `JOBS_DIRECT_LEVEL` direct, each with its inputs as `fit_binned_jobs`
+    makes them."""
+
+    def recorder(into: list[dict], levels):
+        level = iter(range(jobs["depth"]))
+
+        def record(b, node, g, h, w, *, n_nodes, n_bins):
+            lvl = next(level)
+            if lvl in levels:
+                into.append(dict(node=node.clone(), g=g.clone(), h=h.clone(), w=w.clone(),
+                                 K=n_nodes, level=lvl))
+            return gradient_histogram_jobs(b, node, g, h, w, n_nodes=n_nodes, n_bins=n_bins)
+
+        return record
+
+    F = bins.shape[1]
+    args = (bins, y, jobs["weights"], torch.ones(F, dtype=torch.bool, device=bins.device),
+            jobs["hps"], jobs["seeds"])
+    kw = dict(n_trees_cap=1, depth_cap=jobs["depth"], n_bins=n_bins)
+    subtracted: list[dict] = []
+    direct: list[dict] = []
+    gbdt.fit_binned_jobs(*args, hist_subtract=True, histogram=recorder(subtracted, JOBS_LEVELS), **kw)
+    gbdt.fit_binned_jobs(*args, hist_subtract=False, histogram=recorder(direct, (JOBS_DIRECT_LEVEL,)),
+                         **kw)
+    J = len(jobs["hps"])
+    for c in subtracted:
+        c["label"] = f"jobs J={J} level {c['level']} " + ("direct" if c["level"] == 0 else "subtracted")
+    for c in direct:
+        c["label"] = f"jobs J={J} level {c['level']} direct"
+    return subtracted + direct
+
+
+def library_jobs_histogram(bins, node, g, h, w, n_nodes: int, n_bins: int):
+    """One weighted ``torch.bincount`` per channel over the joint (job,
+    node, feature, bin) index of J jobs, built here too (the yardstick of a
+    joint launch). Timed only; the port never calls it."""
+    J, N = node.shape
+    F = bins.shape[1]
+    jobs = torch.arange(J, device=bins.device)[:, None] * n_nodes
+    feat = torch.arange(F, device=bins.device)
+    seg = (((jobs + node.long())[:, :, None] * F + feat) * n_bins + bins.long()[None]).reshape(-1)
+    return [
+        torch.bincount(seg, weights=v[:, :, None].expand(J, N, F).reshape(-1),
+                       minlength=J * n_nodes * F * n_bins)
+        for v in (g, h, w)
+    ]
+
+
+def single_launches(bins, node, g, h, w, n_nodes: int, n_bins: int) -> torch.Tensor:
+    """``(3, J, K, F, B)``: one single-job launch per job, stacked."""
+    return torch.stack([
+        torch.stack(gradient_histogram_channels(bins, node[j], g[j], h[j], w[j], n_nodes=n_nodes,
+                                                n_bins=n_bins))
+        for j in range(node.shape[0])
+    ], dim=1)
+
+
+def jobs_histogram_phase(bins: torch.Tensor, calls: list[dict], n_bins: int) -> list[dict]:
+    """The joint launch at each recorded call: bit-equal to itself twice and
+    to the J single launches; its cover bit-equal to the plain version and
+    g and h of each (job, node) within `TOL_HIST` of its largest |value|;
+    then the active (job, row) pairs, the rows active in any job, and the
+    joint, single, plain, library and bound times. Returns one record per
+    call."""
+    records = []
+    for c in calls:
+        args = (bins, c["node"], c["g"], c["h"], c["w"])
+        kw = dict(n_nodes=c["K"], n_bins=n_bins)
+        J, N = c["node"].shape
+        got = torch.stack(gradient_histogram_jobs(*args, **kw))
+        again = torch.stack(gradient_histogram_jobs(*args, **kw))
+        singles = single_launches(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{c['label']}: two joint launches differ")
+        if not torch.equal(got, singles):
+            raise AssertionError(f"{c['label']}: the joint launch differs from {J} single launches")
+        del again, singles
+        ref = gradient_histogram_jobs_reference(*args, **kw)
+        if not torch.equal(got[2], ref[2]):
+            raise AssertionError(f"{c['label']}: cover differs from the plain version")
+        rec = {"shape": c["label"], "J": J, "K": c["K"], "max_abs_err": 0.0, "max_rel_err": 0.0,
+               "equal_to_single_launches": True}
+        for ch in (0, 1):
+            err = (got[ch] - ref[ch]).abs().amax(dim=(2, 3))
+            scale = ref[ch].abs().amax(dim=(2, 3))
+            bad = err > TOL_HIST * scale
+            if bool(bad.any()):
+                j, k = (int(i) for i in bad.nonzero()[0])
+                raise AssertionError(f"{c['label']}: channel {ch} of job {j} node {k} off by "
+                                     f"{float(err[j, k])} (scale {float(scale[j, k])})")
+            rel = torch.where(scale > 0, err / scale, torch.zeros_like(err))
+            rec["max_abs_err"] = max(rec["max_abs_err"], float(err.max()))
+            rec["max_rel_err"] = max(rec["max_rel_err"], float(rel.max()))
+        rec["bit_equal"] = torch.equal(got, ref)
+        del got, ref
+        inside = (c["node"] >= 0) & (c["node"] < c["K"])
+        live = inside & ((c["g"] != 0) | (c["h"] != 0) | (c["w"] != 0))
+        # Active (job, row) pairs, and the rows active in any job: the
+        # jobs share the bins, which the function needs once a row.
+        active, bin_rows = int(live.sum()), int(live.any(dim=0).sum())
+        del live
+        rec["active_rows"], rec["bin_rows"] = active, bin_rows
+        rec["ms"] = time_ms(lambda: gradient_histogram_jobs(*args, **kw), 10)
+        rec["singles_ms"] = time_ms(lambda: single_launches(*args, **kw), 3, warmup=1)
+        rec["plain_ms"] = time_ms(lambda: gradient_histogram_jobs_reference(*args, **kw), 2, warmup=1)
+        rec["library_ms"] = time_ms(lambda: library_jobs_histogram(*args, **kw), 2, warmup=1)
+        rec["bound_ms"], rec["bound_by"] = _bound(*histogram_cost(
+            N, bins.shape[1], c["K"], n_bins, bins.element_size(), active, n_jobs=J,
+            bin_rows=bin_rows))
+        records.append(rec)
+    return records
+
+
+def jobs_histogram_line(r: dict, card: str) -> str:
+    """One printed line of a `jobs_histogram_phase` record."""
+    return (f"kernel gradient_histogram {r['shape']} (K={r['K']}) active_rows={r['active_rows']} "
+            f"bin_rows={r['bin_rows']} ms={r['ms']:.6f} singles_ms={r['singles_ms']:.6f} plain_ms={r['plain_ms']:.6f} "
+            f"library_ms={r['library_ms']:.6f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+            f"max_abs_err={r['max_abs_err']:.3g} max_rel_err={r['max_rel_err']:.3g} "
+            f"equal_to_single_launches={r['equal_to_single_launches']} [{card}]")
+
+
+def job_axis_checks(card: str, bins: torch.Tensor, y: torch.Tensor, n_bins: int) -> tuple[list[dict], dict]:
+    """5b's joint launches on phase 5's training rows: the bucket's jobs,
+    their first tree's calls, and `jobs_histogram_phase`. Returns the
+    records and the jobs."""
+    base = GBDTConfig(scale_pos_weight=TRAIN_CONFIG["scale_pos_weight"])
+    jobs = bucket_jobs(y, base)
+    calls = first_tree_job_calls(bins, y, jobs, n_bins)
+    records = jobs_histogram_phase(bins, calls, n_bins)
+    del calls
+    for r in records:
+        print(jobs_histogram_line(r, card))
+    return records, jobs
+
+
+def search_phase(card: str, bins: torch.Tensor, y: torch.Tensor, jobs: dict, n_bins: int) -> dict:
+    """``--only-search``: the bucket's jobs for `SEARCH_CHUNKS` chunks of
+    `SEARCH_CHUNK_TREES` trees, margins carried, jointly and job by job:
+    margins and forest chunks bitwise equal; seconds and launches of
+    each."""
+    dev = bins.device
+    N, F = bins.shape
+    J, depth = len(jobs["hps"]), jobs["depth"]
+    fm = torch.ones(F, dtype=torch.bool, device=dev)
+    kw = dict(n_trees_cap=SEARCH_CHUNK_TREES, depth_cap=depth, n_bins=n_bins)
+    out: dict = {"jobs": J, "candidates": jobs["candidates"], "rows": N, "depth": depth,
+                 "chunks": SEARCH_CHUNKS, "chunk_trees": SEARCH_CHUNK_TREES}
+    offsets = [c * SEARCH_CHUNK_TREES for c in range(SEARCH_CHUNKS)]
+
+    gradient_histogram_channels.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    margins = torch.zeros((J, N), dtype=torch.float32, device=dev)
+    joint = []
+    for off in offsets:
+        forests, margins = gbdt.fit_binned_jobs(
+            bins, y, jobs["weights"], fm, jobs["hps"], jobs["seeds"], init_margin=margins,
+            tree_offset=off, **kw)
+        joint.append(forests)
+    torch.cuda.synchronize()
+    out["joint_s"] = time.perf_counter() - t0
+    out["joint_launches"] = gradient_histogram_channels.launches
+
+    gradient_histogram_channels.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    per_job = []
+    for j in range(J):
+        margin = torch.zeros(N, dtype=torch.float32, device=dev)
+        chunks = []
+        for off in offsets:
+            forest, margin = gbdt.fit_binned_resumable(
+                bins, y, jobs["weights"][j], fm, jobs["hps"][j], jobs["seeds"][j],
+                init_margin=margin, tree_offset=off, **kw)
+            chunks.append(forest)
+        per_job.append((chunks, margin))
+    torch.cuda.synchronize()
+    out["per_job_s"] = time.perf_counter() - t0
+    out["per_job_launches"] = gradient_histogram_channels.launches
+
+    levels = SEARCH_CHUNKS * SEARCH_CHUNK_TREES * depth
+    if (out["joint_launches"], out["per_job_launches"]) != (levels, J * levels):
+        raise AssertionError(f"launches {out['joint_launches']} joint, {out['per_job_launches']} "
+                             f"job by job; expected {levels} and {J * levels}")
+    for j, (chunks, margin) in enumerate(per_job):
+        if not torch.equal(margin, margins[j]):
+            raise AssertionError(f"job {j}: the joint run's margins differ from its own fit's")
+        for c, forest in enumerate(chunks):
+            if not same_forest(forest, joint[c][j]):
+                raise AssertionError(f"job {j}: chunk {c}'s forest differs from its own fit's")
+    out["bitwise_equal"] = True
+    out["speedup"] = out["per_job_s"] / out["joint_s"]
+    print(f"search bucket (--only-search): {json.dumps(out)} [{card}]")
+    return out
+
+
 def training_phase(card: str) -> tuple[list[dict], dict]:
     """Phase 5; returns (histogram records per shape, fit/serve summary)."""
     dev = torch.device("cuda")
@@ -1378,6 +1644,7 @@ def training_phase(card: str) -> tuple[list[dict], dict]:
     del calls
     for r in records:
         print(histogram_line(r, card))
+    summary["job_axis"], _ = job_axis_checks(card, bins, y_train, cfg.n_bins)
 
     # The main path: the user's entry point, GBDTClassifier.fit (binning
     # included) through the kernel; counts from 0 just before.
@@ -1758,19 +2025,24 @@ def protocol_card_vs_cpu(device: str = "cuda", n_rows: int = PROTOCOL_CHECK_ROWS
 
 def search_launches(base: GBDTConfig, tune: TuneConfig, search) -> int:
     """Histogram launches of `randomized_search`: one per tree level of
-    every tree each CV job boosted, then of the refit. Under halving a job
-    boosts whole chunks up to its last rung's budget (capped at its
-    ``n_estimators``): ``min(chunk * ceil(scored_at / chunk), n_estimators)``
-    trees, from the report's ``scored_at_trees`` and its depth's chunk."""
+    every tree a bucket's (candidate, fold) jobs boosted together (one
+    joint launch for all of them), then of the refit. Under halving a
+    candidate's jobs boost whole chunks up to its last rung's budget (capped
+    at its ``n_estimators``), ``min(chunk * ceil(scored_at / chunk),
+    n_estimators)`` trees from the report's ``scored_at_trees`` and its
+    depth's chunk, and a bucket launches for its candidate boosted
+    furthest."""
     report = search.cv_results_.get("halving")
+    cands = search.cv_results_["params"]
     total = 0
-    for c, cand in enumerate(search.cv_results_["params"]):
-        g = base.replace(**cand)
+    for idxs in search_buckets(cands, base):
+        g = base.replace(**cands[idxs[0]])
         trees = g.n_estimators
         if report is not None:
             chunk = report["chunk_trees"][g.max_depth]
-            trees = min(chunk * math.ceil(report["scored_at_trees"][c] / chunk), g.n_estimators)
-        total += tune.cv_folds * trees * g.max_depth
+            trees = max(min(chunk * math.ceil(report["scored_at_trees"][c] / chunk), g.n_estimators)
+                        for c in idxs)
+        total += trees * g.max_depth
     best = base.replace(**search.best_params_)
     return total + best.n_estimators * best.max_depth
 
@@ -1838,6 +2110,8 @@ def protocol_phase(
     res = run_pipeline(cfg, raw=frame, store=store, device=dev, today=TODAY)
     out["run_pipeline_s"] = time.perf_counter() - t0
     obs["hist_programs"] = program_delta(hist_before, program_counts("gradient_histogram/"))
+    out["joint_launches"] = sum(n for k, (n, _) in obs["hist_programs"].items()
+                                if k.startswith("gradient_histogram/J"))
     hist_launches = gradient_histogram_channels.launches
     if dev.type == "cuda":
         out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -1980,12 +2254,15 @@ def halving_phase(card: str, train_rows: tuple, cfg: PipelineConfig, res: Pipeli
     for mode, halving in (("halving", True), ("exhaustive", False)):
         tune = dataclasses.replace(cfg.tune, halving_enabled=halving)
         gradient_histogram_channels.launches = 0
+        joint_before = program_counts("gradient_histogram/J")
         _sync(dev)
         t0 = time.perf_counter()
         runs[mode] = randomized_search(X, y, base, tune, device=dev)
         _sync(dev)
         out[f"{mode}_s"] = time.perf_counter() - t0
         out[f"{mode}_launches"] = gradient_histogram_channels.launches
+        out[f"{mode}_joint_launches"] = sum(
+            n for n, _ in program_delta(joint_before, program_counts("gradient_histogram/J")).values())
         expect = search_launches(base, tune, runs[mode])
         if dev.type == "cuda" and out[f"{mode}_launches"] != expect:
             raise AssertionError(f"{mode} search: {out[f'{mode}_launches']} launches, expected {expect}")
@@ -2028,27 +2305,33 @@ def halving_phase(card: str, train_rows: tuple, cfg: PipelineConfig, res: Pipeli
 
 def rung_histogram(X, y, y_cpu, base: GBDTConfig, tune: TuneConfig, best: int, chunk_of: dict) -> dict:
     """The histogram inside a halving rung: the first chunk of candidate
-    ``best``'s fold-0 job, with CUDA events around each launch; device ms
-    per launch at each level."""
+    ``best``'s bucket, all its (candidate, fold) jobs in one joint launch a
+    level (the search's path), with CUDA events around each launch; device
+    ms per launch at each level."""
     dev = X.device
     F = X.shape[1]
     K = tune.cv_folds
-    hp = gbdt.GBDTHyperparams.from_config(base.replace(**sample_candidates(
-        tune.param_space, tune.n_iter, tune.seed)[best]))
+    cands = sample_candidates(tune.param_space, tune.n_iter, tune.seed)
+    idxs = next(b for b in search_buckets(cands, base) if best in b)
+    jobs = [(c, k) for c in idxs for k in range(K)]
+    hps = [gbdt.GBDTHyperparams.from_config(base.replace(**cands[c])) for c, _ in jobs]
     bins = transform(compute_bin_edges(X, base.n_bins), X)
-    val = torch.from_numpy(stratified_kfold_masks(y_cpu.numpy(), K, tune.seed)).to(dev)
-    timer = TimedHistogram()
-    chunk = chunk_of[hp.max_depth]
-    gbdt.fit_binned_resumable(
-        bins, y, 1.0 - val[0].float(), torch.ones(F, dtype=torch.bool, device=dev), hp,
-        gbdt.fold_in(tune.seed, best * K), n_trees_cap=chunk, depth_cap=hp.max_depth,
-        n_bins=base.n_bins, histogram=timer,
+    val = torch.from_numpy(stratified_kfold_masks(y_cpu.numpy(), K, tune.seed)).to(dev).float()
+    timer = TimedHistogram(gradient_histogram_jobs)
+    depth = hps[0].max_depth
+    chunk = chunk_of[depth]
+    gbdt.fit_binned_jobs(
+        bins, y, (1.0 - val[[k for _, k in jobs]]).contiguous(),
+        torch.ones(F, dtype=torch.bool, device=dev), hps,
+        [gbdt.fold_in(tune.seed, c * K + k) for c, k in jobs],
+        n_trees_cap=chunk, depth_cap=depth, n_bins=base.n_bins, histogram=timer,
     )
     total = timer.total_ms()
     per_call = [s.elapsed_time(e) for s, e in timer.events]
     return {
-        "candidate": best, "trees": chunk, "launches": len(per_call), "ms_total": total,
-        "ms_per_level": [float(np.mean(per_call[lvl::hp.max_depth])) for lvl in range(hp.max_depth)],
+        "candidates": idxs, "jobs": len(jobs), "trees": chunk, "launches": len(per_call),
+        "ms_total": total,
+        "ms_per_level": [float(np.mean(per_call[lvl::depth])) for lvl in range(depth)],
     }
 
 
@@ -5139,6 +5422,12 @@ def main() -> int:
         "book (2.3M loans); print no ok line",
     )
     mode.add_argument(
+        "--only-search",
+        action="store_true",
+        help="build, then run 5b's joint launches and the reference-default (9, 100) search "
+        "bucket's 15 jobs jointly and job by job; print no ok line",
+    )
+    mode.add_argument(
         "--full-protocol",
         action="store_true",
         help="build, then run phase 8b with the reference's default RFE (104 -> 20 "
@@ -5193,6 +5482,19 @@ def main() -> int:
         print(f"portfolio phase (18): {portfolio['phase_s']:.1f}s, {portfolio['launches']} launches "
               f"[{card}]")
         print(f"chip_smoke --only-portfolio: {time.perf_counter() - t_start:.1f}s [{card}]")
+        return 0
+
+    if args.only_search:
+        cfg = GBDTConfig(**TRAIN_CONFIG)
+        Xn, yn = training_rows(N_TRAIN + N_TEST)
+        X_train = torch.from_numpy(Xn[:N_TRAIN]).cuda()
+        y_train = torch.from_numpy(yn[:N_TRAIN]).cuda()
+        del Xn, yn
+        _, bins = binning_phase(X_train, cfg.n_bins)
+        del X_train
+        _, jobs = job_axis_checks(card, bins, y_train, cfg.n_bins)
+        search_phase(card, bins, y_train, jobs, cfg.n_bins)
+        print(f"chip_smoke --only-search: {time.perf_counter() - t_start:.1f}s [{card}]")
         return 0
 
     if args.full_protocol:
@@ -5286,6 +5588,8 @@ def main() -> int:
 
     main_rec = next(r for r in records if r["bucket"] == 64)
     hist_main = next(r for r in hist_records if r["shape"] == "level 6 subtracted")
+    job_records = training["job_axis"]
+    joint_main = next(r for r in job_records if r["shape"].endswith(f"level {JOBS_LEVELS[-1]} subtracted"))
     kernels = [
         {
             "name": "score_forest",
@@ -5340,7 +5644,13 @@ def main() -> int:
             "pandas_ingest_launches": sum(data_layer["pandas_ingest"]["hist_launches"].values())
             + sum(data_layer["pandas_ingest"]["resume_hist_launches"].values()),
             "lifecycle_launches": lifecycle["launches"]["gradient_histogram"],
-            "max_abs_err": max(r["max_abs_err"] for r in hist_records + protocol_hist),
+            "protocol_joint_launches": protocol["joint_launches"],
+            "halving_joint_launches": halving["halving_joint_launches"],
+            "exhaustive_joint_launches": halving["exhaustive_joint_launches"],
+            "joint": {k: joint_main[k] for k in ("shape", "J", "K", "active_rows", "bin_rows", "ms",
+                                                  "singles_ms",
+                                                  "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "max_abs_err": max(r["max_abs_err"] for r in hist_records + protocol_hist + job_records),
             "ms": hist_main["ms"],
             "plain_ms": hist_main["plain_ms"],
             "bound_ms": hist_main["bound_ms"],

@@ -4,17 +4,27 @@
 // (cobalt_smart_lender_ai_tpu/ops/hist_pallas.py, called by `hist_pallas`)
 // and the XLA formulations it stands in for (`_hist_segsum`,
 // `_hist_matmul` in ops/histogram.py). The wrapper is
-// cobalt_smart_lender_ai_tpu_torch/ops/histogram.py::gradient_histogram_channels.
+// cobalt_smart_lender_ai_tpu_torch/ops/histogram.py::gradient_histogram_jobs.
 //
-//   out[c, k, f, b] = sum over rows r with node[r] == k and bins[r, f] == b
-//                     of (g, h, w)[c][r]
+//   out[c, j, k, f, b] = sum over rows r with node[j, r] == k and
+//                        bins[r, f] == b of (g, h, w)[c][j, r]
 //
-// bins (N, F) uint8 or int32, node (N,) int32, g / h / w (N,) float32; out
-// (3, K, F, B) float32, channel-split, as the fit consumes it. A row is
-// *active* when its node lies in [0, K) and its g, h or w is nonzero; the
-// others add nothing (the sibling-subtracted call zeroes the right
-// children's rows, subsampling a fifth of all rows). Bins outside [0, B) add
+// bins (N, F) uint8 or int32, shared by J jobs; node (J, N) int32, g / h / w
+// (J, N) float32; out (3, J, K, F, B) float32, channel-split, as the fit
+// consumes it. J = 1 is one fit's level; J > 1 is the level of every
+// (candidate, fold) job of a search bucket, the job axis of the reference's
+// vmapped CV runner (`_hist_matmul_jobs` in the reference's
+// ops/histogram.py). A row of job j is *active* when its node lies in
+// [0, K) and its g, h or w is nonzero; the others add nothing (the
+// sibling-subtracted call zeroes the right children's rows, subsampling a
+// fifth of all rows, a CV job its fold's rows). Bins outside [0, B) add
 // nothing either.
+//
+// The job axis. Each job gets the bits that a launch on that job alone
+// gives: the rows are grouped by (job, node) segment, J*K of them, through
+// the same five kernels, and the fixed-point scale (below) is chosen per
+// (job, channel), so one job's values never move another job's bits, and a
+// NaN in one job leaves the other jobs' bins as they are.
 //
 // What bounds it on an H100 (full-width fit: N = 1.84M rows, F = 20, B = 255,
 // K <= 64 nodes): one pass must read node / g / h / w of every row (16 B,
@@ -27,17 +37,18 @@
 // of int64 are 120 KB), so a level of K nodes needs K blocks per row slice.
 // If every block walked every row and kept those of its node, each row would
 // be read K times (at K = 64, 1.9 GB of L2 traffic for 50 MB of work). So
-// each launch first groups the active rows by node, as a counting sort of
-// row indices, and hands each block a slice of one node's rows: no block
-// reads a row of another node, and inactive rows are dropped before the
-// histogram pass.
+// each launch first groups the active rows by (job, node) segment, as a
+// counting sort of row indices, and hands each block a slice of one
+// segment's rows: no block reads a row of another segment, and inactive
+// rows are dropped before the histogram pass. A slot of the row-index array
+// holds the row; its segment's entry in the work table names the job.
 //
 // Determinism. The histograms feed an argmax over F*(B-2) split candidates
 // per node; float atomics in launch order would change the last bits from
 // one launch to the next and flip near-ties between two fits on the same
-// data. Here every sum is taken in fixed point: each channel is scaled by a
-// power of two 2^e, chosen from the channel's largest |value| so that no sum
-// over the N rows can pass 2^62, each value is rounded to an int64, and the
+// data. Here every sum is taken in fixed point: each channel of each job is
+// scaled by a power of two 2^e, chosen from that job's largest |value| in
+// the channel so that no sum over the N rows can pass 2^62, each value is rounded to an int64, and the
 // int64s are added with integer atomics. Integer addition is associative, so
 // the result does not depend on the order of the adds: two launches give the
 // same bits by construction. The rounding error is at most 2^-(e+1) per row,
@@ -49,22 +60,23 @@
 // sums do not. No stable sort is needed.
 //
 // Five kernels on the caller's stream, and no copy to the host:
-// 1. count_kernel: the largest |g|, |h|, |w| (atomicMax on the bit patterns
-//    of non-negative floats, which order as the floats do) and the number of
-//    active rows of each node (counters in shared memory, one atomic per
-//    distinct node of a warp, then one global atomic per node per block);
-// 2. plan_kernel, one block: an exclusive scan of the counts gives each
-//    node's segment of the row-index array; the segments are cut into
-//    slices of at most `chunk` rows, with chunk = active rows / ROW_SLICES
-//    (so the histogram pass gets about ROW_SLICES slices per feature tile,
-//    whatever share of the rows is active); the work table lists, for each
-//    slice, its (node, first slot, row count);
-// 3. scatter_kernel: each active row's index into its node's segment (slots
-//    within a block from shared counters, then one global atomic per
-//    (block, node) to reserve them);
+// 1. count_kernel, grid (row blocks, J): per job, the largest |g|, |h|, |w|
+//    (atomicMax on the bit patterns of non-negative floats, which order as
+//    the floats do) and the number of active rows of each node (counters in
+//    shared memory, one atomic per distinct node of a warp, then one global
+//    atomic per node per block);
+// 2. plan_kernel, one block: an exclusive scan of the J*K counts gives each
+//    segment its part of the row-index array; the segments are cut into
+//    slices of at most `chunk` rows, with chunk = active rows of all jobs /
+//    ROW_SLICES (so the histogram pass gets about ROW_SLICES slices per
+//    feature tile, whatever share of the rows is active); the work table
+//    lists, for each slice, its (segment, first slot, row count);
+// 3. scatter_kernel, grid (row blocks, J): each active row's index into its
+//    segment (slots within a block from shared counters, then one global
+//    atomic per (block, node) to reserve them);
 // 4. hist_kernel: grid (work-table entry, feature tile), sized for the most
-//    entries the plan can make, ROW_SLICES + K; blocks past the table's end
-//    exit at once. A block keeps the int64 histograms of its node x Ft
+//    entries the plan can make, ROW_SLICES + J*K; blocks past the table's
+//    end exit at once. A block keeps the int64 histograms of its node x Ft
 //    features x B bins x 3 channels in shared memory (at most 96 KB: Ft = 10
 //    of the 20 features at B = 255, 61 KB; two blocks of 512 threads share
 //    an SM), walks its slots with one thread per slot, gathers g / h / w and
@@ -74,7 +86,8 @@
 //    every shape of the fit than all 20 features in one block (120 KB, one
 //    block per SM, of 512 or 1024 threads), than three blocks per SM (40
 //    registers) and than 132, 528 or 1056 slices per tile;
-// 5. finalize_kernel: accumulator / 2^e, rounded once to float32.
+// 5. finalize_kernel: accumulator / 2^e of the bin's job and channel,
+//    rounded once to float32.
 //
 // Non-finite inputs. A NaN or +-inf has no fixed-point value, so it takes
 // another road, and the bins it reaches end as the plain version's float64
@@ -82,21 +95,23 @@
 // +inf or -inf where only infinities of that sign did. The scale exponent
 // of a channel is taken over its finite values only, so every bin that no
 // non-finite value reaches keeps its exact fixed-point sum. The count
-// kernel sets one bit per channel in a flag word when it sees a non-finite
-// value; the histogram pass ORs, per (node, feature, bin), three bits per
-// channel (NaN, +inf, -inf) into a word array behind the accumulator; and
-// the finalize reads those bits only for a channel whose flag is set. On
-// finite inputs the only cost is the word array's share of the memset.
+// kernel sets one bit per channel in its job's flag word when it sees a
+// non-finite value; the histogram pass ORs, per (job, node, feature, bin),
+// three bits per channel (NaN, +inf, -inf) into a word array behind the
+// accumulator; and the finalize reads those bits only for a (job, channel)
+// whose flag is set. On finite inputs the only cost is the word array's
+// share of the memset.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #define SMEM_BUDGET (96 * 1024)
 #define SMEM_MAX 232448
 #define HIST_THREADS 512
-// The histogram pass cuts each node's segment into slices of at most
-// `chunk` rows, one block per slice and feature tile; the chunk is sized on
-// the card for about ROW_SLICES slices, and is at least MIN_CHUNK rows.
+// The histogram pass cuts each segment into slices of at most `chunk` rows,
+// one block per slice and feature tile; the chunk is sized on the card for
+// about ROW_SLICES slices, and is at least MIN_CHUNK rows.
 #define ROW_SLICES 264
 #define MIN_CHUNK 512
 #define HIST_MIN_BLOCKS 2
@@ -108,6 +123,9 @@
 #define SCATTER_THREADS 256
 #define SCATTER_ITEMS 8
 #define PLAN_THREADS 1024
+// The int32 words of one job's scale state: the largest |g|, |h|, |w| and
+// the non-finite channel flags.
+#define JOB_WORDS 4
 
 static __device__ __forceinline__ int scale_exp(unsigned int max_bits,
                                                 int n_rows) {
@@ -156,12 +174,21 @@ static __device__ __forceinline__ int warp_add(int* counter, int k, bool act) {
   return slot;
 }
 
+// Grid (row blocks, J): blockIdx.y is the job. job_state holds JOB_WORDS
+// words per job, counts K per job.
 __global__ void __launch_bounds__(COUNT_THREADS)
     count_kernel(const int* __restrict__ node, const float* __restrict__ g,
                  const float* __restrict__ h, const float* __restrict__ w,
-                 int n_rows, int n_nodes, unsigned int* __restrict__ max_bits,
+                 int n_rows, int n_nodes, unsigned int* __restrict__ job_state,
                  int* __restrict__ counts) {
   extern __shared__ int sh_count[];
+  const long long job_off = (long long)blockIdx.y * n_rows;
+  node += job_off;
+  g += job_off;
+  h += job_off;
+  w += job_off;
+  unsigned int* max_bits = job_state + JOB_WORDS * blockIdx.y;
+  counts += (long long)blockIdx.y * n_nodes;
   const bool local = n_nodes <= SHARED_NODES;
   int* cnt = local ? sh_count : counts;
   if (local) {
@@ -222,25 +249,26 @@ static __device__ __forceinline__ void block_scan(int* s, int t) {
   }
 }
 
-// One block. The slice length: the level's active rows over ROW_SLICES, at
-// least MIN_CHUNK, so that the histogram pass has about ROW_SLICES blocks
-// per feature tile whatever the share of active rows. cursor[k] = first
-// slot of node k's segment (the scatter's starting cursor), bstart[k] =
-// first work-table entry of node k, bstart[K] = entries used (at most
-// ROW_SLICES + K); table[j] = (node, first slot, rows, 0).
+// One block, over the S = J*K segments (segment j*K + k is node k of job
+// j). The slice length: the level's active rows over ROW_SLICES, at least
+// MIN_CHUNK, so that the histogram pass has about ROW_SLICES blocks per
+// feature tile whatever the share of active rows. cursor[s] = first slot of
+// segment s (the scatter's starting cursor), bstart[s] = first work-table
+// entry of segment s, bstart[S] = entries used (at most ROW_SLICES + S);
+// table[i] = (segment, first slot, rows, 0).
 // The table is filled from cursor / bstart / counts entries that other
 // threads of the block wrote: those are read back through L2 (__ldcg). A
 // plain or read-only load may hit a line that an earlier load of the same
 // sector left in L1, and see the scratch's old contents.
 __global__ void __launch_bounds__(PLAN_THREADS)
-    plan_kernel(const int* counts, int n_nodes, int* cursor, int* bstart,
+    plan_kernel(const int* counts, int n_segs, int* cursor, int* bstart,
                 int4* table) {
   __shared__ int s_rows[PLAN_THREADS];
   __shared__ int s_slices[PLAN_THREADS];
   const int t = threadIdx.x;
-  const int per = (n_nodes + PLAN_THREADS - 1) / PLAN_THREADS;
-  const int k0 = min(n_nodes, t * per);
-  const int k1 = min(n_nodes, k0 + per);
+  const int per = (n_segs + PLAN_THREADS - 1) / PLAN_THREADS;
+  const int k0 = min(n_segs, t * per);
+  const int k1 = min(n_segs, k0 + per);
   int rows = 0;
   for (int k = k0; k < k1; ++k) rows += counts[k];
   s_rows[t] = rows;
@@ -260,12 +288,12 @@ __global__ void __launch_bounds__(PLAN_THREADS)
     slice0 += (c + chunk - 1) / chunk;
   }
   const int used = s_slices[PLAN_THREADS - 1];
-  if (t == 0) bstart[n_nodes] = used;
+  if (t == 0) bstart[n_segs] = used;
   __syncthreads();
   for (int j = t; j < used; j += PLAN_THREADS) {
-    // The last node whose first entry is <= j; nodes without rows own no
-    // entry, and share their bstart with the next node.
-    int lo = 0, hi = n_nodes - 1;
+    // The last segment whose first entry is <= j; segments without rows
+    // own no entry, and share their bstart with the next segment.
+    int lo = 0, hi = n_segs - 1;
     while (lo < hi) {
       const int mid = (lo + hi + 1) >> 1;
       if (__ldcg(&bstart[mid]) <= j) lo = mid; else hi = mid - 1;
@@ -276,12 +304,20 @@ __global__ void __launch_bounds__(PLAN_THREADS)
   }
 }
 
+// Grid (row blocks, J): blockIdx.y is the job; cursor holds K entries per
+// job, each the next free slot of its segment in the shared row array.
 __global__ void __launch_bounds__(SCATTER_THREADS)
     scatter_kernel(const int* __restrict__ node, const float* __restrict__ g,
                    const float* __restrict__ h, const float* __restrict__ w,
                    int n_rows, int n_nodes, int* __restrict__ cursor,
                    int* __restrict__ rows_out) {
   extern __shared__ int sh_scatter[];  // [K] block counts, [K] slot bases
+  const long long job_off = (long long)blockIdx.y * n_rows;
+  node += job_off;
+  g += job_off;
+  h += job_off;
+  w += job_off;
+  cursor += (long long)blockIdx.y * n_nodes;
   const bool local = n_nodes <= SHARED_NODES;
   int* cnt = local ? sh_scatter : cursor;
   if (local) {
@@ -324,14 +360,20 @@ __global__ void __launch_bounds__(HIST_THREADS, HIST_MIN_BLOCKS)
                 const float* __restrict__ h, const float* __restrict__ w,
                 const int* __restrict__ rows, const int4* __restrict__ table,
                 const int* __restrict__ n_used, int n_rows, int n_features,
-                int n_nodes, int n_bins, int ft_tile,
-                const unsigned int* __restrict__ max_bits,
+                int n_nodes, int n_segs, int n_bins, int ft_tile,
+                const unsigned int* __restrict__ job_state,
                 unsigned long long* __restrict__ acc,
                 unsigned int* __restrict__ nonfinite) {
   if ((int)blockIdx.x >= *n_used) return;
   extern __shared__ unsigned long long sh[];
-  const int4 job = table[blockIdx.x];
-  const int k = job.x, first = job.y, last = job.y + job.z;
+  const int4 entry = table[blockIdx.x];
+  const int seg = entry.x, first = entry.y, last = entry.y + entry.z;
+  const int job = seg / n_nodes;
+  const long long job_off = (long long)job * n_rows;
+  g += job_off;
+  h += job_off;
+  w += job_off;
+  const unsigned int* max_bits = job_state + JOB_WORDS * job;
   const int f0 = blockIdx.y * ft_tile;
   const int ft = min(ft_tile, n_features - f0);
   const int per_channel = ft * n_bins;
@@ -362,7 +404,7 @@ __global__ void __launch_bounds__(HIST_THREADS, HIST_MIN_BLOCKS)
       if (qh) atomicAdd(&sh[per_channel + i], (unsigned long long)qh);
       if (qw) atomicAdd(&sh[2 * per_channel + i], (unsigned long long)qw);
       if (special)
-        atomicOr(&nonfinite[((size_t)k * n_features + (f0 + fl)) * n_bins + b],
+        atomicOr(&nonfinite[((size_t)seg * n_features + (f0 + fl)) * n_bins + b],
                  special);
     }
   }
@@ -375,23 +417,28 @@ __global__ void __launch_bounds__(HIST_THREADS, HIST_MIN_BLOCKS)
     const int fl = (i - c * per_channel) / n_bins;
     const int b = i - c * per_channel - fl * n_bins;
     const size_t o =
-        (((size_t)c * n_nodes + k) * n_features + (f0 + fl)) * n_bins + b;
+        (((size_t)c * n_segs + seg) * n_features + (f0 + fl)) * n_bins + b;
     atomicAdd(&acc[o], v);
   }
 }
 
+// out[c, seg, f, b]: per_channel = S*F*B bins a channel, per_seg = F*B.
 __global__ void finalize_kernel(const unsigned long long* __restrict__ acc,
-                                const unsigned int* __restrict__ max_bits,
+                                const unsigned int* __restrict__ job_state,
                                 const unsigned int* __restrict__ nonfinite,
-                                int n_rows, long long per_channel,
+                                int n_rows, int n_nodes, long long per_seg,
+                                long long per_channel,
                                 float* __restrict__ out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= 3 * per_channel) return;
   const int c = (int)(i / per_channel);
+  const long long in_channel = i - c * per_channel;
+  const int job = (int)(in_channel / per_seg) / n_nodes;
+  const unsigned int* max_bits = job_state + JOB_WORDS * job;
   const int e = scale_exp(max_bits[c], n_rows);
   float v = (float)ldexp((double)(long long)acc[i], -e);
   if (max_bits[3] & (1u << c)) {
-    const unsigned code = (nonfinite[i - c * per_channel] >> (3 * c)) & 7u;
+    const unsigned code = (nonfinite[in_channel] >> (3 * c)) & 7u;
     // NaN, or +inf and -inf together, make NaN; one sign of inf stays.
     if (code & 1u || (code & 6u) == 6u)
       v = __int_as_float(0x7fc00000);
@@ -404,35 +451,36 @@ __global__ void finalize_kernel(const unsigned long long* __restrict__ acc,
 }
 
 // Work-table entries the plan can fill at most: with chunk >= active /
-// ROW_SLICES, sum over nodes of ceil(count / chunk) <= ROW_SLICES + K.
-static long long table_entries(int n_nodes) {
-  return (long long)ROW_SLICES + n_nodes;
+// ROW_SLICES, sum over segments of ceil(count / chunk) <= ROW_SLICES + S.
+static long long table_entries(long long n_segs) {
+  return (long long)ROW_SLICES + n_segs;
 }
 
-// The accumulator, in 8-byte words: 3*K*F*B int64 sums, then K*F*B uint32
+// The accumulator, in 8-byte words: 3*S*F*B int64 sums, then S*F*B uint32
 // words of non-finite bits (three per channel), rounded up to 8 bytes.
-static long long acc_words(int n_nodes, int n_features, int n_bins) {
-  const long long per_channel = (long long)n_nodes * n_features * n_bins;
+static long long acc_words(long long n_segs, int n_features, int n_bins) {
+  const long long per_channel = n_segs * n_features * n_bins;
   return 3 * per_channel + (per_channel + 1) / 2;
 }
 
-// The int32 scratch, in words: [0, 3) max_bits of g, h and w, [3] the
-// non-finite channel flags, [4, 4+K) counts,
-// then cursor (K), bstart (K+1), the work table (4 words an entry, 16-byte
-// aligned) and the row-index array (N). The first 4+K words are cleared by
-// each launch.
+// The int32 scratch, in words: JOB_WORDS per job (max_bits of g, h and w,
+// the non-finite channel flags), then counts (S), cursor (S), bstart
+// (S+1), the work table (4 words an entry, 16-byte aligned) and the
+// row-index array (J*N). The words before cursor are cleared by each
+// launch.
 struct Scratch {
   long long counts, cursor, bstart, table, rows, words;
 };
 
-static Scratch scratch_layout(int n_rows, int n_nodes) {
+static Scratch scratch_layout(int n_rows, int n_nodes, int n_jobs) {
+  const long long n_segs = (long long)n_jobs * n_nodes;
   Scratch l;
-  l.counts = 4;
-  l.cursor = l.counts + n_nodes;
-  l.bstart = l.cursor + n_nodes;
-  l.table = (l.bstart + n_nodes + 1 + 3) / 4 * 4;
-  l.rows = l.table + 4 * table_entries(n_nodes);
-  l.words = l.rows + n_rows;
+  l.counts = (long long)JOB_WORDS * n_jobs;
+  l.cursor = l.counts + n_segs;
+  l.bstart = l.cursor + n_segs;
+  l.table = (l.bstart + n_segs + 1 + 3) / 4 * 4;
+  l.rows = l.table + 4 * table_entries(n_segs);
+  l.words = l.rows + (long long)n_jobs * n_rows;
   return l;
 }
 
@@ -442,7 +490,8 @@ static cudaError_t launch_hist(const void* bins, const float* g,
                                const int* rows, const int4* table,
                                const int* n_used, long long n_table,
                                int n_rows, int n_features, int n_nodes,
-                               int n_bins, const unsigned int* max_bits,
+                               int n_segs, int n_bins,
+                               const unsigned int* job_state,
                                unsigned long long* acc, unsigned int* nonfinite,
                                cudaStream_t s) {
   const int pair_bytes = 3 * n_bins * (int)sizeof(unsigned long long);
@@ -451,7 +500,7 @@ static cudaError_t launch_hist(const void* bins, const float* g,
   const int n_ft = (n_features + ft - 1) / ft;
   ft = (n_features + n_ft - 1) / n_ft;  // balanced tiles
   const size_t smem = (size_t)ft * pair_bytes;
-  if (smem > SMEM_MAX || n_table > 0x7fffffffLL || n_ft > 65535)
+  if (smem > SMEM_MAX || n_table > INT_MAX || n_ft > 65535)
     return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -462,7 +511,7 @@ static cudaError_t launch_hist(const void* bins, const float* g,
   const dim3 grid((unsigned)n_table, n_ft);
   hist_kernel<BinT><<<grid, HIST_THREADS, smem, s>>>(
       (const BinT*)bins, g, h, w, rows, table, n_used, n_rows, n_features,
-      n_nodes, n_bins, ft, max_bits, acc, nonfinite);
+      n_nodes, n_segs, n_bins, ft, job_state, acc, nonfinite);
   return cudaGetLastError();
 }
 
@@ -473,33 +522,42 @@ const char* gradient_histogram_error_string(int err) {
 }
 
 // int32 words of scratch that `gradient_histogram` needs for these sizes.
-long long gradient_histogram_scratch_words(int n_rows, int n_nodes) {
-  return scratch_layout(n_rows, n_nodes).words;
+long long gradient_histogram_scratch_words(int n_rows, int n_nodes,
+                                           int n_jobs) {
+  return scratch_layout(n_rows, n_nodes, n_jobs).words;
 }
 
 // 8-byte words of the accumulator `acc` for these sizes.
 long long gradient_histogram_acc_words(int n_nodes, int n_features,
-                                       int n_bins) {
-  return acc_words(n_nodes, n_features, n_bins);
+                                       int n_bins, int n_jobs) {
+  return acc_words((long long)n_jobs * n_nodes, n_features, n_bins);
 }
 
-// One histogram pass on `stream`. `bins_u8` selects uint8 bins (else int32).
-// Scratch: `acc` holds gradient_histogram_acc_words(K, F, B) uint64 and
-// `scratch` gradient_histogram_scratch_words(N, K) int32, 16-byte aligned;
-// both are cleared here as needed. `out` is (3, K, F, B) float32. Returns the first
-// CUDA error of the memsets and launches, or 0.
+// One histogram pass of n_jobs jobs on `stream`. `bins_u8` selects uint8
+// bins (else int32); node, g, h and w hold n_jobs rows of n_rows each.
+// Scratch: `acc` holds gradient_histogram_acc_words(K, F, B, J) uint64 and
+// `scratch` gradient_histogram_scratch_words(N, K, J) int32, 16-byte
+// aligned; both are cleared here as needed. `out` is (3, J, K, F, B)
+// float32. Returns the first CUDA error of the memsets and launches, or 0.
 int gradient_histogram(int device, const void* bins, int bins_u8,
                        const int* node, const float* g, const float* h,
                        const float* w, int n_rows, int n_features, int n_nodes,
-                       int n_bins, unsigned long long* acc, int* scratch,
-                       float* out, void* stream) {
+                       int n_bins, int n_jobs, unsigned long long* acc,
+                       int* scratch, float* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n_rows < 1 || n_features < 1 || n_nodes < 1 || n_bins < 1)
+  if (n_rows < 1 || n_features < 1 || n_nodes < 1 || n_bins < 1 ||
+      n_jobs < 1 || n_jobs > 65535)
     return (int)cudaErrorInvalidValue;
+  // Slots, segments and work-table entries are int32.
+  const long long n_segs_ll = (long long)n_jobs * n_nodes;
+  if ((long long)n_jobs * n_rows > INT_MAX ||
+      table_entries(n_segs_ll) > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int n_segs = (int)n_segs_ll;
   cudaStream_t s = (cudaStream_t)stream;
-  const Scratch l = scratch_layout(n_rows, n_nodes);
-  unsigned int* max_bits = (unsigned int*)scratch;
+  const Scratch l = scratch_layout(n_rows, n_nodes, n_jobs);
+  unsigned int* job_state = (unsigned int*)scratch;
   int* counts = scratch + l.counts;
   int* cursor = scratch + l.cursor;
   int* bstart = scratch + l.bstart;
@@ -507,50 +565,55 @@ int gradient_histogram(int device, const void* bins, int bins_u8,
   int* rows = scratch + l.rows;
   const bool local = n_nodes <= SHARED_NODES;
 
-  const long long per_channel = (long long)n_nodes * n_features * n_bins;
+  const long long per_seg = (long long)n_features * n_bins;
+  const long long per_channel = n_segs_ll * per_seg;
   unsigned int* nonfinite = (unsigned int*)(acc + 3 * per_channel);
   err = cudaMemsetAsync(
-      acc, 0, acc_words(n_nodes, n_features, n_bins) * sizeof(unsigned long long),
+      acc, 0, acc_words(n_segs_ll, n_features, n_bins) * sizeof(unsigned long long),
       s);
   if (err != cudaSuccess) return (int)err;
   err = cudaMemsetAsync(scratch, 0, l.cursor * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
 
   int blocks = (n_rows + COUNT_THREADS - 1) / COUNT_THREADS;
-  if (blocks > COUNT_BLOCKS) blocks = COUNT_BLOCKS;
-  count_kernel<<<blocks, COUNT_THREADS, local ? n_nodes * sizeof(int) : 0, s>>>(
-      node, g, h, w, n_rows, n_nodes, max_bits, counts);
+  const int per_job_blocks = COUNT_BLOCKS / n_jobs > 0 ? COUNT_BLOCKS / n_jobs : 1;
+  if (blocks > per_job_blocks) blocks = per_job_blocks;
+  count_kernel<<<dim3(blocks, n_jobs), COUNT_THREADS,
+                 local ? n_nodes * sizeof(int) : 0, s>>>(
+      node, g, h, w, n_rows, n_nodes, job_state, counts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  plan_kernel<<<1, PLAN_THREADS, 0, s>>>(counts, n_nodes, cursor, bstart,
+  plan_kernel<<<1, PLAN_THREADS, 0, s>>>(counts, n_segs, cursor, bstart,
                                          table);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const int per_block = SCATTER_THREADS * SCATTER_ITEMS;
-  scatter_kernel<<<(n_rows + per_block - 1) / per_block, SCATTER_THREADS,
-                   local ? 2 * n_nodes * sizeof(int) : 0, s>>>(
+  scatter_kernel<<<dim3((n_rows + per_block - 1) / per_block, n_jobs),
+                   SCATTER_THREADS, local ? 2 * n_nodes * sizeof(int) : 0, s>>>(
       node, g, h, w, n_rows, n_nodes, cursor, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const long long n_table = table_entries(n_nodes);
+  const long long n_table = table_entries(n_segs_ll);
   err = bins_u8 ? launch_hist<unsigned char>(bins, g, h, w, rows, table,
-                                             bstart + n_nodes, n_table, n_rows,
-                                             n_features, n_nodes, n_bins,
-                                             max_bits, acc, nonfinite, s)
+                                             bstart + n_segs, n_table, n_rows,
+                                             n_features, n_nodes, n_segs,
+                                             n_bins, job_state, acc, nonfinite,
+                                             s)
                 : launch_hist<int>(bins, g, h, w, rows, table,
-                                   bstart + n_nodes, n_table, n_rows,
-                                   n_features, n_nodes, n_bins, max_bits, acc,
-                                   nonfinite, s);
+                                   bstart + n_segs, n_table, n_rows,
+                                   n_features, n_nodes, n_segs, n_bins,
+                                   job_state, acc, nonfinite, s);
   if (err != cudaSuccess) return (int)err;
 
   const long long n_out = 3 * per_channel;
   const int threads = 256;
   const long long fblocks = (n_out + threads - 1) / threads;
+  if (fblocks > INT_MAX) return (int)cudaErrorInvalidValue;
   finalize_kernel<<<(unsigned)fblocks, threads, 0, s>>>(
-      acc, max_bits, nonfinite, n_rows, per_channel, out);
+      acc, job_state, nonfinite, n_rows, n_nodes, per_seg, per_channel, out);
   return (int)cudaGetLastError();
 }
 

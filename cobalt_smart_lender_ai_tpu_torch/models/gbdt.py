@@ -7,14 +7,19 @@ heap-indexed ``0 .. 2^d - 2`` and the ``2^d`` leaves are stored separately
 (threshold ``n_bins - 1``, missing left: every row goes left), so every tree
 has the same shape.
 
-The fit (`fit_binned_resumable`) follows the reference's
-``models/gbdt.py`` step for step: per tree, a logistic gradient and hessian
-under one per-row weight (sample weight x ``scale_pos_weight`` x a Bernoulli
-row subsample), a per-tree column sample, then one histogram pass per level
-(`ops.histogram.gradient_histogram_channels`, a CUDA kernel on the card),
-the split search with a learned missing direction, routing, and the leaf
-sums. Trees at index ``>= n_estimators`` are inert and levels ``>=
-max_depth`` trivial, as in the reference.
+The fit (`fit_binned_jobs`) follows the reference's ``models/gbdt.py``
+step for step: per tree, a logistic gradient and hessian under one per-row
+weight (sample weight x ``scale_pos_weight`` x a Bernoulli row subsample),
+a per-tree column sample, then one histogram pass per level
+(`ops.histogram.gradient_histogram_jobs`, a CUDA kernel on the card), the
+split search with a learned missing direction, routing, and the leaf sums.
+Trees at index ``>= n_estimators`` are inert and levels ``>= max_depth``
+trivial, as in the reference. It advances J jobs over one shared bins
+matrix at once, each with its own sample weight, margin, seed and
+hyperparameters: one histogram launch per level for all of them and one
+set of torch ops with a leading job axis, the reference's vmapped CV runner
+(``parallel/tune.py``'s ``_make_cv_runner``). Each job gets the bits that a
+fit of its own gives. `fit_binned_resumable` is its ``J = 1`` case.
 
 Randomness: the row and column samples of tree ``t`` come from a
 `torch.Generator` on the fit's device seeded from ``(seed, t)``, so a
@@ -29,7 +34,7 @@ is one of many (an RFE refit, a CV job) takes its seed from `fold_in`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -42,7 +47,10 @@ from cobalt_smart_lender_ai_tpu_torch.ops.binning import (
     float_threshold,
     transform,
 )
-from cobalt_smart_lender_ai_tpu_torch.ops.histogram import gradient_histogram_channels
+from cobalt_smart_lender_ai_tpu_torch.ops.histogram import (
+    gradient_histogram_channels,
+    gradient_histogram_jobs,
+)
 from cobalt_smart_lender_ai_tpu_torch.parallel.budget import resolve_chunk_trees
 
 
@@ -174,78 +182,112 @@ def _f32(x: float, device: torch.device) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=device)
 
 
-def fit_binned_resumable(
-    bins: torch.Tensor,  # (N, F) uint8/int32
+def _per_job(values, device: torch.device, dtype=torch.float32) -> torch.Tensor:
+    """One value per job as a ``(J,)`` tensor."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def fit_binned_jobs(
+    bins: torch.Tensor,  # (N, F) uint8/int32, shared by the jobs
     y: torch.Tensor,  # (N,) {0,1}
-    sample_weight: torch.Tensor,  # (N,) float32
+    sample_weight: torch.Tensor,  # (J, N) float32
     feature_mask: torch.Tensor,  # (F,) bool
-    hp: GBDTHyperparams,
-    seed: int,
+    hps: Sequence[GBDTHyperparams],
+    seeds: Sequence[int],
     *,
     n_trees_cap: int,
     depth_cap: int,
     n_bins: int,
-    init_margin: torch.Tensor | None = None,
+    init_margin: torch.Tensor | None = None,  # (J, N)
     tree_offset: int = 0,
     hist_subtract: bool = True,
-    histogram: HistogramFn = gradient_histogram_channels,
-) -> tuple[Forest, torch.Tensor]:
-    """Train ``n_trees_cap`` boosting rounds from ``init_margin``; returns
-    (forest chunk with zero float thresholds, final margin). Tree indices are
-    offset by ``tree_offset`` for the random streams and the
-    ``n_estimators`` mask. ``hist_subtract`` builds left children only and
-    takes right = parent - left. ``histogram`` is the level's histogram op:
-    the kernel's wrapper, which runs its plain version on CPU tensors (a
-    caller comparing the two on the card passes the plain version)."""
+    histogram: HistogramFn = gradient_histogram_jobs,
+) -> tuple[list[Forest], torch.Tensor]:
+    """Train ``n_trees_cap`` boosting rounds of J jobs at once from
+    ``init_margin``; returns (the J forest chunks, with zero float
+    thresholds, and the ``(J, N)`` final margins).
+
+    Job ``j`` fits ``hps[j]`` with ``sample_weight[j]`` from
+    ``init_margin[j]`` on its own random streams (``seeds[j]``); bins, labels
+    and the feature mask are shared. Each level is one ``histogram`` call
+    for all jobs (``(J, N)`` inputs, three ``(J, K, F, B)`` outputs: the
+    kernel's wrapper, which runs its plain version on CPU tensors) and one
+    set of torch ops with a leading job axis; a job's ``max_depth`` and
+    ``n_estimators`` mask its levels and trees under ``depth_cap`` and the
+    tree index. Tree indices are offset by ``tree_offset`` for the random
+    streams and the ``n_estimators`` mask. ``hist_subtract`` builds left
+    children only and takes right = parent - left.
+
+    Job ``j``'s forest and margin are, bit for bit, those of
+    `fit_binned_resumable` on its own inputs with the same ``n_trees_cap``
+    and ``depth_cap``: the batched ops are exact (integer, comparison and
+    single IEEE operations, elementwise) or sum integers (covers); the
+    sigmoid and the leaf sums, whose float results could depend on the
+    shape they run at, run per job at one job's shapes."""
     dev = bins.device
     N, F = bins.shape
+    J = len(hps)
+    if len(seeds) != J or sample_weight.shape != (J, N):
+        raise ValueError(f"{J} jobs need {J} seeds and a ({J}, {N}) sample_weight")
     n_internal = 2**depth_cap - 1
     n_leaves = 2**depth_cap
     T = n_trees_cap
     bins = bins.contiguous()
     y = y.to(device=dev, dtype=torch.float32)
-    lam, gamma = _f32(hp.reg_lambda, dev), _f32(hp.gamma, dev)
-    mcw, lr = _f32(hp.min_child_weight, dev), _f32(hp.learning_rate, dev)
+    # Per-job hyperparameters, shaped to broadcast over (J, K, F, B); the
+    # leaf step reads job j's lambda and learning rate as views.
+    lam = _per_job([hp.reg_lambda for hp in hps], dev).view(J, 1, 1, 1)
+    lr = _per_job([hp.learning_rate for hp in hps], dev)
+    gamma = _per_job([hp.gamma for hp in hps], dev).view(J, 1, 1, 1)
+    mcw = _per_job([hp.min_child_weight for hp in hps], dev).view(J, 1, 1, 1)
+    spw = _per_job([hp.scale_pos_weight for hp in hps], dev).view(J, 1)
+    max_depth = _per_job([hp.max_depth for hp in hps], dev, torch.int64).view(J, 1)
     base_w = sample_weight.to(device=dev, dtype=torch.float32) * torch.where(
-        y > 0.5, _f32(hp.scale_pos_weight, dev), _f32(1.0, dev)
+        y > 0.5, spw, _f32(1.0, dev)
     )
     feature_mask = feature_mask.to(device=dev, dtype=torch.bool)
     n_avail = feature_mask.sum().to(torch.float32)
     n_keep = torch.clamp(
-        torch.round(_f32(hp.colsample_bytree, dev) * n_avail), min=1
-    ).to(torch.int64)
-    rows = torch.arange(N, device=dev)
+        torch.round(_per_job([hp.colsample_bytree for hp in hps], dev) * n_avail), min=1
+    ).to(torch.int64)[:, None]
+    rows = torch.arange(N, device=dev)[None, :]
+    # Which jobs may split at each level, made once a call, not a level.
+    level_on = [level < max_depth for level in range(depth_cap)]
 
-    feats_all = torch.zeros((T, n_internal), dtype=torch.int32, device=dev)
-    thrs_all = torch.full((T, n_internal), n_bins - 1, dtype=torch.int32, device=dev)
-    mls_all = torch.ones((T, n_internal), dtype=torch.bool, device=dev)
-    gains_all = torch.zeros((T, n_internal), dtype=torch.float32, device=dev)
-    covers_all = torch.zeros((T, n_internal + n_leaves), dtype=torch.float32, device=dev)
-    leaves_all = torch.zeros((T, n_leaves), dtype=torch.float32, device=dev)
+    feats_all = torch.zeros((J, T, n_internal), dtype=torch.int32, device=dev)
+    thrs_all = torch.full((J, T, n_internal), n_bins - 1, dtype=torch.int32, device=dev)
+    mls_all = torch.ones((J, T, n_internal), dtype=torch.bool, device=dev)
+    gains_all = torch.zeros((J, T, n_internal), dtype=torch.float32, device=dev)
+    covers_all = torch.zeros((J, T, n_internal + n_leaves), dtype=torch.float32, device=dev)
+    leaves_all = torch.zeros((J, T, n_leaves), dtype=torch.float32, device=dev)
     margin = (
-        torch.zeros(N, dtype=torch.float32, device=dev)
+        torch.zeros((J, N), dtype=torch.float32, device=dev)
         if init_margin is None
         else init_margin.to(device=dev, dtype=torch.float32).clone()
     )
 
     for t in range(T):
         tree_idx = t + int(tree_offset)
-        gen = _tree_generator(seed, tree_idx, dev)
-        sub = (torch.rand(N, generator=gen, device=dev) < hp.subsample).to(torch.float32)
-        u = torch.rand(F, generator=gen, device=dev)
-        w = base_w * sub
+        sub, u = [], []
+        for hp, seed in zip(hps, seeds):
+            gen = _tree_generator(seed, tree_idx, dev)
+            sub.append(torch.rand(N, generator=gen, device=dev) < hp.subsample)
+            u.append(torch.rand(F, generator=gen, device=dev))
+        w = base_w * torch.stack(sub).to(torch.float32)
         w_pos = (w > 0).to(torch.float32)
-        p = torch.sigmoid(margin)
+        # Per job: a transcendental's vectorized and scalar paths may round
+        # differently, and which rows take which depends on the shape.
+        p = torch.stack([torch.sigmoid(m) for m in margin])
         g = (w * (p - y)).contiguous()
         h = (w * torch.clamp(p * (1.0 - p), min=1e-16)).contiguous()
 
-        u = torch.where(feature_mask, u, float("inf"))
-        ranks = torch.argsort(torch.argsort(u, stable=True), stable=True)
-        cmask = (ranks < n_keep) & feature_mask
+        u = torch.where(feature_mask, torch.stack(u), float("inf"))
+        ranks = torch.argsort(torch.argsort(u, dim=1, stable=True), dim=1, stable=True)
+        cmask = (ranks < n_keep) & feature_mask  # (J, F)
 
-        node = torch.zeros(N, dtype=torch.int32, device=dev)
-        feats, thrs, mls = feats_all[t], thrs_all[t], mls_all[t]
-        gains, covers = gains_all[t], covers_all[t]
+        node = torch.zeros((J, N), dtype=torch.int32, device=dev)
+        feats, thrs, mls = feats_all[:, t], thrs_all[:, t], mls_all[:, t]
+        gains, covers = gains_all[:, t], covers_all[:, t]
         prev = None
         for level in range(depth_cap):
             K = 2**level
@@ -279,75 +321,126 @@ def fit_binned_resumable(
                     right_w,
                 )
                 hg, hh, hw = (
-                    torch.stack([lc, rc], dim=1).reshape(K, F, n_bins)
+                    torch.stack([lc, rc], dim=2).reshape(J, K, F, n_bins)
                     for lc, rc in zip(left, right)
                 )
             prev = (hg, hh, hw)
-            covers[off : off + K] = hw[:, 0, :].sum(-1)
-            miss_g, miss_h = hg[:, :, 0], hh[:, :, 0]
-            cum_g, cum_h = prefix_sum(torch.stack([hg[:, :, 1:], hh[:, :, 1:]]))
-            Gt = (cum_g[:, :, -1] + miss_g)[:, :, None]
-            Ht = (cum_h[:, :, -1] + miss_h)[:, :, None]
+            covers[:, off : off + K] = hw[:, :, 0, :].sum(-1)
+            miss_g, miss_h = hg[..., 0], hh[..., 0]
+            cum_g, cum_h = prefix_sum(torch.stack([hg[..., 1:], hh[..., 1:]]))
+            Gt = (cum_g[..., -1] + miss_g)[..., None]
+            Ht = (cum_h[..., -1] + miss_h)[..., None]
             GL, HL = cum_g[..., :-1], cum_h[..., :-1]
-            Gm, Hm = miss_g[:, :, None], miss_h[:, :, None]
+            Gm, Hm = miss_g[..., None], miss_h[..., None]
 
             def masked_gain(GLv, HLv):
                 GRv, HRv = Gt - GLv, Ht - HLv
-                ok = (HLv >= mcw) & (HRv >= mcw) & cmask[None, :, None]
+                ok = (HLv >= mcw) & (HRv >= mcw) & cmask[:, None, :, None]
                 gv = _split_gain(GLv, HLv, GRv, HRv, Gt, Ht, lam, gamma)
                 return torch.where(ok, gv, float("-inf"))
 
             gain_ml = masked_gain(GL + Gm, HL + Hm)  # missing goes left
             gain_mr = masked_gain(GL, HL)  # missing goes right
-            go_ml = (gain_ml >= gain_mr).reshape(K, -1)
-            flat = torch.maximum(gain_ml, gain_mr).reshape(K, -1)
-            best = torch.argmax(flat, dim=1)  # first index on ties
-            best_gain = flat.gather(1, best[:, None])[:, 0]
+            go_ml = (gain_ml >= gain_mr).reshape(J, K, -1)
+            flat = torch.maximum(gain_ml, gain_mr).reshape(J, K, -1)
+            best = torch.argmax(flat, dim=2)  # first index on ties
+            best_gain = flat.gather(2, best[..., None])[..., 0]
             bf = (best // (n_bins - 2)).to(torch.int32)
             bt = (best % (n_bins - 2)).to(torch.int32) + 1
-            bml = go_ml.gather(1, best[:, None])[:, 0]
+            bml = go_ml.gather(2, best[..., None])[..., 0]
 
-            do_split = (best_gain > 0.0) & (level < hp.max_depth)
+            do_split = (best_gain > 0.0) & level_on[level]
             feat_lvl = torch.where(do_split, bf, 0)
             thr_lvl = torch.where(do_split, bt, n_bins - 1)
             ml_lvl = torch.where(do_split, bml, True)
-            feats[off : off + K] = feat_lvl
-            thrs[off : off + K] = thr_lvl
-            mls[off : off + K] = ml_lvl
-            gains[off : off + K] = torch.where(do_split, best_gain, 0.0)
+            feats[:, off : off + K] = feat_lvl
+            thrs[:, off : off + K] = thr_lvl
+            mls[:, off : off + K] = ml_lvl
+            gains[:, off : off + K] = torch.where(do_split, best_gain, 0.0)
 
             lidx = local.long()
-            b_row = bins[rows, feat_lvl.long()[lidx]].long()
-            go_left = torch.where(b_row == 0, ml_lvl[lidx], b_row <= thr_lvl[lidx])
+            b_row = bins[rows, feat_lvl.long().gather(1, lidx)].long()
+            go_left = torch.where(
+                b_row == 0, ml_lvl.gather(1, lidx), b_row <= thr_lvl.gather(1, lidx)
+            )
             node = 2 * node + 1 + (~go_left).to(torch.int32)
 
-        leaf_local = (node - (2**depth_cap - 1)).long()
-        # Leaf (g, h, cover) sums as a one-hot product, as the reference
-        # takes them: a matrix product adds in a fixed order on the card,
-        # where index_add_'s float atomics would make two fits differ.
-        oh_leaf = torch.zeros((N, n_leaves), dtype=torch.float32, device=dev)
-        oh_leaf.scatter_(1, leaf_local[:, None], 1.0)
-        sums = (oh_leaf.T @ torch.stack([g, h, w_pos], dim=1)).T
-        del oh_leaf
-        covers[n_internal:] = sums[2]
-        tree_on = 1.0 if tree_idx < hp.n_estimators else 0.0
-        leaf_val = -sums[0] / (sums[1] + lam) * lr
-        leaf_val = torch.where(sums[1] > 0, leaf_val, 0.0) * tree_on
-        gains.mul_(tree_on)  # inert trees must not pollute gain importances
-        leaves_all[t] = leaf_val
-        margin = margin + leaf_val[leaf_local]
+        # Per job: the leaf sums at one job's shapes, the (N, L) one-hot of
+        # that job only (3.77 GB at depth 9 and 1.84M rows).
+        for j, hp in enumerate(hps):
+            leaf_local = (node[j] - (2**depth_cap - 1)).long()
+            # Leaf (g, h, cover) sums as a one-hot product, as the reference
+            # takes them: a matrix product adds in a fixed order on the
+            # card, where index_add_'s float atomics would make two fits
+            # differ.
+            oh_leaf = torch.zeros((N, n_leaves), dtype=torch.float32, device=dev)
+            oh_leaf.scatter_(1, leaf_local[:, None], 1.0)
+            sums = (oh_leaf.T @ torch.stack([g[j], h[j], w_pos[j]], dim=1)).T
+            del oh_leaf
+            covers[j, n_internal:] = sums[2]
+            tree_on = 1.0 if tree_idx < hp.n_estimators else 0.0
+            leaf_val = -sums[0] / (sums[1] + lam[j, 0, 0, 0]) * lr[j]
+            leaf_val = torch.where(sums[1] > 0, leaf_val, 0.0) * tree_on
+            gains[j].mul_(tree_on)  # inert trees must not pollute gain importances
+            leaves_all[j, t] = leaf_val
+            margin[j] = margin[j] + leaf_val[leaf_local]
 
-    forest = Forest(
-        feature=feats_all,
-        thr_bin=thrs_all,
-        thr_float=torch.zeros((T, n_internal), dtype=torch.float32, device=dev),
-        missing_left=mls_all,
-        gain=gains_all,
-        cover=covers_all,
-        leaf_value=leaves_all,
-        depth=depth_cap,
+    thr_float = torch.zeros((T, n_internal), dtype=torch.float32, device=dev)
+    forests = [
+        Forest(
+            feature=feats_all[j],
+            thr_bin=thrs_all[j],
+            thr_float=thr_float.clone(),
+            missing_left=mls_all[j],
+            gain=gains_all[j],
+            cover=covers_all[j],
+            leaf_value=leaves_all[j],
+            depth=depth_cap,
+        )
+        for j in range(J)
+    ]
+    return forests, margin
+
+
+def fit_binned_resumable(
+    bins: torch.Tensor,  # (N, F) uint8/int32
+    y: torch.Tensor,  # (N,) {0,1}
+    sample_weight: torch.Tensor,  # (N,) float32
+    feature_mask: torch.Tensor,  # (F,) bool
+    hp: GBDTHyperparams,
+    seed: int,
+    *,
+    n_trees_cap: int,
+    depth_cap: int,
+    n_bins: int,
+    init_margin: torch.Tensor | None = None,
+    tree_offset: int = 0,
+    hist_subtract: bool = True,
+    histogram: HistogramFn = gradient_histogram_channels,
+) -> tuple[Forest, torch.Tensor]:
+    """Train ``n_trees_cap`` boosting rounds from ``init_margin``; returns
+    (forest chunk with zero float thresholds, final margin): one fit,
+    `fit_binned_jobs` at ``J = 1``. Tree indices are offset by
+    ``tree_offset`` for the random streams and the ``n_estimators`` mask.
+    ``hist_subtract`` builds left children only and takes right = parent -
+    left. ``histogram`` is the level's histogram op on ``(N,)`` inputs: the
+    kernel's wrapper, which runs its plain version on CPU tensors (a caller
+    comparing the two on the card passes the plain version)."""
+
+    def one_job(b, node, g, h, w, **kw):
+        return tuple(x[None] for x in histogram(b, node[0], g[0], h[0], w[0], **kw))
+
+    # The kernel's wrapper takes the (1, N) rows as they are: its J = 1
+    # case, without a round trip through (N,) views each level.
+    level_hist = gradient_histogram_jobs if histogram is gradient_histogram_channels else one_job
+
+    forests, margin = fit_binned_jobs(
+        bins, y, sample_weight.to(device=bins.device, dtype=torch.float32)[None],
+        feature_mask, [hp], [seed], n_trees_cap=n_trees_cap, depth_cap=depth_cap,
+        n_bins=n_bins, init_margin=None if init_margin is None else init_margin[None],
+        tree_offset=tree_offset, hist_subtract=hist_subtract, histogram=level_hist,
     )
-    return forest, margin
+    return forests[0], margin[0]
 
 
 def fit_binned(

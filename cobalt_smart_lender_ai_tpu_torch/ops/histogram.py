@@ -1,13 +1,18 @@
 """Gradient / hessian / cover histograms — the hot op of histogram GBDT.
 
-`gradient_histogram_channels` is the wrapper of the CUDA kernel
+`gradient_histogram_jobs` is the wrapper of the CUDA kernel
 ``csrc/gradient_histogram.cu``, which replaces the reference package's
 Pallas kernel (``ops/hist_pallas.py::_hist_kernel``) and the XLA
-formulations it stands in for. On a CUDA tensor it launches the kernel or
-raises; on a CPU tensor it runs `gradient_histogram_reference`, the plain
-PyTorch version: the reference's ``_hist_segsum``, one joint (node,
-feature, bin) segment sum per channel. There is no fallback from one to the
-other.
+formulations it stands in for: ``_hist_segsum`` and ``_hist_matmul`` for
+one fit, and ``_hist_matmul_jobs``, the joint histogram of every
+(candidate, fold) job of a search bucket that the reference's vmap rule
+(``_channels_matmul_vmappable``) runs. J jobs share the bins matrix; each
+has its own node, g, h and w. `gradient_histogram_channels` is its ``J =
+1`` case, one fit's level. On a CUDA tensor the wrapper launches the kernel
+or raises; on a CPU tensor it runs `gradient_histogram_jobs_reference`, the
+plain PyTorch version: the reference's ``_hist_segsum``, one joint (job,
+node, feature, bin) segment sum per channel. There is no fallback from one
+to the other.
 
 Three channels per bucket: gradient, hessian and the row-weight cover, so a
 node's cover falls out as ``hw[k, f, :].sum()`` for any feature ``f``.
@@ -32,6 +37,8 @@ from cobalt_smart_lender_ai_tpu_torch.telemetry.programs import launch_handle
 __all__ = [
     "gradient_histogram",
     "gradient_histogram_channels",
+    "gradient_histogram_jobs",
+    "gradient_histogram_jobs_reference",
     "gradient_histogram_reference",
     "histogram_cost",
     "histogram_supported",
@@ -55,30 +62,92 @@ def histogram_cost(
     n_bins: int,
     bin_bytes: int,
     active_rows: int | None = None,
+    n_jobs: int = 1,
+    bin_rows: int | None = None,
 ) -> tuple[int, int]:
-    """(FLOPs, bytes) of one histogram pass, from shapes and the count of
-    active rows (those whose g, h or w is nonzero; the others add nothing,
-    and the kernel reads no bins for them). ``active_rows=None`` takes
-    every row as active: the shape-only upper bound the program registry
-    records per launch, since counting active rows is a reduction on the
-    card.
+    """(FLOPs, bytes) of one histogram pass of ``n_jobs`` jobs over one
+    shared bins matrix, from shapes, the count of active (job, row) pairs
+    (``active_rows``: those whose g, h or w is nonzero; the others add
+    nothing) and the count of rows active in any job (``bin_rows``: the
+    rows whose bins the function needs). ``active_rows=None`` takes every
+    row of every job as active, and then every row's bins as needed: the
+    shape-only upper bound the program registry records per launch, since
+    counting active rows is a reduction on the card. One job's
+    ``bin_rows`` is its ``active_rows``; J > 1 jobs with ``active_rows``
+    need ``bin_rows`` too.
 
-    Bytes: node, g, h and w of every row (16 B), the F bins of each active
-    row and the (3, K, F, B) f32 output written once. Operations: three
-    adds per (active row, feature)."""
-    active = n_rows if active_rows is None else active_rows
-    nbytes = 16 * n_rows + active * n_features * bin_bytes + 3 * n_nodes * n_features * n_bins * 4
+    Bytes: node, g, h and w of every row of every job (16 B), the F bins of
+    each needed row once (the jobs share them) and the (3, J, K, F, B) f32
+    output written once. Operations: three adds per (active pair,
+    feature)."""
+    if active_rows is None:
+        active, needed = n_jobs * n_rows, n_rows
+    else:
+        active = active_rows
+        needed = active_rows if bin_rows is None and n_jobs == 1 else bin_rows
+        if needed is None:
+            raise ValueError(f"{n_jobs} jobs with active_rows need bin_rows")
+    nbytes = (
+        16 * n_jobs * n_rows
+        + needed * n_features * bin_bytes
+        + 3 * n_jobs * n_nodes * n_features * n_bins * 4
+    )
     return 3 * active * n_features, nbytes
 
 
-def _program(F: int, n_bins: int, device: torch.device):
+def _program(F: int, n_bins: int, device: torch.device, n_jobs: int = 1):
+    """The launch's program: ``F<F>xB<B>`` for one fit, ``J<J>xF<F>xB<B>``
+    for a joint launch of J jobs."""
+    key = f"F{F}xB{n_bins}" if n_jobs == 1 else f"J{n_jobs}xF{F}xB{n_bins}"
     return launch_handle(
         "gradient_histogram",
-        f"F{F}xB{n_bins}",
+        key,
         device,
         lambda: _build.take_build_seconds("gradient_histogram"),
         cost_basis="shape-only upper bound: every row counted active",
     )
+
+
+def gradient_histogram_jobs_reference(
+    bins: torch.Tensor,
+    node_local: torch.Tensor,
+    g: torch.Tensor,
+    h: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    n_nodes: int,
+    n_bins: int,
+) -> torch.Tensor:
+    """The plain version: ``(3, J, n_nodes, F, n_bins)`` float32 sums of
+    (g, h, w) of J jobs over one shared ``(N, F)`` bins matrix, one
+    ``index_add_`` per channel over ``((j*n_nodes + node)*F + f)*B + bin``;
+    ``node_local``, ``g``, ``h`` and ``w`` are ``(J, N)``. A row whose node
+    lies outside ``[0, n_nodes)`` adds nothing.
+
+    The sums are taken in float64 and rounded once to float32. A float32
+    running sum drifts where one bin takes many equal values: at the
+    full-width fit's first level (1.84M rows; g is 0.5 or -1.88 at the
+    first tree) float32 atomics miss the float64 sum by ~1e-3 of the bin,
+    which no kernel could be held to. A NaN or an infinity reaches only
+    the bins of its row, where the float64 sum leaves NaN or the infinity.
+    Each job's segments receive its rows in row order, so job j gets the
+    bits of `gradient_histogram_reference` on its own inputs."""
+    J, N = node_local.shape
+    F = bins.shape[1]
+    dev = bins.device
+    node = node_local.long()
+    inside = (node >= 0) & (node < n_nodes)
+    # Rows outside the nodes go to one extra segment, dropped at the end.
+    job_seg = torch.arange(J, dtype=torch.int64, device=dev)[:, None] * n_nodes
+    segment = torch.where(inside, job_seg + node, J * n_nodes)
+    feat = torch.arange(F, dtype=torch.int64, device=dev)
+    idx = ((segment[:, :, None] * F + feat) * n_bins + bins.long()[None]).reshape(-1)
+    del segment, node, inside
+    size = J * n_nodes * F * n_bins
+    out = torch.zeros((3, size + F * n_bins), dtype=torch.float64, device=dev)
+    for c, v in enumerate((g, h, w)):
+        out[c].index_add_(0, idx, v.to(torch.float64)[:, :, None].expand(J, N, F).reshape(-1))
+    return out[:, :size].to(torch.float32).reshape(3, J, n_nodes, F, n_bins)
 
 
 def gradient_histogram_reference(
@@ -91,22 +160,13 @@ def gradient_histogram_reference(
     n_nodes: int,
     n_bins: int,
 ) -> torch.Tensor:
-    """The plain version: ``(3, n_nodes, F, n_bins)`` float32 sums of (g, h,
-    w), one ``index_add_`` per channel over ``(node*F + f)*B + bin``.
-
-    The sums are taken in float64 and rounded once to float32. A float32
-    running sum drifts where one bin takes many equal values: at the
-    full-width fit's first level (1.84M rows; g is 0.5 or -1.88 at the
-    first tree) float32 atomics miss the float64 sum by ~1e-3 of the bin,
-    which no kernel could be held to. A NaN or an infinity reaches only
-    the bins of its row, where the float64 sum leaves NaN or the infinity."""
-    N, F = bins.shape
-    feat = torch.arange(F, dtype=torch.int64, device=bins.device)
-    seg = ((node_local.long()[:, None] * F + feat) * n_bins + bins.long()).reshape(-1)
-    out = torch.zeros((3, n_nodes * F * n_bins), dtype=torch.float64, device=bins.device)
-    for c, v in enumerate((g, h, w)):
-        out[c].index_add_(0, seg, v.to(torch.float64)[:, None].expand(N, F).reshape(-1))
-    return out.to(torch.float32).reshape(3, n_nodes, F, n_bins)
+    """The plain version of one fit's level: ``(3, n_nodes, F, n_bins)``
+    float32, `gradient_histogram_jobs_reference` at ``J = 1`` on ``(N,)``
+    inputs."""
+    out = gradient_histogram_jobs_reference(
+        bins, node_local[None], g[None], h[None], w[None], n_nodes=n_nodes, n_bins=n_bins
+    )
+    return out[:, 0]
 
 
 @functools.cache
@@ -114,11 +174,11 @@ def _library() -> ctypes.CDLL:
     """The built kernel, its C signatures declared once."""
     lib = _build.load("gradient_histogram")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gradient_histogram.argtypes = [i, p, i, p, p, p, p, i, i, i, i, p, p, p, p]
+    lib.gradient_histogram.argtypes = [i, p, i, p, p, p, p, i, i, i, i, i, p, p, p, p]
     lib.gradient_histogram.restype = i
-    lib.gradient_histogram_scratch_words.argtypes = [i, i]
+    lib.gradient_histogram_scratch_words.argtypes = [i, i, i]
     lib.gradient_histogram_scratch_words.restype = ctypes.c_longlong
-    lib.gradient_histogram_acc_words.argtypes = [i, i, i]
+    lib.gradient_histogram_acc_words.argtypes = [i, i, i, i]
     lib.gradient_histogram_acc_words.restype = ctypes.c_longlong
     lib.gradient_histogram_error_string.argtypes = [i]
     lib.gradient_histogram_error_string.restype = ctypes.c_char_p
@@ -128,7 +188,7 @@ def _library() -> ctypes.CDLL:
 _COUNT_LOCK = threading.Lock()
 
 
-def gradient_histogram_channels(
+def gradient_histogram_jobs(
     bins: torch.Tensor,
     node_local: torch.Tensor,
     g: torch.Tensor,
@@ -138,37 +198,44 @@ def gradient_histogram_channels(
     n_nodes: int,
     n_bins: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The (g, h, w) sums as three ``(n_nodes, F, n_bins)`` float32 views of
-    one ``(3, n_nodes, F, n_bins)`` tensor.
+    """The (g, h, w) sums of J jobs as three ``(J, n_nodes, F, n_bins)``
+    float32 views of one ``(3, J, n_nodes, F, n_bins)`` tensor: the layout
+    the reference's vmap rule returns (``_hist_matmul_jobs``'s ``(F, B, J,
+    3, K)`` read as three ``(J, K, F, B)``).
 
-    ``bins`` is ``(N, F)`` uint8 or int32, ``node_local`` ``(N,)`` int32 in
-    ``[0, n_nodes)`` (rows outside it add nothing), ``g``, ``h``, ``w``
-    ``(N,)`` float32. A CPU ``bins`` runs
-    `gradient_histogram_reference`; a CUDA ``bins`` launches the kernel once
-    on the current stream (counted in ``gradient_histogram_channels.launches``)
-    or raises. The launch groups the active rows (node in range, g, h or w
-    nonzero) by node on the card, with no copy to the host, so that each
-    block sums one node's rows only. Its sums are int64 fixed point: g and h
-    agree with the plain version within float32 rounding, the cover bit for
-    bit, and two launches on the same inputs, or on the same rows in
-    another order, give the same bits. A NaN or infinity in g, h or w leaves
-    the bins its row reaches as the plain version leaves them (NaN, or the
-    infinity); the other bins keep their fixed-point sums, whose scale is
-    taken over the finite values only.
+    ``bins`` is ``(N, F)`` uint8 or int32, shared by the jobs;
+    ``node_local`` is ``(J, N)`` int32 in ``[0, n_nodes)`` (rows outside it
+    add nothing), ``g``, ``h``, ``w`` ``(J, N)`` float32. A CPU ``bins``
+    runs `gradient_histogram_jobs_reference`; a CUDA ``bins`` launches the
+    kernel once for all J jobs on the current stream (counted once in
+    ``gradient_histogram_channels.launches``, which counts every launch of
+    the kernel) or raises. The launch groups the active rows (node in
+    range, g, h or w nonzero) by (job, node) on the card, with no copy to
+    the host, so that each block sums one job's node only. Its sums are
+    int64 fixed point, scaled per (job, channel): each job gets the bits
+    that a launch on its inputs alone gives; g and h agree with the plain
+    version within float32 rounding, the cover bit for bit, and two
+    launches on the same inputs, or on the same rows in another order, give
+    the same bits. A NaN or infinity in a job's g, h or w leaves the bins
+    its row reaches as the plain version leaves them (NaN, or the
+    infinity); the other bins, that job's and every other job's, keep their
+    fixed-point sums, whose scale is taken over the finite values only.
 
     Each call is recorded on its program handle (`telemetry.programs`,
-    ``gradient_histogram/F<F>xB<n_bins>``): CUDA events around the launch
-    on the card, wall seconds of the plain version on the CPU, and
-    `histogram_cost`'s shape-only FLOPs and bytes."""
+    ``gradient_histogram/F<F>xB<n_bins>`` for one job,
+    ``gradient_histogram/J<J>xF<F>xB<n_bins>`` for J > 1): CUDA events
+    around the launch on the card, wall seconds of the plain version on the
+    CPU, and `histogram_cost`'s shape-only FLOPs and bytes: all J jobs'
+    rows, the shared bins read once."""
     if bins.device.type == "cpu":
         t0 = time.perf_counter()
-        out = gradient_histogram_reference(
+        out = gradient_histogram_jobs_reference(
             bins, node_local, g, h, w, n_nodes=n_nodes, n_bins=n_bins
         )
-        N, F = bins.shape
-        flops, nbytes = histogram_cost(N, F, n_nodes, n_bins, bins.element_size())
-        _program(F, n_bins, bins.device).record_dispatch(
-            time.perf_counter() - t0, rows=N, flops=flops, nbytes=nbytes
+        (J, N), F = node_local.shape, bins.shape[1]
+        flops, nbytes = histogram_cost(N, F, n_nodes, n_bins, bins.element_size(), n_jobs=J)
+        _program(F, n_bins, bins.device, J).record_dispatch(
+            time.perf_counter() - t0, rows=J * N, flops=flops, nbytes=nbytes
         )
         return out[0], out[1], out[2]
     if bins.device.type != "cuda":
@@ -176,34 +243,40 @@ def gradient_histogram_channels(
     if bins.dim() != 2 or bins.dtype not in (torch.uint8, torch.int32) or not bins.is_contiguous():
         raise ValueError("bins must be a contiguous (N, F) uint8 or int32 tensor")
     N, F = bins.shape
-    if node_local.dtype != torch.int32 or node_local.shape != (N,) or not node_local.is_contiguous():
-        raise ValueError("node_local must be a contiguous (N,) int32 tensor")
+    if node_local.dim() != 2 or node_local.shape[1] != N:
+        raise ValueError(f"node_local must be (J, {N}), got {tuple(node_local.shape)}")
+    J = node_local.shape[0]
+    if node_local.dtype != torch.int32 or not node_local.is_contiguous():
+        raise ValueError("node_local must be a contiguous (J, N) int32 tensor")
     for name, v in (("g", g), ("h", h), ("w", w)):
-        if v.dtype != torch.float32 or v.shape != (N,) or not v.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous (N,) float32 tensor")
+        if v.dtype != torch.float32 or v.shape != (J, N) or not v.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous (J, N) float32 tensor")
         if v.device != bins.device:
             raise ValueError(f"{name} is on {v.device}, bins on {bins.device}")
     if node_local.device != bins.device:
         raise ValueError(f"node_local is on {node_local.device}, bins on {bins.device}")
-    if N < 1 or F < 1 or n_nodes < 1 or not histogram_supported(n_bins):
+    if N < 1 or F < 1 or J < 1 or n_nodes < 1 or not histogram_supported(n_bins):
         raise ValueError(
-            f"gradient_histogram does not take N={N}, F={F}, n_nodes={n_nodes}, n_bins={n_bins}"
+            f"gradient_histogram does not take N={N}, F={F}, J={J}, n_nodes={n_nodes}, "
+            f"n_bins={n_bins}"
         )
     if bins.dtype == torch.uint8 and n_bins > 256:
         raise ValueError(f"uint8 bins cannot index n_bins={n_bins}")
     lib = _library()
-    out = torch.empty((3, n_nodes, F, n_bins), dtype=torch.float32, device=bins.device)
+    out = torch.empty((3, J, n_nodes, F, n_bins), dtype=torch.float32, device=bins.device)
     # The int64 sums, then the words of non-finite bits of each bin.
     acc = torch.empty(
-        lib.gradient_histogram_acc_words(n_nodes, F, n_bins), dtype=torch.int64, device=bins.device
+        lib.gradient_histogram_acc_words(n_nodes, F, n_bins, J),
+        dtype=torch.int64,
+        device=bins.device,
     )
-    # Largest |g|, |h|, |w|, per-node counts and segment offsets, the work
-    # table and the row indices grouped by node.
+    # Per job the largest |g|, |h|, |w|; per (job, node) counts and segment
+    # offsets; the work table and the row indices grouped by segment.
     scratch = torch.empty(
-        lib.gradient_histogram_scratch_words(N, n_nodes), dtype=torch.int32, device=bins.device
+        lib.gradient_histogram_scratch_words(N, n_nodes, J), dtype=torch.int32, device=bins.device
     )
     dev = bins.device.index if bins.device.index is not None else torch.cuda.current_device()
-    prog = _program(F, n_bins, bins.device)
+    prog = _program(F, n_bins, bins.device, J)
     stream = torch.cuda.current_stream(bins.device)
     pair = prog.start(stream)
     err = lib.gradient_histogram(
@@ -218,6 +291,7 @@ def gradient_histogram_channels(
         F,
         n_nodes,
         n_bins,
+        J,
         acc.data_ptr(),
         scratch.data_ptr(),
         out.data_ptr(),
@@ -226,11 +300,34 @@ def gradient_histogram_channels(
     if err != 0:
         msg = lib.gradient_histogram_error_string(err).decode()
         raise RuntimeError(f"gradient_histogram: CUDA error {err} ({msg}) launching the kernel")
-    flops, nbytes = histogram_cost(N, F, n_nodes, n_bins, bins.element_size())
-    prog.stop(pair, stream, rows=N, flops=flops, nbytes=nbytes)
+    flops, nbytes = histogram_cost(N, F, n_nodes, n_bins, bins.element_size(), n_jobs=J)
+    prog.stop(pair, stream, rows=J * N, flops=flops, nbytes=nbytes)
     with _COUNT_LOCK:
         gradient_histogram_channels.launches += 1
     return out[0], out[1], out[2]
+
+
+def gradient_histogram_channels(
+    bins: torch.Tensor,
+    node_local: torch.Tensor,
+    g: torch.Tensor,
+    h: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    n_nodes: int,
+    n_bins: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fit's level: the (g, h, w) sums as three ``(n_nodes, F,
+    n_bins)`` float32 views, `gradient_histogram_jobs` at ``J = 1`` on
+    ``(N,)`` ``node_local``, ``g``, ``h`` and ``w`` (the same launch, the
+    same checks, the same program ``gradient_histogram/F<F>xB<n_bins>``).
+
+    ``launches`` counts every launch of the kernel, one fit's or a joint
+    one of J jobs, each once."""
+    hg, hh, hw = gradient_histogram_jobs(
+        bins, node_local[None], g[None], h[None], w[None], n_nodes=n_nodes, n_bins=n_bins
+    )
+    return hg[0], hh[0], hw[0]
 
 
 gradient_histogram_channels.launches = 0

@@ -7,14 +7,16 @@ all training rows with the fold's rows at training weight 0, and the fit's
 own margin over all rows is the fold's prediction, scored by weighted
 ROC-AUC. The candidate with the best mean AUC is refit on all rows.
 
-Jobs run one after another on one device, each through the fit's level loop
-(the histogram kernel on the card); rows of weight 0 are inactive in every
-histogram launch. Each job's random stream is keyed on ``(seed, cand_id * K
-+ fold)``, so a score does not depend on which jobs ran before it or on how
-candidates are grouped.
+The jobs of a bucket run together, as the reference's vmapped CV runner
+(``_make_cv_runner``) runs them: one `fit_binned_jobs` call advances every
+live job of a group of candidates with one histogram launch per tree level
+(the kernel on the card) and one level loop; rows of weight 0 are inactive
+in every launch. Each job gets the bits of a fit of its own, and its random
+stream is keyed on ``(seed, cand_id * K + fold)``, so a score does not
+depend on which jobs ran beside it or on how candidates are grouped.
 
 A job boosts in chunks of ``chunk_trees`` rounds, carrying its margin
-(``fit_binned_resumable(init_margin=, tree_offset=)``, the same bits as one
+(``fit_binned_jobs(init_margin=, tree_offset=)``, the same bits as one
 chunk). On a chunked schedule the search runs the reference's successive
 halving (`successive_halving_search`): at each rung of `halving_ladder`
 every live candidate is scored on its carried margins and the bottom
@@ -23,6 +25,16 @@ every live candidate is scored on its carried margins and the bottom
 and a budget of 75 trees the margins it scores hold 78 trees, as the
 reference's do. A job's last chunk stops at its ``n_estimators`` (the
 reference runs the overflow trees inert).
+
+The runner's accounting is the reference's: ``cobalt_search_dispatch_seconds
+{mode}``, ``cobalt_search_pruned_candidates_total`` and
+``cobalt_search_rungs_total``, and program rows
+``search.cv_runner[mode=...,depth=...,chunk=...,bins=...]`` of kind
+``search`` (``search.score_jobs[mode=halving]`` for a rung that advanced
+nothing). The histogram launches inside the runner have program rows of
+their own (`ops.histogram`), so a runner row holds the seconds of its loop
+less those of the histogram launches made in it: the run ledger sums every
+row, and each second is attributed once.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import time
 from typing import Any, Mapping, Sequence
 
 import numpy as np
@@ -41,12 +54,17 @@ from cobalt_smart_lender_ai_tpu_torch.device import resolve_device
 from cobalt_smart_lender_ai_tpu_torch.models.gbdt import (
     GBDTClassifier,
     GBDTHyperparams,
-    fit_binned_resumable,
+    fit_binned_jobs,
     fold_in,
 )
 from cobalt_smart_lender_ai_tpu_torch.ops.binning import compute_bin_edges, transform
 from cobalt_smart_lender_ai_tpu_torch.ops.metrics import roc_auc
 from cobalt_smart_lender_ai_tpu_torch.parallel.budget import resolve_chunk_trees
+from cobalt_smart_lender_ai_tpu_torch.telemetry.metrics import default_registry
+from cobalt_smart_lender_ai_tpu_torch.telemetry.programs import (
+    default_program_registry,
+    program_handle,
+)
 
 __all__ = [
     "SearchResult",
@@ -60,6 +78,66 @@ __all__ = [
 ]
 
 logger = logging.getLogger("cobalt_smart_lender_ai_tpu_torch.tune")
+
+#: The kernel entry whose program rows hold the histogram launches' seconds.
+_HISTOGRAM_ENTRY = "gradient_histogram"
+
+
+def _cv_program(mode: str, *, depth: int, chunk: int, n_bins: int, device: torch.device):
+    """The program row of a CV chunk-advance runner, named as the
+    reference's: one row per (mode, depth, chunk, bins), whatever bucket or
+    rung dispatched through it. Its seconds are the runner's wall (ending
+    synchronised) less the seconds of the histogram launches made in it,
+    which their own rows hold."""
+    name = f"search.cv_runner[mode={mode},depth={depth},chunk={chunk},bins={n_bins}]"
+    return program_handle(
+        name, "search", device, mode=mode, depth=depth, chunk_trees=chunk, n_bins=n_bins
+    )
+
+
+def _search_metrics():
+    """The ``cobalt_search_*`` family, resolved at call time so tests that
+    swap the default registry see fresh counters."""
+    reg = default_registry()
+    return {
+        "dispatch_seconds": reg.counter(
+            "cobalt_search_dispatch_seconds",
+            "wall seconds spent dispatching+scoring search fan-out work, by "
+            "scheduler mode",
+            ("mode",),
+        ),
+        "pruned": reg.counter(
+            "cobalt_search_pruned_candidates_total",
+            "candidates pruned at successive-halving rung boundaries",
+        ),
+        "rungs": reg.counter(
+            "cobalt_search_rungs_total",
+            "successive-halving rung boundaries evaluated",
+        ),
+    }
+
+
+class _Stopwatch:
+    """Wall seconds of a stretch of search work ending synchronised with
+    ``device``, and how many of them the histogram's program rows hold."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        _sync(device)
+        self.hist0 = default_program_registry().entry_seconds(_HISTOGRAM_ENTRY)
+        self.t0 = time.perf_counter()
+
+    def stop(self) -> tuple[float, float]:
+        """(wall seconds, those of them outside the histogram launches)."""
+        _sync(self.device)
+        wall = time.perf_counter() - self.t0
+        hist = default_program_registry().entry_seconds(_HISTOGRAM_ENTRY) - self.hist0
+        return wall, wall - hist
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def sample_candidates(
@@ -142,19 +220,27 @@ class _Jobs:
         ]
 
     def boost(self, upto: int) -> None:
-        """Boost every job to ``min(upto, its n_estimators)`` trees."""
+        """Boost every job to ``min(upto, its n_estimators)`` trees: the jobs
+        that share their trees so far, the trees to boost and their depth
+        (a bucket's jobs all do) advance together, in one `fit_binned_jobs`
+        call."""
+        together: dict[tuple[int, int, int], list[dict]] = {}
         for job in self.jobs:
             hp = job["hp"]
             n = min(upto, hp.n_estimators) - job["trees"]
-            if n <= 0:
-                continue
-            _, job["margin"] = fit_binned_resumable(
-                self.bins, self.y, 1.0 - self.val[job["fold"]], self.fm, hp, job["seed"],
-                n_trees_cap=n, depth_cap=hp.max_depth, n_bins=self.n_bins,
-                init_margin=job["margin"], tree_offset=job["trees"],
+            if n > 0:
+                together.setdefault((job["trees"], n, hp.max_depth), []).append(job)
+        for (done, n, depth), jobs in together.items():
+            _, margins = fit_binned_jobs(
+                self.bins, self.y, 1.0 - self.val[[j["fold"] for j in jobs]], self.fm,
+                [j["hp"] for j in jobs], [j["seed"] for j in jobs],
+                n_trees_cap=n, depth_cap=depth, n_bins=self.n_bins,
+                init_margin=torch.stack([j["margin"] for j in jobs]), tree_offset=done,
                 hist_subtract=self.hist_subtract,
             )
-            job["trees"] += n
+            for job, margin in zip(jobs, margins):
+                job["margin"] = margin
+                job["trees"] += n
 
     def scores(self) -> dict[int, np.ndarray]:
         """Each candidate's validation AUC per fold, from the carried margins."""
@@ -214,8 +300,16 @@ def cross_validate_gbdt(
     )
     jobs = _Jobs(bins, y, hps, ids, val, fm, seed, n_bins=n_bins, hist_subtract=hist_subtract)
     step = chunk or n_trees
-    for upto in range(step, n_trees + step, step):
+    schedule = range(step, n_trees + step, step)
+    clock = _Stopwatch(bins.device)
+    for upto in schedule:
         jobs.boost(upto)
+    wall, outside = clock.stop()
+    _search_metrics()["dispatch_seconds"].labels(mode="exhaustive").inc(wall)
+    _cv_program(
+        "exhaustive", depth=max(hp.max_depth for hp in hps), chunk=step, n_bins=n_bins,
+        device=bins.device,
+    ).record_dispatch(outside, count=len(schedule))
     scores = jobs.scores()
     return np.stack([scores[i] for i in ids]).astype(np.float32)
 
@@ -275,7 +369,8 @@ def successive_halving_search(
     feature_mask: torch.Tensor | None = None,
 ) -> tuple[np.ndarray, dict[str, Any]] | None:
     """Successive-halving CV over the chunked schedule: the reference's
-    ``successive_halving_search``, its jobs run one after another.
+    ``successive_halving_search``, each group's live jobs advancing
+    together.
 
     Candidates are grouped by ``(max_depth, n_estimators)``; each depth
     gets one chunk, ``tune.chunk_trees`` resolved against the depth's
@@ -331,23 +426,44 @@ def successive_halving_search(
     ]
     logger.info("halving search: %d candidates x %d folds, rung budgets %s (eta=%d), chunks %s",
                 C, K, budgets, eta, chunk_of)
+    metrics = _search_metrics()
     split_scores = np.zeros((C, K))
     scored_at = np.zeros(C, dtype=np.int64)
     rungs: list[dict[str, Any]] = []
     pruned_total = dispatches = 0
     for ri, budget in enumerate(budgets):
         cand_mean: dict[int, float] = {}
+        rung_disp: dict[tuple[int, int], int] = {}
+        clock = _Stopwatch(bins.device)
         for g in live_groups:
             cap = max(j["hp"].n_estimators for j in g["jobs"].jobs)
             target = min(budget, cap)
             steps = max(0, -(-(target - g["done"]) // g["chunk"]))
             g["done"] += steps * g["chunk"]
             dispatches += steps
+            key = (g["jobs"].jobs[0]["hp"].max_depth, g["chunk"])
+            rung_disp[key] = rung_disp.get(key, 0) + steps
             g["jobs"].boost(g["done"])
             for cid, sc in g["jobs"].scores().items():
                 split_scores[cid] = sc
                 scored_at[cid] = min(budget, cfgs[cid].n_estimators)
                 cand_mean[cid] = float(sc.mean())
+        rung_wall, outside = clock.stop()
+        metrics["dispatch_seconds"].labels(mode="halving").inc(rung_wall)
+        metrics["rungs"].inc()
+        # The rung's seconds outside the histogram launches, shared among
+        # the runners that advanced by their chunk advances (the
+        # reference's estimate); a rung that advanced nothing spent them
+        # scoring.
+        total_d = sum(rung_disp.values())
+        if total_d:
+            for (d, ck), nd in rung_disp.items():
+                if nd:
+                    _cv_program("halving", depth=d, chunk=ck, n_bins=base.n_bins,
+                                device=bins.device).record_dispatch(outside * nd / total_d, count=nd)
+        else:
+            program_handle("search.score_jobs[mode=halving]", "search", bins.device).record_dispatch(
+                outside, count=len(live_groups))
         n_live = len(cand_mean)
         if ri == len(budgets) - 1:
             rungs.append({"rung": ri, "budget_trees": budget, "live": n_live, "pruned": 0})
@@ -355,6 +471,7 @@ def successive_halving_search(
         n_keep = max(1, -(-n_live // eta))
         keep = set(sorted(cand_mean, key=lambda cid: (-cand_mean[cid], cid))[:n_keep])
         pruned_total += n_live - n_keep
+        metrics["pruned"].inc(n_live - n_keep)
         rungs.append({"rung": ri, "budget_trees": budget, "live": n_live, "pruned": n_live - n_keep})
         logger.info("halving rung %d/%d @ %d trees: %d live -> %d kept",
                     ri + 1, len(budgets), budget, n_live, n_keep)

@@ -302,6 +302,14 @@ class ProgramRegistry:
             "dispatch_seconds": round(sum(r["dispatch_seconds"] for r in rows), 6),
         }
 
+    def entry_seconds(self, entry: str) -> float:
+        """Seconds of the finished dispatches of every program of kernel
+        entry ``entry`` (its kernel and plain rows), so far: what a caller
+        whose own row spans such launches leaves out of that row."""
+        with self._lock:
+            progs = [p for p in self._programs.values() if p.meta.get("entry") == entry]
+        return sum(p.resolved()[1] for p in progs)
+
     def reset(self) -> None:
         """Drop every program AND sink — test isolation only."""
         with self._lock:

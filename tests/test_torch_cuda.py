@@ -26,7 +26,13 @@ launches bit-identical (integer fixed-point sums), the same rows in another
 order bit-identical (the kernel groups rows by node in no fixed order), and
 a small fit on the card bit-identical twice over; non-finite g, h or w
 give the plain version's NaN or infinity in the bins they reach, and the
-other bins their exact sums. Of the raw path: the device ingest on the card
+other bins their exact sums. Of its job axis: one launch of J jobs (1, 3
+and 15; K 1 to 256; F 20 and 104; B 64 and 255; uint8 and int32 bins)
+gives each job the bits of a launch on that job alone, a job with no
+active row all zeros and a NaN in one job leaves the other jobs' bins as
+they were; and `fit_binned_jobs` on the card gives each job the forest and
+margin of its own fit bit for bit, with one launch per level for all
+jobs. Of the raw path: the device ingest on the card
 equals the CPU's (bitwise outside the log1p columns, which are within
 3e-7), so does the host path (clean and prepare on the host, engineer on
 the card) against the device ingest on the card and against its own
@@ -39,7 +45,7 @@ search gives the CPU's report (rungs, pruned, survivors, scored trees),
 scores within 1e-4 (as the CV jobs above: up to 40 trees of depth 5, whose
 margins drift by ulps between the card's fixed-point sums and the CPU's
 float sums) and the CPU's winner, its histogram launches one per level of
-every tree its jobs boosted in whole chunks. Of the program accounting:
+every tree a bucket's jobs boosted together in whole chunks. Of the program accounting:
 recording launches makes no device synchronisation and waits on an event
 only beyond the pool's bound, and every launch lands on its program with
 CUDA-event seconds. Of the continuous-training loop: a shadow row of the
@@ -100,10 +106,17 @@ from cobalt_smart_lender_ai_tpu_torch.data.features import engineer_features, pr
 from cobalt_smart_lender_ai_tpu_torch.data.frame import row_dicts
 from cobalt_smart_lender_ai_tpu_torch.data.synthetic import synthetic_lendingclub_frame
 from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ModelRegistry, ObjectStore
-from cobalt_smart_lender_ai_tpu_torch.models.gbdt import GBDTClassifier, GBDTHyperparams
+from cobalt_smart_lender_ai_tpu_torch.models.gbdt import (
+    GBDTClassifier,
+    GBDTHyperparams,
+    fit_binned_jobs,
+    fit_binned_resumable,
+)
 from cobalt_smart_lender_ai_tpu_torch.ops.binning import compute_bin_edges, transform
 from cobalt_smart_lender_ai_tpu_torch.ops.histogram import (
     gradient_histogram_channels,
+    gradient_histogram_jobs,
+    gradient_histogram_jobs_reference,
     gradient_histogram_reference,
 )
 from cobalt_smart_lender_ai_tpu_torch.ops.score import (
@@ -115,6 +128,7 @@ from cobalt_smart_lender_ai_tpu_torch.parallel.rfe import rfe_select
 from cobalt_smart_lender_ai_tpu_torch.parallel.tune import (
     cross_validate_gbdt,
     randomized_search,
+    search_buckets,
     stratified_kfold_masks,
 )
 from cobalt_smart_lender_ai_tpu_torch.serve.replicas import ReplicaSet
@@ -483,6 +497,122 @@ def test_histogram_kernel_nonfinite_inputs_on_card(card):
     assert torch.equal(got[2][ok[2]], ref[2][ok[2]])
 
 
+def _jobs_inputs(seed, J, N, F, B, K, bin_dtype):
+    """Level inputs of J jobs over one bins matrix: each job's g on its own
+    scale (so each has its own fixed-point exponent) and a third of its
+    rows at weight 0, as a CV job's fold."""
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, B, (N, F)).astype(bin_dtype)
+    node = rng.integers(0, K, (J, N)).astype(np.int32)
+    g = (rng.normal(size=(J, N)) * rng.uniform(0.5, 4.0, (J, 1))).astype(np.float32)
+    h = (np.abs(g) * 0.25 + 0.01).astype(np.float32)
+    w = (rng.random((J, N)) < 0.8).astype(np.float32)
+    fold = rng.random((J, N)) < 1 / 3
+    g[fold], h[fold], w[fold] = 0.0, 0.0, 0.0
+    return bins, node, g, h, w
+
+
+def _single_launches(t, K, B):
+    """(3, J, K, F, B): one launch of `gradient_histogram_channels` per job."""
+    bins, node, g, h, w = t
+    return torch.stack([
+        torch.stack(gradient_histogram_channels(bins, node[j], g[j], h[j], w[j], n_nodes=K, n_bins=B))
+        for j in range(node.shape[0])
+    ], dim=1)
+
+
+#: (J, N, F, B, K, bin dtype): J 1, 3 and 15 (the protocol's largest
+#: bucket), K 1 to 256, F 20 and 104, B 64 and 255, uint8 and int32 bins.
+JOB_CASES = [
+    (1, 60_000, 20, 255, 32, np.uint8),
+    (3, 40_000, 104, 64, 1, np.uint8),
+    (3, 30_000, 20, 255, 256, np.int32),
+    (15, 20_000, 20, 255, 128, np.uint8),
+    (15, 12_000, 104, 64, 8, np.int32),
+    (15, 20_000, 20, 64, 256, np.uint8),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J,N,F,B,K,bin_dtype", JOB_CASES)
+def test_histogram_jobs_kernel_matches_single_launches_on_card(card, J, N, F, B, K, bin_dtype):
+    """One launch of J jobs gives each job the bits of a launch on its own
+    inputs; against the plain version the cover is bit-equal and g and h
+    of each (job, node) within 1e-5 of its largest |value|; job 1 (J > 1)
+    has no active row and gets zeros."""
+    bins, node, g, h, w = _jobs_inputs(J * 1000 + K, J, N, F, B, K, bin_dtype)
+    if J > 1:
+        g[1], h[1], w[1] = 0.0, 0.0, 0.0
+    t = [torch.from_numpy(a).to(card) for a in (bins, node, g, h, w)]
+    before = gradient_histogram_channels.launches
+    got = torch.stack(gradient_histogram_jobs(*t, n_nodes=K, n_bins=B))
+    torch.cuda.synchronize()
+    assert gradient_histogram_channels.launches == before + 1
+    assert got.shape == (3, J, K, F, B)
+    assert torch.equal(got, _single_launches(t, K, B))
+    if J > 1:
+        assert not got[:, 1].any()
+    ref = gradient_histogram_jobs_reference(*t, n_nodes=K, n_bins=B)
+    assert torch.equal(got[2], ref[2])
+    for c in (0, 1):
+        scale = ref[c].abs().amax(dim=(2, 3))
+        assert bool(((got[c] - ref[c]).abs().amax(dim=(2, 3)) <= 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+def test_histogram_jobs_kernel_nan_in_one_job_on_card(card):
+    """A NaN in job 1's g leaves jobs 0 and 2 bit-equal to their single
+    launches (the scale and the non-finite flags are per job); job 1 has
+    NaN where the plain version does and its single launch's bits
+    elsewhere."""
+    J, K, B = 3, 16, 255
+    bins, node, g, h, w = _jobs_inputs(21, J, 50_000, 20, B, K, np.uint8)
+    g[1, np.random.default_rng(21).choice(50_000, 5, replace=False)] = np.nan
+    t = [torch.from_numpy(a).to(card) for a in (bins, node, g, h, w)]
+    got = torch.stack(gradient_histogram_jobs(*t, n_nodes=K, n_bins=B))
+    single = _single_launches(t, K, B)
+    ref = gradient_histogram_jobs_reference(*t, n_nodes=K, n_bins=B)
+    torch.cuda.synchronize()
+    for j in (0, 2):
+        assert torch.equal(got[:, j], single[:, j]) and not bool(got[:, j].isnan().any())
+    nan = got[:, 1].isnan()
+    assert bool(nan.any()) and torch.equal(nan, ref[:, 1].isnan())
+    assert torch.equal(got[:, 1][~nan], single[:, 1][~nan])
+
+
+@pytest.mark.cuda
+def test_fit_binned_jobs_matches_per_job_fits_on_card(card):
+    """Four CV-like jobs (their own fold at weight 0, hyperparameters,
+    seeds and carried margins) through one level loop on the card: each
+    job's forest and margin bit-equal to its own fit, one launch per level
+    for all of them against one per level per job."""
+    rng = np.random.default_rng(17)
+    N, F, B, depth, T = 30_000, 12, 64, 5, 4
+    bins = torch.from_numpy(rng.integers(0, B, (N, F)).astype(np.uint8)).to(card)
+    y = torch.from_numpy((rng.random(N) < 0.3).astype(np.float32)).to(card)
+    fm = torch.ones(F, dtype=torch.bool, device=card)
+    hps = [GBDTHyperparams(learning_rate=lr, gamma=gm, reg_lambda=1.0, min_child_weight=1.0,
+                           scale_pos_weight=2.5, subsample=ss, colsample_bytree=cs,
+                           n_estimators=ne, max_depth=md)
+           for lr, gm, ss, cs, ne, md in ((0.1, 0.0, 0.8, 0.8, 6, 5), (0.3, 1.0, 1.0, 0.6, 6, 5),
+                                          (0.05, 0.5, 0.7, 1.0, 5, 4), (0.2, 0.0, 1.0, 1.0, 6, 5))]
+    seeds = [3, 5, 7, 9]
+    sw = torch.from_numpy((rng.random((4, N)) >= 1 / 3).astype(np.float32)).to(card)
+    init = torch.from_numpy(rng.normal(size=(4, N)).astype(np.float32)).to(card)
+    kw = dict(n_trees_cap=T, depth_cap=depth, n_bins=B, tree_offset=2)
+    before = gradient_histogram_channels.launches
+    forests, margins = fit_binned_jobs(bins, y, sw, fm, hps, seeds, init_margin=init, **kw)
+    torch.cuda.synchronize()
+    assert gradient_histogram_channels.launches - before == T * depth
+    for j in range(4):
+        forest, margin = fit_binned_resumable(bins, y, sw[j], fm, hps[j], seeds[j],
+                                              init_margin=init[j], **kw)
+        assert torch.equal(margin, margins[j]), j
+        for f in ("feature", "thr_bin", "missing_left", "gain", "cover", "leaf_value"):
+            assert torch.equal(getattr(forest, f), getattr(forests[j], f)), (j, f)
+    assert gradient_histogram_channels.launches - before == 5 * T * depth
+
+
 TODAY = datetime(2026, 8, 1)
 LOG_RTOL = 3e-7
 
@@ -626,7 +756,8 @@ def test_protocol_fits_on_card_match_the_cpu(card):
            for n, d in ((20, 3), (10, 5), (6, 9))]
     before = gradient_histogram_channels.launches
     on_card = cross_validate_gbdt(bins.cuda(), torch.from_numpy(y).cuda(), hps, val.cuda(), 22, n_bins=255)
-    assert gradient_histogram_channels.launches - before == 3 * (20 * 3 + 10 * 5 + 6 * 9)
+    # One launch per tree level for a candidate's three folds together.
+    assert gradient_histogram_channels.launches - before == 20 * 3 + 10 * 5 + 6 * 9
     on_cpu = cross_validate_gbdt(bins, torch.from_numpy(y), hps, val, 22, n_bins=255)
     assert float(np.abs(on_card - on_cpu).max()) <= 1e-4
 
@@ -667,12 +798,14 @@ def test_halving_search_on_card_matches_the_cpu(card):
     assert got.cv_results_["halving"] == report and report["pruned_candidates"] == 3
     assert float(np.abs(got.cv_results_["split_test_scores"] - ref.cv_results_["split_test_scores"]).max()) <= 1e-4
     assert got.best_params_ == ref.best_params_
+    # One launch per tree level for a bucket's live jobs together: the
+    # trees of its candidate boosted furthest, in whole chunks.
     expect = 0
-    for c, cand in enumerate(ref.cv_results_["params"]):
-        g = GBDTConfig(**cand)
+    for idxs in search_buckets(ref.cv_results_["params"], GBDTConfig()):
+        g = GBDTConfig(**ref.cv_results_["params"][idxs[0]])
         chunk = report["chunk_trees"][g.max_depth]
-        trees = min(chunk * -(-report["scored_at_trees"][c] // chunk), g.n_estimators)
-        expect += 2 * trees * g.max_depth
+        trees = max(min(chunk * -(-report["scored_at_trees"][c] // chunk), g.n_estimators) for c in idxs)
+        expect += trees * g.max_depth
     best = GBDTConfig(**got.best_params_)
     assert launches == expect + best.n_estimators * best.max_depth
 
