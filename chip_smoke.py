@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only-challengers # phase 17 (no kernel to build)
     python3 chip_smoke.py --only-portfolio # build, then phase 18 and the full book
     python3 chip_smoke.py --only-search    # build, then 5b's joint launches and the bucket's jobs
+    python3 chip_smoke.py --only-mesh      # build, then phase 19 (the card named four times)
     python3 chip_smoke.py --full-protocol  # build, then phase 8b at the defaults
 
 Phases, each of which must pass:
@@ -447,7 +448,36 @@ Phases, each of which must pass:
        ``shap_bulk_launches``);
     e. under ``--only-portfolio`` only, the sweep again on a book of
        2,300,000 loans: its seconds, rows per second and the seconds inside
-       ``advance``.
+       ``advance``;
+19. the mesh, the card named four times (`device.mesh_devices`, each entry
+    a shard on its own CUDA stream), before the scoring split:
+    a. `fit_binned_dp` on a (1, 4) mesh, 50 trees of depth 7 (cut from 300),
+       no row sample, on 5's 1.84M rows: one accumulate launch a shard a
+       level, one finalize a level (the main path's launches, counted from
+       0: the ``kernels`` line's ``gradient_histogram_sharded``); its first
+       tree's splits bit for bit the single direct fit's, held-out AUC
+       within 1e-4, the max |margin| difference; at levels 0, 4 and 6 of
+       that fit's first tree the sharded entry bit for bit one launch, its
+       cover bit for bit and g and h within 1e-5 of each node's largest
+       |value| against its plain version (the shards' float64 partials), and
+       one shard's accumulate launch's ms, the whole sharded call's, the
+       one launch's, the plain accumulate's, the library's and the bound
+       at the shard's rows;
+    b. a CV bucket (2 candidates x 2 folds, 4 trees of depth 6) over a
+       (2, 1) mesh bit for bit one device's, over a (2, 2) mesh within
+       1e-4 of one device's direct fit;
+    c. `MeshPartitioner` bulk SHAP at 4 x 1024 rows bit for bit
+       `SingleDevicePartitioner`'s at f32, bf16 and int8, 4 launches a
+       dispatch on the ``.../shards=4`` program row;
+    d. `ScorerService` with ``bulk_shards=4`` over HTTP answers one
+       ``/predict_bulk_csv`` of 5,000 rows with the one-device service's
+       probabilities bit for bit, one launch a shard a chunk;
+    e. the device ingest of 100,000 loans with four ingest shards gives the
+       one-device tables bit for bit;
+    f. two processes on the card (this script with ``--mesh-worker``), gloo
+       over card tensors: an ``all_reduce``, the (1, 2) global mesh and a
+       dp fit (1.84M rows, 5 trees of depth 7) bit for bit the one-process
+       fit over the card named twice.
 
 The script's seconds in all come on a line before ``{"kernels": [...]}``,
 which is the line before the last; the last is ``{"ok": true, "device":
@@ -462,6 +492,7 @@ then runs phase 18 and its full-book sweep (18e), and prints neither. ``--full-p
 reference's default `RFEConfig` (104 -> 20 features at step 1, 84 refits of
 50 trees) and `TuneConfig` (20 candidates x 3 folds, every candidate to its
 full ``n_estimators``) on a new 2.3M-loan frame, and prints neither line.
+``--only-mesh`` builds, then runs phase 19 alone, and prints neither.
 ``--only-search`` builds, then runs 5b's joint launches and the search
 bucket's check (the short loop for work on the job axis), and prints
 neither: the reference-default (9, 100) bucket's 15 jobs on phase 5's
@@ -510,6 +541,7 @@ from cobalt_smart_lender_ai_tpu_torch.config import (
     DataConfig,
     FTTransformerConfig,
     GBDTConfig,
+    MeshConfig,
     MLPConfig,
     PipelineConfig,
     ReliabilityConfig,
@@ -517,6 +549,7 @@ from cobalt_smart_lender_ai_tpu_torch.config import (
     ServeConfig,
     TuneConfig,
 )
+from cobalt_smart_lender_ai_tpu_torch import device as port_device
 from cobalt_smart_lender_ai_tpu_torch import native
 from cobalt_smart_lender_ai_tpu_torch.data import schema
 from cobalt_smart_lender_ai_tpu_torch.data.bootstrap import bootstrap_synthetic
@@ -562,6 +595,12 @@ from cobalt_smart_lender_ai_tpu_torch.ops import _build
 from cobalt_smart_lender_ai_tpu_torch.ops.binning import compute_bin_edges, transform
 from cobalt_smart_lender_ai_tpu_torch.ops.histogram import _program as histogram_program
 from cobalt_smart_lender_ai_tpu_torch.ops.histogram import (
+    gradient_histogram_sharded,
+    histogram_accumulate,
+    histogram_finalize,
+    histogram_partial_reference,
+    histogram_scale_state,
+    reduce_scale_states,
     gradient_histogram_channels,
     gradient_histogram_jobs,
     gradient_histogram_jobs_reference,
@@ -578,9 +617,22 @@ from cobalt_smart_lender_ai_tpu_torch.ops.score import (
     tree_table_layout,
 )
 from cobalt_smart_lender_ai_tpu_torch.parallel.budget import resolve_chunk_trees
+from cobalt_smart_lender_ai_tpu_torch.parallel.distributed import (
+    DistributedConfig,
+    init_distributed,
+    make_global_mesh,
+)
+from cobalt_smart_lender_ai_tpu_torch.parallel.mesh import make_mesh
+from cobalt_smart_lender_ai_tpu_torch.parallel.partitioner import (
+    MeshPartitioner,
+    SingleDevicePartitioner,
+    make_partitioner,
+)
+from cobalt_smart_lender_ai_tpu_torch.parallel.sharded import fit_binned_dp
 from cobalt_smart_lender_ai_tpu_torch.parallel.rfe import SELECTOR_BINS, rfe_select
 from cobalt_smart_lender_ai_tpu_torch.parallel.tune import (
     _pow2_jobs,
+    cross_validate_gbdt,
     halving_ladder,
     randomized_search,
     sample_candidates,
@@ -5377,6 +5429,448 @@ def portfolio_full_book(card: str, n_loans: int, dev: torch.device) -> dict:
     return out
 
 
+# -- phase 19: the mesh, the card named four times ---------------------------------
+
+#: The mesh's shards: the one card named this many times, each on its stream.
+MESH_SHARDS = 4
+#: 19a: the dp fit, cut from 300 trees for time; no row sample (a dp shard
+#: draws its own), so its first tree is the single direct fit's.
+MESH_TREES, MESH_DEPTH = 50, 7
+MESH_LEVELS = (0, 4, 6)
+TOL_MESH_AUC = 1e-4
+#: 19b: one CV bucket of 2 candidates x 2 folds, 4 trees of depth 6 in
+#: chunks of 2, on 5's 1.84M rows.
+MESH_CV_TREES, MESH_CV_DEPTH, MESH_CV_CHUNK = 4, 6, 2
+TOL_MESH_CV = 1e-4
+#: 19c: rows a shard of one bulk SHAP dispatch.
+MESH_SHAP_ROWS = 1024
+#: 19d: rows of the bulk CSV.
+MESH_BULK_ROWS = 5000
+#: 19e: loans of the sharded ingest.
+MESH_INGEST_ROWS = 100_000
+#: 19f: the two processes' fit on 5's 1.84M rows at the main path's depth
+#: (the exponent the shards agree on is set by all of them), 5 trees.
+MESH_DIST_ROWS, MESH_DIST_TREES, MESH_DIST_DEPTH = N_TRAIN, 5, TRAIN_CONFIG["max_depth"]
+MESH_WORKER_TIMEOUT_S = 180
+
+
+@contextlib.contextmanager
+def card_named(n: int):
+    """`device.mesh_devices` lists the card ``n`` times while inside: the
+    stand-in for a host with ``n`` cards (each entry one shard, on its own
+    stream)."""
+    saved = port_device.mesh_devices
+    card = torch.device("cuda", torch.cuda.current_device())
+    port_device.mesh_devices = lambda device="cuda": [card] * n
+    try:
+        yield [card] * n
+    finally:
+        port_device.mesh_devices = saved
+
+
+def _direct_level_inputs(bins, y, hp, seed: int, depth: int, n_bins: int) -> dict[int, dict]:
+    """The first tree's direct histogram inputs at `MESH_LEVELS`, as the
+    single direct fit makes them."""
+    calls: list[dict] = []
+
+    def record(b, node, g, h, w, *, n_nodes, n_bins):
+        calls.append(dict(node=node.clone(), g=g.clone(), h=h.clone(), w=w.clone(), K=n_nodes))
+        return gradient_histogram_channels(b, node, g, h, w, n_nodes=n_nodes, n_bins=n_bins)
+
+    N, F = bins.shape
+    gbdt.fit_binned_resumable(bins, y, torch.ones(N, device=bins.device),
+                              torch.ones(F, dtype=torch.bool, device=bins.device), hp, seed,
+                              n_trees_cap=1, depth_cap=depth, n_bins=n_bins,
+                              hist_subtract=False, histogram=record)
+    return {level: calls[level] for level in MESH_LEVELS}
+
+
+def sharded_histogram_records(bins: torch.Tensor, calls: dict[int, dict], mesh, n_bins: int) -> list[dict]:
+    """19a's histogram levels: the sharded entry over the mesh's shards
+    against one launch over all rows (bit for bit) and against its plain
+    version (the shards' float64 partials summed: cover bit for bit, g and
+    h within `TOL_HIST` of each node's largest |value|), the whole sharded
+    call's and one shard's accumulate launch's ms beside the one launch's,
+    the plain accumulate's (`histogram_partial_reference`), the library's
+    (three ``torch.bincount``) and the bound at the shard's rows."""
+    N = bins.shape[0]
+    dp = mesh.row_shards(0, N)
+    records = []
+    for level, c in calls.items():
+        K = c["K"]
+        one_args = (bins, c["node"], c["g"], c["h"], c["w"])
+        one = torch.stack(gradient_histogram_channels(*one_args, n_nodes=K, n_bins=n_bins))
+        parts = [(bins[a:b], c["node"][None, a:b].contiguous(), c["g"][None, a:b].contiguous(),
+                  c["h"][None, a:b].contiguous(), c["w"][None, a:b].contiguous())
+                 for a, b in dp.bounds]
+        kw = dict(n_nodes=K, n_bins=n_bins, n_rows=N, run=dp.run)
+        got = torch.stack(gradient_histogram_sharded(parts, **kw))[:, 0]
+        torch.cuda.synchronize()
+        if not torch.equal(got, one):
+            raise AssertionError(f"19a level {level}: the sharded entry differs from one launch")
+        # The plain version of the same sharded call: each shard's float64
+        # partials, summed, rounded once; cover bit for bit, g and h of each
+        # node within TOL_HIST of its largest |value|, as in 5b.
+        plain = sum(histogram_partial_reference(*p, n_nodes=K, n_bins=n_bins) for p in parts)
+        plain = plain.to(torch.float32).reshape(got.shape)
+        if not torch.equal(got[2], plain[2]):
+            raise AssertionError(f"19a level {level}: the sharded cover differs from the plain version")
+        err = 0.0
+        for ch in (0, 1):
+            node_err = (got[ch] - plain[ch]).abs().amax(dim=(1, 2))
+            scale = plain[ch].abs().amax(dim=(1, 2))
+            if bool((node_err > TOL_HIST * scale).any()):
+                raise AssertionError(f"19a level {level}: channel {ch} off the plain version")
+            err = max(err, float(node_err.max()))
+        agreed = reduce_scale_states([histogram_scale_state(*p[2:]) for p in parts], bins.device)
+        acc_kw = dict(n_nodes=K, n_bins=n_bins, scale_rows=N)
+        shard = parts[0]
+        b0, g0, h0, w0 = shard[0], shard[2][0], shard[3][0], shard[4][0]
+        rec = {"level": level, "K": K, "shards": len(parts), "shard_rows": int(b0.shape[0]),
+               "bit_equal": True, "max_abs_err": err,
+               "one_launch_ms": time_ms(lambda: gradient_histogram_channels(*one_args, n_nodes=K,
+                                                                           n_bins=n_bins), 20),
+               "call_ms": time_ms(lambda: gradient_histogram_sharded(parts, **kw), 20),
+               "ms": time_ms(lambda: histogram_accumulate(*shard, agreed, **acc_kw), 20),
+               "plain_ms": time_ms(lambda: histogram_partial_reference(*shard, n_nodes=K,
+                                                                        n_bins=n_bins), 3, warmup=1),
+               "library_ms": time_ms(lambda: library_histogram(b0, shard[1][0], g0, h0, w0, K,
+                                                               n_bins), 3, warmup=1)}
+        rec["bound_ms"], rec["bound_by"] = histogram_bound_ms(b0, g0, h0, w0, K, n_bins)
+        records.append(rec)
+    return records
+
+
+def mesh_fit_check(card: str, bins, y, X_test, y_test, spec) -> dict:
+    """19a: `fit_binned_dp` over the card named `MESH_SHARDS` times against
+    the single direct fit: the first tree's splits bit for bit, held-out
+    AUC within `TOL_MESH_AUC`, the max |margin| difference; the launches of
+    the main path (the dp fit, counted from 0): one accumulate launch a
+    shard a level, one finalize a level, no one-launch histogram."""
+    cfg = GBDTConfig(**{**TRAIN_CONFIG, "n_estimators": MESH_TREES, "max_depth": MESH_DEPTH,
+                        "subsample": 1.0})
+    hp = gbdt.GBDTHyperparams.from_config(cfg)
+    kw = dict(n_trees_cap=MESH_TREES, depth_cap=MESH_DEPTH, n_bins=cfg.n_bins)
+    mesh = make_mesh(MeshConfig(), devices=[torch.device("cuda")] * MESH_SHARDS)
+    one = make_mesh(MeshConfig(), devices=[torch.device("cuda")])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = fit_binned_dp(one, bins, y, None, None, hp, cfg.seed, hist_subtract=False, **kw)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    for counter in (gradient_histogram_channels, histogram_scale_state, histogram_accumulate,
+                    histogram_finalize):
+        counter.launches = 0
+    t0 = time.perf_counter()
+    dp_forest = fit_binned_dp(mesh, bins, y, None, None, hp, cfg.seed, **kw)
+    torch.cuda.synchronize()
+    dp_s = time.perf_counter() - t0
+    launches = {"accumulate": histogram_accumulate.launches, "state": histogram_scale_state.launches,
+                "finalize": histogram_finalize.launches, "one_launch": gradient_histogram_channels.launches}
+    levels = MESH_TREES * MESH_DEPTH
+    want = {"accumulate": MESH_SHARDS * levels, "state": MESH_SHARDS * levels, "finalize": levels,
+            "one_launch": 0}
+    if launches != want:
+        raise AssertionError(f"19a: dp fit launches {launches}, expected {want}")
+    for f in ("feature", "thr_bin", "missing_left"):
+        if not torch.equal(getattr(dp_forest, f)[0], getattr(single, f)[0]):
+            raise AssertionError(f"19a: the dp fit's first tree differs from the direct fit in {f}")
+    same_trees = sum(
+        all(torch.equal(getattr(dp_forest, f)[t], getattr(single, f)[t])
+            for f in ("feature", "thr_bin", "missing_left"))
+        for t in range(MESH_TREES)
+    )
+    f_dp = gbdt.attach_float_thresholds(dp_forest, spec)
+    f_one = gbdt.attach_float_thresholds(single, spec)
+    auc_dp, auc_one = held_out_auc(f_dp, X_test, y_test), held_out_auc(f_one, X_test, y_test)
+    margin_diff = float((gbdt.predict_margin(f_dp, X_test) - gbdt.predict_margin(f_one, X_test)).abs().max())
+    if abs(auc_dp - auc_one) > TOL_MESH_AUC:
+        raise AssertionError(f"19a: dp AUC {auc_dp} vs direct {auc_one}")
+    calls = _direct_level_inputs(bins, y, hp, cfg.seed, MESH_DEPTH, cfg.n_bins)
+    return {"trees": MESH_TREES, "depth": MESH_DEPTH, "shards": MESH_SHARDS,
+            "single_direct_s": single_s, "dp_s": dp_s, "launches": launches,
+            "first_tree_equal": True, "trees_with_equal_splits": same_trees,
+            "auc_dp": auc_dp, "auc_direct": auc_one, "auc_diff": abs(auc_dp - auc_one),
+            "max_abs_margin_diff": margin_diff,
+            "histogram": sharded_histogram_records(bins, calls, mesh, cfg.n_bins)}
+
+
+def tune_cv(bins, y, hps, val, **kw) -> np.ndarray:
+    """19b's CV bucket: `cross_validate_gbdt` of ``hps`` on the folds ``val``."""
+    return cross_validate_gbdt(bins, y, hps, val, SEED, **kw)
+
+
+def mesh_search_check(bins, y) -> dict:
+    """19b: one CV bucket over a (2, 1) mesh (its jobs split over hp) bit
+    for bit the single device's, and over a (2, 2) mesh (rows over dp too)
+    within `TOL_MESH_CV` of the single device's direct fit."""
+    base = GBDTConfig(**{**TRAIN_CONFIG, "n_estimators": MESH_CV_TREES, "max_depth": MESH_CV_DEPTH,
+                         "subsample": 1.0})
+    hps = [gbdt.GBDTHyperparams.from_config(base.replace(colsample_bytree=cs, learning_rate=lr))
+           for cs, lr in ((0.8, 0.1), (1.0, 0.3))]
+    val = torch.from_numpy(stratified_kfold_masks(y.cpu().numpy(), 2, SEED)).to(bins.device)
+    kw = dict(n_bins=base.n_bins, chunk_trees=MESH_CV_CHUNK)
+    cuda = torch.device("cuda")
+    out = {"jobs": len(hps) * 2, "trees": MESH_CV_TREES, "depth": MESH_CV_DEPTH}
+    t0 = time.perf_counter()
+    single = tune_cv(bins, y, hps, val, **kw)
+    out["single_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hp2 = tune_cv(bins, y, hps, val, mesh=make_mesh(MeshConfig(hp=2), devices=[cuda] * 2), **kw)
+    out["hp_s"] = time.perf_counter() - t0
+    if not np.array_equal(single, hp2):
+        raise AssertionError(f"19b: the (2, 1) mesh's scores {hp2} differ from one device's {single}")
+    direct = tune_cv(bins, y, hps, val, hist_subtract=False, **kw)
+    t0 = time.perf_counter()
+    m22 = tune_cv(bins, y, hps, val, mesh=make_mesh(MeshConfig(hp=2), devices=[cuda] * 4), **kw)
+    out["hp_dp_s"] = time.perf_counter() - t0
+    out["hp_dp_max_abs_diff"] = float(np.abs(m22 - direct).max())
+    if out["hp_dp_max_abs_diff"] > TOL_MESH_CV:
+        raise AssertionError(f"19b: the (2, 2) mesh's scores {m22} vs the direct fit's {direct}")
+    out["hp_bitwise"] = True
+    return out
+
+
+def mesh_partitioner_check() -> dict:
+    """19c: `MeshPartitioner` over the card named `MESH_SHARDS` times, bulk
+    SHAP at `MESH_SHARDS` x `MESH_SHAP_ROWS` rows, bit for bit
+    `SingleDevicePartitioner`'s at f32, bf16 and int8 (margins, prob, phis,
+    base), one launch a shard a dispatch, on the mesh's program row."""
+    art = GBDTArtifact.load(ObjectStore(str(STORE)), MODEL_KEY, "cuda")
+    F = len(art.feature_names)
+    rows = MESH_SHARDS * MESH_SHAP_ROWS
+    single = SingleDevicePartitioner("cuda")
+    mesh = MeshPartitioner([torch.device("cuda")] * MESH_SHARDS)
+    out: dict = {"rows": rows, "shards": MESH_SHARDS}
+    for precision in ("f32", *QUANTIZED):
+        pack = pack_forest(art.forest, F, precision)
+        X = torch.from_numpy(seeded_rows(pack, rows)).cuda()
+        one_fn = single.compile_fused(pack, F, rows, with_shap=True)
+        mesh_fn = mesh.compile_fused(pack, F, rows, with_shap=True)
+        want = one_fn(X)
+        before = fused_score.launches
+        dispatches = 2
+        got = [mesh_fn(X) for _ in range(dispatches)]
+        torch.cuda.synchronize()
+        launches = fused_score.launches - before
+        if launches != MESH_SHARDS * dispatches:
+            raise AssertionError(f"19c {precision}: {launches} launches for {dispatches} dispatches")
+        for g in got:
+            for k in range(3):
+                if not torch.equal(g[k], want[k]):
+                    raise AssertionError(f"19c {precision}: output {k} differs from one device's")
+            if float(g[3]) != float(want[3]):
+                raise AssertionError(f"19c {precision}: base differs")
+        row = default_program_registry().table()
+        name = f"score_forest/{precision}/{MESH_SHAP_ROWS}/shap/shards={MESH_SHARDS}"
+        prog = next(r for r in row if r["name"] == name)
+        out[precision] = {
+            "launches": launches, "dispatches": dispatches, "bitwise": True,
+            "program": name, "program_dispatches": prog["dispatches"], "program_shards": prog["shards"],
+            "single_ms": time_ms(lambda: one_fn(X), 5),
+            "mesh_ms": time_ms(lambda: mesh_fn(X), 5),
+        }
+    return out
+
+
+def mesh_service_check(card_devices) -> dict:
+    """19d: `ScorerService(bulk_shards=MESH_SHARDS)` over HTTP answers
+    ``/predict_bulk_csv``: one launch a shard a chunk, its probabilities
+    the one-device service's bit for bit, ``/readyz`` reporting the mesh."""
+    store = ObjectStore(str(STORE))
+    out = {}
+    results = {}
+    for shards in (1, MESH_SHARDS):
+        service = ScorerService.from_store(store, ServeConfig(bulk_shards=shards), device="cuda")
+        server = make_async_server(service, "127.0.0.1", 0)
+        base = f"http://127.0.0.1:{server.port}"
+        try:
+            Xb = seeded_rows(service._model.pack, MESH_BULK_ROWS, SEED + 9)
+            names = service.feature_names
+            lines = [",".join(f'"{n}"' for n in names)]
+            lines += [",".join("" if np.isnan(v) else repr(float(v)) for v in r) for r in Xb]
+            before = fused_score.launches
+            t0 = time.perf_counter()
+            bulk = _post(base + "/predict_bulk_csv", "\n".join(lines).encode(), "text/csv")
+            bulk_s = time.perf_counter() - t0
+            launches = fused_score.launches - before
+            ready = _get(base + "/readyz")
+        finally:
+            server.close()
+            service.close()
+        step = ServeConfig().max_batch_rows * shards
+        chunks = -(-MESH_BULK_ROWS // step)
+        if launches != shards * chunks:
+            raise AssertionError(f"19d: {launches} launches for {chunks} chunks of {shards} shards")
+        if ready["bulk"]["shards"] != shards:
+            raise AssertionError(f"19d: /readyz reports {ready['bulk']}")
+        results[shards] = [r["prob_default"] for r in bulk["predictions"]]
+        out[f"shards_{shards}"] = {"launches": launches, "chunks": chunks, "bulk_s": bulk_s,
+                                   "readyz_bulk": ready["bulk"]}
+    if results[1] != results[MESH_SHARDS]:
+        raise AssertionError("19d: the mesh service's bulk probabilities differ from one device's")
+    out["bitwise"] = True
+    return out
+
+
+def mesh_ingest_check() -> dict:
+    """19e: the device ingest with ``ingest_shards = MESH_SHARDS`` (its
+    feature assembly and bin transform over the mesh) gives the one-device
+    tables bit for bit."""
+    tok = tokenize_raw_frame(synthetic_lendingclub_frame(MESH_INGEST_ROWS, seed=SEED), today=TODAY)
+    t0 = time.perf_counter()
+    one = run_device_ingest(tok, device="cuda")
+    _sync(torch.device("cuda"))
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    four = run_device_ingest(tok, device="cuda", partitioner=make_partitioner(
+        MESH_SHARDS, device="cuda"))
+    _sync(torch.device("cuda"))
+    four_s = time.perf_counter() - t0
+    pairs = {"tree": (one.tree.X, four.tree.X), "nn": (one.nn.X, four.nn.X), "y": (one.tree.y, four.tree.y),
+             "bins": (one.bins, four.bins), "edges": (one.bin_spec.edges, four.bin_spec.edges)}
+    for name, (a, b) in pairs.items():
+        if a.dtype.is_floating_point:
+            same = torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+        else:
+            same = torch.equal(a, b)
+        if not same:
+            raise AssertionError(f"19e: the sharded ingest's {name} differs from one device's")
+    if one.plan != four.plan or one.tree.feature_names != four.tree.feature_names:
+        raise AssertionError("19e: the sharded ingest's plan or names differ")
+    return {"loans": MESH_INGEST_ROWS, "rows_out": int(one.tree.X.shape[0]), "one_s": one_s,
+            "sharded_s": four_s, "bitwise": True}
+
+
+def _mesh_dist_data():
+    Xn, yn = training_rows(MESH_DIST_ROWS, seed=SEED + 19)
+    X = torch.from_numpy(Xn).cuda()
+    bins = transform(compute_bin_edges(X, 255), X)
+    hp = gbdt.GBDTHyperparams.from_config(GBDTConfig(**{
+        **TRAIN_CONFIG, "n_estimators": MESH_DIST_TREES, "max_depth": MESH_DIST_DEPTH}))
+    return bins, torch.from_numpy(yn).cuda(), hp
+
+
+def _mesh_dist_fit(mesh):
+    bins, y, hp = _mesh_dist_data()
+    return fit_binned_dp(mesh, bins, y, None, None, hp, SEED, n_trees_cap=MESH_DIST_TREES,
+                         depth_cap=MESH_DIST_DEPTH, n_bins=255)
+
+
+DIST_FIELDS = ("feature", "thr_bin", "missing_left", "gain", "cover", "leaf_value")
+
+
+def mesh_worker(rank: int, port: int, out: str) -> int:
+    """One of 19f's two processes on the card: the gloo bootstrap (NCCL
+    takes one rank a card), an ``all_reduce`` of a card tensor, the global
+    (1, 2) mesh and its dp fit; the forest goes to ``out``."""
+    cfg = DistributedConfig(f"127.0.0.1:{port}", 2, rank)
+    if not init_distributed(cfg, device="cuda", backend="gloo", timeout_s=MESH_WORKER_TIMEOUT_S):
+        raise AssertionError("19f: no process group")
+    t = torch.tensor([rank + 1.0], device="cuda")
+    torch.distributed.all_reduce(t)
+    mesh = make_global_mesh(MeshConfig(), devices=["cuda"])
+    forest = _mesh_dist_fit(mesh)
+    np.savez(out, all_reduce=t.cpu().numpy(), shape=np.asarray(list(mesh.shape.values())),
+             **{f: getattr(forest, f).cpu().numpy() for f in DIST_FIELDS})
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_distributed_check() -> dict:
+    """19f: two processes on the card (this script with ``--mesh-worker``),
+    gloo over card tensors: each holds one shard of a (1, 2) global mesh,
+    and their dp fit equals the one-process fit over the card named twice,
+    bit for bit. Each process has a time limit; one left alive is killed."""
+    with socket_port() as port, tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        outs = [str(Path(tmp) / f"rank{r}.npz") for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
+                                   str(r), str(port), outs[r]],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                 for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=MESH_WORKER_TIMEOUT_S)[0].decode(errors="replace"))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        workers_s = time.perf_counter() - t0
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError("19f: a worker failed:\n" + "\n".join(x[-3000:] for x in logs))
+        docs = [np.load(o) for o in outs]
+        want = _mesh_dist_fit(make_mesh(MeshConfig(), devices=[torch.device("cuda")] * 2))
+        for doc in docs:
+            if float(doc["all_reduce"][0]) != 3.0 or doc["shape"].tolist() != [1, 2]:
+                raise AssertionError(f"19f: all_reduce {doc['all_reduce']}, mesh {doc['shape']}")
+            for f in DIST_FIELDS:
+                if not np.array_equal(doc[f], getattr(want, f).cpu().numpy()):
+                    raise AssertionError(f"19f: the two-process fit's {f} differs from one process's")
+    return {"processes": 2, "backend": "gloo", "tensors": "cuda", "rows": MESH_DIST_ROWS,
+            "trees": MESH_DIST_TREES, "depth": MESH_DIST_DEPTH, "workers_s": workers_s, "bitwise": True}
+
+
+@contextlib.contextmanager
+def socket_port():
+    """A free localhost port (closed again before the workers bind it)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    yield port
+
+
+def mesh_phase(card: str) -> dict:
+    """Phase 19: the mesh on the card named `MESH_SHARDS` times (19a-f)."""
+    t_phase = time.perf_counter()
+    cfg = GBDTConfig(**TRAIN_CONFIG)
+    Xn, yn = training_rows(N_TRAIN + N_TEST)
+    X_train = torch.from_numpy(Xn[:N_TRAIN]).cuda()
+    y_train = torch.from_numpy(yn[:N_TRAIN]).cuda()
+    X_test = torch.from_numpy(Xn[N_TRAIN:]).cuda()
+    y_test = torch.from_numpy(yn[N_TRAIN:]).cuda()
+    del Xn, yn
+    spec = compute_bin_edges(X_train, cfg.n_bins)
+    bins = transform(spec, X_train)
+    del X_train
+    out: dict = {}
+    steps: dict[str, float] = {}
+    t0 = time.perf_counter()
+    out["fit"] = mesh_fit_check(card, bins, y_train, X_test, y_test, spec)
+    steps["19a"] = time.perf_counter() - t0
+    for r in out["fit"]["histogram"]:
+        print(f"kernel gradient_histogram_sharded level {r['level']} (K={r['K']}, {r['shards']} shards "
+              f"of {r['shard_rows']} rows) ms={r['ms']:.6f} call_ms={r['call_ms']:.6f} "
+              f"one_launch_ms={r['one_launch_ms']:.6f} plain_ms={r['plain_ms']:.6f} "
+              f"library_ms={r['library_ms']:.6f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+              f"max_abs_err={r['max_abs_err']:.3g} bit_equal={r['bit_equal']} [{card}]")
+    t0 = time.perf_counter()
+    out["search"] = mesh_search_check(bins, y_train)
+    steps["19b"] = time.perf_counter() - t0
+    del bins, y_train, X_test, y_test
+    with card_named(MESH_SHARDS) as devs:
+        t0 = time.perf_counter()
+        out["partitioner"] = mesh_partitioner_check()
+        steps["19c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["service"] = mesh_service_check(devs)
+        steps["19d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["ingest"] = mesh_ingest_check()
+        steps["19e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["distributed"] = mesh_distributed_check()
+    steps["19f"] = time.perf_counter() - t0
+    out["steps_s"] = steps
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"mesh (19): {json.dumps(out)} [{card}]")
+    return out
+
+
 def print_scoring_split(card: str) -> None:
     for precision in ("f32", *QUANTIZED):
         for r in scoring_split("cuda", precision):
@@ -5428,6 +5922,13 @@ def main() -> int:
         "bucket's 15 jobs jointly and job by job; print no ok line",
     )
     mode.add_argument(
+        "--only-mesh",
+        action="store_true",
+        help="build, then run phase 19 (the mesh: the card named four times) only; print no ok line",
+    )
+    mode.add_argument("--mesh-worker", nargs=3, metavar=("RANK", "PORT", "OUT"),
+                      help=argparse.SUPPRESS)
+    mode.add_argument(
         "--full-protocol",
         action="store_true",
         help="build, then run phase 8b with the reference's default RFE (104 -> 20 "
@@ -5439,6 +5940,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    if args.mesh_worker:
+        rank, port, out = args.mesh_worker
+        return mesh_worker(int(rank), int(port), out)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain version in full f32
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -5482,6 +5986,12 @@ def main() -> int:
         print(f"portfolio phase (18): {portfolio['phase_s']:.1f}s, {portfolio['launches']} launches "
               f"[{card}]")
         print(f"chip_smoke --only-portfolio: {time.perf_counter() - t_start:.1f}s [{card}]")
+        return 0
+
+    if args.only_mesh:
+        mesh = mesh_phase(card)
+        print(f"mesh phase (19): {mesh['phase_s']:.1f}s [{card}]")
+        print(f"chip_smoke --only-mesh: {time.perf_counter() - t_start:.1f}s [{card}]")
         return 0
 
     if args.only_search:
@@ -5584,12 +6094,15 @@ def main() -> int:
     print(f"portfolio phase (18): {portfolio['phase_s']:.1f}s, {portfolio['launches']} launches, "
           f"{portfolio['rows']} rows x 4 passes at {portfolio['sweep']['rows_per_s']:.0f} rows/s "
           f"[{card}]")
+    mesh = mesh_phase(card)
+    print(f"mesh phase (19): {mesh['phase_s']:.1f}s [{card}]")
     print_scoring_split(card)
 
     main_rec = next(r for r in records if r["bucket"] == 64)
     hist_main = next(r for r in hist_records if r["shape"] == "level 6 subtracted")
     job_records = training["job_axis"]
     joint_main = next(r for r in job_records if r["shape"].endswith(f"level {JOBS_LEVELS[-1]} subtracted"))
+    sharded_main = next(r for r in mesh["fit"]["histogram"] if r["level"] == MESH_LEVELS[-1])
     kernels = [
         {
             "name": "score_forest",
@@ -5610,6 +6123,8 @@ def main() -> int:
             "portfolio_launches": portfolio["launches"],
             "portfolio_tool_launches": portfolio["tool"]["launches"],
             "shap_bulk_launches": portfolio["shap_bulk_launches"],
+            "mesh_shap_launches": sum(mesh["partitioner"][p]["launches"] for p in ("f32", *QUANTIZED)),
+            "mesh_bulk_launches": mesh["service"][f"shards_{MESH_SHARDS}"]["launches"],
             "portfolio_ms": {str(b): r["ms"] for b, r in portfolio["buckets"].items()},
             "portfolio_bound_ms": {str(b): r["bound_ms"] for b, r in portfolio["buckets"].items()},
             "max_abs_err": max(
@@ -5656,6 +6171,26 @@ def main() -> int:
             "bound_ms": hist_main["bound_ms"],
             "bound_by": hist_main["bound_by"],
             "library_ms": hist_main["library_ms"],
+        },
+        {
+            "name": "gradient_histogram_sharded",
+            "route": "cuda",
+            "source": "cobalt_smart_lender_ai_tpu_torch/csrc/gradient_histogram.cu",
+            "replaces": "cobalt_smart_lender_ai_tpu/ops/hist_pallas.py:51",
+            "launches": mesh["fit"]["launches"]["accumulate"],
+            "state_launches": mesh["fit"]["launches"]["state"],
+            "finalize_launches": mesh["fit"]["launches"]["finalize"],
+            "shards": MESH_SHARDS,
+            "levels": {str(r["level"]): {k: r[k] for k in ("K", "shard_rows", "ms", "call_ms",
+                                                           "one_launch_ms", "plain_ms", "library_ms",
+                                                           "bound_ms", "bound_by")}
+                       for r in mesh["fit"]["histogram"]},
+            "max_abs_err": max(r["max_abs_err"] for r in mesh["fit"]["histogram"]),
+            "ms": sharded_main["ms"],
+            "plain_ms": sharded_main["plain_ms"],
+            "bound_ms": sharded_main["bound_ms"],
+            "bound_by": sharded_main["bound_by"],
+            "library_ms": sharded_main["library_ms"],
         },
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all, phase 17 (challengers) "

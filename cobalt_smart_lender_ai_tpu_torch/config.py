@@ -1,6 +1,6 @@
 """Configuration: the GBDT hyperparameters (`GBDTConfig`), the challengers'
 (`MLPConfig`, `FTTransformerConfig`), the training protocol's
-(`DataConfig`, `RFEConfig`, `TuneConfig`, `ReliabilityConfig`,
+(`DataConfig`, `RFEConfig`, `TuneConfig`, `ReliabilityConfig`, `MeshConfig`,
 `PipelineConfig`) and the subset of the reference `ServeConfig` that the
 port's scoring service reads. Each keeps the reference's field names and
 defaults for the fields the port reads."""
@@ -32,6 +32,10 @@ class DataConfig:
     #: `data.features.prepare_cleaned_frame` and `engineer_features`), as the
     #: CLI's ``--pandas-ingest`` does.
     device_pipeline: bool = True
+    #: Row shards of the device ingest's row-wise programs (feature assembly,
+    #: bin transform): 1 = one device, -1 = every visible device, N is
+    #: clamped to the visible devices (`parallel.partitioner.make_partitioner`).
+    ingest_shards: int = 1
 
 
 def _check_chunk_trees(ct: Any) -> None:
@@ -120,6 +124,19 @@ class FTTransformerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout (`parallel.mesh.make_mesh`). ``dp`` shards the row
+    axis (each shard sums its rows' histograms and leaf sums, reduced
+    across shards); ``hp`` shards the (candidate, fold) job axis of the
+    search."""
+
+    dp: int = -1  # -1 => all remaining devices
+    hp: int = 1
+    axis_dp: str = "dp"
+    axis_hp: str = "hp"
+
+
+@dataclasses.dataclass(frozen=True)
 class ReliabilityConfig:
     """The store's retry policy, the pipeline's stage checkpoints, and the
     serving admission and circuit-breaker limits (the fields of the
@@ -176,6 +193,12 @@ class ServeConfig:
     #: disables a bound.
     max_bulk_rows: int | None = 100_000
     max_bulk_bytes: int | None = 16 * 1024 * 1024
+    #: Row shards of bulk scoring (`parallel.partitioner`): each bulk chunk
+    #: of ``bulk_shards * bucket`` rows is split row-wise over the shards,
+    #: one scoring launch each. 0/1 = one device; -1 = every visible device;
+    #: N is clamped to the visible device count. Single-row scoring and the
+    #: micro-batcher stay on one device.
+    bulk_shards: int = 1
     #: Micro-batching: concurrent ``/predict`` callers are coalesced into one
     #: padded bucket launch. The batcher waits ``microbatch_max_wait_ms`` after
     #: the first arrival for more rows, or dispatches once
@@ -398,6 +421,11 @@ class RFEConfig:
     #: Boosting rounds per chunk of each selector refit (None, ``"auto"`` or
     #: an int; bit-identical to one chunk).
     chunk_trees: int | str | None = None
+    #: Sibling subtraction in the selector's refits (as
+    #: GBDTConfig.hist_subtract); a dp mesh of more than one shard runs
+    #: direct histograms whatever it says, so False makes a one-device run
+    #: split for split the dp run's.
+    hist_subtract: bool = True
 
     def __post_init__(self):
         _check_chunk_trees(self.chunk_trees)
@@ -417,3 +445,4 @@ class PipelineConfig:
     rfe: RFEConfig = dataclasses.field(default_factory=RFEConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
     reliability: ReliabilityConfig = dataclasses.field(default_factory=ReliabilityConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)

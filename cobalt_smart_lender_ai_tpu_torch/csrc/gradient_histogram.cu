@@ -101,6 +101,26 @@
 // accumulator; and the finalize reads those bits only for a (job, channel)
 // whose flag is set. On finite inputs the only cost is the word array's
 // share of the memset.
+//
+// The sharded entry (a fit whose rows are split over a dp mesh, the
+// reference's psum over its `axis_name`). A launch over one shard's rows
+// would take its exponents from that shard's largest values and row count,
+// so two shards would scale differently and their sums could not be added.
+// So the one pass splits in three entry points, which every shard calls:
+// 1. gradient_histogram_scale_state: state_kernel, the shard's JOB_WORDS
+//    words per job (the largest finite |g|, |h|, |w| and the flags);
+//    the caller reduces them across shards (max of the bits, which order
+//    as the non-negative floats do, and OR of the flags) and sums the
+//    shards' row counts: the state and N of one launch over all rows;
+// 2. gradient_histogram_accumulate: kernels 1-4 of the shard's rows into
+//    its own int64 accumulator, scaled by the agreed state and N;
+// 3. the caller adds the int64 partials and ORs their non-finite words
+//    (in process, or by all_reduce across processes), and
+//    gradient_histogram_finalize runs kernel 5 once on the total.
+// Integer addition is associative and each value's fixed-point image is
+// the one the single launch makes, so the result is that launch's bits. The
+// exponent bounds the sum over all N rows by 2^62, so no partial and no
+// sum of partials overflows.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -128,7 +148,7 @@
 #define JOB_WORDS 4
 
 static __device__ __forceinline__ int scale_exp(unsigned int max_bits,
-                                                int n_rows) {
+                                                long long n_rows) {
   const float m = __uint_as_float(max_bits);
   if (!(m > 0.0f)) return 0;
   int k;
@@ -361,6 +381,7 @@ __global__ void __launch_bounds__(HIST_THREADS, HIST_MIN_BLOCKS)
                 const int* __restrict__ rows, const int4* __restrict__ table,
                 const int* __restrict__ n_used, int n_rows, int n_features,
                 int n_nodes, int n_segs, int n_bins, int ft_tile,
+                long long scale_rows,
                 const unsigned int* __restrict__ job_state,
                 unsigned long long* __restrict__ acc,
                 unsigned int* __restrict__ nonfinite) {
@@ -379,9 +400,9 @@ __global__ void __launch_bounds__(HIST_THREADS, HIST_MIN_BLOCKS)
   const int per_channel = ft * n_bins;
   const int total = 3 * per_channel;
   for (int i = threadIdx.x; i < total; i += blockDim.x) sh[i] = 0ull;
-  const int eg = scale_exp(max_bits[0], n_rows);
-  const int eh = scale_exp(max_bits[1], n_rows);
-  const int ew = scale_exp(max_bits[2], n_rows);
+  const int eg = scale_exp(max_bits[0], scale_rows);
+  const int eh = scale_exp(max_bits[1], scale_rows);
+  const int ew = scale_exp(max_bits[2], scale_rows);
   __syncthreads();
 
   for (int s = first + threadIdx.x; s < last; s += blockDim.x) {
@@ -426,7 +447,7 @@ __global__ void __launch_bounds__(HIST_THREADS, HIST_MIN_BLOCKS)
 __global__ void finalize_kernel(const unsigned long long* __restrict__ acc,
                                 const unsigned int* __restrict__ job_state,
                                 const unsigned int* __restrict__ nonfinite,
-                                int n_rows, int n_nodes, long long per_seg,
+                                long long scale_rows, int n_nodes, long long per_seg,
                                 long long per_channel,
                                 float* __restrict__ out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -435,7 +456,7 @@ __global__ void finalize_kernel(const unsigned long long* __restrict__ acc,
   const long long in_channel = i - c * per_channel;
   const int job = (int)(in_channel / per_seg) / n_nodes;
   const unsigned int* max_bits = job_state + JOB_WORDS * job;
-  const int e = scale_exp(max_bits[c], n_rows);
+  const int e = scale_exp(max_bits[c], scale_rows);
   float v = (float)ldexp((double)(long long)acc[i], -e);
   if (max_bits[3] & (1u << c)) {
     const unsigned code = (nonfinite[in_channel] >> (3 * c)) & 7u;
@@ -490,7 +511,7 @@ static cudaError_t launch_hist(const void* bins, const float* g,
                                const int* rows, const int4* table,
                                const int* n_used, long long n_table,
                                int n_rows, int n_features, int n_nodes,
-                               int n_segs, int n_bins,
+                               int n_segs, int n_bins, long long scale_rows,
                                const unsigned int* job_state,
                                unsigned long long* acc, unsigned int* nonfinite,
                                cudaStream_t s) {
@@ -511,7 +532,139 @@ static cudaError_t launch_hist(const void* bins, const float* g,
   const dim3 grid((unsigned)n_table, n_ft);
   hist_kernel<BinT><<<grid, HIST_THREADS, smem, s>>>(
       (const BinT*)bins, g, h, w, rows, table, n_used, n_rows, n_features,
-      n_nodes, n_segs, n_bins, ft, job_state, acc, nonfinite);
+      n_nodes, n_segs, n_bins, ft, scale_rows, job_state, acc, nonfinite);
+  return cudaGetLastError();
+}
+
+// Grid (row blocks, J): one shard's scale state, the first pass of the
+// sharded entry. Per job, the largest finite |g|, |h|, |w| (as bits) and the
+// non-finite channel flags over ALL n_rows rows, as count_kernel takes them:
+// the shards' states reduce (max of the bits, OR of the flags) to the state
+// one launch over every row would take.
+__global__ void __launch_bounds__(COUNT_THREADS)
+    state_kernel(const float* __restrict__ g, const float* __restrict__ h,
+                 const float* __restrict__ w, int n_rows,
+                 unsigned int* __restrict__ job_state) {
+  const long long job_off = (long long)blockIdx.y * n_rows;
+  g += job_off;
+  h += job_off;
+  w += job_off;
+  unsigned int* max_bits = job_state + JOB_WORDS * blockIdx.y;
+  float mg = 0.0f, mh = 0.0f, mw = 0.0f;
+  unsigned nonfinite = 0u;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       r < n_rows; r += stride) {
+    const float gv = g[r], hv = h[r], wv = w[r];
+    if (isfinite(gv)) mg = fmaxf(mg, fabsf(gv)); else nonfinite |= 1u;
+    if (isfinite(hv)) mh = fmaxf(mh, fabsf(hv)); else nonfinite |= 2u;
+    if (isfinite(wv)) mw = fmaxf(mw, fabsf(wv)); else nonfinite |= 4u;
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    mg = fmaxf(mg, __shfl_xor_sync(0xffffffffu, mg, off));
+    mh = fmaxf(mh, __shfl_xor_sync(0xffffffffu, mh, off));
+    mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, off));
+  }
+  nonfinite = __reduce_or_sync(0xffffffffu, nonfinite);
+  if ((threadIdx.x & 31) == 0) {
+    atomicMax(&max_bits[0], __float_as_uint(mg));
+    atomicMax(&max_bits[1], __float_as_uint(mh));
+    atomicMax(&max_bits[2], __float_as_uint(mw));
+    if (nonfinite) atomicOr(&max_bits[3], nonfinite);
+  }
+}
+
+// Kernels 1-4 of one pass: the int64 sums of these rows into `acc` (and
+// their non-finite bits behind it), each value scaled by the exponent that
+// `state` (per job: max bits, flags) and `scale_rows` give. The one-launch
+// entry passes the launch's own state (count_kernel's, in the scratch) and
+// its own row count; the sharded entry the state and row count agreed
+// across the shards.
+static cudaError_t accumulate_pass(const void* bins, int bins_u8,
+                                   const int* node, const float* g,
+                                   const float* h, const float* w, int n_rows,
+                                   int n_features, int n_nodes, int n_bins,
+                                   int n_jobs, long long scale_rows,
+                                   const unsigned int* state,
+                                   unsigned long long* acc, int* scratch,
+                                   cudaStream_t s) {
+  if (n_rows < 1 || n_features < 1 || n_nodes < 1 || n_bins < 1 ||
+      n_jobs < 1 || n_jobs > 65535 || scale_rows < n_rows)
+    return cudaErrorInvalidValue;
+  // Slots, segments and work-table entries are int32.
+  const long long n_segs_ll = (long long)n_jobs * n_nodes;
+  if ((long long)n_jobs * n_rows > INT_MAX ||
+      table_entries(n_segs_ll) > INT_MAX)
+    return cudaErrorInvalidValue;
+  const int n_segs = (int)n_segs_ll;
+  const Scratch l = scratch_layout(n_rows, n_nodes, n_jobs);
+  unsigned int* job_state = (unsigned int*)scratch;
+  int* counts = scratch + l.counts;
+  int* cursor = scratch + l.cursor;
+  int* bstart = scratch + l.bstart;
+  int4* table = (int4*)(scratch + l.table);
+  int* rows = scratch + l.rows;
+  const bool local = n_nodes <= SHARED_NODES;
+
+  const long long per_seg = (long long)n_features * n_bins;
+  const long long per_channel = n_segs_ll * per_seg;
+  unsigned int* nonfinite = (unsigned int*)(acc + 3 * per_channel);
+  cudaError_t err = cudaMemsetAsync(
+      acc, 0, acc_words(n_segs_ll, n_features, n_bins) * sizeof(unsigned long long),
+      s);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(scratch, 0, l.cursor * sizeof(int), s);
+  if (err != cudaSuccess) return err;
+
+  int blocks = (n_rows + COUNT_THREADS - 1) / COUNT_THREADS;
+  const int per_job_blocks = COUNT_BLOCKS / n_jobs > 0 ? COUNT_BLOCKS / n_jobs : 1;
+  if (blocks > per_job_blocks) blocks = per_job_blocks;
+  count_kernel<<<dim3(blocks, n_jobs), COUNT_THREADS,
+                 local ? n_nodes * sizeof(int) : 0, s>>>(
+      node, g, h, w, n_rows, n_nodes, job_state, counts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  plan_kernel<<<1, PLAN_THREADS, 0, s>>>(counts, n_segs, cursor, bstart,
+                                         table);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int per_block = SCATTER_THREADS * SCATTER_ITEMS;
+  scatter_kernel<<<dim3((n_rows + per_block - 1) / per_block, n_jobs),
+                   SCATTER_THREADS, local ? 2 * n_nodes * sizeof(int) : 0, s>>>(
+      node, g, h, w, n_rows, n_nodes, cursor, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const unsigned int* scale = state != nullptr ? state : job_state;
+  const long long n_table = table_entries(n_segs_ll);
+  return bins_u8 ? launch_hist<unsigned char>(bins, g, h, w, rows, table,
+                                              bstart + n_segs, n_table, n_rows,
+                                              n_features, n_nodes, n_segs,
+                                              n_bins, scale_rows, scale, acc,
+                                              nonfinite, s)
+                 : launch_hist<int>(bins, g, h, w, rows, table,
+                                    bstart + n_segs, n_table, n_rows,
+                                    n_features, n_nodes, n_segs, n_bins,
+                                    scale_rows, scale, acc, nonfinite, s);
+}
+
+// Kernel 5: the sums of `acc` over `state` and `scale_rows` as float32.
+static cudaError_t finalize_pass(const unsigned long long* acc,
+                                 const unsigned int* state,
+                                 long long scale_rows, int n_features,
+                                 int n_nodes, int n_bins, int n_jobs,
+                                 float* out, cudaStream_t s) {
+  const long long per_seg = (long long)n_features * n_bins;
+  const long long per_channel = (long long)n_jobs * n_nodes * per_seg;
+  const unsigned int* nonfinite = (const unsigned int*)(acc + 3 * per_channel);
+  const long long n_out = 3 * per_channel;
+  const int threads = 256;
+  const long long fblocks = (n_out + threads - 1) / threads;
+  if (fblocks > INT_MAX) return cudaErrorInvalidValue;
+  finalize_kernel<<<(unsigned)fblocks, threads, 0, s>>>(
+      acc, state, nonfinite, scale_rows, n_nodes, per_seg, per_channel, out);
   return cudaGetLastError();
 }
 
@@ -533,6 +686,9 @@ long long gradient_histogram_acc_words(int n_nodes, int n_features,
   return acc_words((long long)n_jobs * n_nodes, n_features, n_bins);
 }
 
+// int32 words of one scale state: JOB_WORDS per job.
+int gradient_histogram_state_words(int n_jobs) { return JOB_WORDS * n_jobs; }
+
 // One histogram pass of n_jobs jobs on `stream`. `bins_u8` selects uint8
 // bins (else int32); node, g, h and w hold n_jobs rows of n_rows each.
 // Scratch: `acc` holds gradient_histogram_acc_words(K, F, B, J) uint64 and
@@ -546,75 +702,70 @@ int gradient_histogram(int device, const void* bins, int bins_u8,
                        int* scratch, float* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n_rows < 1 || n_features < 1 || n_nodes < 1 || n_bins < 1 ||
-      n_jobs < 1 || n_jobs > 65535)
-    return (int)cudaErrorInvalidValue;
-  // Slots, segments and work-table entries are int32.
-  const long long n_segs_ll = (long long)n_jobs * n_nodes;
-  if ((long long)n_jobs * n_rows > INT_MAX ||
-      table_entries(n_segs_ll) > INT_MAX)
-    return (int)cudaErrorInvalidValue;
-  const int n_segs = (int)n_segs_ll;
   cudaStream_t s = (cudaStream_t)stream;
-  const Scratch l = scratch_layout(n_rows, n_nodes, n_jobs);
-  unsigned int* job_state = (unsigned int*)scratch;
-  int* counts = scratch + l.counts;
-  int* cursor = scratch + l.cursor;
-  int* bstart = scratch + l.bstart;
-  int4* table = (int4*)(scratch + l.table);
-  int* rows = scratch + l.rows;
-  const bool local = n_nodes <= SHARED_NODES;
-
-  const long long per_seg = (long long)n_features * n_bins;
-  const long long per_channel = n_segs_ll * per_seg;
-  unsigned int* nonfinite = (unsigned int*)(acc + 3 * per_channel);
-  err = cudaMemsetAsync(
-      acc, 0, acc_words(n_segs_ll, n_features, n_bins) * sizeof(unsigned long long),
-      s);
+  err = accumulate_pass(bins, bins_u8, node, g, h, w, n_rows, n_features,
+                        n_nodes, n_bins, n_jobs, n_rows, nullptr, acc,
+                        scratch, s);
   if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(scratch, 0, l.cursor * sizeof(int), s);
-  if (err != cudaSuccess) return (int)err;
+  return (int)finalize_pass(acc, (const unsigned int*)scratch, n_rows,
+                            n_features, n_nodes, n_bins, n_jobs, out, s);
+}
 
+// The sharded entry, pass 1: one shard's scale state (state_kernel) into
+// `state`, gradient_histogram_state_words(J) int32, cleared here.
+int gradient_histogram_scale_state(int device, const float* g, const float* h,
+                                   const float* w, int n_rows, int n_jobs,
+                                   unsigned int* state, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_rows < 1 || n_jobs < 1 || n_jobs > 65535 ||
+      (long long)n_jobs * n_rows > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  err = cudaMemsetAsync(state, 0, JOB_WORDS * n_jobs * sizeof(unsigned int), s);
+  if (err != cudaSuccess) return (int)err;
   int blocks = (n_rows + COUNT_THREADS - 1) / COUNT_THREADS;
   const int per_job_blocks = COUNT_BLOCKS / n_jobs > 0 ? COUNT_BLOCKS / n_jobs : 1;
   if (blocks > per_job_blocks) blocks = per_job_blocks;
-  count_kernel<<<dim3(blocks, n_jobs), COUNT_THREADS,
-                 local ? n_nodes * sizeof(int) : 0, s>>>(
-      node, g, h, w, n_rows, n_nodes, job_state, counts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  plan_kernel<<<1, PLAN_THREADS, 0, s>>>(counts, n_segs, cursor, bstart,
-                                         table);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const int per_block = SCATTER_THREADS * SCATTER_ITEMS;
-  scatter_kernel<<<dim3((n_rows + per_block - 1) / per_block, n_jobs),
-                   SCATTER_THREADS, local ? 2 * n_nodes * sizeof(int) : 0, s>>>(
-      node, g, h, w, n_rows, n_nodes, cursor, rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const long long n_table = table_entries(n_segs_ll);
-  err = bins_u8 ? launch_hist<unsigned char>(bins, g, h, w, rows, table,
-                                             bstart + n_segs, n_table, n_rows,
-                                             n_features, n_nodes, n_segs,
-                                             n_bins, job_state, acc, nonfinite,
-                                             s)
-                : launch_hist<int>(bins, g, h, w, rows, table,
-                                   bstart + n_segs, n_table, n_rows,
-                                   n_features, n_nodes, n_segs, n_bins,
-                                   job_state, acc, nonfinite, s);
-  if (err != cudaSuccess) return (int)err;
-
-  const long long n_out = 3 * per_channel;
-  const int threads = 256;
-  const long long fblocks = (n_out + threads - 1) / threads;
-  if (fblocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  finalize_kernel<<<(unsigned)fblocks, threads, 0, s>>>(
-      acc, job_state, nonfinite, n_rows, n_nodes, per_seg, per_channel, out);
+  state_kernel<<<dim3(blocks, n_jobs), COUNT_THREADS, 0, s>>>(g, h, w, n_rows,
+                                                             state);
   return (int)cudaGetLastError();
+}
+
+// The sharded entry, pass 2: one shard's int64 partial sums into `acc`
+// (sized and cleared as for `gradient_histogram`), scaled by the `state`
+// agreed across the shards and `scale_rows`, every shard's rows together:
+// the bits one launch over all rows would add. No finalize.
+int gradient_histogram_accumulate(int device, const void* bins, int bins_u8,
+                                  const int* node, const float* g,
+                                  const float* h, const float* w, int n_rows,
+                                  int n_features, int n_nodes, int n_bins,
+                                  int n_jobs, long long scale_rows,
+                                  const unsigned int* state,
+                                  unsigned long long* acc, int* scratch,
+                                  void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (state == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)accumulate_pass(bins, bins_u8, node, g, h, w, n_rows,
+                              n_features, n_nodes, n_bins, n_jobs, scale_rows,
+                              state, acc, scratch, (cudaStream_t)stream);
+}
+
+// The sharded entry, pass 3, once: the summed partials (int64 sums added,
+// non-finite words ORed) to the (3, J, K, F, B) float32 `out`.
+int gradient_histogram_finalize(int device, const unsigned long long* acc,
+                                const unsigned int* state,
+                                long long scale_rows, int n_features,
+                                int n_nodes, int n_bins, int n_jobs,
+                                float* out, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (scale_rows < 1 || n_features < 1 || n_nodes < 1 || n_bins < 1 ||
+      n_jobs < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)finalize_pass(acc, state, scale_rows, n_features, n_nodes,
+                            n_bins, n_jobs, out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

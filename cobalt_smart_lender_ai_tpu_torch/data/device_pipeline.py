@@ -30,7 +30,14 @@ differ in the last bits. On one device, `transform_raw_rows` runs the same
 log1p and one-hot code on a raw payload, so a raw row reproduces its batch
 row bit for bit.
 
-Sharding waits for the port's multi-GPU work: this runs on one device.
+``partitioner`` (`parallel.partitioner`, ``DataConfig.ingest_shards``)
+shards the row-wise programs, the feature assembly and the bin transform,
+over a dp mesh: each shard runs them on its rows, on its device and stream,
+with the whole table's stats (medians, which columns have a NaN, the
+quantile edges, all taken on one device over every row); a row's output
+depends only on that row, so the tables are the single device's bit for
+bit. The other programs (the null census, compactions, dedupe, stats) run
+on one device over every row.
 
 Telemetry, on the process-wide registry as the reference records it:
 ``cobalt_ingest_rows_total`` counts the raw rows entering the ingest, and
@@ -75,7 +82,15 @@ from cobalt_smart_lender_ai_tpu_torch.data.features import (
 from cobalt_smart_lender_ai_tpu_torch.data.frame import RawFrame, column_names, string_column
 from cobalt_smart_lender_ai_tpu_torch.data.split import _mix_u32
 from cobalt_smart_lender_ai_tpu_torch.device import resolve_device
-from cobalt_smart_lender_ai_tpu_torch.ops.binning import BinSpec, bin_edges_and_transform
+from cobalt_smart_lender_ai_tpu_torch.ops.binning import (
+    BinSpec,
+    compute_bin_edges,
+    transform,
+)
+from cobalt_smart_lender_ai_tpu_torch.parallel.partitioner import (
+    Partitioner,
+    SingleDevicePartitioner,
+)
 from cobalt_smart_lender_ai_tpu_torch.telemetry.metrics import default_registry, log_buckets
 from cobalt_smart_lender_ai_tpu_torch.telemetry.programs import program_handle
 
@@ -101,19 +116,21 @@ _INGEST_ROWS = default_registry().counter(
 
 
 @contextlib.contextmanager
-def _dispatch(dev: torch.device, step: str, X: torch.Tensor | np.ndarray):
+def _dispatch(dev: torch.device, step: str, X: torch.Tensor | np.ndarray, shards: int = 1):
     """Time one device step of the ingest on ``X`` (its input matrix):
     ``cobalt_ingest_dispatch_seconds`` observes the wall seconds ending with
     ``dev`` synchronised, and the step's program handle
     ``ingest.<step>[rows=N,features=F]`` (kind ``"ingest"``, the
-    reference's names) counts the dispatch with the seconds between a pair
-    of CUDA events around it on the card, or the same wall seconds on the
-    CPU."""
+    reference's names; ``,shards=<n>`` for a step sharded over a mesh)
+    counts the dispatch with the seconds between a pair of CUDA events
+    around it on the card, or the same wall seconds on the CPU."""
     rows, features = int(X.shape[0]), int(X.shape[1])
-    prog = program_handle(
-        f"ingest.{step}[rows={rows},features={features}]", "ingest", dev,
-        rows_per_dispatch=rows, features=features,
-    )
+    name = f"ingest.{step}[rows={rows},features={features}"
+    meta = {"rows_per_dispatch": rows, "features": features}
+    if shards > 1:
+        name += f",shards={shards}"
+        meta["shards"] = shards
+    prog = program_handle(name + "]", "ingest", dev, **meta)
     stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
     pair = prog.start(stream) if stream is not None else None
     t0 = time.perf_counter()
@@ -365,6 +382,7 @@ def run_device_ingest(
     tok: TokenizedFrame,
     *,
     device: torch.device | str = "cuda",
+    partitioner: Partitioner | None = None,
     n_bins: int = _N_BINS,
     null_col_threshold: float = _NULL_COL_THRESHOLD,
     row_null_allowance: int = _ROW_NULL_ALLOWANCE,
@@ -373,8 +391,13 @@ def run_device_ingest(
     """Clean -> prepare -> engineer -> bin the tokenized matrix on
     ``device`` (``cuda`` unless the caller asks for ``cpu``), with the
     reference pipeline's thresholds unless given. ``keep_cleaned`` brings
-    the clean stage's table to the host as ``DeviceIngestResult.cleaned``."""
+    the clean stage's table to the host as ``DeviceIngestResult.cleaned``.
+    ``partitioner`` shards the row-wise programs (feature assembly, bin
+    transform) over a mesh whose first device is ``device``; default one
+    device."""
     dev = resolve_device(device)
+    part = partitioner or SingleDevicePartitioner(dev)
+    shards = part.n_shards
     _INGEST_ROWS.inc(tok.n_rows)
     X = torch.from_numpy(tok.X).to(dev)
     pos = {name: i for i, name in enumerate(tok.columns)}
@@ -515,26 +538,42 @@ def run_device_ingest(
         medians_np = medians.cpu().numpy()
 
     # Feature assembly: tree (numeric | one-hots), nn (imputed | indicators
-    # | no_income | dti_NA | codes), label.
-    with _dispatch(dev, "assemble", X):
+    # | no_income | dti_NA | codes), label; row-wise, so a mesh shards it,
+    # every shard with the whole table's NaN columns and medians.
+    names: dict[str, list[str]] = {}
+
+    def assemble(Xs: torch.Tensor, Xns: torch.Tensor, need_ind: np.ndarray):
+        d = Xs.device
         new_codes = {}
         for c, table in zip(cat_present, cat_tables):
-            col = X[:, pos[c]]
+            col = Xs[:, pos[c]]
             nan = torch.isnan(col)
-            new_codes[c] = torch.where(nan, -1.0, table[torch.where(nan, 0.0, col).long()])
-        X_tree, X_nn, tree_names, nn_names = assemble_frames(
-            Xn, numeric_names, new_codes, cat_vocab, medians
+            new_codes[c] = torch.where(nan, -1.0, table.to(d)[torch.where(nan, 0.0, col).long()])
+        X_tree, X_nn, names["tree"], names["nn"] = assemble_frames(
+            Xns, numeric_names, new_codes, cat_vocab, medians.to(d), need_ind
         )
         y = None
         if has_label:
-            lcol = X[:, label_pos]
+            lcol = Xs[:, label_pos]
             nan = torch.isnan(lcol)
-            y = torch.where(nan, float("nan"), label_table[torch.where(nan, 0.0, lcol).long()])
-    del X, Xn, new_codes
+            y = torch.where(nan, float("nan"), label_table.to(d)[torch.where(nan, 0.0, lcol).long()])
+        return X_tree, X_nn, y
 
-    # The GBDT sketch: quantile edges and bins of the tree features.
-    with _dispatch(dev, "binning", X_tree):
-        spec, bins = bin_edges_and_transform(X_tree, n_bins=n_bins)
+    with _dispatch(dev, "assemble", X, shards):
+        need_ind = torch.isnan(Xn).any(dim=0).cpu().numpy()
+        X_tree, X_nn, y = part.compile_rowwise(
+            lambda Xs, Xns: assemble(Xs, Xns, need_ind), X.shape[0]
+        )(X, Xn)
+    tree_names, nn_names = names["tree"], names["nn"]
+    del X, Xn
+
+    # The GBDT sketch: quantile edges and bins of the tree features; the
+    # edges over every row on one device, the bin transform row-wise.
+    with _dispatch(dev, "binning", X_tree, shards):
+        spec = compute_bin_edges(X_tree, n_bins=n_bins)
+        bins = part.compile_rowwise(
+            lambda Xt: transform(BinSpec(spec.edges.to(Xt.device)), Xt), X_tree.shape[0]
+        )(X_tree)
 
     # The replay plan.
     plan = FeaturePlan(

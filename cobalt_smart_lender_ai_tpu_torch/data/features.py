@@ -143,6 +143,7 @@ def assemble_frames(
     codes: Mapping[str, torch.Tensor],
     vocab: Mapping[str, Sequence[str]],
     medians: torch.Tensor,
+    need_ind: np.ndarray | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, list[str], list[str]]:
     """The tree and nn matrices and their column names, from the numeric
     block (log1p applied), its medians and each categorical's codes in
@@ -150,7 +151,9 @@ def assemble_frames(
     Tree: numerics | one-hots. nn: median-imputed numerics | ``<col>_NA``
     for each column with a NaN but ``dti`` | ``no_income`` | ``dti_NA`` |
     the codes, missing as ``len(vocab[c])``. The host path and the device
-    ingest both assemble through it."""
+    ingest both assemble through it. ``need_ind`` (``(F,)`` bool: which
+    numerics have a NaN) defaults to ``X_num``'s own; a shard of the rows
+    passes the whole table's, so that every shard has the same columns."""
     numeric_names = list(numeric_names)
     tree_blocks, tree_names = [X_num], list(numeric_names)
     for c, code in codes.items():
@@ -159,7 +162,9 @@ def assemble_frames(
             tree_names.extend(f"{c}_{v}" for v in vocab[c][1:])
     X_tree = torch.cat(tree_blocks, dim=1)
 
-    need_ind = torch.isnan(X_num).any(dim=0).cpu().numpy()
+    if need_ind is None:
+        need_ind = torch.isnan(X_num).any(dim=0).cpu().numpy()
+    need_ind = np.array(need_ind, dtype=bool)
     dti_idx = numeric_names.index("dti") if "dti" in numeric_names else -1
     if dti_idx >= 0:
         need_ind[dti_idx] = False

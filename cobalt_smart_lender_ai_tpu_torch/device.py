@@ -22,3 +22,15 @@ def resolve_device(device: torch.device | str) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"device must be cuda or cpu, got {dev}")
     return dev
+
+
+def mesh_devices(device: torch.device | str = "cuda") -> list[torch.device]:
+    """The devices a mesh may use (`parallel.mesh.make_mesh`): every visible
+    CUDA device for ``cuda`` (none visible raises, as `resolve_device`
+    does), the one ``cpu`` for ``cpu``. Tests and ``chip_smoke.py`` pass
+    their own list instead, one device named several times (each entry is
+    one shard, on its own CUDA stream)."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return [dev]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

@@ -19,7 +19,9 @@ matrix at once, each with its own sample weight, margin, seed and
 hyperparameters: one histogram launch per level for all of them and one
 set of torch ops with a leading job axis, the reference's vmapped CV runner
 (``parallel/tune.py``'s ``_make_cv_runner``). Each job gets the bits that a
-fit of its own gives. `fit_binned_resumable` is its ``J = 1`` case.
+fit of its own gives. `fit_binned_resumable` is its ``J = 1`` case. With
+``dp`` the rows are split over a mesh's dp axis and each level's histograms
+reduced exactly across the shards (`parallel.sharded.fit_binned_dp`).
 
 Randomness: the row and column samples of tree ``t`` come from a
 `torch.Generator` on the fit's device seeded from ``(seed, t)``, so a
@@ -50,8 +52,10 @@ from cobalt_smart_lender_ai_tpu_torch.ops.binning import (
 from cobalt_smart_lender_ai_tpu_torch.ops.histogram import (
     gradient_histogram_channels,
     gradient_histogram_jobs,
+    gradient_histogram_sharded,
 )
 from cobalt_smart_lender_ai_tpu_torch.parallel.budget import resolve_chunk_trees
+from cobalt_smart_lender_ai_tpu_torch.parallel.mesh import RowShards
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,11 +163,25 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], nb * _SCAN_BLOCK)[..., :n]
 
 
-def _tree_generator(seed: int, tree_idx: int, device: torch.device) -> torch.Generator:
-    """The random stream of global tree ``tree_idx``."""
+def _tree_generator(
+    seed: int, tree_idx: int, device: torch.device, shard: int | None = None
+) -> torch.Generator:
+    """The random stream of global tree ``tree_idx``; a dp shard's row
+    stream folds its dp index ``shard`` into the seed."""
+    if shard is not None:
+        seed = fold_in(seed, shard)
     gen = torch.Generator(device=device)
     gen.manual_seed(((int(seed) & 0xFFFFFFFF) << 32) | (int(tree_idx) & 0xFFFFFFFF))
     return gen
+
+
+def _column_draw(seed: int, tree_idx: int, n_rows: int, n_features: int, device) -> torch.Tensor:
+    """Tree ``tree_idx``'s column-sample draws as a fit over ``n_rows`` rows
+    on one device takes them: after that fit's row draws, from the same
+    stream. A dp fit draws them so, once, on its lead device."""
+    gen = _tree_generator(seed, tree_idx, device)
+    torch.rand(n_rows, generator=gen, device=device)
+    return torch.rand(n_features, generator=gen, device=device)
 
 
 def fold_in(seed: int, data: int) -> int:
@@ -202,6 +220,7 @@ def fit_binned_jobs(
     tree_offset: int = 0,
     hist_subtract: bool = True,
     histogram: HistogramFn = gradient_histogram_jobs,
+    dp: RowShards | None = None,
 ) -> tuple[list[Forest], torch.Tensor]:
     """Train ``n_trees_cap`` boosting rounds of J jobs at once from
     ``init_margin``; returns (the J forest chunks, with zero float
@@ -223,12 +242,32 @@ def fit_binned_jobs(
     and ``depth_cap``: the batched ops are exact (integer, comparison and
     single IEEE operations, elementwise) or sum integers (covers); the
     sigmoid and the leaf sums, whose float results could depend on the
-    shape they run at, run per job at one job's shapes."""
+    shape they run at, run per job at one job's shapes.
+
+    ``dp`` (`parallel.mesh.RowShards`, the dp axis of a mesh; the
+    reference's ``axis_name``) splits the rows into shards: the inputs are
+    all ``N`` rows on the lead shard's device, each local shard works on its
+    rows on its own device and stream, each level's histograms are
+    `gradient_histogram_sharded` over the shards (on the card, the bits of
+    one launch over all rows) and the leaf sums are each shard's one-hot
+    product added in float32 across shards (not the single device's bits,
+    as the reference's psum'd float32 sums are not). The split search runs
+    once, on the lead device. A shard's row subsample comes from its own
+    stream (the seed folded with its dp index, as the reference folds
+    ``axis_index`` into its row key); the column sample is the one a fit on
+    one device draws. The margins that come back hold this process's
+    shards' rows (every row with one process; the rows of other processes
+    stay at ``init_margin``)."""
     dev = bins.device
     N, F = bins.shape
     J = len(hps)
     if len(seeds) != J or sample_weight.shape != (J, N):
         raise ValueError(f"{J} jobs need {J} seeds and a ({J}, {N}) sample_weight")
+    if dp is not None:
+        if histogram is not gradient_histogram_jobs:
+            raise ValueError("a dp fit takes its histograms from the sharded kernel entry")
+        if dp.lead != dev or dp.n_rows != N:
+            raise ValueError(f"dp shards {dp.n_rows} rows led by {dp.lead}; bins are {N} on {dev}")
     n_internal = 2**depth_cap - 1
     n_leaves = 2**depth_cap
     T = n_trees_cap
@@ -250,7 +289,6 @@ def fit_binned_jobs(
     n_keep = torch.clamp(
         torch.round(_per_job([hp.colsample_bytree for hp in hps], dev) * n_avail), min=1
     ).to(torch.int64)[:, None]
-    rows = torch.arange(N, device=dev)[None, :]
     # Which jobs may split at each level, made once a call, not a level.
     level_on = [level < max_depth for level in range(depth_cap)]
 
@@ -266,46 +304,82 @@ def fit_binned_jobs(
         else init_margin.to(device=dev, dtype=torch.float32).clone()
     )
 
+    # The row shards: views of the inputs (copies on another device). One
+    # shard, without dp, is every row on the caller's stream.
+    if dp is None:
+        run = lambda fn: [fn(0)]  # noqa: E731
+        devs, sbins, sy, sbase, smargin = [dev], [bins], [y], [base_w], [margin]
+    else:
+        run, devs = dp.run, dp.devices
+        sbins, sy = dp.split(bins), dp.split(y)
+        sbase, smargin = dp.split(base_w, dim=1), dp.split(margin, dim=1)
+    srows = [torch.arange(b.shape[0], device=d)[None, :] for b, d in zip(sbins, devs)]
+
+    def level_histogram(parts, n_nodes):
+        if dp is None:
+            return histogram(*parts[0], n_nodes=n_nodes, n_bins=n_bins)
+        return gradient_histogram_sharded(
+            parts, n_nodes=n_nodes, n_bins=n_bins, n_rows=N, run=dp.run, group=dp.group
+        )
+
     for t in range(T):
         tree_idx = t + int(tree_offset)
-        sub, u = [], []
-        for hp, seed in zip(hps, seeds):
-            gen = _tree_generator(seed, tree_idx, dev)
-            sub.append(torch.rand(N, generator=gen, device=dev) < hp.subsample)
-            u.append(torch.rand(F, generator=gen, device=dev))
-        w = base_w * torch.stack(sub).to(torch.float32)
-        w_pos = (w > 0).to(torch.float32)
-        # Per job: a transcendental's vectorized and scalar paths may round
-        # differently, and which rows take which depends on the shape.
-        p = torch.stack([torch.sigmoid(m) for m in margin])
-        g = (w * (p - y)).contiguous()
-        h = (w * torch.clamp(p * (1.0 - p), min=1e-16)).contiguous()
+        if dp is None:
+            sub, u = [], []
+            for hp, seed in zip(hps, seeds):
+                gen = _tree_generator(seed, tree_idx, dev)
+                sub.append(torch.rand(N, generator=gen, device=dev) < hp.subsample)
+                u.append(torch.rand(F, generator=gen, device=dev))
+            ssub = [torch.stack(sub)]
+        else:
+            u = [_column_draw(seed, tree_idx, N, F, dev) for seed in seeds]
+
+            def row_sample(s):
+                n_s, d = sbins[s].shape[0], devs[s]
+                return torch.stack([
+                    torch.rand(n_s, generator=_tree_generator(seed, tree_idx, d, dp.index[s]),
+                               device=d) < hp.subsample
+                    for hp, seed in zip(hps, seeds)
+                ])
+
+            ssub = run(row_sample)
+
+        def gradients(s):
+            w = sbase[s] * ssub[s].to(torch.float32)
+            w_pos = (w > 0).to(torch.float32)
+            # Per job: a transcendental's vectorized and scalar paths may
+            # round differently, and which rows take which depends on the
+            # shape.
+            p = torch.stack([torch.sigmoid(m) for m in smargin[s]])
+            g = (w * (p - sy[s])).contiguous()
+            h = (w * torch.clamp(p * (1.0 - p), min=1e-16)).contiguous()
+            return g, h, w_pos
+
+        sg = run(gradients)
 
         u = torch.where(feature_mask, torch.stack(u), float("inf"))
         ranks = torch.argsort(torch.argsort(u, dim=1, stable=True), dim=1, stable=True)
         cmask = (ranks < n_keep) & feature_mask  # (J, F)
 
-        node = torch.zeros((J, N), dtype=torch.int32, device=dev)
+        snode = run(lambda s: torch.zeros((J, sbins[s].shape[0]), dtype=torch.int32, device=devs[s]))
         feats, thrs, mls = feats_all[:, t], thrs_all[:, t], mls_all[:, t]
         gains, covers = gains_all[:, t], covers_all[:, t]
         prev = None
         for level in range(depth_cap):
             K = 2**level
             off = K - 1
-            local = node - off
+            slocal = run(lambda s: snode[s] - off)
             if level == 0 or not hist_subtract:
-                hg, hh, hw = histogram(bins, local, g, h, w_pos, n_nodes=K, n_bins=n_bins)
-            else:
-                left_m = (local % 2 == 0).to(torch.float32)
-                left = histogram(
-                    bins,
-                    local // 2,
-                    g * left_m,
-                    h * left_m,
-                    w_pos * left_m,
-                    n_nodes=K // 2,
-                    n_bins=n_bins,
+                hg, hh, hw = level_histogram(
+                    [(sbins[s], slocal[s], *sg[s]) for s in range(len(devs))], K
                 )
+            else:
+                def left_inputs(s):
+                    g, h, w_pos = sg[s]
+                    left_m = (slocal[s] % 2 == 0).to(torch.float32)
+                    return sbins[s], slocal[s] // 2, g * left_m, h * left_m, w_pos * left_m
+
+                left = level_histogram(run(left_inputs), K // 2)
                 # A right-child bin that holds none of the node's training
                 # rows (an exact zero count: covers are integers) gets
                 # exact zero sums, not the last-bit residue of parent -
@@ -358,33 +432,49 @@ def fit_binned_jobs(
             mls[:, off : off + K] = ml_lvl
             gains[:, off : off + K] = torch.where(do_split, best_gain, 0.0)
 
-            lidx = local.long()
-            b_row = bins[rows, feat_lvl.long().gather(1, lidx)].long()
-            go_left = torch.where(
-                b_row == 0, ml_lvl.gather(1, lidx), b_row <= thr_lvl.gather(1, lidx)
-            )
-            node = 2 * node + 1 + (~go_left).to(torch.int32)
+            def route(s):
+                d, lidx = devs[s], slocal[s].long()
+                b_row = sbins[s][srows[s], feat_lvl.to(d).long().gather(1, lidx)].long()
+                go_left = torch.where(
+                    b_row == 0, ml_lvl.to(d).gather(1, lidx), b_row <= thr_lvl.to(d).gather(1, lidx)
+                )
+                return 2 * snode[s] + 1 + (~go_left).to(torch.int32)
+
+            snode = run(route)
 
         # Per job: the leaf sums at one job's shapes, the (N, L) one-hot of
         # that job only (3.77 GB at depth 9 and 1.84M rows).
         for j, hp in enumerate(hps):
-            leaf_local = (node[j] - (2**depth_cap - 1)).long()
-            # Leaf (g, h, cover) sums as a one-hot product, as the reference
-            # takes them: a matrix product adds in a fixed order on the
-            # card, where index_add_'s float atomics would make two fits
-            # differ.
-            oh_leaf = torch.zeros((N, n_leaves), dtype=torch.float32, device=dev)
-            oh_leaf.scatter_(1, leaf_local[:, None], 1.0)
-            sums = (oh_leaf.T @ torch.stack([g[j], h[j], w_pos[j]], dim=1)).T
-            del oh_leaf
+            def leaf_sums(s):
+                g, h, w_pos = sg[s]
+                leaf_local = (snode[s][j] - (2**depth_cap - 1)).long()
+                # Leaf (g, h, cover) sums as a one-hot product, as the
+                # reference takes them: a matrix product adds in a fixed
+                # order on the card, where index_add_'s float atomics would
+                # make two fits differ.
+                oh_leaf = torch.zeros((leaf_local.shape[0], n_leaves), dtype=torch.float32,
+                                      device=devs[s])
+                oh_leaf.scatter_(1, leaf_local[:, None], 1.0)
+                return leaf_local, (oh_leaf.T @ torch.stack([g[j], h[j], w_pos[j]], dim=1)).T
+
+            leaf = run(leaf_sums)
+            sums = leaf[0][1] if dp is None else dp.sum([x[1] for x in leaf])
             covers[j, n_internal:] = sums[2]
             tree_on = 1.0 if tree_idx < hp.n_estimators else 0.0
             leaf_val = -sums[0] / (sums[1] + lam[j, 0, 0, 0]) * lr[j]
             leaf_val = torch.where(sums[1] > 0, leaf_val, 0.0) * tree_on
             gains[j].mul_(tree_on)  # inert trees must not pollute gain importances
             leaves_all[j, t] = leaf_val
-            margin[j] = margin[j] + leaf_val[leaf_local]
 
+            def add_leaves(s):
+                smargin[s][j] = smargin[s][j] + leaf_val.to(devs[s])[leaf[s][0]]
+
+            run(add_leaves)
+
+    if dp is not None:
+        for (a, b), d, m in zip(dp.bounds, devs, smargin):
+            if d != dev:
+                margin[:, a:b] = m.to(dev)
     thr_float = torch.zeros((T, n_internal), dtype=torch.float32, device=dev)
     forests = [
         Forest(
@@ -417,6 +507,7 @@ def fit_binned_resumable(
     tree_offset: int = 0,
     hist_subtract: bool = True,
     histogram: HistogramFn = gradient_histogram_channels,
+    dp: RowShards | None = None,
 ) -> tuple[Forest, torch.Tensor]:
     """Train ``n_trees_cap`` boosting rounds from ``init_margin``; returns
     (forest chunk with zero float thresholds, final margin): one fit,
@@ -425,7 +516,8 @@ def fit_binned_resumable(
     ``hist_subtract`` builds left children only and takes right = parent -
     left. ``histogram`` is the level's histogram op on ``(N,)`` inputs: the
     kernel's wrapper, which runs its plain version on CPU tensors (a caller
-    comparing the two on the card passes the plain version)."""
+    comparing the two on the card passes the plain version). ``dp`` splits
+    the rows over a mesh's dp axis (`fit_binned_jobs`)."""
 
     def one_job(b, node, g, h, w, **kw):
         return tuple(x[None] for x in histogram(b, node[0], g[0], h[0], w[0], **kw))
@@ -438,7 +530,7 @@ def fit_binned_resumable(
         bins, y, sample_weight.to(device=bins.device, dtype=torch.float32)[None],
         feature_mask, [hp], [seed], n_trees_cap=n_trees_cap, depth_cap=depth_cap,
         n_bins=n_bins, init_margin=None if init_margin is None else init_margin[None],
-        tree_offset=tree_offset, hist_subtract=hist_subtract, histogram=level_hist,
+        tree_offset=tree_offset, hist_subtract=hist_subtract, histogram=level_hist, dp=dp,
     )
     return forests[0], margin[0]
 

@@ -653,13 +653,21 @@ def score_cost(
     return flops, nbytes
 
 
-def _program(pack: "ForestPack", n_rows: int, with_shap: bool, device: torch.device):
+def _program(
+    pack: "ForestPack", n_rows: int, with_shap: bool, device: torch.device, shards: int = 1
+):
     """The program handle of one call: the entry at its precision, its row
-    bucket (the power of two the service pads to) and SHAP or margin."""
+    bucket (the power of two the service pads to) and SHAP or margin; a
+    shard's launch of a mesh dispatch (`parallel.partitioner`) adds
+    ``/shards=<n>``, and its row carries ``shards``."""
     bucket = 1 << max(0, n_rows - 1).bit_length()
     key = f"{pack.precision}/{bucket}/{'shap' if with_shap else 'margin'}"
+    meta = {}
+    if shards > 1:
+        key += f"/shards={shards}"
+        meta["shards"] = shards
     return launch_handle(
-        "score_forest", key, device, lambda: _build.take_build_seconds("score_forest")
+        "score_forest", key, device, lambda: _build.take_build_seconds("score_forest"), **meta
     )
 
 
@@ -729,7 +737,7 @@ _COUNT_LOCK = threading.Lock()
 
 
 def fused_score(
-    pack: ForestPack, X: torch.Tensor, *, n_features: int, with_shap: bool = True
+    pack: ForestPack, X: torch.Tensor, *, n_features: int, with_shap: bool = True, shards: int = 1
 ):
     """One fused scoring pass over the forest.
 
@@ -742,7 +750,10 @@ def fused_score(
     Each call is recorded on its program handle (`telemetry.programs`,
     ``score_forest/<precision>/<row bucket>/<shap|margin>``): CUDA events
     around the launch on the card, wall seconds of the plain version on
-    the CPU, and `score_cost`'s FLOPs and bytes."""
+    the CPU, and `score_cost`'s FLOPs and bytes. ``shards`` > 1 marks the
+    call as one shard's launch of a mesh dispatch of that many shards
+    (`parallel.partitioner.MeshPartitioner`): its program row is the
+    mesh's, ``.../shards=<n>``."""
     if X.device.type == "cpu":
         t0 = time.perf_counter()
         out = fused_score_reference(pack, X, n_features=n_features, with_shap=with_shap)
@@ -751,7 +762,7 @@ def fused_score(
             flops, nbytes = score_cost(
                 N, pack.n_trees, pack.depth, n_features, pack.precision, with_shap
             )
-            _program(pack, N, with_shap, X.device).record_dispatch(
+            _program(pack, N, with_shap, X.device, shards).record_dispatch(
                 time.perf_counter() - t0, rows=N, flops=flops, nbytes=nbytes
             )
         return out
@@ -790,7 +801,7 @@ def fused_score(
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=X.device)
         dev = X.device.index if X.device.index is not None else torch.cuda.current_device()
         lib = _library(dev)
-        prog = _program(pack, N, with_shap, X.device)
+        prog = _program(pack, N, with_shap, X.device, shards)
         stream = torch.cuda.current_stream(X.device)
         pair = prog.start(stream)
         err = lib.score_forest(

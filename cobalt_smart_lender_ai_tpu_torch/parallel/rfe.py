@@ -14,6 +14,11 @@ full feature set and the mask after each step are scored by k-fold
 validation AUC (`parallel.tune.cross_validate_gbdt` with the selector's
 hyperparameters), and the best-scoring feature count wins, ties going to
 fewer features; ``ranking_`` is re-based on the winning mask.
+
+With a ``mesh`` of more than one device each refit is row-sharded over its
+dp axis (`parallel.sharded.fit_binned_dp`, or `fit_binned_dp_chunked` on a
+chunked schedule; direct histograms when dp > 1) and the RFECV scoring
+fans its jobs out over the mesh (`parallel.tune.cross_validate_gbdt`).
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ from cobalt_smart_lender_ai_tpu_torch.models.gbdt import (
 )
 from cobalt_smart_lender_ai_tpu_torch.ops.binning import compute_bin_edges, transform
 from cobalt_smart_lender_ai_tpu_torch.parallel.budget import resolve_chunk_trees
+from cobalt_smart_lender_ai_tpu_torch.parallel.mesh import Mesh
+from cobalt_smart_lender_ai_tpu_torch.parallel.sharded import fit_binned_dp, fit_binned_dp_chunked
 from cobalt_smart_lender_ai_tpu_torch.parallel.tune import (
     cross_validate_gbdt,
     stratified_kfold_masks,
@@ -67,6 +74,7 @@ def rfe_select(
     *,
     cv_folds: int | None = None,
     device: torch.device | str = "cuda",
+    mesh: Mesh | None = None,
 ) -> RFEResult:
     """Eliminate to exactly ``config.n_select`` features by refitting the
     selector GBDT and dropping the ``step`` surviving features of least
@@ -75,7 +83,10 @@ def rfe_select(
     ``cv_folds``, every surviving mask (the full set included) is scored by
     ``cv_folds``-fold validation AUC (folds ``stratified_kfold_masks(y,
     cv_folds, config.seed)``, seed ``config.seed + 1``) and the
-    best-scoring count, at least ``n_select``, wins."""
+    best-scoring count, at least ``n_select``, wins. ``mesh`` (its first
+    device is ``device``) row-shards the refits over its dp axis and the
+    RFECV jobs over its hp axis; a one-device mesh is the path without
+    one."""
     cfg = config or RFEConfig()
     dev = resolve_device(device)
     X = torch.as_tensor(X).to(device=dev, dtype=torch.float32)
@@ -92,11 +103,17 @@ def rfe_select(
     )
     sw = torch.ones(N, dtype=torch.float32, device=dev)
     n_iters = max(0, -(-(F - cfg.n_select) // cfg.step))
+    multi = mesh is not None and mesh.size > 1
+    dp_size = mesh.shape[mesh.axis_dp] if multi else 1
     chunk = resolve_chunk_trees(
-        cfg.chunk_trees, n_trees=cfg.n_estimators, n_rows=N, n_feats=F,
-        n_bins=SELECTOR_BINS, depth=cfg.max_depth, hist_subtract=True,
+        cfg.chunk_trees, n_trees=cfg.n_estimators, n_rows=-(-N // dp_size), n_feats=F,
+        n_bins=SELECTOR_BINS, depth=cfg.max_depth,
+        hist_subtract=cfg.hist_subtract and dp_size == 1,
     )
-    kw = dict(n_trees_cap=cfg.n_estimators, depth_cap=cfg.max_depth, n_bins=SELECTOR_BINS)
+    kw = dict(
+        n_trees_cap=cfg.n_estimators, depth_cap=cfg.max_depth, n_bins=SELECTOR_BINS,
+        hist_subtract=cfg.hist_subtract,
+    )
 
     mask = np.ones(F, dtype=bool)
     ranking = np.ones(F, dtype=np.int64)
@@ -105,12 +122,15 @@ def rfe_select(
     it = 0
     while mask.sum() > cfg.n_select:
         fm = torch.from_numpy(mask).to(dev)
-        if chunk is not None:
-            forest = fit_binned_chunked(
-                bins, y, sw, fm, hp, fold_in(cfg.seed, it), chunk_trees=chunk, **kw
-            )
+        seed = fold_in(cfg.seed, it)
+        if multi and chunk is not None:
+            forest = fit_binned_dp_chunked(mesh, bins, y, sw, fm, hp, seed, chunk_trees=chunk, **kw)
+        elif multi:
+            forest = fit_binned_dp(mesh, bins, y, sw, fm, hp, seed, **kw)
+        elif chunk is not None:
+            forest = fit_binned_chunked(bins, y, sw, fm, hp, seed, chunk_trees=chunk, **kw)
         else:
-            forest = fit_binned(bins, y, sw, fm, hp, fold_in(cfg.seed, it), **kw)
+            forest = fit_binned(bins, y, sw, fm, hp, seed, **kw)
         # Summed on the host: index_add_ on the card adds in no fixed order,
         # and a last-bit difference could reorder two features.
         total_gain, _ = gain_importances(forest.to("cpu"), F)
@@ -135,7 +155,8 @@ def rfe_select(
                 continue
             aucs = cross_validate_gbdt(
                 bins, y, [hp], val, cfg.seed + 1, n_bins=SELECTOR_BINS, chunk_trees="auto",
-                feature_mask=torch.from_numpy(fm_np).to(dev),
+                feature_mask=torch.from_numpy(fm_np).to(dev), hist_subtract=cfg.hist_subtract,
+                mesh=mesh,
             )
             cv_scores[n] = float(aucs.mean())
             cv_masks[n] = fm_np

@@ -26,6 +26,15 @@ and a budget of 75 trees the margins it scores hold 78 trees, as the
 reference's do. A job's last chunk stops at its ``n_estimators`` (the
 reference runs the overflow trees inert).
 
+With a ``mesh`` (`parallel.mesh`), as the reference's runner over its
+``(hp, dp)`` mesh: the hp axis splits each group's jobs into contiguous
+blocks, one per hp row, each advancing by its own `fit_binned_jobs` call on
+its row's stream, and the dp axis splits the rows (`fit_binned_jobs`'s
+``dp``, exact histograms; sibling subtraction off when dp > 1). A job's bits
+do not depend on the jobs beside it, so an hp-only mesh gives one device's
+scores bit for bit. ``"auto"`` chunks are resolved, as the reference's, on
+one device's share: the rows over dp and the jobs over hp.
+
 The runner's accounting is the reference's: ``cobalt_search_dispatch_seconds
 {mode}``, ``cobalt_search_pruned_candidates_total`` and
 ``cobalt_search_rungs_total``, and program rows
@@ -60,6 +69,7 @@ from cobalt_smart_lender_ai_tpu_torch.models.gbdt import (
 from cobalt_smart_lender_ai_tpu_torch.ops.binning import compute_bin_edges, transform
 from cobalt_smart_lender_ai_tpu_torch.ops.metrics import roc_auc
 from cobalt_smart_lender_ai_tpu_torch.parallel.budget import resolve_chunk_trees
+from cobalt_smart_lender_ai_tpu_torch.parallel.mesh import Mesh, row_bounds
 from cobalt_smart_lender_ai_tpu_torch.telemetry.metrics import default_registry
 from cobalt_smart_lender_ai_tpu_torch.telemetry.programs import (
     default_program_registry,
@@ -203,13 +213,25 @@ class SearchResult:
     cv_results_: dict[str, Any]
 
 
+def _mesh_sizes(mesh: Mesh | None) -> tuple[int, int]:
+    """(hp, dp) of ``mesh``; (1, 1) without one."""
+    if mesh is None:
+        return 1, 1
+    if mesh.multi_process:
+        raise ValueError("the search runs on a mesh of this process's devices")
+    hp, dp = mesh.devices.shape
+    return hp, dp
+
+
 class _Jobs:
     """The (candidate, fold) jobs of one group of candidates, each with its
     carried margin over all rows and the trees it has boosted."""
 
-    def __init__(self, bins, y, hps, cand_ids, val, fm, seed, *, n_bins, hist_subtract):
+    def __init__(self, bins, y, hps, cand_ids, val, fm, seed, *, n_bins, hist_subtract, mesh=None):
         self.bins, self.y, self.val, self.fm = bins, y, val, fm
-        self.n_bins, self.hist_subtract = n_bins, hist_subtract
+        self.n_bins, self.mesh = n_bins, mesh
+        self.hist_subtract = hist_subtract and _mesh_sizes(mesh)[1] == 1
+        self._on: dict[torch.device, tuple] = {}
         K = val.shape[0]
         self.jobs = [
             {"cand": int(cid), "fold": k, "hp": hp, "seed": fold_in(seed, int(cid) * K + k),
@@ -231,22 +253,54 @@ class _Jobs:
             if n > 0:
                 together.setdefault((job["trees"], n, hp.max_depth), []).append(job)
         for (done, n, depth), jobs in together.items():
-            _, margins = fit_binned_jobs(
-                self.bins, self.y, 1.0 - self.val[[j["fold"] for j in jobs]], self.fm,
-                [j["hp"] for j in jobs], [j["seed"] for j in jobs],
-                n_trees_cap=n, depth_cap=depth, n_bins=self.n_bins,
-                init_margin=torch.stack([j["margin"] for j in jobs]), tree_offset=done,
-                hist_subtract=self.hist_subtract,
-            )
+            if self.mesh is None or self.mesh.size == 1:
+                _, margins = fit_binned_jobs(
+                    self.bins, self.y, 1.0 - self.val[[j["fold"] for j in jobs]], self.fm,
+                    [j["hp"] for j in jobs], [j["seed"] for j in jobs],
+                    n_trees_cap=n, depth_cap=depth, n_bins=self.n_bins,
+                    init_margin=torch.stack([j["margin"] for j in jobs]), tree_offset=done,
+                    hist_subtract=self.hist_subtract,
+                )
+            else:
+                margins = [m for ms in self._advance_on_mesh(jobs, done, n, depth) for m in ms]
             for job, margin in zip(jobs, margins):
                 job["margin"] = margin
                 job["trees"] += n
+
+    def _inputs_on(self, dev: torch.device) -> tuple:
+        """bins, y, val and the feature mask on ``dev``, copied once."""
+        if dev not in self._on:
+            self._on[dev] = tuple(t.to(dev) for t in (self.bins, self.y, self.val, self.fm))
+        return self._on[dev]
+
+    def _advance_on_mesh(self, jobs: list[dict], done: int, n: int, depth: int) -> list:
+        """Advance ``jobs`` over the mesh: contiguous blocks of them, one per
+        hp row, each one `fit_binned_jobs` call on its row (its rows split
+        over the row's dp shards); the blocks' margins, in job order."""
+        mesh = self.mesh
+        hp, dp = _mesh_sizes(mesh)
+        blocks = [jobs[a:b] for a, b in row_bounds(len(jobs), min(hp, len(jobs)))]
+
+        def advance(i):
+            block, dev = blocks[i], mesh.devices[i, 0]
+            bins, y, val, fm = self._inputs_on(dev)
+            _, margins = fit_binned_jobs(
+                bins, y, 1.0 - val[[j["fold"] for j in block]], fm,
+                [j["hp"] for j in block], [j["seed"] for j in block],
+                n_trees_cap=n, depth_cap=depth, n_bins=self.n_bins,
+                init_margin=torch.stack([j["margin"].to(dev) for j in block]), tree_offset=done,
+                hist_subtract=self.hist_subtract,
+                dp=mesh.row_shards(i, bins.shape[0]) if dp > 1 else None,
+            )
+            return margins
+
+        return mesh.run_hp(advance, len(blocks))
 
     def scores(self) -> dict[int, np.ndarray]:
         """Each candidate's validation AUC per fold, from the carried margins."""
         out: dict[int, list[float]] = {}
         for job in self.jobs:
-            auc = roc_auc(self.y, job["margin"], weight=self.val[job["fold"]])
+            auc = roc_auc(self.y, job["margin"].to(self.y.device), weight=self.val[job["fold"]])
             out.setdefault(job["cand"], []).append(float(auc))
         return {c: np.asarray(v) for c, v in out.items()}
 
@@ -278,6 +332,7 @@ def cross_validate_gbdt(
     hist_subtract: bool = True,
     chunk_trees: int | str | None = None,
     feature_mask: torch.Tensor | None = None,
+    mesh: Mesh | None = None,
 ) -> np.ndarray:
     """Validation ROC-AUC of every (candidate, fold) job, shape ``(C, K)``,
     on ``bins``' device.
@@ -289,16 +344,22 @@ def cross_validate_gbdt(
     C-1``); job (c, k)'s random stream is ``fold_in(seed, cand_ids[c] * K +
     k)``. ``chunk_trees`` (None, an int or ``"auto"``, resolved against the
     group's shape as the reference does) boosts in chunks, carrying each
-    job's margin; the scores are the same bits."""
+    job's margin; the scores are the same bits. ``mesh`` (its first device
+    ``bins``' device) shards the jobs over its hp axis and the rows over
+    its dp axis; with dp > 1 the histograms are direct."""
     K, N = val_masks.shape
     ids = list(range(len(hps))) if cand_ids is None else [int(i) for i in cand_ids]
     y, val, fm = _row_tensors(bins, y, val_masks, feature_mask)
     n_trees = max(hp.n_estimators for hp in hps)
+    hp_size, dp_size = _mesh_sizes(mesh)
+    hist_subtract = hist_subtract and dp_size == 1
     chunk = resolve_chunk_trees(
-        chunk_trees, n_trees=n_trees, n_rows=N, n_feats=bins.shape[1], n_bins=n_bins,
-        depth=max(hp.max_depth for hp in hps), n_jobs=len(hps) * K, hist_subtract=hist_subtract,
+        chunk_trees, n_trees=n_trees, n_rows=-(-N // dp_size), n_feats=bins.shape[1],
+        n_bins=n_bins, depth=max(hp.max_depth for hp in hps),
+        n_jobs=-(-len(hps) * K // hp_size), hist_subtract=hist_subtract,
     )
-    jobs = _Jobs(bins, y, hps, ids, val, fm, seed, n_bins=n_bins, hist_subtract=hist_subtract)
+    jobs = _Jobs(bins, y, hps, ids, val, fm, seed, n_bins=n_bins, hist_subtract=hist_subtract,
+                 mesh=mesh)
     step = chunk or n_trees
     schedule = range(step, n_trees + step, step)
     clock = _Stopwatch(bins.device)
@@ -367,6 +428,7 @@ def successive_halving_search(
     seed: int,
     *,
     feature_mask: torch.Tensor | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[np.ndarray, dict[str, Any]] | None:
     """Successive-halving CV over the chunked schedule: the reference's
     ``successive_halving_search``, each group's live jobs advancing
@@ -389,7 +451,10 @@ def successive_halving_search(
     the reference's keys (``eta``, ``budgets``, ``rungs``,
     ``pruned_candidates``, ``survivors``, ``scored_at_trees``,
     ``dispatches``: chunk advances of a group) and ``chunk_trees``, the
-    chunk of each depth."""
+    chunk of each depth. ``mesh`` as in `cross_validate_gbdt`; an
+    ``"auto"`` chunk is resolved on one device's share (the depth's jobs,
+    padded as the reference pads its job axis, over hp; the rows over
+    dp)."""
     C = len(candidates)
     cfgs = [base.replace(**dict(c)) for c in candidates]
     eta = max(2, int(tune.halving_eta))
@@ -403,13 +468,15 @@ def successive_halving_search(
     by_depth: dict[int, list[list[int]]] = {}
     for idxs in groups:
         by_depth.setdefault(cfgs[idxs[0]].max_depth, []).append(idxs)
+    hp_size, dp_size = _mesh_sizes(mesh)
+    hist_subtract = base.hist_subtract and dp_size == 1
     chunk_of: dict[int, int] = {}
     for d, subs in by_depth.items():
         cap_d = max(cfgs[i].n_estimators for idxs in subs for i in idxs)
-        jobs_d = max(_pow2_jobs(len(idxs) * K, 1) for idxs in subs)
+        jobs_d = max(_pow2_jobs(len(idxs) * K, hp_size) for idxs in subs)
         ck = resolve_chunk_trees(
-            tune.chunk_trees, n_trees=cap_d, n_rows=N, n_feats=bins.shape[1],
-            n_bins=base.n_bins, depth=d, n_jobs=jobs_d, hist_subtract=base.hist_subtract,
+            tune.chunk_trees, n_trees=cap_d, n_rows=-(-N // dp_size), n_feats=bins.shape[1],
+            n_bins=base.n_bins, depth=d, n_jobs=jobs_d // hp_size, hist_subtract=hist_subtract,
         )
         chunk_of[d] = cap_d if ck is None else min(int(ck), cap_d)
     if all(chunk_of[d] >= max(cfgs[i].n_estimators for s in subs for i in s)
@@ -420,7 +487,7 @@ def successive_halving_search(
     live_groups = [
         {"chunk": chunk_of[d], "done": 0,
          "jobs": _Jobs(bins, y, [GBDTHyperparams.from_config(cfgs[i]) for i in idxs], idxs,
-                       val, fm, seed, n_bins=base.n_bins, hist_subtract=base.hist_subtract)}
+                       val, fm, seed, n_bins=base.n_bins, hist_subtract=hist_subtract, mesh=mesh)}
         for d, subs in sorted(by_depth.items())
         for idxs in subs
     ]
@@ -499,6 +566,7 @@ def randomized_search(
     tune: TuneConfig | None = None,
     *,
     device: torch.device | str = "cuda",
+    mesh: Mesh | None = None,
 ) -> SearchResult:
     """Randomized search with stratified k-fold CV, then the refit of the
     best candidate on all rows, on ``device`` (``cuda`` unless the caller
@@ -506,7 +574,9 @@ def randomized_search(
     block. On a chunked schedule with ``tune.halving_enabled`` the
     successive-halving search runs and the winner is the best survivor
     (``cv_results_["halving"]`` holds its report); otherwise every candidate
-    runs to its full ``n_estimators`` on every fold."""
+    runs to its full ``n_estimators`` on every fold. ``mesh`` (its first
+    device ``device``) fans the CV jobs out over its hp axis and their rows
+    over its dp axis; the refit runs on ``device``."""
     base = base or GBDTConfig()
     tune = tune or TuneConfig()
     dev = resolve_device(device)
@@ -521,7 +591,9 @@ def randomized_search(
 
     halving = None
     if tune.halving_enabled:
-        halving = successive_halving_search(bins, y, candidates, base, tune, val_masks, tune.seed)
+        halving = successive_halving_search(
+            bins, y, candidates, base, tune, val_masks, tune.seed, mesh=mesh
+        )
     if halving is not None:
         split_scores, report = halving
         mean_auc = split_scores.mean(axis=1)
@@ -533,7 +605,7 @@ def randomized_search(
             hps = [GBDTHyperparams.from_config(base.replace(**candidates[i])) for i in idxs]
             split_scores[idxs] = cross_validate_gbdt(
                 bins, y, hps, val_masks, tune.seed, n_bins=base.n_bins, cand_ids=idxs,
-                hist_subtract=base.hist_subtract, chunk_trees=tune.chunk_trees,
+                hist_subtract=base.hist_subtract, chunk_trees=tune.chunk_trees, mesh=mesh,
             )
             logger.info("cv bucket %s: mean AUC %s", idxs, split_scores[idxs].mean(axis=1))
         mean_auc = split_scores.mean(axis=1)

@@ -25,8 +25,8 @@ read from the store's ``data.raw_key``.
 
     python -m cobalt_smart_lender_ai_tpu_torch.pipeline --store artifacts \\
         --synthetic-rows 100000 [--seed S] [--quick] [--no-halving] [--resume] \\
-        [--pandas-ingest] [--device cuda|cpu] [--ledger-out run.json] \\
-        [--trace-out trace.json]
+        [--pandas-ingest] [--ingest-shards N] [--device cuda|cpu] \\
+        [--ledger-out run.json] [--trace-out trace.json]
 
 The host path (``data.device_pipeline=False``, CLI ``--pandas-ingest``)
 cleans on the host (`data.clean.clean_raw_frame`), then prepares and
@@ -73,7 +73,7 @@ from cobalt_smart_lender_ai_tpu_torch.data.features import (
 )
 from cobalt_smart_lender_ai_tpu_torch.data.frame import RawFrame
 from cobalt_smart_lender_ai_tpu_torch.data.split import train_test_split_hashed
-from cobalt_smart_lender_ai_tpu_torch.device import resolve_device
+from cobalt_smart_lender_ai_tpu_torch.device import mesh_devices, resolve_device
 from cobalt_smart_lender_ai_tpu_torch.io import (
     GBDTArtifact,
     ObjectStore,
@@ -89,6 +89,8 @@ from cobalt_smart_lender_ai_tpu_torch.ops.metrics import (
     confusion_matrix,
     roc_auc,
 )
+from cobalt_smart_lender_ai_tpu_torch.parallel.mesh import Mesh, make_mesh
+from cobalt_smart_lender_ai_tpu_torch.parallel.partitioner import make_partitioner
 from cobalt_smart_lender_ai_tpu_torch.parallel.rfe import rfe_select
 from cobalt_smart_lender_ai_tpu_torch.parallel.tune import SearchResult, randomized_search
 from cobalt_smart_lender_ai_tpu_torch.reliability import (
@@ -187,14 +189,20 @@ def quick_config() -> PipelineConfig:
 STAGES = ("clean", "engineer", "rfe", "search")
 
 
-def stage_fingerprints(cfg: PipelineConfig) -> dict[str, str]:
+def stage_fingerprints(cfg: PipelineConfig, mesh: Mesh | None = None) -> dict[str, str]:
     """Each checkpointed stage's fingerprint: of the configuration it
-    depends on, and only that (the reference's, without its mesh)."""
+    depends on, and only that. RFE and the search also take the dp size of
+    the resolved ``mesh`` (None: one device): dp > 1 turns sibling
+    subtraction off and shards the row sample, so it changes the splits;
+    the hp axis and the `MeshConfig` that resolved to the mesh do not (an
+    hp-only mesh gives one device's bits), so a checkpoint resumes on any
+    mesh of the same dp size."""
+    dp = {"dp": mesh.shape[mesh.axis_dp] if mesh is not None else 1}
     return {
         "clean": config_fingerprint("clean", cfg.data),
         "engineer": config_fingerprint("engineer", cfg.data),
-        "rfe": config_fingerprint("rfe", cfg.data, cfg.rfe),
-        "search": config_fingerprint("search", cfg.data, cfg.rfe, cfg.gbdt, cfg.tune),
+        "rfe": config_fingerprint("rfe", cfg.data, cfg.rfe, dp),
+        "search": config_fingerprint("search", cfg.data, cfg.rfe, cfg.gbdt, cfg.tune, dp),
     }
 
 
@@ -338,7 +346,10 @@ def _run_pipeline(
         if store is not None and rel.checkpoints
         else None
     )
-    fp = stage_fingerprints(cfg)
+    # RFE and the search run over the (hp, dp) mesh of the visible devices
+    # (`MeshConfig`; one device: the single-device path).
+    mesh = make_mesh(cfg.mesh, devices=mesh_devices(dev))
+    fp = stage_fingerprints(cfg, mesh)
     fp_clean, fp_engineer, fp_rfe, fp_search = (fp[s] for s in STAGES)
     # A stage is skipped only if every stage upstream of it was.
     can_resume = bool(resume) and ckpt is not None
@@ -365,6 +376,7 @@ def _run_pipeline(
         ingest = run_device_ingest(
             tok,
             device=dev,
+            partitioner=make_partitioner(cfg.data.ingest_shards, device=dev),
             n_bins=cfg.gbdt.n_bins,
             null_col_threshold=cfg.data.null_col_threshold,
             row_null_allowance=cfg.data.row_null_allowance,
@@ -452,7 +464,8 @@ def _run_pipeline(
             skip_rfe = skip_search = False
     if support is None:
         rfe = rfe_select(
-            X_train, y_train, dataclasses.replace(cfg.rfe, scale_pos_weight=spw), device=dev
+            X_train, y_train, dataclasses.replace(cfg.rfe, scale_pos_weight=spw), device=dev,
+            mesh=mesh,
         )
         support = rfe.support_
         selected = tuple(n for n, keep in zip(ff.feature_names, support) if keep)
@@ -493,7 +506,7 @@ def _run_pipeline(
         logger.info("resume: restored best params %s, refit only", best_params)
         t = tick("refit", t)
     else:
-        search = randomized_search(Xtr_sel, y_train, base, cfg.tune, device=dev)
+        search = randomized_search(Xtr_sel, y_train, base, cfg.tune, device=dev, mesh=mesh)
         if ckpt is not None:
             ckpt.write(
                 "search",
@@ -595,6 +608,13 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
         "numerics on the device)",
     )
     parser.add_argument(
+        "--ingest-shards",
+        type=int,
+        default=1,
+        help="row shards for the device ingest's feature-assembly / binning "
+        "programs: 1 = one device, -1 = every visible device (clamped to the host)",
+    )
+    parser.add_argument(
         "--ledger-out",
         default=None,
         help="write a run ledger (JSON: config fingerprint, env/devices, stage "
@@ -617,8 +637,13 @@ def main(argv: Sequence[str] | None = None) -> PipelineResult:
     cfg = quick_config() if args.quick else PipelineConfig()
     if args.no_halving:
         cfg = dataclasses.replace(cfg, tune=dataclasses.replace(cfg.tune, halving_enabled=False))
-    if args.pandas_ingest:
-        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, device_pipeline=False))
+    if args.pandas_ingest or args.ingest_shards != 1:
+        cfg = dataclasses.replace(
+            cfg,
+            data=dataclasses.replace(
+                cfg.data, device_pipeline=not args.pandas_ingest, ingest_shards=args.ingest_shards
+            ),
+        )
     raw = None
     if args.synthetic_rows:
         from cobalt_smart_lender_ai_tpu_torch.data.synthetic import synthetic_lendingclub_frame
@@ -633,7 +658,9 @@ def main(argv: Sequence[str] | None = None) -> PipelineResult:
         install_device_metrics()
         ledger = RunLedger(
             "pipeline",
-            fingerprint=stage_fingerprints(cfg)["search"],
+            fingerprint=stage_fingerprints(cfg, make_mesh(cfg.mesh, devices=mesh_devices(dev)))[
+                "search"
+            ],
             meta={
                 "quick": bool(args.quick),
                 "halving": not args.no_halving,

@@ -1,4 +1,4 @@
-"""PortfolioScorer: checkpointed offline batch scoring on one card.
+"""PortfolioScorer: checkpointed offline batch scoring, row-sharded over a mesh.
 
 The serving path (`serve/service.py`) scores what an HTTP client sends; this
 engine scores what a *risk review* needs: an entire portfolio swept through a
@@ -17,9 +17,12 @@ process after K chunks, rerun with ``resume=True``, and the remaining items
 are scored into the same artifacts: the concatenated scores are
 *bit-identical* to an uninterrupted run, because each row's result depends
 only on its own chunk's launch. A resume trusts a chunk only while its
-bytes still hash to the md5 and size the manifest pinned.
+bytes still hash to the md5 and size the manifest pinned. The shard count
+is not part of the resume fingerprint (as in the reference): a row's result
+does not depend on the mesh, so a sweep killed on one mesh resumes on
+another to the same bits.
 
-**One launch per chunk.** With SHAP, ONE `fused_score` launch returns the
+**One dispatch per chunk.** With SHAP, ONE `fused_score` launch returns the
 margins and the phis together (the reference dispatches a margin program
 and a SHAP program); it is counted under ``kind="shap"``, or under
 ``kind="margin"`` with ``compute_shap=False``. Scores are the host's numpy
@@ -35,10 +38,13 @@ the caller's current CUDA stream. A chunk's
 done, and the scenario's upload for its first chunk, as the reference
 times its dispatch; the copy back to the host comes after.
 
-**One card.** The reference shards chunks over a device mesh
-(``make_partitioner``); multi-GPU is not ported (ROADMAP A5), so the forest
-is packed once on ``device`` and ``shards`` takes 0 or 1, or -1 when one
-device is visible. Anything else raises `ShardsNotPorted`.
+**Row shards.** As the reference, ``shards`` resolves through
+`parallel.partitioner.make_partitioner`: 0 or 1 is one device, -1 every
+visible device, N an N-way dp mesh clamped to the visible devices
+(`device.mesh_devices`). On a mesh each chunk is padded to ``bucket *
+n_shards`` rows (``bucket`` the power-of-two cover of the rows per shard)
+and its dispatch launches ``score_forest`` once per shard, each on its
+shard's stream; `describe` reports the mesh.
 
 **Long-run deadline semantics.** ``run(deadline=None)`` is the default and
 means "never abort"; a caller that wants a wall-clock budget passes an
@@ -71,7 +77,8 @@ from cobalt_smart_lender_ai_tpu_torch.device import resolve_device
 from cobalt_smart_lender_ai_tpu_torch.io.artifacts import GBDTArtifact
 from cobalt_smart_lender_ai_tpu_torch.io.model_registry import ModelRegistry
 from cobalt_smart_lender_ai_tpu_torch.io.store import ObjectStore
-from cobalt_smart_lender_ai_tpu_torch.ops.score import fused_score, pack_forest, prepare_kernel
+from cobalt_smart_lender_ai_tpu_torch.ops.score import pack_forest, prepare_kernel
+from cobalt_smart_lender_ai_tpu_torch.parallel.partitioner import make_partitioner
 from cobalt_smart_lender_ai_tpu_torch.reliability.checkpoint import (
     PipelineCheckpoint,
     config_fingerprint,
@@ -90,7 +97,7 @@ from cobalt_smart_lender_ai_tpu_torch.telemetry.drift import FeatureSketch
 from cobalt_smart_lender_ai_tpu_torch.telemetry.metrics import default_registry
 from cobalt_smart_lender_ai_tpu_torch.telemetry.tracing import default_tracer
 
-__all__ = ["PortfolioInterrupted", "PortfolioScorer", "ShardsNotPorted", "load_portfolio"]
+__all__ = ["PortfolioInterrupted", "PortfolioScorer", "load_portfolio"]
 
 
 class PortfolioInterrupted(RuntimeError):
@@ -107,22 +114,6 @@ class PortfolioInterrupted(RuntimeError):
         self.run_id = run_id
         self.items_done = items_done
         self.items_total = items_total
-
-
-class ShardsNotPorted(ValueError):
-    """A shard count that needs a device mesh: multi-GPU scoring is ROADMAP
-    A5 and not ported, so the scorer runs on one device."""
-
-
-def _check_shards(shards: int, device: torch.device) -> None:
-    visible = torch.cuda.device_count() if device.type == "cuda" else 1
-    if shards in (0, 1) or (shards == -1 and visible == 1):
-        return
-    raise ShardsNotPorted(
-        f"shards={shards} needs a mesh of {visible if shards == -1 else shards} "
-        "devices; multi-GPU scoring is ROADMAP A5 and not ported: pass 0 or 1 "
-        "(or -1 with one device visible)"
-    )
 
 
 def load_portfolio(
@@ -214,7 +205,7 @@ class PortfolioScorer:
         if chunk_rows < 1:
             raise ValueError(f"chunk_rows must be >= 1, got {chunk_rows}")
         self.device = resolve_device(device)
-        _check_shards(int(shards), self.device)
+        self.partitioner = make_partitioner(int(shards), device=self.device)
         self.artifact = artifact
         self.store = store
         self.chunk_rows = int(chunk_rows)
@@ -231,9 +222,12 @@ class PortfolioScorer:
         #: the two at float tolerance, so a resume never mixes their chunks.
         self.kernel = "score_forest" if self.device.type == "cuda" else "plain"
         # One row bucket for the whole run: every chunk is zero-padded to
-        # `padded_rows`, like the serving buckets. Padding rows score
-        # garbage that is sliced off before anything downstream sees it.
-        self.padded_rows = 1 << max(self.chunk_rows - 1, 0).bit_length()
+        # `padded_rows` (power-of-two rows per shard), like the serving
+        # buckets. Padding rows score garbage that is sliced off before
+        # anything downstream sees it.
+        n_shards = self.partitioner.n_shards
+        per_shard = -(-self.chunk_rows // n_shards)
+        self.padded_rows = (1 << max(per_shard - 1, 0).bit_length()) * n_shards
         self.pack = None
         self._md5: str | None = None
         #: The pack's base value, read back once in the compile stage.
@@ -294,14 +288,18 @@ class PortfolioScorer:
             return 0.0
         t0 = self._clock()
         forest = self.artifact.forest.to(self.device)
-        self.pack = pack_forest(forest, len(self.artifact.feature_names), "f32")
+        n_features = len(self.artifact.feature_names)
+        self.pack = pack_forest(forest, n_features, "f32")
+        self._score = self.partitioner.compile_fused(
+            self.pack, n_features, self.padded_rows, with_shap=self.compute_shap
+        )
         prepare_kernel(self.device)
         self._base = self.pack.base.cpu().numpy()
         return self._clock() - t0
 
     def describe(self) -> dict:
-        """The reference partitioner's shape block, for one device."""
-        return {"shards": 1, "mesh": None, "devices": [str(self.device)]}
+        """The partitioner's shape block: its shards, mesh and devices."""
+        return self.partitioner.describe()
 
     def _model_md5(self) -> str:
         """The registry's md5 of the model's ``.npz``; for an artifact given
@@ -387,11 +385,12 @@ class PortfolioScorer:
         return padded
 
     def _launch(self, X: torch.Tensor) -> tuple:
-        """ONE `fused_score` launch over a staged chunk, waited for: the
-        chunk's dispatch, which the reference times around its call and
+        """ONE dispatch over a staged chunk through the partitioner (one
+        `fused_score` launch, or one per shard), waited for: the chunk's
+        dispatch, which the reference times around its call and
         ``block_until_ready``. The outputs stay on the device; the caller
         copies them back."""
-        out = fused_score(self.pack, X, n_features=X.shape[1], with_shap=self.compute_shap)
+        out = self._score(X)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         return out

@@ -4,7 +4,7 @@
         [--device cuda|cpu] [--port N] [--forest-precision f32|bf16|int8] \\
         [--no-microbatch] [--score-cache-size N] [--flight-slow-ms MS] \\
         [--canary [--model-name gbdt] [--canary-sample-rate R]] \\
-        [--replicas N [--no-replica-devices]]
+        [--replicas N [--no-replica-devices]] [--bulk-shards N]
 
 ``--device`` defaults to ``cuda``; without a CUDA device the command fails
 at startup. ``--device cpu`` runs the plain PyTorch versions of the kernels.
@@ -16,7 +16,9 @@ device (``POST /admin/promote``, ``/admin/rollback``, ``GET /drift``).
 with the supervisor's healing loop and hedged failover
 (``POST /admin/quarantine``, ``/admin/readmit``); on one card every replica
 shares it, on several replica i takes card ``i % cards`` unless
-``--no-replica-devices``.
+``--no-replica-devices``. ``--bulk-shards N`` splits each bulk dispatch's
+rows over an N-way dp mesh of the visible cards (-1 every card; clamped to
+the cards there are), one scoring launch a shard.
 """
 
 from __future__ import annotations
@@ -116,6 +118,13 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
         help="packed forest representation: f32 (bit-exact), bf16 or int8 "
         "(gated at startup against the committed tolerances)",
     )
+    parser.add_argument(
+        "--bulk-shards",
+        type=int,
+        default=ServeConfig.bulk_shards,
+        help="row shards per bulk dispatch: 0/1 single device, -1 every "
+        "visible device, N an N-way dp mesh (clamped to the host)",
+    )
     return parser.parse_args(argv)
 
 
@@ -137,6 +146,7 @@ def build_service(args: argparse.Namespace) -> ScorerService | ReplicaSet:
         canary_sample_rate=args.canary_sample_rate,
         replicas=args.replicas,
         replica_devices=not args.no_replica_devices,
+        bulk_shards=args.bulk_shards,
     )
     return ReplicaSet.from_store(ObjectStore(args.store), cfg, device=args.device)
 
@@ -157,6 +167,11 @@ def main(argv: Sequence[str] | None = None) -> None:
         f"(kernel {ready['kernel']}, forest precision {ready['precision']}, "
         f"quant table {ready['quant_table']})"
     )
+    if ready["bulk"]["shards"] > 1:
+        print(
+            f"[INFO] bulk scoring sharded over the dp mesh: {ready['bulk']['shards']} shards "
+            f"on {ready['bulk']['devices']}"
+        )
     if service.config.canary_enabled:
         info = service.model_info
         print(

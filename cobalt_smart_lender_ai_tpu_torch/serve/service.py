@@ -9,7 +9,10 @@ Every scoring call is ONE launch of the fused scoring kernel
 the `MicroBatcher` into a power-of-two row bucket scored with SHAP, and
 ``/predict_bulk_csv`` chunks its rows into buckets scored without;
 `ScorerService.shap_bulk`, the offline batch-explain entry point, chunks
-them the same way into buckets scored with SHAP. On
+them the same way into buckets scored with SHAP. With
+``ServeConfig.bulk_shards`` > 1 the bulk chunks go through a
+`parallel.partitioner.MeshPartitioner`: ``bucket * n_shards`` rows a
+chunk, one launch a shard (the reference's mesh-sharded bulk dispatch). On
 ``device="cuda"`` the kernel runs or the request fails; only an explicit
 ``device="cpu"`` runs the plain PyTorch versions.
 
@@ -89,6 +92,7 @@ from cobalt_smart_lender_ai_tpu_torch.data.device_pipeline import transform_raw_
 from cobalt_smart_lender_ai_tpu_torch.device import resolve_device
 from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models.gbdt import gain_importances
+from cobalt_smart_lender_ai_tpu_torch.parallel.partitioner import make_partitioner
 from cobalt_smart_lender_ai_tpu_torch.ops.score import (
     fused_score,
     fused_supported,
@@ -235,6 +239,12 @@ class _CompiledModel:
         self.feature_names = list(artifact.feature_names)
         self.n_features = len(self.feature_names)
         self._feature_index = {n: i for i, n in enumerate(self.feature_names)}
+        # Where the bulk path's rows go (``ServeConfig.bulk_shards``): one
+        # device, or the shards of a dp mesh, each chunk then holding
+        # ``bucket * n_shards`` rows. Single rows and micro-batches stay on
+        # ``device``.
+        self.bulk_part = make_partitioner(config.bulk_shards, device=device)
+        self.bulk_fns: dict[tuple[int, bool], Callable] = {}
         caller = torch.cuda.current_stream(device) if stream is not None else None
         if stream is not None:
             # The artifact's forest was uploaded on the caller's stream (a
@@ -352,21 +362,64 @@ class _CompiledModel:
         return self.score(batch, with_shap=False)[0], None, None, error
 
     def _bulk_chunks(self, X: np.ndarray, deadline: Deadline | None):
-        """The bulk path's chunking: yield ``(start, n, chunk)`` for chunks
-        of ``max_batch_rows`` rows, the last zero-padded to its power-of-two
-        bucket, with the deadline (when given) checked before each chunk,
-        the cooperative cancellation point between launches."""
+        """The bulk path's chunking, the reference's: yield ``(start, n,
+        bucket, chunk)`` for chunks of ``max_batch_rows * n_shards`` rows,
+        each zero-padded to ``bucket * n_shards`` rows, ``bucket`` the
+        power-of-two cover of the rows per shard; the deadline (when given)
+        is checked before each chunk, the cooperative cancellation point
+        between dispatches. With one shard a chunk is ``max_batch_rows``
+        rows padded to its power-of-two bucket."""
         N = X.shape[0]
-        step = self.config.max_batch_rows
+        shards = self.bulk_part.n_shards
+        step = self.config.max_batch_rows * shards
         for start in range(0, N, step):
             if deadline is not None:
                 deadline.check(f"bulk scoring, row {start}/{N}")
             chunk = X[start : start + step]
             n = chunk.shape[0]
-            bucket = self.bucket_of(n)
-            if n < bucket:
-                chunk = np.concatenate([chunk, np.zeros((bucket - n, X.shape[1]), np.float32)])
-            yield start, n, chunk
+            bucket = self.bucket_of(-(-n // shards))
+            total = bucket * shards
+            if n < total:
+                chunk = np.concatenate([chunk, np.zeros((total - n, X.shape[1]), np.float32)])
+            yield start, n, bucket, chunk
+
+    def score_bulk(
+        self, chunk: np.ndarray, bucket: int, with_shap: bool, outputs: Sequence[int]
+    ) -> list:
+        """ONE bulk dispatch over a padded chunk of ``bucket * n_shards``
+        rows through `bulk_part`, and the ``outputs`` of ``(margin, prob,
+        phis, base)`` it names (by index) on the host. One launch on one
+        device (the launch `score` makes), or one per shard, each on its
+        shard's stream; the upload and the copies back run on the model's
+        stream."""
+        key = (bucket, with_shap)
+        fn = self.bulk_fns.get(key)
+        if fn is None:
+            fn = self.bulk_fns.setdefault(key, self.bulk_part.compile_fused(
+                self.pack, self.n_features, bucket * self.bulk_part.n_shards, with_shap=with_shap
+            ))
+        with self.on_stream():
+            X = torch.from_numpy(np.ascontiguousarray(chunk, np.float32)).to(self.device)
+            out = fn(X)
+            return [float(out[i]) if i == 3 else out[i].cpu().numpy() for i in outputs]
+
+    def predict_margin_bulk(
+        self,
+        X: np.ndarray,
+        deadline: Deadline | None = None,
+        observe: Callable[[int, float], None] | None = None,
+    ) -> np.ndarray:
+        """Raw forest margins for an (N, F) float array: one margin-only
+        dispatch per `_bulk_chunks` chunk; ``observe`` as in
+        `predict_proba`."""
+        X = np.asarray(X, dtype=np.float32)
+        out = np.empty((X.shape[0],), dtype=np.float32)
+        for start, n, bucket, chunk in self._bulk_chunks(X, deadline):
+            t0 = time.perf_counter()
+            out[start : start + n] = self.score_bulk(chunk, bucket, False, (0,))[0][:n]
+            if observe is not None:
+                observe(n, time.perf_counter() - t0)
+        return out
 
     def predict_proba(
         self,
@@ -374,14 +427,14 @@ class _CompiledModel:
         deadline: Deadline | None = None,
         observe: Callable[[int, float], None] | None = None,
     ) -> np.ndarray:
-        """P(default) for an (N, F) float array: one margin-only launch per
-        `_bulk_chunks` chunk. ``observe(rows, seconds)`` gets each chunk's
-        rows and seconds, the scores on the host."""
+        """P(default) for an (N, F) float array: one margin-only dispatch per
+        `_bulk_chunks` chunk (`score_bulk`). ``observe(rows, seconds)`` gets
+        each chunk's rows and seconds, the scores on the host."""
         X = np.asarray(X, dtype=np.float32)
         out = np.empty((X.shape[0],), dtype=np.float32)
-        for start, n, chunk in self._bulk_chunks(X, deadline):
+        for start, n, bucket, chunk in self._bulk_chunks(X, deadline):
             t0 = time.perf_counter()
-            out[start : start + n] = self.score(chunk, with_shap=False)[0][:n]
+            out[start : start + n] = self.score_bulk(chunk, bucket, False, (1,))[0][:n]
             if observe is not None:
                 observe(n, time.perf_counter() - t0)
         return out
@@ -393,17 +446,17 @@ class _CompiledModel:
         observe: Callable[[int, float], None] | None = None,
     ) -> tuple[np.ndarray, float] | None:
         """Bulk SHAP: ``((N, F) contributions, base_value)``, or None while
-        SHAP is degraded (no partial attributions). One SHAP launch per
-        `_bulk_chunks` chunk through `score`, on the model's stream;
+        SHAP is degraded (no partial attributions). One SHAP dispatch per
+        `_bulk_chunks` chunk through `score_bulk`, on the model's stream;
         ``observe`` as in `predict_proba`."""
         if self.shap_fn is None:
             return None
         X = np.asarray(X, dtype=np.float32)
         phis = np.empty((X.shape[0], self.n_features), dtype=np.float32)
         base = 0.0
-        for start, n, chunk in self._bulk_chunks(X, deadline):
+        for start, n, bucket, chunk in self._bulk_chunks(X, deadline):
             t0 = time.perf_counter()
-            _, chunk_phis, base = self.score(chunk, with_shap=True)
+            chunk_phis, base = self.score_bulk(chunk, bucket, True, (2, 3))
             phis[start : start + n] = chunk_phis[:n]
             if observe is not None:
                 observe(n, time.perf_counter() - t0)
@@ -1302,8 +1355,12 @@ class ScorerService:
         )
         self._m_bulk_dispatch_s = reg.histogram(
             "cobalt_bulk_dispatch_seconds",
-            "wall time of one bulk dispatch, scores on the host",
+            "wall time of one (possibly mesh-sharded) bulk dispatch, scores on the host",
         )
+        reg.gauge(
+            "cobalt_bulk_shards",
+            "row shards per bulk dispatch (1 = single device)",
+        ).set_function(lambda: self._model.bulk_part.n_shards)
         self._m_model_info = reg.gauge(
             "cobalt_model_info",
             "1 for the model version currently serving (identity labels)",
@@ -1393,6 +1450,11 @@ class ScorerService:
             "degraded": model.shap_fn is None,
             "launches": fused_score.launches,
             "degraded_direct": self.degraded_direct,
+            # The bulk path's mesh shape and the buckets it has dispatched.
+            "bulk": {
+                **model.bulk_part.describe(),
+                "compiled_buckets": sorted({b for b, _ in model.bulk_fns}),
+            },
             "breaker": self.store_breaker.state,
             "admission": self.admission.stats(),
             "score_cache": {

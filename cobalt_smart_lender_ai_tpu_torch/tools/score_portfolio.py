@@ -25,8 +25,10 @@ registry for ad-hoc artifacts. ``--scenarios`` is a JSON file of grid axes::
 ``--synthetic-portfolio N`` writes a portfolio of N synthetic loans (after
 cleaning, fewer rows) at ``--portfolio`` when the key is absent (CI / demo
 bootstrap). ``--device`` defaults to ``cuda`` and fails without a card;
-``--device cpu`` scores with the kernel's plain version. ``--shards`` takes
-0 or 1 (or -1 with one device visible): multi-GPU scoring is not ported.
+``--device cpu`` scores with the kernel's plain version. ``--shards``
+splits each chunk's rows over a dp mesh: 0/1 one device, -1 every visible
+device, N an N-way mesh clamped to the visible devices; it is not part of
+the resume fingerprint, so a run killed on one mesh resumes on another.
 Exit codes: 0 success, 3 interrupted-but-resumable (the
 ``--fail-after-chunks`` path).
 """
@@ -88,8 +90,8 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--resume", action="store_true",
                     help="continue a killed run with the same --run-id")
     ap.add_argument("--shards", type=int, default=1,
-                    help="0/1 one device, -1 all visible devices (one only: "
-                    "multi-GPU scoring is not ported)")
+                    help="row shards per chunk: 0/1 one device, -1 all visible "
+                    "devices, N an N-way dp mesh (clamped to the host)")
     ap.add_argument("--chunk-rows", type=int, default=2048)
     ap.add_argument("--no-shap", action="store_true",
                     help="skip SHAP attribution (margin-only sweep)")

@@ -77,7 +77,13 @@ chunk) equal the plain version as above, and their margins the margin-only
 launch's bit for bit; a sweep on the card is one SHAP launch per chunk,
 its scores the CPU engine's bit for bit, and killed and resumed it gives
 every chunk's arrays bit for bit; ``shap_bulk`` on the card is one SHAP
-launch per chunk, its phis the plain version's within 1e-5.
+launch per chunk, its phis the plain version's within 1e-5. Of the mesh,
+the card named 1, 2 and 4 times (each shard on its own stream): the sharded
+histogram entry gives the bits of one launch over all rows, J = 1 and 3,
+with a NaN in one shard; a dp fit's first tree is the single-device direct
+fit's, split for split; `MeshPartitioner` scores margins and SHAP bit for
+bit as `SingleDevicePartitioner` at f32, bf16 and int8, one launch per
+shard.
 """
 
 from __future__ import annotations
@@ -93,7 +99,13 @@ import numpy as np
 import pytest
 import torch
 
-from cobalt_smart_lender_ai_tpu_torch.config import GBDTConfig, RFEConfig, ServeConfig, TuneConfig
+from cobalt_smart_lender_ai_tpu_torch.config import (
+    GBDTConfig,
+    MeshConfig,
+    RFEConfig,
+    ServeConfig,
+    TuneConfig,
+)
 from cobalt_smart_lender_ai_tpu_torch.convert import forest_from_numpy
 from cobalt_smart_lender_ai_tpu_torch.data import schema
 from cobalt_smart_lender_ai_tpu_torch.data.clean import clean_raw_frame
@@ -111,6 +123,7 @@ from cobalt_smart_lender_ai_tpu_torch.models.gbdt import (
     GBDTHyperparams,
     fit_binned_jobs,
     fit_binned_resumable,
+    predict_margin,
 )
 from cobalt_smart_lender_ai_tpu_torch.ops.binning import compute_bin_edges, transform
 from cobalt_smart_lender_ai_tpu_torch.ops.histogram import (
@@ -118,13 +131,21 @@ from cobalt_smart_lender_ai_tpu_torch.ops.histogram import (
     gradient_histogram_jobs,
     gradient_histogram_jobs_reference,
     gradient_histogram_reference,
+    gradient_histogram_sharded,
+    histogram_accumulate,
 )
 from cobalt_smart_lender_ai_tpu_torch.ops.score import (
     fused_score,
     fused_score_reference,
     pack_forest,
 )
+from cobalt_smart_lender_ai_tpu_torch.parallel.mesh import make_mesh
+from cobalt_smart_lender_ai_tpu_torch.parallel.partitioner import (
+    MeshPartitioner,
+    SingleDevicePartitioner,
+)
 from cobalt_smart_lender_ai_tpu_torch.parallel.rfe import rfe_select
+from cobalt_smart_lender_ai_tpu_torch.parallel.sharded import fit_binned_dp
 from cobalt_smart_lender_ai_tpu_torch.parallel.tune import (
     cross_validate_gbdt,
     randomized_search,
@@ -1541,3 +1562,81 @@ def test_shap_bulk_on_card_matches_plain(card_pack, fresh_programs):
             assert abs(base - float(ref[3])) <= TOL_SHAP
     finally:
         service.close()
+
+
+# -- the mesh: the card named several times, each shard on its own stream ----
+
+
+def _nan_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-equal, NaN where the other is NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+@pytest.mark.parametrize("J", [1, 3])
+def test_sharded_histogram_is_one_launch_on_card(card, n_shards, J):
+    """The sharded entry over 1, 2 and 4 shards of the card gives the bits
+    of one `gradient_histogram_jobs` launch over all rows, a NaN in the
+    last shard's rows of one job included, one accumulate launch a shard."""
+    N, K, B = 50_001, 64, 255
+    bins, node, g, h, w = _jobs_inputs(40 + J, J, N, 20, B, K, np.uint8)
+    g[J - 1, N - 3] = np.nan
+    h[0, N - 7] = np.inf
+    t = [torch.from_numpy(a).to(card) for a in (bins, node, g, h, w)]
+    one = torch.stack(gradient_histogram_jobs(*t, n_nodes=K, n_bins=B))
+    dp = make_mesh(MeshConfig(), devices=[card] * n_shards).row_shards(0, N)
+    parts = [(dp.split(t[0])[s], *(x.narrow(1, a, b - a).contiguous() for x in t[1:]))
+             for s, (a, b) in enumerate(dp.bounds)]
+    before = histogram_accumulate.launches
+    got = torch.stack(gradient_histogram_sharded(parts, n_nodes=K, n_bins=B, n_rows=N, run=dp.run))
+    torch.cuda.synchronize()
+    assert histogram_accumulate.launches == before + n_shards
+    assert bool(torch.isnan(one).any())
+    assert _nan_equal(got, one)
+
+
+@pytest.mark.cuda
+def test_dp_fit_first_tree_is_the_direct_fit_on_card(card):
+    """fit_binned_dp over the card named four times: the first tree's
+    splits equal the single-device direct fit's (exact histograms, the
+    same column sample), the margins within 1e-4."""
+    rng = np.random.default_rng(19)
+    N, F, B = 40_000, 10, 64
+    bins = torch.from_numpy(rng.integers(0, B, (N, F)).astype(np.uint8)).to(card)
+    y = torch.from_numpy((rng.random(N) < 0.3).astype(np.float32)).to(card)
+    hp = GBDTHyperparams(learning_rate=0.3, gamma=0.0, reg_lambda=1.0, min_child_weight=1.0,
+                         scale_pos_weight=2.0, subsample=1.0, colsample_bytree=0.8,
+                         n_estimators=6, max_depth=5)
+    kw = dict(n_trees_cap=6, depth_cap=5, n_bins=B)
+    mesh = make_mesh(MeshConfig(), devices=[card] * 4)
+    dp_forest = fit_binned_dp(mesh, bins, y, None, None, hp, 7, **kw)
+    one = fit_binned_dp(make_mesh(MeshConfig(), devices=[card]), bins, y, None, None, hp, 7,
+                        hist_subtract=False, **kw)
+    for f in ("feature", "thr_bin", "missing_left"):
+        assert torch.equal(getattr(dp_forest, f)[0], getattr(one, f)[0]), f
+    diff = predict_margin(dp_forest, bins, use_binned=True) - predict_margin(one, bins, use_binned=True)
+    assert float(diff.abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", *QUANTIZED])
+def test_mesh_partitioner_is_the_single_device_on_card(card_pack, precision):
+    """`MeshPartitioner` over the card named four times (each shard on its
+    own stream): margins, prob, phis and base bit for bit
+    `SingleDevicePartitioner`'s, one launch a shard."""
+    pack, _, F = card_pack
+    if precision != "f32":
+        art = GBDTArtifact.load(ObjectStore(str(ROOT / "artifacts")), "models/gbdt/model_tree", "cuda")
+        pack = pack_forest(art.forest, F, precision)
+    rows = 4 * 512
+    X = torch.from_numpy(_rows(pack, rows, seed=23)).cuda()
+    want = SingleDevicePartitioner("cuda").compile_fused(pack, F, rows)(X)
+    before = fused_score.launches
+    got = MeshPartitioner([pack.device] * 4).compile_fused(pack, F, rows)(X)
+    torch.cuda.synchronize()
+    assert fused_score.launches == before + 4
+    for k in range(3):
+        assert torch.equal(got[k], want[k]), k
+    assert float(got[3]) == float(want[3])

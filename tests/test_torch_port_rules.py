@@ -4,8 +4,9 @@
   optax) nor anything of the JAX package (``cobalt_smart_lender_ai_tpu``),
   nor pandas or msgpack (the card's machine has neither); importing the
   port's serving stack, its data layer, its training protocol, its
-  telemetry, its challenger models or its portfolio path in a fresh
-  interpreter leaves
+  telemetry, its challenger models, its portfolio path or its mesh
+  (``parallel``: the mesh, the sharded fit, the partitioners and the
+  multi-process runtime) in a fresh interpreter leaves
   ``jax``, ``flax``, ``msgpack`` and ``pandas`` unloaded.
 - Its entry points run on the CUDA device unless the caller asks for the
   CPU: with CUDA unavailable, the default-device service constructors
@@ -13,7 +14,8 @@
   challenger models and `MLPArtifact.from_bytes`, the portfolio scorer
   (`PortfolioScorer`, ``from_registry`` and ``tools.score_portfolio``),
   `GBDTClassifier`, `split_mask`, `GBDTArtifact.load`/``from_bytes``,
-  `rfe_select`, `randomized_search`, `run_pipeline` and the serving and
+  `rfe_select`, `randomized_search`, `run_pipeline`, the mesh's device
+  list (`make_mesh`, `make_partitioner`, `MeshPartitioner`) and the serving and
   training CLIs, and the host path's `engineer_features`, raise instead of
   running on the CPU, and ``chip_smoke.py``
   exits non-zero without printing a result.
@@ -146,6 +148,28 @@ def test_importing_the_portfolio_path_leaves_jax_and_pandas_unloaded():
     modules = ("scenario", "scenario.grid", "scenario.report", "scenario.engine",
                "tools.score_portfolio", "tools.obs_report", "serve.service", "serve.replicas")
     assert _loaded_after_import(modules) == "[]"
+
+
+def test_importing_the_mesh_leaves_jax_and_pandas_unloaded():
+    modules = ("parallel", "parallel.mesh", "parallel.sharded", "parallel.partitioner",
+               "parallel.distributed", "device", "ops.histogram")
+    assert _loaded_after_import(modules) == "[]"
+
+
+def test_the_mesh_defaults_to_the_cards_and_raises_without_one(no_cuda):
+    from cobalt_smart_lender_ai_tpu_torch.device import mesh_devices
+    from cobalt_smart_lender_ai_tpu_torch.parallel import make_mesh, make_partitioner
+    from cobalt_smart_lender_ai_tpu_torch.parallel.partitioner import MeshPartitioner
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh_devices()
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_partitioner(4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        MeshPartitioner()
+    assert mesh_devices("cpu") == [torch.device("cpu")]
 
 
 def test_portfolio_scoring_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):

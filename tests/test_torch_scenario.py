@@ -18,9 +18,13 @@ chunks of 128 rows under a 2x2 grid:
   tampered chunk, restarts from 0; ``deadline=None`` never aborts, an
   explicit `Deadline` raises and leaves a resumable checkpoint;
   `from_registry` carries the published version's ``feature_sketch`` and
-  flags an OOD stress point; ``shards`` other than one device raises;
+  flags an OOD stress point; ``shards`` resolves as the reference's:
+  clamped to the visible devices (one CPU: one shard; the CPU named four
+  times through `device.mesh_devices`: a mesh), `describe()` reporting
+  the mesh;
 - ``tools.score_portfolio`` on the CPU: exit 0, exit 3 with
-  ``--fail-after-chunks``, then ``--resume`` with the same scores;
+  ``--fail-after-chunks``, then ``--resume`` with the same scores; and
+  ``--shards 4`` clamped, or on a four-entry mesh the one device's scores;
 - bulk SHAP: `ScorerService.shap_bulk` and `ReplicaSet.shap_bulk` against
   the JAX service's (phis within ``TOL_SHAP``), ``None`` while degraded.
 """
@@ -45,13 +49,13 @@ from cobalt_smart_lender_ai_tpu.serve.replicas import ReplicaSet as JaxReplicaSe
 from cobalt_smart_lender_ai_tpu.serve.service import ScorerService as JaxScorerService
 from cobalt_smart_lender_ai_tpu.telemetry.drift import FeatureSketch as JaxSketch
 import cobalt_smart_lender_ai_tpu_torch.scenario as scn
+from cobalt_smart_lender_ai_tpu_torch import device as torch_device
 from cobalt_smart_lender_ai_tpu_torch.config import ServeConfig
 from cobalt_smart_lender_ai_tpu_torch.data import schema
 from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ModelRegistry, ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.ops.score import fused_score
 from cobalt_smart_lender_ai_tpu_torch.reliability.deadline import Deadline
 from cobalt_smart_lender_ai_tpu_torch.reliability.errors import DeadlineExceeded
-from cobalt_smart_lender_ai_tpu_torch.scenario.engine import ShardsNotPorted
 from cobalt_smart_lender_ai_tpu_torch.serve.replicas import ReplicaSet
 from cobalt_smart_lender_ai_tpu_torch.serve.service import ScorerService
 from cobalt_smart_lender_ai_tpu_torch.telemetry import default_tracer
@@ -429,9 +433,18 @@ def test_one_device_shards_are_accepted(artifact, tmp_path, shards):
 
 
 @pytest.mark.parametrize("shards", [2, 4, -2])
-def test_a_mesh_is_refused_as_not_ported(artifact, tmp_path, shards):
-    with pytest.raises(ShardsNotPorted, match="A5"):
-        _scorer(artifact, ObjectStore(str(tmp_path)), shards=shards)
+def test_a_mesh_is_refused_as_not_ported(artifact, tmp_path, shards, monkeypatch):
+    """A mesh is no longer refused: ``shards`` is clamped to the visible
+    devices, as the reference clamps it (one CPU: one shard; -2 is one
+    device), and `describe()` reports the mesh it got."""
+    assert _scorer(artifact, ObjectStore(str(tmp_path)), shards=shards).describe() == {
+        "shards": 1, "mesh": None, "devices": ["cpu"]}
+    monkeypatch.setattr(torch_device, "mesh_devices", lambda device="cuda": [torch.device("cpu")] * 3)
+    scorer = _scorer(artifact, ObjectStore(str(tmp_path)), shards=shards)
+    n = {2: 2, 4: 3, -2: 1}[shards]
+    assert scorer.describe()["shards"] == n
+    assert scorer.describe()["mesh"] == (None if n == 1 else {"dp": n})
+    assert scorer.padded_rows == (1 << (-(-CHUNK // n) - 1).bit_length()) * n
 
 
 def test_padded_rows_are_the_power_of_two_cover(artifact, tmp_path):
@@ -540,11 +553,26 @@ def test_score_portfolio_cli_kill_and_resume_on_the_cpu(store_root, tmp_path, ca
     assert direct["chunks_resumed"] == 2 and direct["ood_scenarios"] == []
 
 
-def test_score_portfolio_cli_refuses_a_mesh(store_root):
+def test_score_portfolio_cli_refuses_a_mesh(store_root, tmp_path, capsys, monkeypatch):
+    """``--shards 4`` is no longer refused: on one CPU it is clamped to one
+    shard, and with the CPU named four times (`device.mesh_devices`) the
+    run is a four-shard mesh whose scores are the one-device run's, bit
+    for bit."""
     assert score_portfolio.parse_args([]).device == "cuda"
-    with pytest.raises(ShardsNotPorted, match="A5"):
-        score_portfolio.main(["--store", store_root, "--device", "cpu", "--shards", "4",
-                              "--model-key", KEY])
+    lake = tmp_path / "lake"
+    store = ObjectStore(str(lake))
+    _publish(store, GBDTArtifact.load(ObjectStore(store_root), KEY, "cpu"), _book(400, 1))
+    common = ["--store", str(lake), "--device", "cpu", "--synthetic-portfolio", "600",
+              "--chunk-rows", "128", "--no-shap"]
+    assert score_portfolio.main([*common, "--run-id", "one", "--shards", "4"]) == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["shards"] == 1
+    monkeypatch.setattr(torch_device, "mesh_devices", lambda device="cuda": [torch.device("cpu")] * 4)
+    assert score_portfolio.main([*common, "--run-id", "mesh", "--shards", "4"]) == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["shards"] == 4
+    a = store.get_json("scenario_runs/one/report.json")["keys"]["scores"]
+    b = store.get_json("scenario_runs/mesh/report.json")["keys"]["scores"]
+    for sid in a:
+        assert np.array_equal(store.load_array(a[sid]), store.load_array(b[sid]))
 
 
 # -- bulk SHAP on the service and the fleet -------------------------------------------
