@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only-portfolio # build, then phase 18 and the full book
     python3 chip_smoke.py --only-search    # build, then 5b's joint launches and the bucket's jobs
     python3 chip_smoke.py --only-mesh      # build, then phase 19 (the card named four times)
+    python3 chip_smoke.py --only-tools     # build, then phases 15-16 and 20 (the operator's layer)
     python3 chip_smoke.py --full-protocol  # build, then phase 8b at the defaults
 
 Phases, each of which must pass:
@@ -408,8 +409,8 @@ Phases, each of which must pass:
        1e-4 absolute plus relative;
     c. each family fitted on the full training rows: epochs run, fit
        seconds, rows per second and held-out AUC, which must reach 0.90
-       (FT-Transformer at 5 epochs in the whole run, cut for time, and at
-       its 20 under ``--only-challengers``);
+       (FT-Transformer at 5 epochs and TabNet at 8 in the whole run, cut
+       for time, and at their 20 and 30 under ``--only-challengers``);
     d. a second MLP fit of the same seed equals the first bit for bit.
 
 18. the offline portfolio stress path (`scenario`), after phase 17, at the
@@ -478,6 +479,45 @@ Phases, each of which must pass:
        over card tensors: an ``all_reduce``, the (1, 2) global mesh and a
        dp fit (1.84M rows, 5 trees of depth 7) bit for bit the one-process
        fit over the card named twice.
+20. the operator's layer, after phase 19 and before the scoring split
+    (phase 7), with the build cache bootstrapped at startup
+    (`compilecache.bootstrap_compile_cache`, before the first build):
+    a. ``tools.train_artifact.main`` at its defaults (130,000 loans of seed
+       11, the committed model's configuration: 300 trees of depth 7, 255
+       bins, samples 0.8) into a temporary store, on the card: 101,311
+       training rows; bin edges bit for bit the committed artifact's in the
+       date-free columns log1p does not derive, within 3e-7 in the
+       date-free log1p columns (torch's and XLA's float32 log1p differ by
+       an ulp), ``earliest_cr_line_days``' difference reported (it counts
+       days before the run's date); the test AUC within 0.01 of the
+       committed 0.9347 (the card's Philox draws other samples than JAX);
+       2,100 histogram launches, equal to the program registry's
+       dispatches; host-prep, fit and wall seconds;
+    b. the port's HTTP server serves 20a's artifact on the card and
+       `ui.core.ApiClient` talks to it: the default form through
+       `build_single_payload` to /predict, its waterfall's ``fx`` equal to
+       the base value plus the phis and to the plain scorer's margin of the
+       row within 1e-5; a 256-row bulk CSV through `coerce_results_frame`,
+       4 of its rows through `results_row_payload` back to /predict, each
+       probability the bulk row's within 1e-6; `importance_series` of
+       /feature_importance_bulk sorted; the admission cap held, the client
+       raises `ServiceDegraded` ``shed``;
+    c. ``tools.incident_report --require-cause`` over phases 15's and 16's
+       journals (a bench-shaped record) exits 0, its report listing a
+       quarantine chain with its time to healthy and the resizes;
+    d. the build cache's counters: in this process after its startup
+       builds 3 misses and 3 builds (a fresh checkout) or 3 hits and no
+       build (``_build/`` warm); in 11c's training CLI, a second process,
+       no build, at least one hit and the recorded seconds saved;
+    e. last (a profiler session slows the launches after it):
+       `debug.profile_trace` around 8 warm-up and 16 measured /predict
+       micro-batches to 20b's service: the trace parses and holds the
+       ``serve.microbatch_dispatch`` spans and the card's records of
+       ``shap_kernel<7>`` and ``score_finalize_kernel``;
+    ``score_forest``'s launches over 20b-20e, counted from 0 before 20b,
+    equal the programs' dispatches (the ``kernels`` line's
+    ``operator_launches``; 20a's histogram launches its
+    ``train_artifact_launches``).
 
 The script's seconds in all come on a line before ``{"kernels": [...]}``,
 which is the line before the last; the last is ``{"ok": true, "device":
@@ -493,6 +533,11 @@ reference's default `RFEConfig` (104 -> 20 features at step 1, 84 refits of
 50 trees) and `TuneConfig` (20 candidates x 3 folds, every candidate to its
 full ``n_estimators``) on a new 2.3M-loan frame, and prints neither line.
 ``--only-mesh`` builds, then runs phase 19 alone, and prints neither.
+``--only-tools`` builds, then runs phases 15 and 16 (for their journals)
+and phase 20, with the serve CLI's ``--profile-dir`` in a subprocess on
+20a's artifact (its /metrics the second process's build counters for 20d,
+its trace holding the micro-batch spans and the SHAP kernel), and prints
+neither.
 ``--only-search`` builds, then runs 5b's joint launches and the search
 bucket's check (the short loop for work on the job axis), and prints
 neither: the reference-default (9, 100) bucket's 15 jobs on phase 5's
@@ -518,6 +563,7 @@ import io
 import json
 import logging
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -551,6 +597,7 @@ from cobalt_smart_lender_ai_tpu_torch.config import (
 )
 from cobalt_smart_lender_ai_tpu_torch import device as port_device
 from cobalt_smart_lender_ai_tpu_torch import native
+from cobalt_smart_lender_ai_tpu_torch.compilecache import bootstrap_compile_cache, compile_stats
 from cobalt_smart_lender_ai_tpu_torch.data import schema
 from cobalt_smart_lender_ai_tpu_torch.data.bootstrap import bootstrap_synthetic
 from cobalt_smart_lender_ai_tpu_torch.data.clean import clean_raw_frame
@@ -568,6 +615,7 @@ from cobalt_smart_lender_ai_tpu_torch.data.features import (
 from cobalt_smart_lender_ai_tpu_torch.data.frame import RawFrame, row_dicts
 from cobalt_smart_lender_ai_tpu_torch.data.split import split_mask, train_test_split_hashed
 from cobalt_smart_lender_ai_tpu_torch.data.synthetic import synthetic_lendingclub_frame
+from cobalt_smart_lender_ai_tpu_torch.debug import profile_trace
 from cobalt_smart_lender_ai_tpu_torch.io import (
     DatasetRegistry,
     GBDTArtifact,
@@ -683,9 +731,10 @@ from cobalt_smart_lender_ai_tpu_torch.telemetry.programs import (
     peak_bytes_estimate,
     peak_flops_estimate,
 )
-from cobalt_smart_lender_ai_tpu_torch.tools import obs_report
+from cobalt_smart_lender_ai_tpu_torch.tools import incident_report, obs_report, train_artifact
 from cobalt_smart_lender_ai_tpu_torch.tools.retrain import retrain_candidate
 from cobalt_smart_lender_ai_tpu_torch.tools.score_portfolio import build_synthetic_portfolio
+from cobalt_smart_lender_ai_tpu_torch.ui import core as ui_core
 
 ROOT = Path(__file__).resolve().parent
 STORE = ROOT / "artifacts"
@@ -2742,6 +2791,8 @@ def observability_cli(card: str, root: str, n_rows: int = CLI_ROWS) -> dict:
         "devices": ledger["env"]["devices"],
         "ingest_programs": [{k: p[k] for k in ("name", "dispatches", "dispatch_seconds")}
                             for p in ingest],
+        # The build cache's counters in that second process (read by 20d).
+        "compile": ledger["compile"],
     }
     print(f"observability cli (11c): {json.dumps(out)} [{card}]")
     return out
@@ -4113,7 +4164,7 @@ def fleet_phase(card: str, device: str = "cuda", trees: int | None = None) -> di
         out = _fleet(card, root, device, trees)
     out["launches"] = fused_score.launches
     out["phase_s"] = time.perf_counter() - t0
-    print(f"fleet (15): {json.dumps(out)} [{card}]")
+    print(f"fleet (15): {json.dumps({k: v for k, v in out.items() if k != 'journal'})} [{card}]")
     return out
 
 
@@ -4396,6 +4447,7 @@ def _fleet(card: str, root: str, device: str, trees: int | None) -> dict:
         for plan in plans:
             plan.release()
         server.close()
+        out["journal"] = fleet.events()  # for 20c's incident report
         t1 = time.perf_counter()
         fleet.close()
         out["close_s"] = time.perf_counter() - t1
@@ -4526,7 +4578,7 @@ def autoscaler_phase(card: str, device: str = "cuda", trees: int | None = None) 
     out["phase_s"] = time.perf_counter() - t0
     if device == "cuda":  # after the count: these launches only time the kernel
         out["wide_buckets"] = wide_bucket_times(card)
-    print(f"autoscaler (16): {json.dumps(out)} [{card}]")
+    print(f"autoscaler (16): {json.dumps({k: v for k, v in out.items() if k != 'journal'})} [{card}]")
     return out
 
 
@@ -4789,6 +4841,7 @@ def _autoscaler(card: str, root: str, device: str, trees: int | None) -> dict:
         dispatched = sum(n for n, _ in program_delta(programs0, program_counts(entry)).values())
     finally:
         server.close()
+        out["journal"] = fleet.events()  # for 20c's incident report
         t1 = time.perf_counter()
         fleet.close()
         out["close_s"] = time.perf_counter() - t1
@@ -4866,6 +4919,10 @@ CHALLENGER_AUC_FLOOR = 0.90
 #: time (at 20 it stopped early after 9, in 34.7 s); ``--only-challengers``
 #: runs the config's.
 CHALLENGER_FT_EPOCHS: int | None = 5
+#: TabNet's epochs in the whole run, cut from its config's 30 for time (30
+#: took 30.2 s, AUC 0.953 on the H100; 8, one dispatch of epochs, gave AUC
+#: 0.963 on the CPU); ``--only-challengers`` runs the config's.
+CHALLENGER_TABNET_EPOCHS: int | None = 8
 
 
 def challenger_data(device: str = "cuda", n_rows: int = CHALLENGER_ROWS) -> dict:
@@ -5037,7 +5094,7 @@ def _fit_record(family: str, model, fit_s: float, train_rows: int, data: dict, l
 
 
 def challenger_phase(card: str, device: str = "cuda", n_rows: int = CHALLENGER_ROWS,
-                     ft_epochs: int | None = None) -> dict:
+                     ft_epochs: int | None = None, tabnet_epochs: int | None = None) -> dict:
     """Phase 17: the MLP, FT-Transformer, TabNet and logistic regression at
     their full widths on the reference's model benchmark data: (a) logits
     card vs CPU on the same weights, (b) card vs CPU training, (c) the fit
@@ -5085,8 +5142,14 @@ def challenger_phase(card: str, device: str = "cuda", n_rows: int = CHALLENGER_R
         "ft_transformer", ft, fit_s, n_fit, data, ft.predict_logits(Xte[:, num], Xte[:, cat]), card)
     out["ft_transformer"]["fit"]["epochs"] = ft_cfg.epochs
     del ft
-    tab, fit_s = timed(lambda: TabNetClassifier(TabNetConfig(), device=dev).fit(Xtr, ytr))
+    tab_cfg = TabNetConfig() if tabnet_epochs is None else TabNetConfig(epochs=tabnet_epochs)
+    if tab_cfg.epochs != TabNetConfig.epochs:
+        out.setdefault("cut", {})["tabnet_epochs"] = [tab_cfg.epochs, TabNetConfig.epochs]
+        print(f"challenger tabnet: {tab_cfg.epochs} epochs, cut from {TabNetConfig.epochs} "
+              f"for time (--only-challengers runs {TabNetConfig.epochs}) [{card}]", flush=True)
+    tab, fit_s = timed(lambda: TabNetClassifier(tab_cfg, device=dev).fit(Xtr, ytr))
     out["tabnet"]["fit"] = _fit_record("tabnet", tab, fit_s, int(Xtr.shape[0]), data, tab.predict_logits(Xte), card)
+    out["tabnet"]["fit"]["epochs"] = tab_cfg.epochs
     del tab
     lr, fit_s = timed(lambda: LogisticRegression(device=dev).fit(Xtr, ytr))
     cpu_lr = LogisticRegression(device="cpu")
@@ -5871,6 +5934,339 @@ def mesh_phase(card: str) -> dict:
     return out
 
 
+# -- phase 20: the operator's layer ----------------------------------------------------------
+
+#: `tools.train_artifact`'s defaults, and what the committed artifact says of them.
+ARTIFACT_ROWS = 130_000
+ARTIFACT_TRAIN_ROWS = 101_311
+ARTIFACT_AUC = 0.9347
+TOL_ARTIFACT_AUC = 0.01
+#: The column that counts days before the run's date: its bin edges move with it.
+DATE_COLUMN = "earliest_cr_line_days"
+#: 20b: the bulk CSV's rows, the rows sent back to /predict, the held admission slots.
+UI_BULK_ROWS = 256
+UI_ROW_PAYLOADS = 4
+UI_ADMISSION_CAP = 8
+TOL_WATERFALL = 1e-5
+#: 20e: /predict micro-batches inside the profiler session: the warm-ups
+#: (whose records a session may lose) first, then the measured ones.
+PROFILE_WARMUPS = 8
+PROFILE_BATCHES = 16
+#: The three libraries the script builds at startup: two nvcc, one g++.
+STARTUP_LIBRARIES = 3
+
+
+def _edge_checks(got: np.ndarray, want: np.ndarray) -> dict:
+    """Per-column agreement of two (F, B) bin-edge tables: the date-free
+    columns log1p does not derive bit for bit, the date-free log1p columns
+    within ``LOG_RTOL`` (torch's and XLA's float32 log1p differ by an ulp),
+    and the date column's largest difference (it moves with the run's date)."""
+    out = {"bitwise": [], "log_rtol": [], "date_max_abs_diff": None}
+    for col, name in enumerate(schema.SERVING_FEATURES):
+        a, b = got[col].astype(np.float64), want[col].astype(np.float64)
+        if name == DATE_COLUMN:
+            finite = np.isfinite(a) & np.isfinite(b)
+            out["date_max_abs_diff"] = float(np.abs(a[finite] - b[finite]).max()) if finite.any() else 0.0
+        elif name in schema.LOG_COLS:
+            same_inf = np.array_equal(np.isfinite(a), np.isfinite(b)) and np.array_equal(a[~np.isfinite(a)], b[~np.isfinite(b)])
+            finite = np.isfinite(a)
+            if not same_inf or not np.all(np.abs(a[finite] - b[finite]) <= LOG_RTOL * np.abs(b[finite])):
+                raise AssertionError(f"20a: {name}'s bin edges differ from the committed artifact's")
+            out["log_rtol"].append(name)
+        else:
+            if got[col].tobytes() != want[col].tobytes():
+                raise AssertionError(f"20a: {name}'s bin edges are not the committed artifact's bits")
+            out["bitwise"].append(name)
+    return out
+
+
+def train_artifact_phase(card: str, root: str, device: str = "cuda", rows: int = ARTIFACT_ROWS) -> dict:
+    """20a: ``tools.train_artifact.main`` at its defaults into a temporary
+    store: 101,311 training rows, the committed artifact's bin edges (bit
+    for bit in the date-free columns log1p does not derive), its test AUC
+    within 0.01, and one histogram launch per tree level (300 x 7), equal to
+    the program registry's dispatches. ``rows`` cuts it for a CPU rehearsal."""
+    gradient_histogram_channels.launches = 0
+    programs0 = program_counts("gradient_histogram/")
+    t0 = time.perf_counter()
+    run = train_artifact.main(["--rows", str(rows), "--out", root, "--device", device])
+    wall = time.perf_counter() - t0
+    launches = gradient_histogram_channels.launches
+    dispatched = sum(n for n, _ in program_delta(programs0, program_counts("gradient_histogram/")).values())
+    art = run["artifact"]
+    header = json.loads(bytes(np.load(Path(root) / f"{MODEL_KEY}.npz")["__header__"]).decode())
+    committed = json.loads(bytes(np.load(STORE / f"{MODEL_KEY}.npz")["__header__"]).decode())
+    edges = _edge_checks(np.load(Path(root) / f"{MODEL_KEY}.npz")["bin_edges"],
+                         np.load(STORE / f"{MODEL_KEY}.npz")["bin_edges"]) if rows == ARTIFACT_ROWS else None
+    out = {
+        "rows": rows,
+        "train_rows": art.metrics["train_rows"],
+        "test_auc": run["test_auc"],
+        "committed_auc": committed["metrics"]["test_auc"],
+        "launches": launches,
+        "dispatches": dispatched,
+        "host_prep_s": run["prep_s"],
+        "fit_s": run["fit_s"],
+        "tool_wall_s": run["wall_s"],
+        "wall_s": wall,
+        "edges": edges,
+    }
+    trees, depth = art.config["n_estimators"], art.config["max_depth"]
+    if (list(header["config"]) != list(committed["config"]) or list(header["metrics"]) != list(committed["metrics"])
+            or (device == "cuda" and not launches == dispatched == trees * depth)):
+        raise AssertionError(f"20a: {out}, header {header['config']} {header['metrics']}")
+    if rows == ARTIFACT_ROWS and (out["train_rows"] != ARTIFACT_TRAIN_ROWS
+                                  or abs(out["test_auc"] - ARTIFACT_AUC) > TOL_ARTIFACT_AUC):
+        raise AssertionError(f"20a: {out}")
+    print(f"train_artifact (20a): {json.dumps(out)} [{card}]")
+    return out
+
+
+def _bulk_csv(rows: list[dict]) -> bytes:
+    """``request_rows`` payloads as a CSV of the canonical feature names."""
+    alias = {v: k for k, v in schema.SERVING_FIELD_ALIASES.items()}
+    lines = [",".join(f'"{n}"' for n in schema.SERVING_FEATURES)]
+    lines += [",".join(repr(r[alias.get(n, n)]) for n in schema.SERVING_FEATURES) for r in rows]
+    return "\n".join(lines).encode()
+
+
+def ui_phase(card: str, root: str, device: str = "cuda") -> tuple[dict, ScorerService, object]:
+    """20b: the port's HTTP server serves 20a's artifact and `ui.core`'s
+    client talks to it: the default form through `build_single_payload` to
+    /predict, its waterfall's ``fx`` the response's base value plus its
+    phis and the plain scorer's margin of the row within 1e-5; a 256-row
+    bulk CSV through `coerce_results_frame`, 4 of its rows sent back
+    through `results_row_payload` to /predict, each probability the bulk
+    row's within 1e-6; the importances through `importance_series`, sorted;
+    with the admission cap held, `ServiceDegraded` ``shed``. Returns the
+    service and its server, open, for 20e."""
+    store = ObjectStore(root)
+    cfg = ServeConfig(reliability=ReliabilityConfig(max_in_flight=UI_ADMISSION_CAP))
+    service = ScorerService.from_store(store, cfg, device=device)
+    server = make_async_server(service, "127.0.0.1", 0)
+    client = ui_core.ApiClient(f"http://127.0.0.1:{server.port}")
+    cpu = GBDTArtifact.load(store, MODEL_KEY, "cpu")
+    out: dict = {}
+    numeric = {f: d for f, _, d in ui_core.NUMERIC_INPUTS}
+    payload = ui_core.build_single_payload(numeric, {}, "No_Hardship")
+    resp = client.predict(payload)
+    wf = ui_core.build_waterfall(resp, max_display=10)
+    row = torch.tensor([[float(payload[n]) for n in schema.SERVING_FEATURES]], dtype=torch.float32)
+    margin = float(gbdt.predict_margin(cpu.forest, row)[0])
+    out["waterfall"] = {"fx": wf.fx, "base_plus_phis": resp["base_value"] + sum(resp["shap_values"]),
+                        "margin": margin, "bars": len(wf.items)}
+    if (abs(wf.fx - out["waterfall"]["base_plus_phis"]) > TOL_WATERFALL
+            or abs(wf.fx - margin) > TOL_WATERFALL or len(wf.items) != 10):
+        raise AssertionError(f"20b: the waterfall {out['waterfall']}")
+    rows = request_rows(UI_BULK_ROWS, SEED + 20)
+    records = client.predict_bulk_csv("book.csv", _bulk_csv(rows))
+    frame = ui_core.coerce_results_frame(records)
+    if ui_core.frame_rows(frame) != UI_BULK_ROWS or frame["prob_default"].dtype != np.float64:
+        raise AssertionError(f"20b: {ui_core.frame_rows(frame)} bulk rows")
+    errs = []
+    for idx in range(UI_ROW_PAYLOADS):
+        back = client.predict(ui_core.results_row_payload(frame, idx))
+        errs.append(abs(back["prob_default"] - frame["prob_default"][idx]))
+    out["row_prob_max_abs_err"] = max(errs)
+    if out["row_prob_max_abs_err"] > TOL_PROB:
+        raise AssertionError(f"20b: row payloads' probabilities {errs}")
+    imp = ui_core.importance_series(client.feature_importance_bulk(records))
+    values = [v for _, v in imp]
+    if not imp or values != sorted(values, reverse=True):
+        raise AssertionError(f"20b: importances {imp}")
+    out["importance_top"] = imp[0][0]
+    sleeps: list[float] = []
+    shed_client = ui_core.ApiClient(client.base_url, retries=2, sleep=sleeps.append)
+    with contextlib.ExitStack() as held:
+        for _ in range(UI_ADMISSION_CAP):
+            held.enter_context(service.admission.admit())
+        try:
+            shed_client.predict(payload)
+            raise AssertionError("20b: /predict scored past the admission cap")
+        except ui_core.ServiceDegraded as e:
+            out["shed"] = {"reason": e.reason, "retry_after_s": e.retry_after_s, "sleeps": sleeps}
+    if out["shed"]["reason"] != "shed" or len(sleeps) != 1:
+        raise AssertionError(f"20b: {out['shed']}")
+    print(f"ui (20b): {json.dumps(out)} [{card}]")
+    return out, service, server
+
+
+def incident_phase(card: str, journal: list[dict], root: str) -> dict:
+    """20c: ``tools.incident_report --require-cause`` over the journals
+    phases 15 and 16 wrote, as a bench-shaped record: exit 0, at least one
+    quarantine chain with its time to healthy and at least one resize."""
+    bench, report = f"{root}/journal.json", f"{root}/incident.md"
+    with open(bench, "w") as fh:
+        json.dump({"events": {"journal": journal}}, fh)
+    code = incident_report.main(["--bench", bench, "--require-cause", "--out", report])
+    text = Path(report).read_text()
+    fired = dict(re.findall(r"^\| (\S+) \| (\d+) \|$", text, flags=re.M))
+    out = {
+        "exit": code,
+        "events": len(journal),
+        "incidents": text.count("### Incident "),
+        "healed_chains": text.count("- time to healthy: **"),
+        "quarantines": sum((e["component"], e["kind"], (e.get("payload") or {}).get("to"))
+                           == ("supervisor", "transition", "quarantined") for e in journal),
+        "resizes": int(fired.get("autoscaler.resize", 0)),
+        "orphans": int(re.search(r"orphans \(no cause, no cause_id\): (\d+)", text).group(1)),
+    }
+    if code != 0 or out["healed_chains"] < 1 or out["resizes"] < 1:
+        raise AssertionError(f"20c: {out}\n{text[:4000]}")
+    print(f"incident_report (20c): {json.dumps(out)} [{card}]")
+    return out
+
+
+def compile_phase(card: str, startup: dict, second: dict, second_of: str) -> dict:
+    """20d: the build cache's counters. In this process after its startup
+    builds, one of two states: fresh (3 misses, 3 builds, 0 hits: a
+    checkout with nothing built) or warm (3 hits, 0 builds: ``_build/``
+    holds all three, built by this host's compilers, as the key records).
+    A mix fails: it would mean a library kept from elsewhere. In a second process
+    (11c's training CLI, whose ledger is read; or under ``--only-tools`` the
+    serve CLI's /metrics): nothing built, at least one hit, seconds saved."""
+    hits, misses, builds = (int(startup[k]) for k in ("cache_hits", "cache_misses", "backend_compiles"))
+    fresh = (misses, builds, hits) == (STARTUP_LIBRARIES, STARTUP_LIBRARIES, 0)
+    warm = (hits, builds) == (STARTUP_LIBRARIES, 0)
+    out = {"startup": startup, "startup_state": "fresh" if fresh else "warm",
+           "second": second, "second_process": second_of}
+    if not (fresh or warm):
+        raise AssertionError(f"20d: this process's build counters {startup}")
+    if second["backend_compiles"] != 0 or second["cache_hits"] < 1 or second["cache_saved_seconds"] <= 0:
+        raise AssertionError(f"20d: the second process ({second_of}) {second}")
+    print(f"compile cache (20d): {json.dumps(out)} [{card}]")
+    return out
+
+
+def _trace_events(log_dir: str) -> list[dict]:
+    files = sorted(Path(log_dir).glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"profile_trace wrote {files}")
+    return json.loads(files[0].read_text())["traceEvents"]
+
+
+def _trace_summary(events: list[dict]) -> dict:
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return {
+        "microbatch_spans": sum(e.get("name") == "serve.microbatch_dispatch" for e in events),
+        "shap_kernel": sum("shap_kernel<7>" in k for k in kernels),
+        "finalize_kernel": sum("score_finalize_kernel" in k for k in kernels),
+        "device_records": len(kernels),
+    }
+
+
+def profile_phase(card: str, service: ScorerService, server, root: str, device: str = "cuda") -> dict:
+    """20e: `debug.profile_trace` around 8 warm-up and 16 measured /predict
+    micro-batches to 20b's service: the trace parses and holds the
+    ``serve.microbatch_dispatch`` spans and the card's records of
+    ``shap_kernel<7>`` and ``score_finalize_kernel``."""
+    client = ui_core.ApiClient(f"http://127.0.0.1:{server.port}")
+    rows = request_rows(PROFILE_WARMUPS + PROFILE_BATCHES, SEED + 21)
+    t0 = time.perf_counter()
+    with profile_trace(f"{root}/trace", device=device):
+        for r in rows:
+            client.predict(r)
+        if device == "cuda":
+            torch.cuda.synchronize()
+    out = {"session_s": time.perf_counter() - t0, **_trace_summary(_trace_events(f"{root}/trace"))}
+    if out["microbatch_spans"] < PROFILE_BATCHES or (
+            device == "cuda" and (out["shap_kernel"] < 1 or out["finalize_kernel"] < 1)):
+        raise AssertionError(f"20e: the trace holds {out}")
+    print(f"profile_trace (20e): {json.dumps(out)} [{card}]")
+    return out
+
+
+def serve_cli_profile(card: str, root: str) -> dict:
+    """Under ``--only-tools``: the serve CLI with ``--profile-dir`` in a
+    subprocess on the card, 24 /predict, ``/metrics`` read (its
+    ``cobalt_compile_*``: the second process's build counters), stopped
+    with SIGINT: the trace it writes holds the micro-batch spans and the
+    SHAP kernel."""
+    import signal
+
+    with socket_port() as port:
+        pass
+    trace = f"{root}/cli_trace"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cobalt_smart_lender_ai_tpu_torch.serve", "--store", root, "--host",
+         "127.0.0.1", "--port", str(port), "--profile-dir", trace],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    base = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"the serve CLI did not start: {proc.communicate()[1][-4000:]}")
+            try:
+                if _call(base + "/healthz")[0] == 200:
+                    break
+            except OSError:
+                time.sleep(0.5)
+        client = ui_core.ApiClient(base)
+        for r in request_rows(PROFILE_WARMUPS + PROFILE_BATCHES, SEED + 22):
+            client.predict(r)
+        fams = _scrape(base)
+        proc.send_signal(signal.SIGINT)
+        _, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"the serve CLI exited {proc.returncode}: {err[-4000:]}")
+    metric = {k: sum(fams.get(f, {}).get("samples", {}).values()) for k, f in (
+        ("backend_compiles", "cobalt_compile_total"), ("cache_hits", "cobalt_compile_cache_hits_total"),
+        ("cache_misses", "cobalt_compile_cache_misses_total"),
+        ("cache_saved_seconds", "cobalt_compile_cache_saved_seconds_total"))}
+    out = {"compile": metric, **_trace_summary(_trace_events(trace))}
+    if out["microbatch_spans"] < PROFILE_BATCHES or out["shap_kernel"] < 1:
+        raise AssertionError(f"20e (CLI): the trace holds {out}")
+    print(f"serve CLI --profile-dir (20e): {json.dumps(out)} [{card}]")
+    return out
+
+
+def operator_phase(card: str, journal: list[dict], startup_compile: dict, cli: dict | None = None,
+                   device: str = "cuda", rows: int = ARTIFACT_ROWS) -> dict:
+    """Phase 20, the operator's layer: 20a-20e (20e last: a profiler
+    session slows the launches after it). ``cli`` is 11c's result (its
+    ledger's ``compile`` block); without it (``--only-tools``) the serve
+    CLI runs in a subprocess with ``--profile-dir`` and its /metrics give
+    the second process's counters."""
+    t0 = time.perf_counter()
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_operator_") as root:
+        out["train_artifact"] = train_artifact_phase(card, root, device, rows)
+        fused_score.launches = 0
+        programs0 = program_counts("score_forest/")
+        ui, service, server = ui_phase(card, root, device)
+        out["ui"] = ui
+        try:
+            out["ui_launches"] = fused_score.launches
+            out["incident"] = incident_phase(card, journal, root)
+            if cli is not None:
+                second, second_of = {k: cli["compile"][k] for k in ("backend_compiles", "cache_hits",
+                                     "cache_misses", "cache_saved_seconds")}, "11c's training CLI"
+            else:
+                out["serve_cli"] = serve_cli_profile(card, root)
+                second, second_of = out["serve_cli"]["compile"], "the serve CLI"
+            out["compile"] = compile_phase(card, startup_compile, second, second_of)
+            out["profile"] = profile_phase(card, service, server, root, device)
+        finally:
+            server.close()
+            service.close()
+        out["launches"] = fused_score.launches
+        dispatched = sum(n for n, _ in program_delta(programs0, program_counts("score_forest/")).values())
+        if device == "cuda" and dispatched != out["launches"]:
+            raise AssertionError(f"20b/20e: {out['launches']} launches, {dispatched} program dispatches")
+        out["dispatches"] = dispatched
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"operator phase (20): {out['phase_s']:.1f}s, train_artifact host prep "
+          f"{out['train_artifact']['host_prep_s']:.1f}s, fit {out['train_artifact']['fit_s']:.1f}s, "
+          f"wall {out['train_artifact']['wall_s']:.1f}s [{card}]")
+    return out
+
+
 def print_scoring_split(card: str) -> None:
     for precision in ("f32", *QUANTIZED):
         for r in scoring_split("cuda", precision):
@@ -5926,6 +6322,12 @@ def main() -> int:
         action="store_true",
         help="build, then run phase 19 (the mesh: the card named four times) only; print no ok line",
     )
+    mode.add_argument(
+        "--only-tools",
+        action="store_true",
+        help="build, then run phases 15 and 16 (for their journals) and phase 20 (the operator's "
+        "layer) with the serve CLI's --profile-dir in a subprocess; print no ok line",
+    )
     mode.add_argument("--mesh-worker", nargs=3, metavar=("RANK", "PORT", "OUT"),
                       help=argparse.SUPPRESS)
     mode.add_argument(
@@ -5953,6 +6355,7 @@ def main() -> int:
         print(f"chip_smoke --only-challengers: {time.perf_counter() - t_start:.1f}s [{card}]")
         return 0
     kernels_built = ["score_forest", "gradient_histogram"]
+    bootstrap_compile_cache()  # the build cache, and its counters, before the first build
     with ThreadPoolExecutor(max_workers=len(kernels_built) + 1) as pool:
         reader = pool.submit(native._build)  # g++, beside the nvcc builds
         list(pool.map(_build.build, kernels_built))  # one nvcc each, together
@@ -5965,6 +6368,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s (in parallel)")
     for name in kernels_built:
         print(_build.build_log.get(name, f"{name}: library was already built"), file=sys.stderr)
+    startup_compile = compile_stats()
+    print(f"build cache: {json.dumps(startup_compile)} [{card}]")
 
     if args.only_lifecycle:
         lifecycle_phase(card)
@@ -5986,6 +6391,13 @@ def main() -> int:
         print(f"portfolio phase (18): {portfolio['phase_s']:.1f}s, {portfolio['launches']} launches "
               f"[{card}]")
         print(f"chip_smoke --only-portfolio: {time.perf_counter() - t_start:.1f}s [{card}]")
+        return 0
+
+    if args.only_tools:
+        fleet = fleet_phase(card)
+        autoscaler = autoscaler_phase(card)
+        operator_phase(card, fleet["journal"] + autoscaler["journal"], startup_compile)
+        print(f"chip_smoke --only-tools: {time.perf_counter() - t_start:.1f}s [{card}]")
         return 0
 
     if args.only_mesh:
@@ -6089,13 +6501,16 @@ def main() -> int:
     autoscaler = autoscaler_phase(card)
     print(f"autoscaler phase (16): {autoscaler['phase_s']:.1f}s, {autoscaler['launches']} launches, "
           f"{autoscaler['resizes']} resizes [{card}]")
-    challengers = challenger_phase(card, ft_epochs=CHALLENGER_FT_EPOCHS)
+    challengers = challenger_phase(card, ft_epochs=CHALLENGER_FT_EPOCHS,
+                                   tabnet_epochs=CHALLENGER_TABNET_EPOCHS)
     portfolio = portfolio_phase(card)
     print(f"portfolio phase (18): {portfolio['phase_s']:.1f}s, {portfolio['launches']} launches, "
           f"{portfolio['rows']} rows x 4 passes at {portfolio['sweep']['rows_per_s']:.0f} rows/s "
           f"[{card}]")
     mesh = mesh_phase(card)
     print(f"mesh phase (19): {mesh['phase_s']:.1f}s [{card}]")
+    operator = operator_phase(card, fleet.pop("journal") + autoscaler.pop("journal"), startup_compile,
+                              cli=observed["cli"])
     print_scoring_split(card)
 
     main_rec = next(r for r in records if r["bucket"] == 64)
@@ -6125,12 +6540,14 @@ def main() -> int:
             "shap_bulk_launches": portfolio["shap_bulk_launches"],
             "mesh_shap_launches": sum(mesh["partitioner"][p]["launches"] for p in ("f32", *QUANTIZED)),
             "mesh_bulk_launches": mesh["service"][f"shards_{MESH_SHARDS}"]["launches"],
+            "operator_launches": operator["launches"],
             "portfolio_ms": {str(b): r["ms"] for b, r in portfolio["buckets"].items()},
             "portfolio_bound_ms": {str(b): r["bound_ms"] for b, r in portfolio["buckets"].items()},
             "max_abs_err": max(
                 [max(r.get("prob", 0.0), r.get("phis", 0.0)) for r in records + quantized_records]
                 + list(fleet["errors"].values()) + list(autoscaler["errors"].values())
                 + [max(r["prob"], r["phis"]) for r in portfolio["buckets"].values()]
+                + [operator["ui"]["row_prob_max_abs_err"]]
                 + [lifecycle["shadow"]["prob_max_abs_err"], lifecycle["shadow"]["margin_max_abs_err"],
                    raw["serve"]["prob_max_abs_err"], raw["degraded"]["prob_max_abs_err"],
                    protocol["predict_raw"]["prob_max_abs_err"],
@@ -6159,6 +6576,7 @@ def main() -> int:
             "pandas_ingest_launches": sum(data_layer["pandas_ingest"]["hist_launches"].values())
             + sum(data_layer["pandas_ingest"]["resume_hist_launches"].values()),
             "lifecycle_launches": lifecycle["launches"]["gradient_histogram"],
+            "train_artifact_launches": operator["train_artifact"]["launches"],
             "protocol_joint_launches": protocol["joint_launches"],
             "halving_joint_launches": halving["halving_joint_launches"],
             "exhaustive_joint_launches": halving["exhaustive_joint_launches"],
@@ -6194,8 +6612,8 @@ def main() -> int:
         },
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all, phase 17 (challengers) "
-          f"{challengers['phase_s']:.1f}s and phase 18 (portfolio) {portfolio['phase_s']:.1f}s "
-          f"of it [{card}]")
+          f"{challengers['phase_s']:.1f}s, phase 18 (portfolio) {portfolio['phase_s']:.1f}s and "
+          f"phase 20 (operator) {operator['phase_s']:.1f}s of it [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

@@ -32,4 +32,6 @@ Entry points run on the CUDA device unless the caller asks for ``cpu``,
 where every kernel is replaced by its plain PyTorch version.
 """
 
-__version__ = "0.1.0"
+from cobalt_smart_lender_ai_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

@@ -1,7 +1,7 @@
 """Configuration: the GBDT hyperparameters (`GBDTConfig`), the challengers'
 (`MLPConfig`, `FTTransformerConfig`), the training protocol's
 (`DataConfig`, `RFEConfig`, `TuneConfig`, `ReliabilityConfig`, `MeshConfig`,
-`PipelineConfig`) and the subset of the reference `ServeConfig` that the
+`PipelineConfig`), the kernel-build cache's (`CompileCacheConfig`) and the subset of the reference `ServeConfig` that the
 port's scoring service reads. Each keeps the reference's field names and
 defaults for the fields the port reads."""
 
@@ -432,11 +432,32 @@ class RFEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CompileCacheConfig:
+    """The kernel-build cache (`compilecache.bootstrap_compile_cache`): where
+    the nvcc libraries (`ops._build`) and the g++ reader (`native`) are kept
+    between processes. The port's counterpart of the reference's persistent
+    XLA compile cache, on by default for every entry point. Opt out per
+    process with ``COBALT_COMPILE_CACHE=0``: the libraries then build into a
+    directory private to the process, so every process compiles.
+    """
+
+    enabled: bool = True
+    #: Cache directory; ``None`` keeps the package's ``_build/``.
+    cache_dir: str | None = None
+    #: Keep in the shared directory only libraries whose build took at least
+    #: this long (``COBALT_COMPILE_CACHE_MIN_SECS`` overrides). 0.0, not the
+    #: reference's 5 s: the g++ reader builds in a few seconds and an nvcc
+    #: library may too, so a 5 s floor would rebuild them in every process.
+    min_compile_time_secs: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Everything `pipeline.run_pipeline` reads."""
 
     #: Write the cleaned, tree and nn tables to the store (with a store).
     save_intermediate: bool = True
+    compile_cache: CompileCacheConfig = dataclasses.field(default_factory=CompileCacheConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     gbdt: GBDTConfig = dataclasses.field(default_factory=GBDTConfig)
     mlp: MLPConfig = dataclasses.field(default_factory=MLPConfig)

@@ -4,6 +4,7 @@ from cobalt_smart_lender_ai_tpu_torch.io.artifacts import (
     GBDTArtifact,
     MLPArtifact,
     plan_from_json,
+    load_metrics,
     plan_to_json,
     save_metrics,
 )
@@ -31,6 +32,7 @@ __all__ = [
     "ObjectStore",
     "PTR_SUFFIX",
     "StoreKeyError",
+    "load_metrics",
     "plan_from_json",
     "plan_to_json",
     "save_metrics",

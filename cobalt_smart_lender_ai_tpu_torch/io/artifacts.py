@@ -15,7 +15,7 @@ Both read and write the reference package's formats:
 
 The feature plan (`FeaturePlan`) is written and read by `plan_to_json` /
 `plan_from_json`, the reference's format, and a training run's
-``metrics.json`` by `save_metrics`.
+``metrics.json`` by `save_metrics` and `load_metrics`.
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from cobalt_smart_lender_ai_tpu_torch import __version__
 from cobalt_smart_lender_ai_tpu_torch.convert import (
     flax_params_to_state_dict,
     forest_from_numpy,
@@ -40,6 +39,7 @@ from cobalt_smart_lender_ai_tpu_torch.device import resolve_device
 from cobalt_smart_lender_ai_tpu_torch.io.flax_msgpack import pack_tree, unpack_tree
 from cobalt_smart_lender_ai_tpu_torch.io.store import ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models.gbdt import Forest
+from cobalt_smart_lender_ai_tpu_torch.version import __version__
 
 FORMAT_VERSION = 1
 
@@ -221,3 +221,8 @@ def save_metrics(store: ObjectStore, key: str, metrics: Mapping[str, Any]) -> No
     """``metrics.json`` with the reference trainer's schema: ``auc``,
     ``classification_report``, ``best_params``."""
     store.put_json(key, dict(metrics))
+
+
+def load_metrics(store: ObjectStore, key: str) -> dict:
+    """A ``metrics.json`` written by `save_metrics`, as a dict."""
+    return store.get_json(key)

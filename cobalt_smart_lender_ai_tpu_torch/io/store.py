@@ -2,7 +2,7 @@
 
 The port's copy of the reference store's contract for plain paths and
 ``file://`` URIs: the byte-blob primitives (`put_bytes`, `get_bytes`,
-`exists`, `delete`, `list`), JSON, frames as CSV (`save_frame` writes with
+`exists`, `delete`, `list`), local files (`put_file`, `get_file`), JSON, frames as CSV (`save_frame` writes with
 `io.frames`, `load_frame` reads with the native reader, `native.read_csv`,
 or the codec where it cannot be built), ndarrays as ``.npy``/``.npz``, and
 content-addressed pointers (`write_pointer`, `verify_pointer`: md5 and size
@@ -93,6 +93,18 @@ class ObjectStore:
                     yield key
 
     # -- conveniences over the primitives ---------------------------------------
+    def put_file(self, key: str, path: str | Path) -> None:
+        """Store a local file's bytes under ``key``."""
+        self.put_bytes(key, Path(path).read_bytes())
+
+    def get_file(self, key: str, path: str | Path) -> Path:
+        """Write ``key``'s bytes to the local ``path`` (its directory made
+        first); returns the path."""
+        p = Path(path)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_bytes(self.get_bytes(key))
+        return p
+
     def get_json(self, key: str):
         return json.loads(self.get_bytes(key).decode())
 

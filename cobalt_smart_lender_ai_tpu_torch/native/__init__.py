@@ -9,12 +9,14 @@ missing mask), values bit for bit (-0.0 kept) and missing cells, and a
 quoted ``""`` read as the empty string. ``csv_reader.cc`` says where its
 rules differ from the reference reader's (the codec's, not pandas').
 
-The library is compiled with ``g++`` at first use into ``_build/`` inside
-the package, as ``csv_reader-<md5>.so`` keyed by the source and the flags
-(an edit rebuilds); nothing is built at import time. ``read_csv(...,
-engine="auto")`` falls back to `csv_to_frame` with one ``WARNING`` when the
-library cannot be built or loaded; ``engine="native"`` raises then, and
-``engine="frames"`` always takes the codec. The reader parses in threads
+The library is compiled with ``g++`` at first use into the build cache
+(``_build/`` inside the package unless `compilecache.bootstrap_compile_cache`
+chose another directory), as ``csv_reader-<md5>.so`` keyed by the source, the
+flags and g++'s identity (an edit or another compiler rebuilds); nothing is
+built at import time. ``read_csv(..., engine="auto")`` falls back to
+`csv_to_frame` with one ``WARNING`` when the library cannot be built or
+loaded; ``engine="native"`` raises then, and ``engine="frames"`` always
+takes the codec. The reader parses in threads
 of its own, so it needs no worker processes (and may run with CUDA
 initialised).
 """
@@ -34,13 +36,13 @@ import numpy as np
 
 from cobalt_smart_lender_ai_tpu_torch.data.frame import RawFrame
 from cobalt_smart_lender_ai_tpu_torch.io.frames import _decode, csv_to_frame
+from cobalt_smart_lender_ai_tpu_torch.ops import _build as _cache
 
 __all__ = ["ENGINES", "native_available", "parse_csv_columns", "read_csv"]
 
 logger = logging.getLogger(__name__)
 
 SOURCE = Path(__file__).with_name("csv_reader.cc")
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 #: The engines of `read_csv`.
 ENGINES = ("auto", "native", "frames")
@@ -53,29 +55,29 @@ _LIB_ERR: str | None = None
 
 
 def library_path() -> Path:
-    """Where the reader builds to, keyed by the md5 of source + flags."""
-    digest = hashlib.md5(SOURCE.read_bytes() + " ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"csv_reader-{digest.hexdigest()[:16]}.so"
+    """Where the reader builds to in the build cache's directory
+    (``ops._build.BUILD_DIR``), keyed by the md5 of source, flags and
+    g++'s identity."""
+    key = " ".join(GXX_FLAGS) + "\n" + _cache.compiler_identity(shutil.which("g++"))
+    digest = hashlib.md5(SOURCE.read_bytes() + key.encode())
+    return _cache.BUILD_DIR / f"csv_reader-{digest.hexdigest()[:16]}.so"
 
 
 def _build() -> Path:
-    out = library_path()
-    if out.exists():
-        return out
-    gxx = shutil.which("g++")
-    if gxx is None:
-        raise FileNotFoundError("g++ not found on PATH")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [gxx, *GXX_FLAGS, str(SOURCE), "-o", str(tmp)], capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed to build {SOURCE.name}:\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    logger.info("built the native csv reader: %s", out)
-    return out
+    """The reader's library, from the build cache (`ops._build.resolve_library`)
+    or built by g++ into it."""
+
+    def compile_to(tmp: Path) -> None:
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise FileNotFoundError("g++ not found on PATH")
+        proc = subprocess.run(
+            [gxx, *GXX_FLAGS, str(SOURCE), "-o", str(tmp)], capture_output=True, text=True
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed to build {SOURCE.name}:\n{proc.stderr}")
+
+    return _cache.resolve_library("csv_reader", library_path(), compile_to)
 
 
 def _load() -> ctypes.CDLL | None:

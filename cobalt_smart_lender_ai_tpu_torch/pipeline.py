@@ -58,6 +58,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from cobalt_smart_lender_ai_tpu_torch.compilecache import bootstrap_compile_cache
 from cobalt_smart_lender_ai_tpu_torch.config import PipelineConfig, RFEConfig, TuneConfig
 from cobalt_smart_lender_ai_tpu_torch.data import schema
 from cobalt_smart_lender_ai_tpu_torch.data.clean import clean_raw_frame
@@ -316,6 +317,10 @@ def _run_pipeline(
     today: datetime | None,
 ) -> PipelineResult:
     cfg = config or PipelineConfig()
+    # Every run shares the kernel-build cache (COBALT_COMPILE_CACHE=0 opts
+    # out) and feeds the cobalt_compile_* telemetry. Idempotent: an entry
+    # point that already bootstrapped with its own config wins.
+    bootstrap_compile_cache(cfg.compile_cache)
     dev = resolve_device(device)
     rel = cfg.reliability
     resume = rel.resume if resume is None else resume
@@ -633,6 +638,7 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
 def main(argv: Sequence[str] | None = None) -> PipelineResult:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s [%(levelname)s] %(message)s")
+    bootstrap_compile_cache()
     dev = resolve_device(args.device)
     cfg = quick_config() if args.quick else PipelineConfig()
     if args.no_halving:

@@ -4,7 +4,8 @@
         [--device cuda|cpu] [--port N] [--forest-precision f32|bf16|int8] \\
         [--no-microbatch] [--score-cache-size N] [--flight-slow-ms MS] \\
         [--canary [--model-name gbdt] [--canary-sample-rate R]] \\
-        [--replicas N [--no-replica-devices]] [--bulk-shards N]
+        [--replicas N [--no-replica-devices]] [--bulk-shards N] \\
+        [--profile-dir DIR]
 
 ``--device`` defaults to ``cuda``; without a CUDA device the command fails
 at startup. ``--device cpu`` runs the plain PyTorch versions of the kernels.
@@ -18,7 +19,11 @@ with the supervisor's healing loop and hedged failover
 shares it, on several replica i takes card ``i % cards`` unless
 ``--no-replica-devices``. ``--bulk-shards N`` splits each bulk dispatch's
 rows over an N-way dp mesh of the visible cards (-1 every card; clamped to
-the cards there are), one scoring launch a shard.
+the cards there are), one scoring launch a shard. ``--profile-dir DIR``
+captures a ``torch.profiler`` trace of the whole serving session into DIR
+(`debug.profile_trace`; written when the server stops). The kernel
+libraries come from the build cache (`compilecache.bootstrap_compile_cache`),
+and ``/metrics`` carries its ``cobalt_compile_*`` families.
 """
 
 from __future__ import annotations
@@ -125,6 +130,13 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
         help="row shards per bulk dispatch: 0/1 single device, -1 every "
         "visible device, N an N-way dp mesh (clamped to the host)",
     )
+    parser.add_argument(
+        "--profile-dir",
+        default=None,
+        help="capture a torch.profiler trace of the whole serving session "
+        "into this directory (view in TensorBoard; telemetry spans appear "
+        "as record_function ranges on the same timeline)",
+    )
     return parser.parse_args(argv)
 
 
@@ -153,7 +165,18 @@ def build_service(args: argparse.Namespace) -> ScorerService | ReplicaSet:
 
 def main(argv: Sequence[str] | None = None) -> None:
     args = parse_args(argv)
+    # Kernel libraries persist across service restarts (the build cache
+    # makes a restart load instead of compile), and the cobalt_compile_*
+    # families land on this process's /metrics.
+    from cobalt_smart_lender_ai_tpu_torch.compilecache import (
+        bootstrap_compile_cache,
+        publish_compile_metrics,
+    )
+    from cobalt_smart_lender_ai_tpu_torch.debug import profile_trace
+
+    bootstrap_compile_cache()
     service = build_service(args)
+    publish_compile_metrics(service.registry)
     _, ready = service.ready()
     if isinstance(service, ReplicaSet):
         print(
@@ -181,8 +204,11 @@ def main(argv: Sequence[str] | None = None) -> None:
         )
     from cobalt_smart_lender_ai_tpu_torch.serve.http_asyncio import serve_forever
 
-    print(f"[INFO] serving (asyncio) on {args.host}:{args.port}")
-    serve_forever(service, args.host, args.port)
+    if args.profile_dir:
+        print(f"[INFO] profiler trace capturing to {args.profile_dir}")
+    with profile_trace(args.profile_dir, device=args.device):
+        print(f"[INFO] serving (asyncio) on {args.host}:{args.port}", flush=True)
+        serve_forever(service, args.host, args.port)
 
 
 if __name__ == "__main__":

@@ -445,6 +445,16 @@ class MetricsRegistry:
             Histogram, name, help, labelnames, buckets=buckets
         )
 
+    def share(self, family: _Family) -> None:
+        """Show another registry's ``family`` on this one's page: the same
+        object, so its values are the other registry's. A different family
+        of the same name raises."""
+        with self._lock:
+            held = self._families.get(family.name)
+            if held is not None and held is not family:
+                raise ValueError(f"metric {family.name!r} already registered")
+            self._families[family.name] = family
+
     def families(self) -> list[_Family]:
         with self._lock:
             return [self._families[k] for k in sorted(self._families)]

@@ -281,6 +281,11 @@ class ProgramRegistry:
         self._sinks = [s for s, (reg, _, _) in zip(self._sinks, live) if reg is not None]
         return [row for row in live if row[0] is not None]
 
+    def get(self, name: str) -> ProgramHandle | None:
+        """The handle registered under ``name``, or None."""
+        with self._lock:
+            return self._programs.get(name)
+
     def table(self, *, kind: str | None = None) -> list[dict[str, Any]]:
         """All program rows, most dispatch-expensive first — the payload of
         ``GET /debug/programs`` and the ledger's ``programs`` block."""

@@ -123,6 +123,7 @@ class RunLedger:
         """Snapshot everything into one JSON-able dict. ``registry``
         defaults to the process-wide metrics registry (resolved now, so a
         test-swapped registry is honored)."""
+        from cobalt_smart_lender_ai_tpu_torch.compilecache import compile_stats
         from cobalt_smart_lender_ai_tpu_torch.ops._build import build_stats
         from cobalt_smart_lender_ai_tpu_torch.telemetry.metrics import (
             default_registry,
@@ -162,7 +163,7 @@ class RunLedger:
                 if measured <= 0
                 else round(attributed / measured, 4),
             },
-            "compile": build_stats(),
+            "compile": {**build_stats(), **compile_stats()},
             "metrics": metrics,
         }
         doc.update(self.extras)

@@ -207,12 +207,32 @@ class Tracer:
             self._ring.clear()
 
 
+#: `debug.profile_trace` sessions open in this process. Such a session
+#: profiles every thread, while ``_profiler_enabled`` is true only on the
+#: thread that opened it, so spans on other threads (the micro-batcher's
+#: worker, the HTTP server's loop) read this count too.
+_all_thread_sessions = 0
+
+
 def _profiler_active() -> bool:
     """Whether a ``torch.profiler`` session is capturing on this thread.
     torch is imported by then if anything is profiling, so a process that
     never imported it pays nothing here."""
+    if _all_thread_sessions:
+        return True
     torch = sys.modules.get("torch")
     return torch is not None and bool(torch.autograd._profiler_enabled())
+
+
+@contextlib.contextmanager
+def all_thread_session() -> Iterator[None]:
+    """Mark a profiler session that captures every thread as open."""
+    global _all_thread_sessions
+    _all_thread_sessions += 1
+    try:
+        yield
+    finally:
+        _all_thread_sessions -= 1
 
 
 _default_tracer = Tracer()

@@ -211,6 +211,7 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
 
 def main(argv: Sequence[str] | None = None) -> dict:
     args = parse_args(argv)
+    from cobalt_smart_lender_ai_tpu_torch.compilecache import bootstrap_compile_cache
     from cobalt_smart_lender_ai_tpu_torch.device import resolve_device
     from cobalt_smart_lender_ai_tpu_torch.io import ObjectStore
     from cobalt_smart_lender_ai_tpu_torch.telemetry import (
@@ -221,6 +222,7 @@ def main(argv: Sequence[str] | None = None) -> dict:
         render_chrome_trace,
     )
 
+    bootstrap_compile_cache()
     dev = resolve_device(args.device)
     ledger = None
     if args.ledger_out:

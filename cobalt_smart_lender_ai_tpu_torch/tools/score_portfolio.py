@@ -126,6 +126,7 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
 def main(argv: Sequence[str] | None = None) -> int:
     args = parse_args(argv)
 
+    from cobalt_smart_lender_ai_tpu_torch.compilecache import bootstrap_compile_cache
     from cobalt_smart_lender_ai_tpu_torch.device import resolve_device
     from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
     from cobalt_smart_lender_ai_tpu_torch.reliability.deadline import start_deadline
@@ -136,6 +137,7 @@ def main(argv: Sequence[str] | None = None) -> int:
         load_portfolio,
     )
 
+    bootstrap_compile_cache()
     dev = resolve_device(args.device)
     store = ObjectStore(args.store)
     run_id = args.run_id or f"portfolio-{int(time.time())}"

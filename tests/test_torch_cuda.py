@@ -83,7 +83,12 @@ histogram entry gives the bits of one launch over all rows, J = 1 and 3,
 with a NaN in one shard; a dp fit's first tree is the single-device direct
 fit's, split for split; `MeshPartitioner` scores margins and SHAP bit for
 bit as `SingleDevicePartitioner` at f32, bf16 and int8, one launch per
-shard.
+shard. Of the operator's layer: a second process over the same build cache
+compiles nothing (3 hits: the two nvcc libraries and the g++ reader);
+`debug.profile_trace` records ``shap_kernel<7>`` and
+``score_finalize_kernel`` on the card; ``tools.train_artifact`` at 20,000
+rows launches the histogram 300 x 7 times and its artifact serves on the
+card as the plain scorer does on the CPU.
 """
 
 from __future__ import annotations
@@ -1640,3 +1645,93 @@ def test_mesh_partitioner_is_the_single_device_on_card(card_pack, precision):
     for k in range(3):
         assert torch.equal(got[k], want[k]), k
     assert float(got[3]) == float(want[3])
+
+
+_BUILD_PROBE = """
+import json, sys
+from concurrent.futures import ThreadPoolExecutor
+from cobalt_smart_lender_ai_tpu_torch import native
+from cobalt_smart_lender_ai_tpu_torch.compilecache import bootstrap_compile_cache, compile_stats
+from cobalt_smart_lender_ai_tpu_torch.config import CompileCacheConfig
+from cobalt_smart_lender_ai_tpu_torch.ops import _build
+cache = bootstrap_compile_cache(CompileCacheConfig(cache_dir=sys.argv[1]))
+with ThreadPoolExecutor(3) as pool:
+    reader = pool.submit(native._build)
+    list(pool.map(_build.load, ["score_forest", "gradient_histogram"]))
+    reader.result()
+print(json.dumps({"cache": cache, **compile_stats()}))
+"""
+
+
+@pytest.mark.cuda
+def test_second_process_loads_the_kernels_from_the_build_cache_on_card(card, tmp_path):
+    """Two processes over one cache directory: the first compiles the two
+    nvcc libraries and the g++ reader (3 misses, 3 builds), the second
+    finds all three (3 hits, nothing built, their build seconds saved)."""
+    import json
+    import subprocess
+    import sys
+
+    def probe() -> dict:
+        proc = subprocess.run([sys.executable, "-c", _BUILD_PROBE, str(tmp_path / "cache")], cwd=ROOT,
+                              capture_output=True, text=True, timeout=900)
+        assert proc.returncode == 0, proc.stderr
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+    first, second = probe(), probe()
+    assert first["cache"] == second["cache"] == str(tmp_path / "cache")
+    assert (first["cache_misses"], first["backend_compiles"], first["cache_hits"]) == (3, 3, 0)
+    assert (second["cache_misses"], second["backend_compiles"], second["cache_hits"]) == (0, 0, 3)
+    assert second["cache_saved_seconds"] == pytest.approx(first["backend_compile_seconds"])
+    assert second["backend_compile_seconds"] == 0.0
+
+
+@pytest.mark.cuda
+def test_profile_trace_records_the_shap_kernel_on_card(card_pack, tmp_path):
+    """`debug.profile_trace` on the card records CUDA activity: after 8
+    warm-up calls (a session loses its first launches' records), 16 SHAP
+    calls at 64 rows leave device records of ``shap_kernel<7>`` and
+    ``score_finalize_kernel`` in the written trace."""
+    import glob
+    import json
+
+    from cobalt_smart_lender_ai_tpu_torch.debug import profile_trace
+
+    pack, _, F = card_pack
+    X = torch.from_numpy(_rows(pack, 64, seed=31)).cuda()
+    for _ in range(8):
+        fused_score(pack, X, n_features=F, with_shap=True)
+    torch.cuda.synchronize()
+    with profile_trace(str(tmp_path / "trace")):
+        for _ in range(16):
+            fused_score(pack, X, n_features=F, with_shap=True)
+        torch.cuda.synchronize()
+    (path,) = glob.glob(str(tmp_path / "trace" / "*.pt.trace.json"))
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("shap_kernel<7>" in k for k in kernels), sorted(set(kernels))
+    assert any("score_finalize_kernel" in k for k in kernels), sorted(set(kernels))
+
+
+@pytest.mark.cuda
+def test_train_artifact_on_card_loads_and_serves(card, tmp_path):
+    """``tools.train_artifact`` at 20,000 rows on the card: one histogram
+    launch per tree level (300 x 7), an artifact the card service restores
+    and serves, its margins those of the plain scorer on the CPU."""
+    from cobalt_smart_lender_ai_tpu_torch.tools import train_artifact
+
+    before = gradient_histogram_channels.launches
+    run = train_artifact.main(["--rows", "20000", "--out", str(tmp_path / "lake"), "--device", "cuda"])
+    assert gradient_histogram_channels.launches - before == 300 * 7
+    assert 0.5 < run["test_auc"] <= 1.0
+    store = ObjectStore(str(tmp_path / "lake"))
+    service = ScorerService.from_store(store, ServeConfig(), device="cuda")
+    cpu = ScorerService.from_store(store, ServeConfig(microbatch_enabled=False), device="cpu")
+    try:
+        payload = {n: 1 if n in schema.SERVING_INT_FEATURES else 0.5 for n in schema.SERVING_FEATURES}
+        got, want = service.predict_single(payload), cpu.predict_single(payload)
+        assert abs(got["prob_default"] - want["prob_default"]) <= TOL_PROB
+        assert np.allclose(got["shap_values"], want["shap_values"], atol=TOL_SHAP)
+    finally:
+        service.close()
+        cpu.close()

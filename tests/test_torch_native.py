@@ -31,6 +31,7 @@ from cobalt_smart_lender_ai_tpu_torch.data.frame import RawFrame
 from cobalt_smart_lender_ai_tpu_torch.data.synthetic import synthetic_lendingclub_frame
 from cobalt_smart_lender_ai_tpu_torch.io import ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.io.frames import csv_to_frame, frame_to_csv
+from cobalt_smart_lender_ai_tpu_torch.ops import _build
 
 
 def _assert_same(ref: RawFrame, got: RawFrame) -> None:
@@ -72,7 +73,7 @@ def _assert_reads_alike(data: bytes) -> RawFrame | None:
 def test_builds_into_the_package_build_directory():
     assert native.native_available()
     path = native.library_path()
-    assert path.exists() and path.parent == native.BUILD_DIR
+    assert path.exists() and path.parent == _build.BUILD_DIR
     assert path.parent.name == "_build" and path.parent.parent.name == "cobalt_smart_lender_ai_tpu_torch"
     assert path.name.startswith("csv_reader-") and path.suffix == ".so"
 
@@ -194,7 +195,7 @@ def test_number_spellings_read_as_numpy_reads_them(token):
 @pytest.fixture
 def no_toolchain(monkeypatch, tmp_path):
     """No library built yet and no g++ on the PATH."""
-    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
     monkeypatch.setattr(native, "_LIB", None)
     monkeypatch.setattr(native, "_LIB_ERR", None)
     monkeypatch.setattr(shutil, "which", lambda name, *a, **k: None)

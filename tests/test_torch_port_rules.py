@@ -7,7 +7,10 @@
   telemetry, its challenger models, its portfolio path or its mesh
   (``parallel``: the mesh, the sharded fit, the partitioners and the
   multi-process runtime) in a fresh interpreter leaves
-  ``jax``, ``flax``, ``msgpack`` and ``pandas`` unloaded.
+  ``jax``, ``flax``, ``msgpack`` and ``pandas`` unloaded; importing the
+  operator's layer (the UI, the build cache, the incident report and the
+  artifact trainer) leaves ``requests``, ``streamlit`` and ``matplotlib``
+  unloaded too.
 - Its entry points run on the CUDA device unless the caller asks for the
   CPU: with CUDA unavailable, the default-device service constructors
   (``--canary`` and ``--replicas`` serving included), the retrain CLI, the
@@ -16,7 +19,8 @@
   `GBDTClassifier`, `split_mask`, `GBDTArtifact.load`/``from_bytes``,
   `rfe_select`, `randomized_search`, `run_pipeline`, the mesh's device
   list (`make_mesh`, `make_partitioner`, `MeshPartitioner`) and the serving and
-  training CLIs, and the host path's `engineer_features`, raise instead of
+  training CLIs, the host path's `engineer_features`, ``tools.train_artifact``
+  and `debug.profile_trace`, raise instead of
   running on the CPU, and ``chip_smoke.py``
   exits non-zero without printing a result.
 - The training CLI (``python -m cobalt_smart_lender_ai_tpu_torch.pipeline``)
@@ -83,14 +87,14 @@ def test_port_files_import_no_jax_and_no_reference_package(path):
     assert "cobalt_smart_lender_ai_tpu." not in text.replace("cobalt_smart_lender_ai_tpu_torch", "")
 
 
-def _loaded_after_import(modules: tuple[str, ...]) -> str:
-    """Modules of JAX, the JAX package or pandas that a fresh interpreter
-    holds after importing the port's ``modules``."""
+def _loaded_after_import(modules: tuple[str, ...], extra: tuple[str, ...] = ()) -> str:
+    """Modules of JAX, the JAX package or pandas (and of ``extra``) that a
+    fresh interpreter holds after importing the port's ``modules``."""
+    banned = ("jax", "jaxlib", "flax", "optax", "msgpack", "cobalt_smart_lender_ai_tpu", "pandas", *extra)
     code = (
         "import sys\n"
         + "".join(f"import cobalt_smart_lender_ai_tpu_torch.{m}\n" for m in modules)
-        + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'cobalt_smart_lender_ai_tpu', 'pandas'))\n"
+        + f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {banned!r})\n"
         "print(bad)\n"
     )
     out = subprocess.run(
@@ -193,6 +197,27 @@ def test_importing_the_telemetry_leaves_jax_and_pandas_unloaded():
                "telemetry.traceexport", "telemetry.programs", "telemetry.devices",
                "telemetry.runledger", "telemetry.flight", "telemetry.slo")
     assert _loaded_after_import(modules) == "[]"
+
+
+def test_importing_the_operator_layer_leaves_jax_pandas_requests_streamlit_matplotlib_unloaded():
+    modules = ("ui", "ui.core", "ui.app", "compilecache", "version", "debug",
+               "tools.incident_report", "tools.train_artifact", "serve.__main__")
+    assert _loaded_after_import(modules, ("requests", "streamlit", "matplotlib")) == "[]"
+
+
+def test_train_artifact_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
+    from cobalt_smart_lender_ai_tpu_torch.debug import profile_trace
+    from cobalt_smart_lender_ai_tpu_torch.tools import train_artifact
+
+    assert train_artifact.parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_artifact.main(["--rows", "500", "--out", str(tmp_path / "lake")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_artifact.train_artifact(500)
+    with pytest.raises(RuntimeError, match="cuda"):
+        with profile_trace(str(tmp_path / "trace")):
+            pass
+    assert not (tmp_path / "lake").exists()
 
 
 @pytest.fixture
@@ -336,7 +361,9 @@ def test_new_port_modules_are_checked():
             "serve/supervisor.py", "serve/autoscaler.py", "serve/replicas.py",
             "telemetry/aggregate.py", "telemetry/timeseries.py", "reliability/traffic.py",
             "scenario/__init__.py", "scenario/grid.py", "scenario/report.py", "scenario/engine.py",
-            "tools/score_portfolio.py", "tools/obs_report.py"} <= names
+            "tools/score_portfolio.py", "tools/obs_report.py", "compilecache.py", "version.py",
+            "ui/__init__.py", "ui/core.py", "ui/app.py", "tools/incident_report.py",
+            "tools/train_artifact.py"} <= names
 
 
 def test_no_port_module_imports_pandas():
