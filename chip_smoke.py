@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only-search    # build, then 5b's joint launches and the bucket's jobs
     python3 chip_smoke.py --only-mesh      # build, then phase 19 (the card named four times)
     python3 chip_smoke.py --only-tools     # build, then phases 15-16 and 20 (the operator's layer)
+    python3 chip_smoke.py --only-parity    # build, then tools.parity ours at 130,000 loans (21d-e)
     python3 chip_smoke.py --full-protocol  # build, then phase 8b at the defaults
 
 Phases, each of which must pass:
@@ -513,11 +514,45 @@ Phases, each of which must pass:
        `debug.profile_trace` around 8 warm-up and 16 measured /predict
        micro-batches to 20b's service: the trace parses and holds the
        ``serve.microbatch_dispatch`` spans and the card's records of
-       ``shap_kernel<7>`` and ``score_finalize_kernel``;
+       ``shap_kernel<7>`` and ``score_finalize_kernel``, one of each for
+       every one of the 24 launches (since PR 22);
     ``score_forest``'s launches over 20b-20e, counted from 0 before 20b,
     equal the programs' dispatches (the ``kernels`` line's
     ``operator_launches``; 20a's histogram launches its
     ``train_artifact_launches``).
+21. the last of the reference's surface, after phase 20 and before the
+    scoring split (phase 7):
+    a. `explain.TreeExplainer` over 8b's winner (its
+       ``search.best_estimator_``) on 1,024 held-out rows of 6b's split at
+       ``chunk_size=256``: 4 ``score_forest`` SHAP launches, equal to the
+       programs' new dispatches (the ``kernels`` line's
+       ``explainer_launches``); its phis within 1e-5 of the plain version's
+       on the same rows, ``expected_value + Σ phi`` within 1e-4 of the plain
+       margin;
+    b. `telemetry.snapshot` round-trips through JSON, and
+       `telemetry.program_table` holds the ``score_forest`` and
+       ``gradient_histogram`` programs with dispatches, by ``kind`` as the
+       registry's own table;
+    c. ``tools.perf_sentinel`` in subprocesses on a temporary trend file
+       over 11c's run ledger: ingested once ``check`` exits 3 (no
+       baseline), twice 0, then a copy with its measured dispatch seconds
+       doubled 1 (``ledger.pipeline.warm_dispatch_seconds`` is gated at
+       1.25x); ``render`` writes the page;
+    under ``--only-parity`` only:
+    d. ``tools.parity ours`` at its defaults (130,000 loans of seed 11, the
+       reference's RFE 104 -> 20 at step 1 and 20 x 3 search, the refit and
+       its test AUC) on the card, in this process, with ``--out``,
+       ``--ledger-out`` and ``--trace-out``, then ``merge`` with the
+       committed ``PARITY_oracle.json``: 20 features selected,
+       ``parity_ok`` (the gap to the oracle's 0.9655923 at least -0.005),
+       the histogram launches equal to the programs' new dispatches and to
+       the RFE's and search's count; the test AUC, the gap, each stage's
+       seconds and the launches printed;
+    e. 21a's checks over the parity winner on 1,024 of its test rows; then
+       ``score_forest`` timed at the facade's 256-row chunk on the winner's
+       pack and ``gradient_histogram`` at the first tree's shapes of the
+       RFE selector and of a depth-9 candidate, each against its plain
+       version, for the ``kernels`` line of ``--only-parity``.
 
 The script's seconds in all come on a line before ``{"kernels": [...]}``,
 which is the line before the last; the last is ``{"ok": true, "device":
@@ -538,6 +573,9 @@ and phase 20, with the serve CLI's ``--profile-dir`` in a subprocess on
 20a's artifact (its /metrics the second process's build counters for 20d,
 its trace holding the micro-batch spans and the SHAP kernel), and prints
 neither.
+``--only-parity`` builds, then runs 21d-e (about 2.5 minutes: kept out of
+the whole run for time), and prints a ``kernels`` line of its two kernels
+with 21d-e's launches, and no ``ok`` line.
 ``--only-search`` builds, then runs 5b's joint launches and the search
 bucket's check (the short loop for work on the job axis), and prints
 neither: the reference-default (9, 100) bucket's 15 jobs on phase 5's
@@ -616,6 +654,7 @@ from cobalt_smart_lender_ai_tpu_torch.data.frame import RawFrame, row_dicts
 from cobalt_smart_lender_ai_tpu_torch.data.split import split_mask, train_test_split_hashed
 from cobalt_smart_lender_ai_tpu_torch.data.synthetic import synthetic_lendingclub_frame
 from cobalt_smart_lender_ai_tpu_torch.debug import profile_trace
+from cobalt_smart_lender_ai_tpu_torch.explain import TreeExplainer
 from cobalt_smart_lender_ai_tpu_torch.io import (
     DatasetRegistry,
     GBDTArtifact,
@@ -725,6 +764,8 @@ from cobalt_smart_lender_ai_tpu_torch.telemetry import (
     load_events,
     load_ledger,
     parse_exposition,
+    program_table,
+    snapshot,
 )
 from cobalt_smart_lender_ai_tpu_torch.telemetry.programs import (
     ProgramHandle,
@@ -1895,7 +1936,8 @@ def raw_path_phase(
     all tree features after the leakage drop as ``(X, y, names)`` on the
     host, for phase 8's histogram shapes). ``keep``, when given, receives
     6b's ingest (``report``, ``plan`` and the tree table on the host) for
-    phase 13b. ``device="cpu"`` and small row counts rehearse it without a
+    phase 13b and `EXPLAIN_ROWS` held-out rows of every tree feature with
+    their names (``held_out``) for 21a. ``device="cpu"`` and small row counts rehearse it without a
     card."""
     dev = torch.device(device)
     out: dict = {"card_vs_cpu": ingest_card_vs_cpu(check_rows, device)}
@@ -1932,6 +1974,8 @@ def raw_path_phase(
     out["tree_features_after_leakage_drop"] = ff.n_features
     X_all, X_test, y_train, y_test = train_test_split_hashed(ff.X, ff.y)
     train_rows = (X_all.cpu(), y_train.cpu(), ff.feature_names)
+    if keep is not None:  # held-out rows of every tree feature, for 21a
+        keep["held_out"] = (X_test[:EXPLAIN_ROWS].cpu(), ff.feature_names)
     sel = torch.tensor([ff.feature_names.index(n) for n in schema.SERVING_FEATURES], device=dev)
     X_train, X_test = X_all.index_select(1, sel), X_test.index_select(1, sel)
     del X_all
@@ -4066,7 +4110,7 @@ FLEET_CONFIG = dict(
     replicas=FLEET_REPLICAS,
     brownout_max_level=5,
     canary_enabled=True,
-    request_deadline_s=FLEET_DEADLINE_S,
+    reliability=ReliabilityConfig(request_deadline_s=FLEET_DEADLINE_S),
     score_cache_size=0,  # every request reaches a replica
     # The loop starts with the server but never ticks on its own: the phase
     # ticks by hand, so each drill's supervision is one known pass.
@@ -6159,7 +6203,7 @@ def profile_phase(card: str, service: ScorerService, server, root: str, device: 
     """20e: `debug.profile_trace` around 8 warm-up and 16 measured /predict
     micro-batches to 20b's service: the trace parses and holds the
     ``serve.microbatch_dispatch`` spans and the card's records of
-    ``shap_kernel<7>`` and ``score_finalize_kernel``."""
+    ``shap_kernel<7>`` and ``score_finalize_kernel``, one of each a launch."""
     client = ui_core.ApiClient(f"http://127.0.0.1:{server.port}")
     rows = request_rows(PROFILE_WARMUPS + PROFILE_BATCHES, SEED + 21)
     t0 = time.perf_counter()
@@ -6169,8 +6213,9 @@ def profile_phase(card: str, service: ScorerService, server, root: str, device: 
         if device == "cuda":
             torch.cuda.synchronize()
     out = {"session_s": time.perf_counter() - t0, **_trace_summary(_trace_events(f"{root}/trace"))}
+    launches = PROFILE_WARMUPS + PROFILE_BATCHES  # the session keeps every one (C2)
     if out["microbatch_spans"] < PROFILE_BATCHES or (
-            device == "cuda" and (out["shap_kernel"] < 1 or out["finalize_kernel"] < 1)):
+            device == "cuda" and (out["shap_kernel"] != launches or out["finalize_kernel"] != launches)):
         raise AssertionError(f"20e: the trace holds {out}")
     print(f"profile_trace (20e): {json.dumps(out)} [{card}]")
     return out
@@ -6267,6 +6312,254 @@ def operator_phase(card: str, journal: list[dict], startup_compile: dict, cli: d
     return out
 
 
+# -- the last of the reference's surface and the parity head-to-head (phase 21) ----
+
+#: 21a: held-out rows the facade explains, and its chunk (4 launches).
+EXPLAIN_ROWS = 1024
+EXPLAIN_CHUNK = 256
+#: 21d: the committed oracle's data (``tools.parity``'s defaults).
+PARITY_ROWS = 130_000
+PARITY_SEED = 11
+PARITY_ORACLE = ROOT / "PARITY_oracle.json"
+
+
+def explainer_check(card: str, model: gbdt.GBDTClassifier, X: torch.Tensor, what: str) -> dict:
+    """21a, 21e: `explain.TreeExplainer` over a fitted model on held-out rows
+    on the card, `EXPLAIN_CHUNK` rows a call: one ``score_forest`` SHAP
+    launch a chunk, equal to the ``score_forest`` programs' new dispatches;
+    its phis within `TOL_PHIS` of the plain version's on the same rows and
+    pack, and ``expected_value + Σ phi`` within `TOL_ADDITIVITY` of the
+    plain margin."""
+    ex = TreeExplainer(model)
+    fused_score.launches = 0
+    before = program_counts("score_forest/")
+    t0 = time.perf_counter()
+    phis = ex.shap_values(X, chunk_size=EXPLAIN_CHUNK)
+    seconds = time.perf_counter() - t0
+    launches = fused_score.launches
+    dispatches = sum(n for n, _ in program_delta(before, program_counts("score_forest/")).values())
+    want = -(-X.shape[0] // EXPLAIN_CHUNK)
+    if X.is_cuda and (launches != want or dispatches != launches):
+        raise AssertionError(f"{what}: {launches} SHAP launches, {dispatches} dispatches, want {want}")
+    pack = pack_forest(model.forest, model.n_features_, "f32")
+    margin, _, plain, _ = fused_score_reference(pack, X, n_features=model.n_features_)
+    out = {
+        "rows": int(X.shape[0]),
+        "features": int(model.n_features_),
+        "trees": int(model.forest.n_trees),
+        "depth": int(model.forest.depth),
+        "launches": launches,
+        "seconds": seconds,
+        "expected_value": ex.expected_value,
+        "phis_max_abs_err": float(np.abs(phis - plain.cpu().numpy()).max()),
+        "additivity_max_abs_err": float(np.abs(
+            ex.expected_value + phis.astype(np.float64).sum(axis=1) - margin.cpu().numpy()).max()),
+    }
+    if not out["phis_max_abs_err"] <= TOL_PHIS or not out["additivity_max_abs_err"] <= TOL_ADDITIVITY:
+        raise AssertionError(f"{what}: the explainer's phis against the plain version: {out}")
+    print(f"explainer ({what}): {json.dumps(out)} [{card}]")
+    return out
+
+
+def _sentinel(trend_path: str, *argv: str) -> int:
+    """``tools.perf_sentinel`` in a subprocess on ``trend_path``; its exit
+    code."""
+    cmd = [sys.executable, "-m", "cobalt_smart_lender_ai_tpu_torch.tools.perf_sentinel",
+           "--trend", trend_path, *argv]
+    return subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=60).returncode
+
+
+def sentinel_check(card: str, ledger_text: str) -> dict:
+    """21c: the trend gate over 11c's run ledger on a temporary trend file:
+    one ingest (no baseline: ``check`` exits 3), a second (exits 0), a copy
+    with its measured dispatch seconds doubled (``warm_dispatch_seconds`` is
+    gated at 1.25x: exits 1), then ``render`` writes the page."""
+    doc = json.loads(ledger_text)
+    slow = copy.deepcopy(doc)
+    slow["dispatch_attribution"]["measured_seconds"] *= 2
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trend_") as root:
+        ledger, doubled, trend_path = f"{root}/ledger.json", f"{root}/slow.json", f"{root}/trend.json"
+        Path(ledger).write_text(ledger_text)
+        Path(doubled).write_text(json.dumps(slow))
+        codes = []
+        for path in (ledger, ledger, doubled):
+            if _sentinel(trend_path, "ingest", path) != 0:
+                raise AssertionError(f"perf_sentinel ingest {path} failed")
+            codes.append(_sentinel(trend_path, "check"))
+        rendered = _sentinel(trend_path, "render", "--out", f"{root}/trend.html")
+        page = Path(root, "trend.html").read_text() if rendered == 0 else ""
+        metrics = sorted(json.loads(Path(trend_path).read_text())["rows"][-1]["metrics"])
+    out = {"check_codes": codes, "render": rendered, "metrics": metrics,
+           "seconds": time.perf_counter() - t0}
+    if codes != [3, 0, 1] or rendered != 0 or "<svg" not in page:
+        raise AssertionError(f"perf_sentinel over 11c's ledger: {out}")
+    print(f"perf_sentinel (21c): {json.dumps(out)} [{card}]")
+    return out
+
+
+def surface_phase(card: str, model: gbdt.GBDTClassifier, held_out: torch.Tensor,
+                  ledger_text: str) -> dict:
+    """Phase 21 in the whole run: 21a, `telemetry.snapshot` and
+    `telemetry.program_table` (21b) and 21c."""
+    t0 = time.perf_counter()
+    out = {"explainer": explainer_check(card, model, held_out, "8b's winner")}
+    snap = snapshot()
+    text = json.dumps(snap)  # tuples become lists; a NaN gauge stays NaN
+    if json.dumps(json.loads(text)) != text or not snap["metrics"]:
+        raise AssertionError("telemetry.snapshot does not round-trip through JSON")
+    table = program_table()
+    kind, plain = ("kernel", "") if held_out.is_cuda else ("plain", "_plain")
+    kinds = {prefix: sum(r["dispatches"] for r in table if r["name"].startswith(prefix))
+             for prefix in (f"score_forest{plain}/", f"gradient_histogram{plain}/")}
+    kernel_rows = [(r["name"], r["dispatches"]) for r in program_table(kind=kind)]
+    if not all(kinds.values()) or kernel_rows != [
+        (r["name"], r["dispatches"]) for r in default_program_registry().table(kind=kind)
+    ]:
+        raise AssertionError(f"program_table's kernel dispatches: {kinds}")
+    out["snapshot"] = {"families": len(snap["metrics"]), "spans": len(snap["spans"])}
+    out["program_table"] = {"rows": len(table), "dispatches": kinds}
+    print(f"snapshot and program_table (21b): {json.dumps(out['snapshot'])} "
+          f"{json.dumps(out['program_table'])} [{card}]")
+    out["sentinel"] = sentinel_check(card, ledger_text)
+    out["launches"] = out["explainer"]["launches"]
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"surface phase (21): {out['phase_s']:.1f}s, {out['launches']} launches [{card}]")
+    return out
+
+
+def parity_phase(card: str, device: str = "cuda", rows: int = PARITY_ROWS) -> dict:
+    """``--only-parity`` (21d, 21e): ``tools.parity ours`` at its defaults
+    (130,000 loans of seed 11, RFE 104 -> 20 at step 1, the 20 x 3 search,
+    the refit and its test AUC) on the card in this process, with ``--out``,
+    ``--ledger-out`` and ``--trace-out``; its record merged with the
+    committed ``PARITY_oracle.json``. Fails unless 20 features are selected,
+    ``parity_ok`` holds, and the histogram launches equal both the
+    programs' new dispatches and the RFE's and search's count
+    (`search_launches`); then `explainer_check` over the winner on 1,024
+    of the test rows. ``device="cpu"``, a cut ``rows`` and an oracle record
+    of that size at `PARITY_ORACLE` rehearse it without a card."""
+    from cobalt_smart_lender_ai_tpu_torch.parallel import tune as tune_module
+    from cobalt_smart_lender_ai_tpu_torch.tools import parity
+
+    seen: dict = {}
+    real_build, real_search = parity.build_matrices, tune_module.randomized_search
+
+    def build(*args, **kw):
+        seen["mats"] = real_build(*args, **kw)
+        return seen["mats"]
+
+    def search(*args, **kw):
+        seen["search"] = real_search(*args, **kw)
+        return seen["search"]
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parity_") as root:
+        ours_path, merged_path = f"{root}/ours.json", f"{root}/parity.json"
+        ledger_path, trace_path = f"{root}/ledger.json", f"{root}/trace.json"
+        gradient_histogram_channels.launches = 0
+        fused_score.launches = 0
+        before = program_counts("gradient_histogram/")
+        parity.build_matrices, tune_module.randomized_search = build, search
+        try:
+            ours = parity.main(["ours", "--rows", str(rows), "--seed", str(PARITY_SEED),
+                                "--device", device, "--out", ours_path, "--ledger-out", ledger_path,
+                                "--trace-out", trace_path])
+        finally:
+            parity.build_matrices, tune_module.randomized_search = real_build, real_search
+        wall = time.perf_counter() - t0
+        hist_launches = gradient_histogram_channels.launches
+        hist_dispatches = sum(n for n, _ in program_delta(
+            before, program_counts("gradient_histogram/")).values())
+        merged = parity.main(["merge", ours_path, str(PARITY_ORACLE), "--out", merged_path])
+        ledger = load_ledger(ledger_path)
+        with open(trace_path) as fh:
+            trace_events = len(json.load(fh)["traceEvents"])
+    search, rfe = seen["search"], RFEConfig()
+    base = GBDTConfig().replace(scale_pos_weight=seen["mats"]["spw"])
+    tune = dataclasses.replace(TuneConfig(), chunk_trees="auto", halving_enabled=True)
+    refits = -(-(len(seen["mats"]["feature_names"]) - rfe.n_select) // rfe.step)
+    want = refits * rfe.n_estimators * rfe.max_depth + search_launches(base, tune, search)
+    out = {
+        "rows": rows,
+        "seed": PARITY_SEED,
+        "backend": ours["backend"],
+        "selected_features": ours["selected_features"],
+        "best_params": ours["best_params"],
+        "scheduler": ours["scheduler"],
+        "cv_auc": ours["cv_auc"],
+        "test_auc": ours["test_auc"],
+        "oracle_test_auc": merged["oracle"]["test_auc"],
+        "gap": merged["auc_gap_ours_minus_oracle"],
+        "parity_ok": merged["parity_ok"],
+        "seconds": ours["seconds"],
+        "wall_s": wall,
+        "hist_launches": hist_launches,
+        "hist_dispatches": hist_dispatches,
+        "expected_hist_launches": want,
+        "ledger_stages": ledger["stages"],
+        "trace_events": trace_events,
+    }
+    print(f"parity (21d): test AUC {ours['test_auc']:.7f} against the oracle's "
+          f"{merged['oracle']['test_auc']:.7f}, gap {merged['auc_gap_ours_minus_oracle']} "
+          f"(margin {merged['parity_margin']}), parity_ok {merged['parity_ok']}; seconds "
+          f"{json.dumps(ours['seconds'])}; histogram launches {hist_launches} "
+          f"(programs {hist_dispatches}, expected {want}) [{card}]")
+    print(f"parity record (21d): {json.dumps(out)} [{card}]")
+    if (len(ours["selected_features"]) != 20 or not merged["parity_ok"]
+            or (device == "cuda" and not hist_launches == hist_dispatches == want)
+            or set(ledger["stages"]) != {"ours.rfe", "ours.search"} or not trace_events):
+        raise AssertionError(f"tools.parity on the card: {out}")
+    mats = seen["mats"]
+    sel = np.flatnonzero([n in set(ours["selected_features"]) for n in mats["feature_names"]])
+    X = torch.from_numpy(np.ascontiguousarray(mats["X_test"][:EXPLAIN_ROWS, sel])).to(device)
+    out["explainer"] = explainer_check(card, search.best_estimator_, X, "the parity winner")
+    out["shap_launches"] = out["explainer"]["launches"]
+    if device == "cuda":
+        train_rows = (torch.from_numpy(mats["X_train"]), torch.from_numpy(mats["y_train"]),
+                      mats["feature_names"])
+        out["kernels"] = parity_kernels(card, out, train_rows, mats["spw"], search.best_estimator_, X)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"parity launches (21): {json.dumps({'gradient_histogram': hist_launches, 'score_forest': out['shap_launches']})} [{card}]")
+    return out
+
+
+def parity_kernels(card: str, out: dict, train_rows: tuple, spw: float, winner: gbdt.GBDTClassifier,
+                   X: torch.Tensor) -> list[dict]:
+    """``--only-parity``'s ``kernels`` line: ``score_forest`` timed at the
+    facade's chunk (`EXPLAIN_CHUNK` rows with SHAP) on the winner's pack,
+    ``gradient_histogram`` at the first tree's shapes of the RFE selector
+    (F=104, 64 bins: 25,200 of the run's launches) and of a depth-9
+    candidate (`protocol_histogram_shapes`); each against its plain
+    version, with the launches of 21d-e."""
+    F = winner.n_features_
+    pack = pack_forest(winner.forest, F, "f32")
+    Xc = X[:EXPLAIN_CHUNK].contiguous()
+    score_bound, score_by = bound_ms(pack, Xc.shape[0], True)
+    score = {"ms": time_ms(lambda: fused_score(pack, Xc, n_features=F), 20),
+             "plain_ms": time_ms(lambda: fused_score_reference(pack, Xc, n_features=F), 3, warmup=1),
+             "bound_ms": score_bound, "bound_by": score_by}
+    print(f"kernel score_forest (21e, the parity winner's {pack.n_trees} trees of depth {pack.depth}) "
+          f"rows={Xc.shape[0]} shap=True {json.dumps(score)} [{card}]")
+    records = protocol_histogram_shapes(train_rows, out["selected_features"], spw, X.device)
+    for r in records:
+        print(histogram_line(r, card))
+    main = records[0]  # the RFE selector's level 0
+    return [
+        {"name": "score_forest", "route": "cuda",
+         "source": "cobalt_smart_lender_ai_tpu_torch/csrc/score_forest.cu",
+         "replaces": "cobalt_smart_lender_ai_tpu/ops/score_pallas.py:408",
+         "launches": out["shap_launches"], "max_abs_err": out["explainer"]["phis_max_abs_err"],
+         **score, "library_ms": None},
+        {"name": "gradient_histogram", "route": "cuda",
+         "source": "cobalt_smart_lender_ai_tpu_torch/csrc/gradient_histogram.cu",
+         "replaces": "cobalt_smart_lender_ai_tpu/ops/hist_pallas.py:51",
+         "launches": out["hist_launches"], "shape": main["shape"],
+         "max_abs_err": max(r["max_abs_err"] for r in records),
+         **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+    ]
+
+
 def print_scoring_split(card: str) -> None:
     for precision in ("f32", *QUANTIZED):
         for r in scoring_split("cuda", precision):
@@ -6327,6 +6620,13 @@ def main() -> int:
         action="store_true",
         help="build, then run phases 15 and 16 (for their journals) and phase 20 (the operator's "
         "layer) with the serve CLI's --profile-dir in a subprocess; print no ok line",
+    )
+    mode.add_argument(
+        "--only-parity",
+        action="store_true",
+        help="build, then run tools.parity ours at its defaults (130,000 loans, the reference's "
+        "RFE and search) on the card, merge it with the committed PARITY_oracle.json and "
+        "explain the winner; print its kernels line and no ok line",
     )
     mode.add_argument("--mesh-worker", nargs=3, metavar=("RANK", "PORT", "OUT"),
                       help=argparse.SUPPRESS)
@@ -6406,6 +6706,13 @@ def main() -> int:
         print(f"chip_smoke --only-mesh: {time.perf_counter() - t_start:.1f}s [{card}]")
         return 0
 
+    if args.only_parity:
+        parity = parity_phase(card)
+        print(f"parity phase (21d-e): {parity['phase_s']:.1f}s [{card}]")
+        print(json.dumps({"kernels": parity["kernels"]}))
+        print(f"chip_smoke --only-parity: {time.perf_counter() - t_start:.1f}s [{card}]")
+        return 0
+
     if args.only_search:
         cfg = GBDTConfig(**TRAIN_CONFIG)
         Xn, yn = training_rows(N_TRAIN + N_TEST)
@@ -6459,6 +6766,7 @@ def main() -> int:
     t13 = time.perf_counter()
     data_layer = {"host_path": host_path_card_checks(card),
                   "host_path_at_scale": host_path_at_scale(card, frame, raw, kept)}
+    held_out, held_names = kept["held_out"]
     del kept
     phase13_s = time.perf_counter() - t13
     # Phase 8 runs before phase 7: a profiler session slows later launches.
@@ -6471,6 +6779,9 @@ def main() -> int:
             card, frame, quick, train_rows, root
         )
         observed["protocol"] = observability_protocol(card, res, protocol.pop("observability"), quick)
+        explained = res.search.best_estimator_  # 8b's winner, for 21a
+        held_out = held_out.index_select(
+            1, torch.tensor([held_names.index(n) for n in res.selected_features])).cuda()
         del frame
         print(f"protocol phase: {time.perf_counter() - t0:.1f}s [{card}]")
         # Phase 10, on 8b's columns and store.
@@ -6487,6 +6798,7 @@ def main() -> int:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
         observed["cli"] = observability_cli(card, root)
+        cli_ledger = Path(root, "ledger.json").read_text()  # for 21c
     observed["overhead"] = recording_overhead(card, training["fit_s"], training["hist_launches"])
     print(f"observability phase: {time.perf_counter() - t0:.1f}s [{card}]")
     t13 = time.perf_counter()
@@ -6511,6 +6823,8 @@ def main() -> int:
     print(f"mesh phase (19): {mesh['phase_s']:.1f}s [{card}]")
     operator = operator_phase(card, fleet.pop("journal") + autoscaler.pop("journal"), startup_compile,
                               cli=observed["cli"])
+    surface = surface_phase(card, explained, held_out, cli_ledger)
+    del explained, held_out
     print_scoring_split(card)
 
     main_rec = next(r for r in records if r["bucket"] == 64)
@@ -6541,13 +6855,14 @@ def main() -> int:
             "mesh_shap_launches": sum(mesh["partitioner"][p]["launches"] for p in ("f32", *QUANTIZED)),
             "mesh_bulk_launches": mesh["service"][f"shards_{MESH_SHARDS}"]["launches"],
             "operator_launches": operator["launches"],
+            "explainer_launches": surface["launches"],
             "portfolio_ms": {str(b): r["ms"] for b, r in portfolio["buckets"].items()},
             "portfolio_bound_ms": {str(b): r["bound_ms"] for b, r in portfolio["buckets"].items()},
             "max_abs_err": max(
                 [max(r.get("prob", 0.0), r.get("phis", 0.0)) for r in records + quantized_records]
                 + list(fleet["errors"].values()) + list(autoscaler["errors"].values())
                 + [max(r["prob"], r["phis"]) for r in portfolio["buckets"].values()]
-                + [operator["ui"]["row_prob_max_abs_err"]]
+                + [operator["ui"]["row_prob_max_abs_err"], surface["explainer"]["phis_max_abs_err"]]
                 + [lifecycle["shadow"]["prob_max_abs_err"], lifecycle["shadow"]["margin_max_abs_err"],
                    raw["serve"]["prob_max_abs_err"], raw["degraded"]["prob_max_abs_err"],
                    protocol["predict_raw"]["prob_max_abs_err"],
@@ -6612,8 +6927,9 @@ def main() -> int:
         },
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all, phase 17 (challengers) "
-          f"{challengers['phase_s']:.1f}s, phase 18 (portfolio) {portfolio['phase_s']:.1f}s and "
-          f"phase 20 (operator) {operator['phase_s']:.1f}s of it [{card}]")
+          f"{challengers['phase_s']:.1f}s, phase 18 (portfolio) {portfolio['phase_s']:.1f}s, "
+          f"phase 20 (operator) {operator['phase_s']:.1f}s and phase 21 (surface) "
+          f"{surface['phase_s']:.1f}s of it [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

@@ -139,9 +139,8 @@ class MeshConfig:
 @dataclasses.dataclass(frozen=True)
 class ReliabilityConfig:
     """The store's retry policy, the pipeline's stage checkpoints, and the
-    serving admission and circuit-breaker limits (the fields of the
-    reference's ``ReliabilityConfig`` that the port reads; the serving
-    deadline and SHAP degrade stay flat on `ServeConfig`)."""
+    serving SHAP degrade, request deadline, admission and circuit-breaker
+    limits: the reference's ``ReliabilityConfig``, field for field."""
 
     #: Retry policy for store I/O (`reliability.retry.RetryPolicy`).
     max_attempts: int = 4
@@ -159,6 +158,15 @@ class ReliabilityConfig:
     checkpoint_prefix: str = "checkpoints/"
     #: Restore the stages whose manifests still validate.
     resume: bool = False
+    #: When the SHAP kernel cannot take the model's shape (see
+    #: `ops.score.shap_supported`), serve probabilities with
+    #: ``"shap_values": null`` and a ``degraded`` flag instead of refusing to
+    #: start. A kernel that fails to build or launch is never degraded: it
+    #: fails startup or the request.
+    degrade_shap: bool = True
+    #: Per-request wall-clock budget, checked at cooperative checkpoints
+    #: (``DeadlineExceeded`` -> HTTP 504). ``None`` disables deadlines.
+    request_deadline_s: float | None = 30.0
     #: Token-bucket admission rate for scoring requests (requests/second,
     #: sustained). ``None`` disables rate limiting.
     rate_limit_rps: float | None = None
@@ -210,15 +218,6 @@ class ServeConfig:
     #: ``"int8"`` (dequantized inside the scoring kernel; gated at startup
     #: against ``ops.score.PRECISION_TOLERANCES``).
     forest_precision: str = "f32"
-    #: When the SHAP kernel cannot take the model's shape (see
-    #: `ops.score.shap_supported`), serve probabilities with
-    #: ``"shap_values": null`` and a ``degraded`` flag instead of refusing to
-    #: start. A kernel that fails to build or launch is never degraded: it
-    #: fails startup or the request.
-    degrade_shap: bool = True
-    #: Per-request wall-clock budget, checked at cooperative checkpoints
-    #: (``DeadlineExceeded`` -> HTTP 504). ``None`` disables deadlines.
-    request_deadline_s: float | None = 30.0
     #: Flight recorder (telemetry.flight, served at ``GET /debug/*``):
     #: ring capacity, the always-capture slow threshold, and the size of
     #: the top-K-by-latency board.

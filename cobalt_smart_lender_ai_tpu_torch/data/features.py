@@ -65,6 +65,9 @@ class FeatureFrame:
     def n_features(self) -> int:
         return int(self.X.shape[1])
 
+    def column(self, name: str) -> torch.Tensor:
+        return self.X[:, self.feature_names.index(name)]
+
     def select(self, names: Sequence[str]) -> "FeatureFrame":
         idx = torch.tensor([self.feature_names.index(n) for n in names], device=self.X.device)
         return FeatureFrame(tuple(names), self.X[:, idx], self.y)

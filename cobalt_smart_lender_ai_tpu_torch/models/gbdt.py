@@ -77,6 +77,18 @@ class Forest:
         return self.feature.shape[0]
 
     @property
+    def n_internal(self) -> int:
+        return self.feature.shape[1]
+
+    @property
+    def n_leaves(self) -> int:
+        return self.leaf_value.shape[1]
+
+    def is_real_split(self) -> torch.Tensor:
+        """(T, I) bool: True where the node performs an actual split."""
+        return self.gain > 0.0
+
+    @property
     def device(self) -> torch.device:
         return self.feature.device
 

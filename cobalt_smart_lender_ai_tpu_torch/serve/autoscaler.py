@@ -30,7 +30,7 @@ The ladder's rungs, each including the ones before it:
 1. drop the canary's shadow taps (invisible to clients;
    `ScorerService._canary_tap`);
 2. serve ``degraded: true`` without SHAP: the micro-batcher and the direct
-   path launch the margin-only program (with ``ServeConfig.degrade_shap``);
+   path launch the margin-only program (with ``ReliabilityConfig.degrade_shap``);
 3. widen micro-batch coalescing: the autoscaler's retune to the busy
    profile (5 ms, 256 rows by default), so bursts coalesce into 128- and
    256-row launches of the scoring kernel;

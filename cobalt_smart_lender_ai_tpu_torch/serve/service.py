@@ -282,7 +282,7 @@ class _CompiledModel:
         elif not shap_fits(self.pack):
             err = "the SHAP kernel's fixed-point totals do not hold this forest's phis"
         if err is not None:
-            if not config.degrade_shap:
+            if not config.reliability.degrade_shap:
                 raise ValueError(err)
             self.shap_error = err
         self.kernel = "score_forest" if device.type == "cuda" else "plain"
@@ -1254,10 +1254,10 @@ class ScorerService:
         self.canary.tap(row, prob, latency_s)
 
     def _shed_shap(self) -> bool:
-        """Brownout rung 2 with ``degrade_shap``: score margin-only and
+        """Brownout rung 2 with ``reliability.degrade_shap``: score margin-only and
         answer degraded."""
         bo = self.brownout
-        return bo is not None and bo.level >= 2 and self.config.degrade_shap
+        return bo is not None and bo.level >= 2 and self.config.reliability.degrade_shap
 
     @property
     def feature_names(self) -> list[str]:
@@ -1421,7 +1421,7 @@ class ScorerService:
         return contextlib.nullcontext(current_request_id())
 
     def _new_deadline(self) -> Deadline | None:
-        return start_deadline(self.config.request_deadline_s, self._clock)
+        return start_deadline(self.config.reliability.request_deadline_s, self._clock)
 
     # -- health / readiness ----------------------------------------------------
 

@@ -36,93 +36,116 @@ the module is ported, with no dependency beyond torch.
 - `telemetry.aggregate` — merge N `parse_exposition` snapshots into
   fleet-level series (counter sums, histogram bucket merges, label joins)
   for a `ReplicaSet`'s history.
+- `telemetry.trend` — the TREND.json ledger over benchmark records and run
+  ledgers, its per-metric gates against a rolling baseline and its HTML
+  page (`tools.perf_sentinel` is its CLI).
+
+`snapshot` is one JSON-able dump of the metric values and recent spans.
+The names above load their module at first use (module ``__getattr__``),
+so a tool that needs only a torch-free module, such as
+`tools.perf_sentinel` over `trend`, starts without importing torch.
 """
 
 from __future__ import annotations
 
-from cobalt_smart_lender_ai_tpu_torch.telemetry.aggregate import (
-    fleet_scraper,
-    merge_expositions,
-    merge_registries,
+import importlib
+from typing import Any
+
+#: Each exported name and the submodule that defines it.
+_EXPORTS: dict[str, str] = {
+    "fleet_scraper": "aggregate",
+    "merge_expositions": "aggregate",
+    "merge_registries": "aggregate",
+    "DeviceSampler": "devices",
+    "default_device_sampler": "devices",
+    "device_info": "devices",
+    "host_rss_bytes": "devices",
+    "install_device_metrics": "devices",
+    "FeatureSketch": "drift",
+    "psi": "drift",
+    "EVENT_KINDS": "events",
+    "EventJournal": "events",
+    "current_event_id": "events",
+    "event_context": "events",
+    "load_events": "events",
+    "merge_events": "events",
+    "FlightRecorder": "flight",
+    "META_ROUTES": "flight",
+    "add_phase": "flight",
+    "collect_phases": "flight",
+    "StructuredLogger": "logging",
+    "current_request_id": "logging",
+    "get_logger": "logging",
+    "new_request_id": "logging",
+    "request_context": "logging",
+    "Counter": "metrics",
+    "EXPOSITION_CONTENT_TYPE": "metrics",
+    "Gauge": "metrics",
+    "Histogram": "metrics",
+    "LATENCY_BUCKETS_S": "metrics",
+    "MetricsRegistry": "metrics",
+    "OPENMETRICS_CONTENT_TYPE": "metrics",
+    "default_registry": "metrics",
+    "log_buckets": "metrics",
+    "parse_exposition": "metrics",
+    "render": "metrics",
+    "ProgramHandle": "programs",
+    "ProgramRegistry": "programs",
+    "default_program_registry": "programs",
+    "install_program_metrics": "programs",
+    "program_table": "programs",
+    "RunLedger": "runledger",
+    "load_ledger": "runledger",
+    "Objective": "slo",
+    "SLOEngine": "slo",
+    "default_objectives": "slo",
+    "TimeSeriesStore": "timeseries",
+    "load_segments": "timeseries",
+    "render_dashboard": "timeseries",
+    "TRACE_CONTENT_TYPE": "traceexport",
+    "chrome_trace": "traceexport",
+    "render_chrome_trace": "traceexport",
+    "Span": "tracing",
+    "Tracer": "tracing",
+    "current_trace_ids": "tracing",
+    "default_tracer": "tracing",
+    "record_span": "tracing",
+    "span": "tracing",
+}
+#: The submodules, loaded as attributes at first use too.
+_SUBMODULES = frozenset(
+    {"aggregate", "devices", "drift", "events", "flight", "logging", "metrics", "programs",
+     "runledger", "slo", "timeseries", "traceexport", "tracing", "trend"}
 )
-from cobalt_smart_lender_ai_tpu_torch.telemetry.devices import (
-    DeviceSampler,
-    default_device_sampler,
-    device_info,
-    host_rss_bytes,
-    install_device_metrics,
-)
-from cobalt_smart_lender_ai_tpu_torch.telemetry.drift import (
-    FeatureSketch,
-    psi,
-)
-from cobalt_smart_lender_ai_tpu_torch.telemetry.events import (
-    EVENT_KINDS,
-    EventJournal,
-    current_event_id,
-    event_context,
-    load_events,
-    merge_events,
-)
-from cobalt_smart_lender_ai_tpu_torch.telemetry.flight import (
-    META_ROUTES,
-    FlightRecorder,
-    add_phase,
-    collect_phases,
-)
-from cobalt_smart_lender_ai_tpu_torch.telemetry.logging import (
-    StructuredLogger,
-    current_request_id,
-    get_logger,
-    new_request_id,
-    request_context,
-)
-from cobalt_smart_lender_ai_tpu_torch.telemetry.metrics import (
-    EXPOSITION_CONTENT_TYPE,
-    LATENCY_BUCKETS_S,
-    OPENMETRICS_CONTENT_TYPE,
-    Counter,
-    Gauge,
-    Histogram,
-    MetricsRegistry,
-    default_registry,
-    log_buckets,
-    parse_exposition,
-    render,
-)
-from cobalt_smart_lender_ai_tpu_torch.telemetry.programs import (
-    ProgramHandle,
-    ProgramRegistry,
-    default_program_registry,
-    install_program_metrics,
-)
-from cobalt_smart_lender_ai_tpu_torch.telemetry.runledger import (
-    RunLedger,
-    load_ledger,
-)
-from cobalt_smart_lender_ai_tpu_torch.telemetry.slo import (
-    Objective,
-    SLOEngine,
-    default_objectives,
-)
-from cobalt_smart_lender_ai_tpu_torch.telemetry.timeseries import (
-    TimeSeriesStore,
-    load_segments,
-    render_dashboard,
-)
-from cobalt_smart_lender_ai_tpu_torch.telemetry.traceexport import (
-    TRACE_CONTENT_TYPE,
-    chrome_trace,
-    render_chrome_trace,
-)
-from cobalt_smart_lender_ai_tpu_torch.telemetry.tracing import (
-    Span,
-    Tracer,
-    current_trace_ids,
-    default_tracer,
-    record_span,
-    span,
-)
+
+
+def __getattr__(name: str) -> Any:
+    if name in _SUBMODULES:
+        return importlib.import_module(f"{__name__}.{name}")
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__() -> list[str]:
+    return sorted(set(globals()) | set(_EXPORTS) | _SUBMODULES)
+
+
+def snapshot(registry: Any | None = None, tracer: Any | None = None, *, span_limit: int = 64) -> dict:
+    """One JSON-able telemetry dump: the metric values and the recent
+    spans. Bench harnesses attach it beside their one JSON line, so a
+    committed record carries the run's internal timings, not just the
+    headline."""
+    from cobalt_smart_lender_ai_tpu_torch.telemetry.metrics import default_registry
+    from cobalt_smart_lender_ai_tpu_torch.telemetry.tracing import default_tracer
+
+    return {
+        "metrics": (registry or default_registry()).snapshot(),
+        "spans": (tracer or default_tracer()).export(limit=span_limit),
+    }
+
 
 __all__ = [
     "EVENT_KINDS",
@@ -175,11 +198,13 @@ __all__ = [
     "merge_registries",
     "new_request_id",
     "parse_exposition",
+    "program_table",
     "psi",
     "record_span",
     "render",
     "render_chrome_trace",
     "render_dashboard",
     "request_context",
+    "snapshot",
     "span",
 ]

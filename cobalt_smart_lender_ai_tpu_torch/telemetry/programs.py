@@ -53,6 +53,7 @@ __all__ = [
     "peak_bytes_estimate",
     "peak_flops_estimate",
     "program_handle",
+    "program_table",
     "set_default_program_registry",
 ]
 
@@ -436,6 +437,11 @@ def set_default_program_registry(reg: ProgramRegistry) -> ProgramRegistry:
         prev = _default
         _default = reg
     return prev
+
+
+def program_table(*, kind: str | None = None) -> list[dict[str, Any]]:
+    """The default registry's table: ``GET /debug/programs``' payload."""
+    return default_program_registry().table(kind=kind)
 
 
 def install_program_metrics(metrics_registry: Any | None = None) -> None:

@@ -88,7 +88,10 @@ compiles nothing (3 hits: the two nvcc libraries and the g++ reader);
 `debug.profile_trace` records ``shap_kernel<7>`` and
 ``score_finalize_kernel`` on the card; ``tools.train_artifact`` at 20,000
 rows launches the histogram 300 x 7 times and its artifact serves on the
-card as the plain scorer does on the CPU.
+card as the plain scorer does on the CPU. Each of 20 `debug.profile_trace`
+sessions of 24 SHAP launches keeps 24 records of each scoring kernel, and
+`explain.TreeExplainer` on the card launches once a chunk and matches
+itself on the CPU within 1e-5.
 """
 
 from __future__ import annotations
@@ -1735,3 +1738,63 @@ def test_train_artifact_on_card_loads_and_serves(card, tmp_path):
     finally:
         service.close()
         cpu.close()
+
+
+@pytest.mark.cuda
+def test_profile_trace_keeps_every_launch_on_card(card_pack, tmp_path):
+    """`debug.profile_trace` opens its card session with spin kernels and a
+    synchronize, so each of 20 sessions of 24 SHAP launches at 64 rows
+    keeps 24 records of ``shap_kernel<7>`` and 24 of
+    ``score_finalize_kernel`` (the tracer drops a burst of first records
+    in some sessions only)."""
+    import glob
+    import json
+
+    from cobalt_smart_lender_ai_tpu_torch.debug import profile_trace
+
+    pack, _, F = card_pack
+    X = torch.from_numpy(_rows(pack, 64, seed=33)).cuda()
+    fused_score(pack, X, n_features=F, with_shap=True)
+    torch.cuda.synchronize()
+    kept = []
+    for i in range(20):
+        with profile_trace(str(tmp_path / f"trace{i}")):
+            for _ in range(24):
+                fused_score(pack, X, n_features=F, with_shap=True)
+            torch.cuda.synchronize()
+        (path,) = glob.glob(str(tmp_path / f"trace{i}" / "*.pt.trace.json"))
+        events = json.loads(Path(path).read_text())["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        kept.append((sum("shap_kernel<7>" in k for k in kernels),
+                     sum("score_finalize_kernel" in k for k in kernels)))
+    assert kept == [(24, 24)] * 20, kept
+
+
+@pytest.mark.cuda
+def test_tree_explainer_on_card_matches_plain(card_pack):
+    """`explain.TreeExplainer` over the committed model on the card: one
+    SHAP launch a chunk (1,000 rows at 256: 4), its phis within 1e-5 of the
+    same facade's on the CPU (the plain version), its base value the CPU's
+    within 1e-6, and ``expected_value + Σ phi`` within 1e-4 of the margin."""
+    from cobalt_smart_lender_ai_tpu_torch.explain import TreeExplainer
+
+    pack, _, F = card_pack
+    art = GBDTArtifact.load(ObjectStore(str(ROOT / "artifacts")), "models/gbdt/model_tree", "cuda")
+    models = {}
+    for device in ("cuda", "cpu"):
+        models[device] = GBDTClassifier(device=device)
+        models[device].forest = art.forest.to(device)
+        models[device].n_features_ = F
+    Xn = _rows(pack, 1000, seed=35)
+    before = fused_score.launches
+    card = TreeExplainer(models["cuda"])
+    phis = card.shap_values(torch.from_numpy(Xn).cuda(), chunk_size=256)
+    assert fused_score.launches - before == 4
+    cpu = TreeExplainer(models["cpu"])
+    want = cpu.shap_values(Xn, chunk_size=256)
+    assert phis.shape == (1000, F)
+    np.testing.assert_allclose(phis, want, rtol=0, atol=TOL_SHAP)
+    assert abs(card.expected_value - cpu.expected_value) <= 1e-6
+    margin = models["cpu"].predict_margin(Xn).numpy()
+    np.testing.assert_allclose(card.expected_value + phis.astype(np.float64).sum(axis=1), margin,
+                               rtol=0, atol=1e-4)

@@ -606,9 +606,9 @@ def test_chaos_soak_answers_only_typed_errors(store_root, tmp_path):
     flaky = port_rel.FaultInjectingStore(inner, seed=11, faults={})
     cfg = ServeConfig(
         max_bulk_rows=64,
-        request_deadline_s=10.0,
         reliability=ReliabilityConfig(
-            max_in_flight=4, breaker_failure_threshold=3, breaker_reset_s=0.2
+            request_deadline_s=10.0, max_in_flight=4, breaker_failure_threshold=3,
+            breaker_reset_s=0.2,
         ),
     )
     svc = ScorerService.from_store(flaky, cfg, device="cpu")

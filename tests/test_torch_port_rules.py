@@ -10,7 +10,9 @@
   ``jax``, ``flax``, ``msgpack`` and ``pandas`` unloaded; importing the
   operator's layer (the UI, the build cache, the incident report and the
   artifact trainer) leaves ``requests``, ``streamlit`` and ``matplotlib``
-  unloaded too.
+  unloaded too, and importing the parity tool, the trend gate and the
+  explainer leaves ``sklearn`` unloaded (the oracle side imports it when it
+  runs).
 - Its entry points run on the CUDA device unless the caller asks for the
   CPU: with CUDA unavailable, the default-device service constructors
   (``--canary`` and ``--replicas`` serving included), the retrain CLI, the
@@ -19,8 +21,8 @@
   `GBDTClassifier`, `split_mask`, `GBDTArtifact.load`/``from_bytes``,
   `rfe_select`, `randomized_search`, `run_pipeline`, the mesh's device
   list (`make_mesh`, `make_partitioner`, `MeshPartitioner`) and the serving and
-  training CLIs, the host path's `engineer_features`, ``tools.train_artifact``
-  and `debug.profile_trace`, raise instead of
+  training CLIs, the host path's `engineer_features`, ``tools.train_artifact``,
+  every side of ``tools.parity`` and `debug.profile_trace`, raise instead of
   running on the CPU, and ``chip_smoke.py``
   exits non-zero without printing a result.
 - The training CLI (``python -m cobalt_smart_lender_ai_tpu_torch.pipeline``)
@@ -205,6 +207,23 @@ def test_importing_the_operator_layer_leaves_jax_pandas_requests_streamlit_matpl
     assert _loaded_after_import(modules, ("requests", "streamlit", "matplotlib")) == "[]"
 
 
+def test_importing_the_parity_tool_explainer_and_trend_leaves_jax_pandas_sklearn_unloaded():
+    modules = ("explain", "tools.parity", "tools.perf_sentinel", "telemetry.trend", "telemetry")
+    assert _loaded_after_import(modules, ("sklearn",)) == "[]"
+
+
+def test_parity_tool_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
+    from cobalt_smart_lender_ai_tpu_torch.tools import parity
+
+    assert parity.parse_args(["ours"]).device == "cuda"
+    for side in ("ours", "oracle", "both"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            parity.main([side, "--rows", "200", "--out", str(tmp_path / "out.json")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        parity.build_matrices(200, 11)
+    assert not (tmp_path / "out.json").exists()
+
+
 def test_train_artifact_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
     from cobalt_smart_lender_ai_tpu_torch.debug import profile_trace
     from cobalt_smart_lender_ai_tpu_torch.tools import train_artifact
@@ -363,7 +382,8 @@ def test_new_port_modules_are_checked():
             "scenario/__init__.py", "scenario/grid.py", "scenario/report.py", "scenario/engine.py",
             "tools/score_portfolio.py", "tools/obs_report.py", "compilecache.py", "version.py",
             "ui/__init__.py", "ui/core.py", "ui/app.py", "tools/incident_report.py",
-            "tools/train_artifact.py"} <= names
+            "tools/train_artifact.py", "explain/__init__.py", "telemetry/trend.py",
+            "tools/perf_sentinel.py", "tools/parity.py"} <= names
 
 
 def test_no_port_module_imports_pandas():

@@ -45,7 +45,7 @@ from cobalt_smart_lender_ai_tpu.io import GBDTArtifact as JaxArtifact
 from cobalt_smart_lender_ai_tpu.io import ObjectStore as JaxStore
 from cobalt_smart_lender_ai_tpu.models.gbdt import GBDTClassifier
 from cobalt_smart_lender_ai_tpu.serve.service import ScorerService as JaxScorerService
-from cobalt_smart_lender_ai_tpu_torch.config import ServeConfig
+from cobalt_smart_lender_ai_tpu_torch.config import ReliabilityConfig, ServeConfig
 from cobalt_smart_lender_ai_tpu_torch.data import schema
 from cobalt_smart_lender_ai_tpu_torch.io import GBDTArtifact, ObjectStore
 from cobalt_smart_lender_ai_tpu_torch.models.gbdt import predict_margin
@@ -392,7 +392,7 @@ def test_forest_outside_the_shap_range_degrades(store_root):
     model = _CompiledModel(big, ServeConfig(), torch.device("cpu"))
     assert model.shap_fn is None and "fixed-point" in model.shap_error
     with pytest.raises(ValueError, match="fixed-point"):
-        _CompiledModel(big, ServeConfig(degrade_shap=False), torch.device("cpu"))
+        _CompiledModel(big, ServeConfig(reliability=ReliabilityConfig(degrade_shap=False)), torch.device("cpu"))
     assert _CompiledModel(art, ServeConfig(), torch.device("cpu")).shap_error is None
 
 
