@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only-mesh      # build, then phase 19 (the card named four times)
     python3 chip_smoke.py --only-tools     # build, then phases 15-16 and 20 (the operator's layer)
     python3 chip_smoke.py --only-parity    # build, then tools.parity ours at 130,000 loans (21d-e)
+    python3 chip_smoke.py --only-bench [DIR] # build, then every measurement harness at its defaults
     python3 chip_smoke.py --full-protocol  # build, then phase 8b at the defaults
 
 Phases, each of which must pass:
@@ -410,7 +411,7 @@ Phases, each of which must pass:
        1e-4 absolute plus relative;
     c. each family fitted on the full training rows: epochs run, fit
        seconds, rows per second and held-out AUC, which must reach 0.90
-       (FT-Transformer at 5 epochs and TabNet at 8 in the whole run, cut
+       (FT-Transformer at 2 epochs and TabNet at 4 in the whole run, cut
        for time, and at their 20 and 30 under ``--only-challengers``);
     d. a second MLP fit of the same seed equals the first bit for bit.
 
@@ -553,6 +554,21 @@ Phases, each of which must pass:
        pack and ``gradient_histogram`` at the first tree's shapes of the
        RFE selector and of a depth-9 candidate, each against its plain
        version, for the ``kernels`` line of ``--only-parity``.
+22. the port's measurement harnesses (``tools/bench*.py``), after phase 21
+    and before the scoring split, each through its ``main`` in this
+    process with ``--out`` into a temporary directory:
+    ``tools.bench_serve --smoke`` (the closed loop, batcher off and on, 4
+    clients), ``--bulk`` at 16,384 rows, ``tools.bench --rows 200000``
+    (the planted-logit fit, 300 trees of depth 3, warm-up and timed run)
+    and ``tools.bench_kernels`` at buckets 16, 64 and 256 with its
+    ``--check`` gate; the records ingested by ``tools.perf_sentinel`` into
+    a temporary trend file. Fails unless each record yields the trend
+    metrics `BENCH_METRICS` names, the bulk record is bit-identical across
+    shard counts, the gate passes (the kernel no slower than the plain
+    pair), the fit's held-out AUC is above 0.85, no closed-loop request
+    failed, and each tool launched its kernels (the fit 1,800 histogram
+    launches: one per tree level of each run). Each tool prints its summary
+    line with the card's name and power limit on stderr.
 
 The script's seconds in all come on a line before ``{"kernels": [...]}``,
 which is the line before the last; the last is ``{"ok": true, "device":
@@ -576,6 +592,16 @@ neither.
 ``--only-parity`` builds, then runs 21d-e (about 2.5 minutes: kept out of
 the whole run for time), and prints a ``kernels`` line of its two kernels
 with 21d-e's launches, and no ``ok`` line.
+``--only-bench [DIR]`` builds, runs phase 22, then every harness and mode
+at the reference's defaults (`BENCH_FULL`: the closed loop at 32 clients
+for 5 s, single and mixed; the async HTTP grid at 128/256/512 clients; the
+chaos fleet of 3 replicas; the flash-crowd traffic fleet; bulk at 65,536
+rows; the kernel bench; the fit at 2.3M x 100; the protocol at 2.3M loans;
+the search both ways; the ingest at its three sizes; the challengers at
+262,144 loans), keeping each record in DIR when given, and prints each
+record's trend metrics and outcomes and no ``ok`` line. It fails if a
+harness fails, counted an untyped error body, or bulk is not
+bit-identical; rates, heals, scale-ups and rungs are printed, not gated.
 ``--only-search`` builds, then runs 5b's joint launches and the search
 bucket's check (the short loop for work on the job axis), and prints
 neither: the reference-default (9, 100) bucket's 15 jobs on phase 5's
@@ -4960,13 +4986,13 @@ TOL_CHALLENGER_LOGREG = 1e-4
 #: (c) a floor that catches a broken model and claims no quality.
 CHALLENGER_AUC_FLOOR = 0.90
 #: FT-Transformer's epochs in the whole run, cut from its config's 20 for
-#: time (at 20 it stopped early after 9, in 34.7 s); ``--only-challengers``
-#: runs the config's.
-CHALLENGER_FT_EPOCHS: int | None = 5
+#: time (at 20 it stopped early after 9, in 34.7 s; 5 until phase 22 came,
+#: then 2 to make room for it); ``--only-challengers`` runs the config's.
+CHALLENGER_FT_EPOCHS: int | None = 2
 #: TabNet's epochs in the whole run, cut from its config's 30 for time (30
-#: took 30.2 s, AUC 0.953 on the H100; 8, one dispatch of epochs, gave AUC
-#: 0.963 on the CPU); ``--only-challengers`` runs the config's.
-CHALLENGER_TABNET_EPOCHS: int | None = 8
+#: took 30.2 s, AUC 0.953 on the H100; 8 until phase 22 came, then 4 to make
+#: room for it); ``--only-challengers`` runs the config's.
+CHALLENGER_TABNET_EPOCHS: int | None = 4
 
 
 def challenger_data(device: str = "cuda", n_rows: int = CHALLENGER_ROWS) -> dict:
@@ -6560,6 +6586,201 @@ def parity_kernels(card: str, out: dict, train_rows: tuple, spw: float, winner: 
     ]
 
 
+BENCH_BULK_ROWS = 16_384
+BENCH_FIT_ROWS = 200_000
+BENCH_KERNEL_BUCKETS = (16, 64, 256)
+#: The planted logit gives ~0.91 held out at full size.
+BENCH_FIT_AUC_FLOOR = 0.85
+#: The trend metric names each of 22's records must yield through
+#: `telemetry.trend.extract_metrics` (the CPU tests hold the port's names
+#: to the reference harness's at the same modes).
+BENCH_METRICS = {
+    "serve": {f"serve.c4.batcher_{mode}.{leaf}" for mode in ("off", "on")
+              for leaf in ("qps", "p99_ms", "p999_ms")},
+    "bulk": {"bulk.best.rows_per_s"},
+    "fit": {"full_table_e2e_rows_per_sec_per_chip"},
+    "kernels": {f"kernel.fused.{p}.b{b}.dispatch_seconds" for p in ("f32", *QUANTIZED)
+                for b in BENCH_KERNEL_BUCKETS}
+    | {f"kernel.reference.f32.b{b}.dispatch_seconds" for b in BENCH_KERNEL_BUCKETS},
+}
+
+
+def _launches() -> dict[str, int]:
+    return {"score_forest": fused_score.launches,
+            "gradient_histogram": gradient_histogram_channels.launches}
+
+
+def _bench_tool(tool, argv: list[str], counts: dict, name: str) -> float:
+    """Run a measurement harness in this process (its ``main``), keeping
+    the kernel launches it made under ``name``; its seconds."""
+    before = _launches()
+    t0 = time.perf_counter()
+    rc = tool.main(argv)
+    seconds = time.perf_counter() - t0
+    if isinstance(rc, int) and rc != 0:
+        raise AssertionError(f"{tool.__name__} {argv} exited {rc}")
+    counts[name] = {k: v - before[k] for k, v in _launches().items()}
+    return seconds
+
+
+def bench_phase(card: str, device: str = "cuda") -> dict:
+    """Phase 22 in the whole run: the port's measurement harnesses through
+    their ``main`` on the card, each record ingested by `tools.perf_sentinel`
+    into a temporary trend file. Fails unless each record yields
+    `BENCH_METRICS`, the bulk record is bit-identical across shard counts,
+    the kernel gate passes, the fit's held-out AUC is above
+    `BENCH_FIT_AUC_FLOOR`, and (on the card) each tool launched its kernels:
+    the fit one histogram launch per tree level of its warm-up and timed
+    runs."""
+    from cobalt_smart_lender_ai_tpu_torch.tools import bench, bench_kernels, bench_serve
+
+    t_phase = time.perf_counter()
+    counts: dict = {}
+    seconds: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as root:
+        paths = {name: f"{root}/{name}.json" for name in BENCH_METRICS}
+        dev = ["--device", device]
+        seconds["serve"] = _bench_tool(bench_serve, ["--smoke", *dev, "--out", paths["serve"]],
+                                       counts, "serve")
+        seconds["bulk"] = _bench_tool(
+            bench_serve, ["--bulk", "--bulk-rows", str(BENCH_BULK_ROWS), *dev, "--out", paths["bulk"]],
+            counts, "bulk")
+        seconds["fit"] = _bench_tool(bench, ["--rows", str(BENCH_FIT_ROWS), *dev, "--out", paths["fit"]],
+                                     counts, "fit")
+        seconds["kernels"] = _bench_tool(
+            bench_kernels, ["--buckets", ",".join(map(str, BENCH_KERNEL_BUCKETS)), *dev,
+                            "--out", paths["kernels"]], counts, "kernels")
+        gate = bench_kernels.main(["--check", paths["kernels"]])
+        records = {name: json.loads(Path(path).read_text()) for name, path in paths.items()}
+        trend_path = f"{root}/trend.json"
+        ingest = _sentinel(trend_path, "ingest", *paths.values())
+        rows = json.loads(Path(trend_path).read_text())["rows"] if ingest == 0 else []
+    names = {name: sorted(row["metrics"]) for name, row in zip(paths, rows)}
+    missing = {name: sorted(want - set(names.get(name, ()))) for name, want in BENCH_METRICS.items()}
+    auc = float(re.search(r"held-out AUC ([0-9.]+)", records["fit"]["unit"]).group(1))
+    f32 = records["kernels"]["results"]["f32"]
+    out = {
+        "seconds": seconds,
+        "launches": counts,
+        "kernel_gate": gate,
+        "ingest": ingest,
+        "metrics": {name: len(v) for name, v in names.items()},
+        "serve": {mode: {k: r[k] for k in ("qps", "p50_ms", "p99_ms", "errors")}
+                  for mode, r in records["serve"]["results"].items()},
+        "bulk": {"bit_identical": records["bulk"]["bit_identical"],
+                 **{k: r["rows_per_s"] for k, r in records["bulk"]["results"].items()}},
+        "fit": {"rows_per_s": records["fit"]["value"], "held_out_auc": auc},
+        "kernels": {b: {"fused_ms": c["fused"]["dispatch_seconds"] * 1e3,
+                        "plain_pair_ms": c["reference"]["dispatch_seconds"] * 1e3}
+                    for b, c in f32.items()},
+        "card": records["fit"]["card"],
+    }
+    fit_launches = 2 * bench.N_TREES * bench.MAX_DEPTH  # warm-up and timed run
+    on_card = device == "cuda" and (
+        counts["fit"]["gradient_histogram"] == fit_launches
+        and all(counts[k]["score_forest"] > 0 for k in ("serve", "bulk", "kernels")))
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"bench phase (22): {json.dumps(out)} [{card}]")
+    if (any(missing.values()) or not records["bulk"]["bit_identical"] or gate != 0 or ingest != 0
+            or not auc > BENCH_FIT_AUC_FLOOR or any(r["errors"] for r in records["serve"]["results"].values())
+            or (device == "cuda" and not on_card)):
+        raise AssertionError(f"22: the harnesses' records: missing metrics {missing}, {out}")
+    return out
+
+
+#: ``--only-bench``: every harness and mode at the reference's defaults
+#: (name, tool module, arguments). The closed loop runs 32 clients for 5 s
+#: each mode; the traffic fleet the reference's flash crowd (24 s, 8 -> 600
+#: requests/s, up to 3 replicas).
+BENCH_FULL = (
+    ("serve_single", "bench_serve", ["--mix", "single"]),
+    ("serve_mixed", "bench_serve", ["--mix", "mixed"]),
+    ("serve_async_http", "bench_serve", ["--async-clients", "--client-counts", "128,256,512"]),
+    ("serve_chaos", "bench_serve", ["--chaos", "--chaos-replicas", "3"]),
+    ("serve_traffic", "bench_serve", ["--traffic", "flash_crowd"]),
+    ("bulk_scoring", "bench_serve", ["--bulk", "--bulk-rows", "65536"]),
+    ("score_kernels", "bench_kernels", []),
+    ("fit", "bench", ["--rows", "2300000"]),
+    ("protocol", "bench", ["--protocol", "--rows", "2300000"]),
+    ("search", "bench_search", ["--mode", "both"]),
+    ("pipeline_ingest", "bench_pipeline", []),
+    ("models", "bench_models", ["--rows", "262144"]),
+)
+
+
+def _bench_headline(record: dict) -> dict:
+    """What ``--only-bench`` prints of a record: its trend metrics and the
+    correctness fields the reference's gates read."""
+    from cobalt_smart_lender_ai_tpu_torch.telemetry.trend import extract_metrics
+
+    out: dict = {"metrics": extract_metrics(record)}
+    for key in ("load", "supervisor", "chaos", "bit_identical", "speedup", "qps_speedup",
+                "speedup_largest", "dispatch_seconds_saved", "refit_auc_gap", "unit", "seconds_stage"):
+        if key in record:
+            value = record[key]
+            if key == "load":
+                value = {k: v for k, v in value.items() if k != "by_kind"}
+            out[key] = value
+    if record.get("bench") == "serve_traffic":
+        out["autoscaler"] = {k: v for k, v in record["autoscaler"].items() if k != "timeline"}
+    if record.get("bench") == "search_halving_vs_exhaustive":
+        out["runs"] = {m: {k: r[k] for k in ("dispatch_seconds", "wall_seconds", "cv_auc", "test_auc",
+                                             "best_params")} for m, r in record["runs"].items()}
+    for family in ("mlp", "ft_transformer", "tabnet"):
+        if family in record:
+            out[family] = record[family]
+    return out
+
+
+def _untyped_errors(record: dict) -> int:
+    """Untyped error bodies a serving record counted (its load block, or
+    each cell of its results)."""
+    rows = [record.get("load") or {}]
+    for r in (record.get("results") or {}).values():
+        if isinstance(r, dict):
+            rows += [r] + [c for c in r.values() if isinstance(c, dict)]
+    return sum(int(r.get("untyped_errors", 0) or 0) for r in rows)
+
+
+def bench_full(card: str, keep_dir: str | None = None, device: str = "cuda") -> dict:
+    """``--only-bench``: every harness of `BENCH_FULL` through its ``main``
+    on the card; each record kept in ``keep_dir`` when given. A tool that
+    raises or exits non-zero is reported with its traceback and the next
+    runs; the phase then fails, as it does when a serving record counted an
+    untyped error body or the bulk record is not bit-identical. Errors,
+    heal seconds, scale-ups, brownout rungs and halving's savings depend on
+    timing: they are printed, not gated."""
+    import importlib
+    import traceback
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    counts: dict = {}
+    failed: list[str] = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_full_") as tmp:
+        root = keep_dir or tmp
+        Path(root).mkdir(parents=True, exist_ok=True)
+        for name, module, argv in BENCH_FULL:
+            tool = importlib.import_module(f"cobalt_smart_lender_ai_tpu_torch.tools.{module}")
+            path = f"{root}/{name}.json"
+            try:
+                seconds = _bench_tool(tool, [*argv, "--device", device, "--out", path], counts, name)
+            except Exception:
+                traceback.print_exc()
+                failed.append(name)
+                print(f"bench {name} (--only-bench): FAILED [{card}]", flush=True)
+                continue
+            record = json.loads(Path(path).read_text())
+            out[name] = {"seconds": seconds, "launches": counts[name], **_bench_headline(record)}
+            print(f"bench {name} (--only-bench): {json.dumps(out[name])} [{card}]", flush=True)
+            if _untyped_errors(record) or record.get("bit_identical") is False:
+                failed.append(name)
+    out["phase_s"] = time.perf_counter() - t_phase
+    if failed:
+        raise AssertionError(f"--only-bench: {failed} failed")
+    return out
+
+
 def print_scoring_split(card: str) -> None:
     for precision in ("f32", *QUANTIZED):
         for r in scoring_split("cuda", precision):
@@ -6627,6 +6848,15 @@ def main() -> int:
         help="build, then run tools.parity ours at its defaults (130,000 loans, the reference's "
         "RFE and search) on the card, merge it with the committed PARITY_oracle.json and "
         "explain the winner; print its kernels line and no ok line",
+    )
+    mode.add_argument(
+        "--only-bench",
+        nargs="?",
+        const="",
+        default=None,
+        metavar="DIR",
+        help="build, then run every measurement harness of the port at the reference's defaults "
+        "(keeping each record in DIR when given); print no ok line",
     )
     mode.add_argument("--mesh-worker", nargs=3, metavar=("RANK", "PORT", "OUT"),
                       help=argparse.SUPPRESS)
@@ -6698,6 +6928,13 @@ def main() -> int:
         autoscaler = autoscaler_phase(card)
         operator_phase(card, fleet["journal"] + autoscaler["journal"], startup_compile)
         print(f"chip_smoke --only-tools: {time.perf_counter() - t_start:.1f}s [{card}]")
+        return 0
+
+    if args.only_bench is not None:
+        bench_phase(card)
+        full = bench_full(card, args.only_bench or None)
+        print(f"chip_smoke --only-bench: {time.perf_counter() - t_start:.1f}s, the harnesses "
+              f"{full['phase_s']:.1f}s of it [{card}]")
         return 0
 
     if args.only_mesh:
@@ -6825,6 +7062,7 @@ def main() -> int:
                               cli=observed["cli"])
     surface = surface_phase(card, explained, held_out, cli_ledger)
     del explained, held_out
+    benches = bench_phase(card)
     print_scoring_split(card)
 
     main_rec = next(r for r in records if r["bucket"] == 64)
@@ -6928,8 +7166,8 @@ def main() -> int:
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all, phase 17 (challengers) "
           f"{challengers['phase_s']:.1f}s, phase 18 (portfolio) {portfolio['phase_s']:.1f}s, "
-          f"phase 20 (operator) {operator['phase_s']:.1f}s and phase 21 (surface) "
-          f"{surface['phase_s']:.1f}s of it [{card}]")
+          f"phase 20 (operator) {operator['phase_s']:.1f}s, phase 21 (surface) "
+          f"{surface['phase_s']:.1f}s and phase 22 (harnesses) {benches['phase_s']:.1f}s of it [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

@@ -10,9 +10,11 @@
   ``jax``, ``flax``, ``msgpack`` and ``pandas`` unloaded; importing the
   operator's layer (the UI, the build cache, the incident report and the
   artifact trainer) leaves ``requests``, ``streamlit`` and ``matplotlib``
-  unloaded too, and importing the parity tool, the trend gate and the
-  explainer leaves ``sklearn`` unloaded (the oracle side imports it when it
-  runs).
+  unloaded too, and importing the parity tool, the trend gate, the
+  explainer and the measurement harnesses (``tools.bench_serve``,
+  ``tools.bench``, ``tools.bench_kernels``, ``tools.bench_search``,
+  ``tools.bench_pipeline``, ``tools.bench_models``) leaves ``sklearn``
+  unloaded (the oracle side imports it when it runs).
 - Its entry points run on the CUDA device unless the caller asks for the
   CPU: with CUDA unavailable, the default-device service constructors
   (``--canary`` and ``--replicas`` serving included), the retrain CLI, the
@@ -22,8 +24,8 @@
   `rfe_select`, `randomized_search`, `run_pipeline`, the mesh's device
   list (`make_mesh`, `make_partitioner`, `MeshPartitioner`) and the serving and
   training CLIs, the host path's `engineer_features`, ``tools.train_artifact``,
-  every side of ``tools.parity`` and `debug.profile_trace`, raise instead of
-  running on the CPU, and ``chip_smoke.py``
+  every side of ``tools.parity``, `debug.profile_trace` and the six
+  measurement harnesses, raise instead of running on the CPU, and ``chip_smoke.py``
   exits non-zero without printing a result.
 - The training CLI (``python -m cobalt_smart_lender_ai_tpu_torch.pipeline``)
   runs the quick protocol on the CPU when asked, and publishes the artifact,
@@ -212,6 +214,39 @@ def test_importing_the_parity_tool_explainer_and_trend_leaves_jax_pandas_sklearn
     assert _loaded_after_import(modules, ("sklearn",)) == "[]"
 
 
+def test_importing_the_measurement_harnesses_leaves_jax_pandas_sklearn_unloaded():
+    modules = ("tools.bench_common", "tools.bench_serve", "tools.bench", "tools.bench_kernels",
+               "tools.bench_search", "tools.bench_pipeline", "tools.bench_models")
+    assert _loaded_after_import(modules, ("sklearn",)) == "[]"
+
+
+def test_measurement_harnesses_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
+    from cobalt_smart_lender_ai_tpu_torch.tools import (
+        bench,
+        bench_kernels,
+        bench_models,
+        bench_pipeline,
+        bench_search,
+        bench_serve,
+    )
+
+    out = str(tmp_path / "record.json")
+    for tool in (bench_serve, bench, bench_kernels, bench_search, bench_pipeline, bench_models):
+        assert tool.parse_args([]).device == "cuda", tool.__name__
+        with pytest.raises(RuntimeError, match="cuda"):
+            tool.main(["--out", out])
+    for argv in (["--bulk"], ["--chaos"], ["--traffic", "flash_crowd"], ["--async-clients"]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            bench_serve.main([*argv, "--out", out])
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.main(["--protocol", "--out", out])
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench_serve.build_service(ServeConfig(), 100)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench_kernels.run_kernel_bench([16], repeats=1, precisions=["f32"])
+    assert not (tmp_path / "record.json").exists()
+
+
 def test_parity_tool_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
     from cobalt_smart_lender_ai_tpu_torch.tools import parity
 
@@ -383,7 +418,9 @@ def test_new_port_modules_are_checked():
             "tools/score_portfolio.py", "tools/obs_report.py", "compilecache.py", "version.py",
             "ui/__init__.py", "ui/core.py", "ui/app.py", "tools/incident_report.py",
             "tools/train_artifact.py", "explain/__init__.py", "telemetry/trend.py",
-            "tools/perf_sentinel.py", "tools/parity.py"} <= names
+            "tools/perf_sentinel.py", "tools/parity.py", "tools/bench_common.py",
+            "tools/bench_serve.py", "tools/bench.py", "tools/bench_kernels.py",
+            "tools/bench_search.py", "tools/bench_pipeline.py", "tools/bench_models.py"} <= names
 
 
 def test_no_port_module_imports_pandas():
